@@ -1,0 +1,457 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases; any failure exits non-zero and prints no result line:
+
+1. build    — compile the Hopper kernels from ``src/repro_torch/kernels/csrc``.
+2. kernels  — hold each kernel against its plain PyTorch version on the
+              card, in bf16 at the shapes qwen2.5-3b serving gives it (plus
+              one h2o-danube shape), and time kernel, plain version and one
+              library call doing the same work.  Tolerances: decode and
+              flash attention atol = rtol = 2e-2 (bf16 outputs; the plain
+              version rounds its probabilities to bf16, the kernels keep
+              them in f32); the ring-slot write and greedy sampling exact;
+              the sampler's hash bits bitwise and its noise within 1e-6.
+3. serve    — ``repro_torch.launch.serve.main`` on full-width qwen2.5-3b
+              (36 layers, random weights from a seed), prefill unchunked and
+              chunked by 64; every request must finish, greedy ticks must
+              move no logits, and every kernel's launch count must match
+              the ticks and admissions of the run.
+4. streams  — on the qwen2.5-3b smoke config in float32, greedy token
+              streams through the kernels equal those of the plain versions
+              (the same engine on the CPU, same weights).
+5. profile  — host time of a full-width decode tick, and the device time
+              per kernel over steady-state ticks (torch.profiler).
+
+Before the last line it prints one JSON object of per-kernel numbers and the
+card's name and power limit; the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+from __future__ import annotations
+
+import contextlib
+import copy
+import gc
+import io
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PEAK_BYTES_S = 3.35e12       # H100 SXM HBM3
+PEAK_BF16_S = 989e12         # dense bf16 tensor-core rate
+PEAK_F32_S = 67e12           # float32 outside the tensor cores
+ATTN_TOL = 2e-2
+NOISE_TOL = 1e-6
+SPIN_CYCLES = 2_000_000      # ~1 ms at the H100's clock
+
+# serving: qwen2.5-3b at full width, a few requests
+SERVE = ["--arch", "qwen2.5-3b", "--device", "cuda", "--requests", "8",
+         "--slots", "8", "--max-seq", "1024", "--prompt-len", "200",
+         "--gen-len", "16", "--seed", "0"]
+N_LAYERS = 36
+
+KERNEL_INFO = {
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:85"),
+    "cache_ring_update": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                          "src/repro/kernels/decode_attention.py:236"),
+    "fused_sample": ("src/repro_torch/kernels/csrc/sample.cu",
+                     "src/repro/kernels/sample.py:68"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:83"),
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def timed_ms(torch, fn, reps=25, warmup=3) -> float:
+    """Median device time of one call.  Each call follows an L2 flush (the
+    serving path finds every layer's operands cold) and a ~1 ms device spin,
+    so the host has queued the call before the device reaches it: the events
+    time the device work, not the Python wrapper around it."""
+    flush = torch.empty(96 << 20, dtype=torch.int8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        pairs.append((e0, e1))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def bound(nbytes: float, ops: float, peak_ops: float):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / peak_ops
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# --------------------------------------------------------------------- phase 2
+
+
+def kernel_phase(torch, ops, ref, sample_noise):
+    F = torch.nn.functional
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def attn_err(got, want, what):
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), atol=ATTN_TOL,
+                            rtol=ATTN_TOL)
+        check(ok, f"{what}: kernel vs plain max |err| {err}")
+        return err
+
+    def sdpa_ms(q, k, v, mask=None, causal=False):
+        """One library call on the same inputs, as (B, H, S, hd) views."""
+        return timed_ms(torch, lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, is_causal=causal, enable_gqa=True))
+
+    # K2: ring-slot write, 8 slots, KV 2, hd 128, Smax 1024
+    B, Smax, KV, hd = 8, 1024, 2, 128
+    cache = randn(B, Smax, KV, hd)
+    new = randn(B, KV, hd)
+    slot = torch.tensor([0, 5, 200, 511, 1023, 0, 952, 77], dtype=torch.int32,
+                        device=dev)
+    want = ref.cache_ring_update_ref(cache.clone(), new, slot)
+    got = ops.cache_ring_update(cache.clone(), new, slot)
+    check(torch.equal(got, want), "cache_ring_update: kernel != plain")
+    rows_idx = torch.arange(B, device=dev)
+    slot_l = slot.long()
+
+    def lib_k2():
+        cache[rows_idx, slot_l] = new
+
+    nbytes = B * KV * hd * 2 * 2 + B * 4
+    rows["cache_ring_update"] = dict(
+        max_abs_err=0.0,
+        ms=timed_ms(torch, lambda: ops.cache_ring_update(cache, new, slot)),
+        plain_ms=timed_ms(torch, lambda: ref.cache_ring_update_ref(
+            cache, new, slot)),
+        library_ms=timed_ms(torch, lib_k2),
+        shape="cache (8,1024,2,128) bf16, new (8,2,128)")
+    rows["cache_ring_update"]["bound_ms"], rows["cache_ring_update"][
+        "bound_by"] = bound(nbytes, 0, PEAK_BF16_S)
+
+    # K1: decode attention; qwen2.5-3b (H 16, KV 2, hd 128, Smax 1024) and
+    # h2o-danube (H 32, KV 8, hd 80, Smax = window 4096), mixed + wrapped
+    errs, k1 = [], {}
+    for name, (H, KV, hd, Smax) in {"qwen": (16, 2, 128, 1024),
+                                    "danube": (32, 8, 80, 4096)}.items():
+        q = randn(B, 1, H, hd)
+        kc, vc = randn(B, Smax, KV, hd), randn(B, Smax, KV, hd)
+        index = torch.tensor([0, 5, 200, Smax - 1, Smax, 3 * Smax + 7, 640,
+                              77], dtype=torch.int32, device=dev)
+        got = ops.decode_attention(q, kc, vc, index)
+        want = ref.decode_attention_ref(q, kc, vc, index)
+        errs.append(attn_err(got, want, f"decode_attention[{name}]"))
+        if name == "qwen":
+            live = torch.clamp(index + 1, max=Smax).sum().item()
+            nbytes = 2 * B * H * hd * 2 + 2 * live * KV * hd * 2 + B * 4
+            flops = 4 * live * H * hd
+            mask = (torch.arange(Smax, device=dev)[None, :]
+                    <= index[:, None])[:, None, None, :]
+            k1 = dict(
+                ms=timed_ms(torch, lambda: ops.decode_attention(
+                    q, kc, vc, index)),
+                plain_ms=timed_ms(torch, lambda: ref.decode_attention_ref(
+                    q, kc, vc, index)),
+                library_ms=sdpa_ms(q, kc, vc, mask=mask),
+                shape="q (8,1,16,128), caches (8,1024,2,128) bf16, index "
+                      "mixed and wrapped")
+            k1["bound_ms"], k1["bound_by"] = bound(nbytes, flops,
+                                                   PEAK_BF16_S)
+    rows["decode_attention"] = dict(max_abs_err=max(errs), **k1)
+
+    # K4: flash attention (prefill); qwen2.5-3b at Sq 64 and a ragged 200,
+    # h2o-danube (hd 80) with its 4096 window and with a short window 64
+    errs, k4 = [], {}
+    for name, (S, H, KV, hd, window) in {
+            "qwen200": (200, 16, 2, 128, None), "qwen64": (64, 16, 2, 128, None),
+            "danube": (200, 32, 8, 80, 4096),
+            "danube_w64": (200, 32, 8, 80, 64)}.items():
+        q, k, v = randn(1, S, H, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
+        got = ops.flash_attention(q, k, v, causal=True, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+        errs.append(attn_err(got, want, f"flash_attention[{name}]"))
+        if name == "qwen200":
+            pairs = S * (S + 1) // 2
+            nbytes = (2 * S * H * hd + 2 * S * KV * hd) * 2
+            k4 = dict(
+                ms=timed_ms(torch, lambda: ops.flash_attention(
+                    q, k, v, causal=True)),
+                plain_ms=timed_ms(torch, lambda: ref.flash_attention_ref(
+                    q, k, v, causal=True)),
+                library_ms=sdpa_ms(q, k, v, causal=True),
+                shape="q (1,200,16,128), k/v (1,200,2,128) bf16, causal")
+            k4["bound_ms"], k4["bound_by"] = bound(nbytes, 4 * pairs * H * hd,
+                                                   PEAK_BF16_S)
+    rows["flash_attention"] = dict(max_abs_err=max(errs), **k4)
+
+    # K3: fused sampling over qwen2.5-3b's 151,936-token vocabulary
+    V = 151936
+    logits = randn(B, V, dtype=torch.float32)
+    logits[0, [7, V - 3]] = logits[0].max() + 1.0   # tie: first index wins
+    seed = torch.arange(B, dtype=torch.int32, device=dev) * 7919 - 3
+    rid = torch.arange(B, dtype=torch.int32, device=dev) + 100
+    pos = torch.arange(B, dtype=torch.int32, device=dev) * 13
+    greedy = torch.zeros(B, device=dev)
+    got = ops.fused_sample(logits, seed, rid, pos, greedy)
+    check(torch.equal(got, ref.fused_sample_ref(logits, seed, rid, pos,
+                                                greedy)),
+          "fused_sample (greedy): kernel != plain")
+    check(torch.equal(got, torch.argmax(logits, dim=1).to(torch.int32)),
+          "fused_sample (greedy): kernel != torch.argmax")
+    check(int(got[0]) == 7, "fused_sample: tie not broken to the first index")
+    bits, noise = sample_noise(seed, rid, pos, V)
+    want_bits = ref.sample_bits(seed.cpu(), rid.cpu(), pos.cpu(), V)
+    check(torch.equal(bits.cpu(), want_bits), "sample hash bits differ")
+    want_noise = ref.gumbel_noise(want_bits)
+    check(torch.allclose(noise.cpu(), want_noise, rtol=NOISE_TOL,
+                         atol=NOISE_TOL), "Gumbel noise differs")
+    temp = torch.full((B,), 0.7, device=dev)
+    got_t = ops.fused_sample(logits, seed, rid, pos, temp)
+    score = logits.float() / 0.7 + want_noise.to(dev)
+    best = score.max(dim=1).values
+    at_got = score.gather(1, got_t.long()[:, None])[:, 0]
+    # equal token, or a near-tie that a last-ulp difference in g can flip
+    check(bool(torch.all(at_got >= best - 1e-5 * best.abs())),
+          "fused_sample (temperature): kernel token is not the Gumbel max")
+    rows["fused_sample"] = dict(
+        max_abs_err=0.0,
+        ms=timed_ms(torch, lambda: ops.fused_sample(logits, seed, rid, pos,
+                                                    greedy)),
+        plain_ms=timed_ms(torch, lambda: ref.fused_sample_ref(
+            logits, seed, rid, pos, greedy)),
+        library_ms=timed_ms(torch, lambda: torch.argmax(logits, dim=1)),
+        shape="logits (8,151936) f32, greedy")
+    rows["fused_sample"]["bound_ms"], rows["fused_sample"]["bound_by"] = bound(
+        B * V * 4 + B * 20, B * V, PEAK_F32_S)
+    for name, r in rows.items():
+        print(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), max|err| "
+              f"{r['max_abs_err']}")
+    return rows
+
+
+# --------------------------------------------------------------------- phase 3
+
+
+def serve_phase(torch, ops, serve):
+    launches = {name: 0 for name in ops.KERNELS}
+    for chunk in (None, 64):
+        argv = SERVE + ([] if chunk is None else ["--prefill-chunk", str(chunk)])
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(argv)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        print(f"  serve {' '.join(argv)}  ({wall:.1f} s with weight init, "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+        print("    " + text.strip().replace("\n", "\n    "))
+        check(rc == 0, f"serve exited {rc}")
+        m = re.search(r"ticks=(\d+) admissions=(\d+) logits_pulls=(\d+) "
+                      r"finished=(\d+)", text)
+        check(m is not None, "serve printed no tick summary")
+        ticks, admissions, pulls, finished = map(int, m.groups())
+        check(finished == 8, f"{finished}/8 requests finished")
+        check(admissions == 8, f"{admissions} admissions for 8 requests")
+        check(pulls == 0, f"greedy serving pulled logits {pulls} times")
+        want = {"decode_attention": N_LAYERS * ticks,
+                "cache_ring_update": 2 * N_LAYERS * ticks,
+                "fused_sample": ticks,
+                "flash_attention": N_LAYERS * admissions}
+        print(f"    launches {counts}")
+        check(counts == want, f"launch counts {counts}, expected {want}")
+        for name in launches:
+            launches[name] += counts[name]
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------- phase 4
+
+
+def streams_phase(torch, ops):
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving.engine import EngineCore
+
+    cfg = get_smoke_config("qwen2.5-3b")
+    max_seq = 48
+    gpu = EngineCore(cfg, max_seq, seed=0, device="cuda")
+    cpu = EngineCore(cfg, max_seq, params=copy.deepcopy(gpu.params).to("cpu"),
+                     device="cpu")
+
+    def run(core):
+        eng = ServingEngine(cfg, slots=3, max_seq=max_seq, prefill_chunk=6,
+                            core=core)
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, size=10 + i)
+                        .astype(np.int32), gen_len=12) for i in range(6)]
+        done = []
+        for step in range(500):
+            for r in reqs[2 * step:2 * step + 2]:       # staggered arrivals
+                eng.submit(r, now=float(step))
+            done.extend(eng.step(now=float(step)))
+            if len(done) == len(reqs):
+                return {r.rid: r.tokens_out for r in done}
+        raise SmokeFailure("smoke-config streams did not finish")
+
+    ops.reset_launch_counts()
+    on_gpu = run(gpu)
+    counts = ops.launch_counts()
+    check(all(n > 0 for n in counts.values()),
+          f"smoke serving skipped a kernel: {counts}")
+    on_cpu = run(cpu)
+    check(on_gpu == on_cpu, f"kernel streams {on_gpu} != plain {on_cpu}")
+    print(f"  6 greedy streams equal (kernels vs plain), launches {counts}")
+
+
+# --------------------------------------------------------------------- phase 5
+
+
+def profile_phase(torch):
+    """Where a full-width decode tick's time goes: host time per tick, and
+    device time per kernel from torch.profiler over steady-state ticks (8
+    slots, prompts streaming through the tick, as with --prefill-chunk 64)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServingEngine, synthetic_requests
+    from repro_torch.sim.serving import WorkloadSpec
+
+    cfg = get_config("qwen2.5-3b")
+    eng = ServingEngine(cfg, slots=8, max_seq=1024, prefill_chunk=64,
+                        device="cuda")
+    for r in synthetic_requests(WorkloadSpec(prompt_len=200, gen_len=16), 8,
+                                cfg.vocab, rng=np.random.default_rng(0)):
+        eng.submit(r)
+    for _ in range(4):                  # admit every request, warm up
+        eng.step(now=0.0)
+    torch.cuda.synchronize()
+    n = 20
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step(now=0.0)
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t0) / n * 1e3
+    n_prof = 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            eng.step(now=0.0)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) / n_prof * 1e3
+    by_kernel = sorted(((e.key, e.self_device_time_total / 1e3 / n_prof)
+                        for e in prof.key_averages()
+                        if e.self_device_time_total > 0),
+                       key=lambda kv: -kv[1])
+    device_ms = sum(t for _, t in by_kernel)
+    check(device_ms > 0, "the profiler saw no device time")
+    print(f"  tick: {tick_ms:.2f} ms host clock ({n} ticks, unprofiled); "
+          f"profiled {prof_ms:.2f} ms, device busy {device_ms:.2f} ms "
+          f"({device_ms / prof_ms:.0%} of the profiled tick)")
+    for name, t in by_kernel[:12]:
+        print(f"    {t:8.3f} ms/tick  {name[:90]}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: src/repro_torch not found beside the script; run "
+              "it from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 3
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import _lib, ops, ref
+    from repro_torch.kernels.sample import sample_noise
+    from repro_torch.launch import serve
+
+    resolve_device("cuda")       # TF32 off, as everywhere in the port
+    t_start = time.perf_counter()
+    try:
+        card = gpu_line()
+        print(f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
+        t0 = time.perf_counter()
+        _lib.load()
+        print(f"[1] build: {time.perf_counter() - t0:.1f} s "
+              f"(nvcc {_lib.build_seconds} s)")
+        print("[2] kernels against their plain versions")
+        rows = kernel_phase(torch, ops, ref, sample_noise)
+        print("[3] serve qwen2.5-3b at full width")
+        launches = serve_phase(torch, ops, serve)
+        print("[4] greedy streams on the card")
+        streams_phase(torch, ops)
+        print("[5] where a full-width decode tick's time goes")
+        profile_phase(torch)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    kernels = []
+    for name, (source, replaces) in KERNEL_INFO.items():
+        r = rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,47 @@
+"""K4 flash attention (prefill).
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention_bhsd``.  The
+CUDA kernel lives in ``csrc/flash_attention.cu``, whose head note says what
+bounds it on the H100 and what its design does about it.
+
+The wrapper runs the kernel on CUDA tensors and its plain PyTorch version
+(``repro_torch.kernels.ref``) on CPU tensors; ``launches`` counts kernel
+launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _lib, ref
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd), read through strides →
+    (B, Sq, H, hd) in q's dtype.  Key j is visible to query i when
+    ``j <= i`` (causal) and ``j > i - window`` (window given)."""
+    if not q.is_cuda:
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    if (k.shape != (B, Sk, KV, hd) or v.shape != k.shape or H % KV):
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if q.stride(3) != 1 or k.stride(3) != 1 or k.stride() != v.stride():
+        raise ValueError("head_dim must be contiguous and K/V strides equal")
+    if not (k.is_cuda and v.is_cuda):
+        raise ValueError("q, k and v must lie on one CUDA device")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    code = _lib.dtype_code(q, k, v)
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    err = _lib.load().rt_flash_attention(
+        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2), k.data_ptr(),
+        v.data_ptr(), k.stride(0), k.stride(1), k.stride(2), out.data_ptr(),
+        out.stride(0), out.stride(1), out.stride(2), code, B, Sq, Sk, H, KV,
+        hd, int(causal), int(window or 0), _lib.stream_ptr(q))
+    _lib.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,126 @@
+"""Plain PyTorch versions of the kernels on the serving path.
+
+Written from the JAX oracles in ``repro.kernels.ref``, with the same
+numerics: full-materialization attention with a float32 softmax, the
+indexed ring-slot scatter, and the murmur3-counter Gumbel-max sampler.  On a
+CPU tensor the kernel wrappers run these; on the card, tests and
+``chip_smoke.py`` hold each CUDA kernel against them.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e9
+
+# murmur3 fmix32 constants of repro/kernels/sample.py
+M1 = 0x85EBCA6B
+M2 = 0xC2B2AE35
+GOLDEN = 0x9E3779B9
+_MASK = 0xFFFFFFFF
+
+
+def _attend(qg, k, v, ok):
+    """qg: (B, Sq, KV, G, hd); k/v: (B, Sk, KV, hd); ok: bool mask
+    broadcastable to (B, KV, G, Sq, Sk) → (B, Sq, KV, G, hd) float32."""
+    hd = qg.shape[-1]
+    scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float())
+    scores = scores * (hd ** -0.5)
+    scores = scores + torch.where(ok, 0.0, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    # the oracle rounds the probabilities to the value dtype before P @ V
+    probs = probs.to(v.dtype).float()
+    return torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
+    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) — GQA, float32 softmax."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window is not None:
+        ok &= k_pos > q_pos - window
+    out = _attend(q.reshape(B, Sq, KV, H // KV, hd), k, v, ok)
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, index):
+    """q: (B, 1, H, hd); caches: (B, Smax, KV, hd); slots > index masked.
+    ``index`` is an int or a (B,) tensor: row b sees slots <= index[b]
+    (every slot once the ring has wrapped)."""
+    B, _, H, hd = q.shape
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    idx = torch.as_tensor(index, dtype=torch.int32, device=q.device)
+    idx = idx.reshape(-1).expand(B)
+    ok = (torch.arange(Smax, device=q.device)[None, :] <= idx[:, None])
+    out = _attend(q.reshape(B, 1, KV, H // KV, hd), k_cache, v_cache,
+                  ok[:, None, None, None, :])
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def cache_ring_update_ref(cache, new, slot):
+    """cache: (B, Smax, KV, hd); new: (B, KV, hd); slot: (B,) — writes
+    ``new[b]`` into ``cache[b, slot[b]]`` in place and returns the cache."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, slot.long()] = new.to(cache.dtype)
+    return cache
+
+
+def _mul32(v, m: int):
+    """(v * m) mod 2**32 for int64 ``v`` < 2**32 without leaving int64: the
+    16-bit halves of ``m`` keep every partial product below 2**49."""
+    lo = v * (m & 0xFFFF)
+    hi = ((v * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK
+
+
+def _mix(v):
+    """murmur3 fmix32 on int64 tensors holding uint32 values (PyTorch has
+    only partial uint32 arithmetic on the CPU)."""
+    v = v ^ (v >> 16)
+    v = _mul32(v, M1)
+    v = v ^ (v >> 13)
+    v = _mul32(v, M2)
+    return v ^ (v >> 16)
+
+
+def _u32(x):
+    return torch.as_tensor(x).to(torch.int64) & _MASK
+
+
+def sample_bits(seed, rid, pos, V: int):
+    """(B, V) int64 hash bits of (seed, rid, pos, column), values < 2**32."""
+    key = _mix(GOLDEN ^ _u32(seed))
+    key = _mix(key ^ _u32(rid))
+    key = _mix(key ^ _u32(pos))                                 # (B,)
+    cols = torch.arange(V, dtype=torch.int64, device=key.device)
+    return _mix(key[:, None] ^ cols[None, :])
+
+
+def gumbel_noise(bits):
+    """Hash bits → Gumbel noise g = -log(-log(u)), u in (0, 1), float32."""
+    u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def fused_sample_ref(logits, seed, rid, pos, temperature, *, top_k: int = 0):
+    """logits: (B, V); seed/rid/pos: (B,) int32 counters; temperature: (B,)
+    float32 → (B,) int32 tokens.  ``temperature == 0`` rows take the first
+    index of the float32 maximum; other rows take the Gumbel-max of
+    ``logits / t + g``.  ``top_k > 0`` masks scaled logits below the row's
+    k-th largest before the noise."""
+    B, V = logits.shape
+    x = logits.float()
+    g = gumbel_noise(sample_bits(seed, rid, pos, V))
+    t = torch.as_tensor(temperature, dtype=torch.float32,
+                        device=x.device)[:, None]
+    scaled = x / torch.clamp(t, min=1e-30)
+    if top_k > 0:
+        k = min(top_k, V)
+        kth = torch.sort(scaled, dim=1).values[:, V - k][:, None]
+        scaled = torch.where(scaled >= kth, scaled, float("-inf"))
+    score = torch.where(t > 0.0, scaled + g, x)
+    return torch.argmax(score, dim=1).to(torch.int32)

@@ -1,0 +1,62 @@
+"""K3 fused sampling: greedy argmax or Gumbel-max over one logits row.
+
+Replaces ``repro/kernels/sample.py::fused_sample_bv``.  The CUDA kernel
+lives in ``csrc/sample.cu``, whose head note says what bounds it on the
+H100 and what its design does about it.
+
+The wrapper runs the kernel on CUDA tensors and its plain PyTorch version
+(``repro_torch.kernels.ref``) on CPU tensors; ``launches`` counts kernel
+launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _lib, ref
+
+
+def fused_sample(logits, seed, rid, pos, temperature):
+    """logits: (B, V) float32; seed/rid/pos: (B,) int32 counters;
+    temperature: (B,) float32, 0 → greedy → (B,) int32 tokens."""
+    if not logits.is_cuda:
+        return ref.fused_sample_ref(logits, seed, rid, pos, temperature)
+    if logits.dim() != 2 or logits.dtype != torch.float32 \
+            or logits.stride(1) != 1:
+        raise ValueError("logits must be (B, V) float32 with unit column "
+                         "stride")
+    B, V = logits.shape
+    seed, rid, pos = (_lib.per_row(x, logits, torch.int32)
+                      for x in (seed, rid, pos))
+    temp = _lib.per_row(temperature, logits, torch.float32)
+    out = torch.empty(B, dtype=torch.int32, device=logits.device)
+    err = _lib.load().rt_fused_sample(
+        logits.data_ptr(), logits.stride(0), seed.data_ptr(), rid.data_ptr(),
+        pos.data_ptr(), temp.data_ptr(), out.data_ptr(), B, V,
+        _lib.stream_ptr(logits))
+    _lib.check(err, "fused_sample")
+    fused_sample.launches += 1
+    return out
+
+
+fused_sample.launches = 0
+
+
+def sample_noise(seed, rid, pos, V: int):
+    """The sampler's hash bits ((B, V), as uint32 values in int64) and
+    Gumbel noise g ((B, V) float32), from the kernel's own arithmetic on a
+    CUDA tensor and from the plain version on a CPU one.  Tests use it to
+    hold the two bit for bit; serving never calls it."""
+    seed = torch.as_tensor(seed, dtype=torch.int32)
+    if not seed.is_cuda:
+        bits = ref.sample_bits(seed, rid, pos, V)
+        return bits, ref.gumbel_noise(bits)
+    seed = seed.reshape(-1).contiguous()
+    rid, pos = (_lib.per_row(x, seed, torch.int32) for x in (rid, pos))
+    B = seed.shape[0]
+    bits = torch.empty((B, V), dtype=torch.int32, device=seed.device)
+    g = torch.empty((B, V), dtype=torch.float32, device=seed.device)
+    err = _lib.load().rt_sample_noise(
+        seed.data_ptr(), rid.data_ptr(), pos.data_ptr(), bits.data_ptr(),
+        g.data_ptr(), B, V, _lib.stream_ptr(seed))
+    _lib.check(err, "sample_noise")
+    return bits.to(torch.int64) & 0xFFFFFFFF, g

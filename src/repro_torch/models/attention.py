@@ -1,0 +1,140 @@
+"""GQA attention with RoPE: causal / sliding-window self-attention over a
+sequence, and one-token decode over a preallocated ring KV cache.
+
+The dense part of ``repro.models.attention``.  Causal self-attention goes
+through ``kops.flash_attention`` and decode through ``kops.cache_ring_update``
+and ``kops.decode_attention``: the hand kernels on the card, their plain
+versions on the CPU.  Split-K over a mesh, padded heads, the paged pool and
+cross-attention are not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.rotary import apply_rope
+from repro_torch.nn import Linear
+
+NEG_INF = -1e9
+
+
+def _mask_bias(q_pos, k_pos, *, causal: bool, window=None, valid_upto=None):
+    """Additive (B, S_q, S_k) float32 bias from position comparisons.
+
+    q_pos: (B, S_q) int; k_pos: (S_k,) int broadcast over batch.
+    valid_upto: (B,) or scalar — keys at positions > valid_upto are masked."""
+    q = q_pos[:, :, None].to(torch.int32)
+    k = k_pos[None, None, :].to(torch.int32)
+    ok = torch.ones(torch.broadcast_shapes(q.shape, k.shape), dtype=torch.bool,
+                    device=q.device)
+    if causal:
+        ok &= k <= q
+    if window is not None:
+        ok &= k > q - window
+    if valid_upto is not None:
+        v = torch.as_tensor(valid_upto, dtype=torch.int32, device=q.device)
+        ok &= k <= v.reshape(-1, 1, 1)
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def sdpa_ref(q, k, v, bias=None):
+    """q: (B, Sq, H, hd), k/v: (B, Sk, KV, hd) — grouped-query attention,
+    float32 softmax.  bias: (B, Sq, Sk) additive or None."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float())
+    scores = scores * (hd ** -0.5)
+    if bias is not None:
+        scores = scores + bias[:, None, None, :, :]
+    probs = torch.softmax(scores, dim=-1).to(v.dtype).float()
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg, *, d_in=None, d_out=None, generator=None,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        d_in = d_in or cfg.d_model
+        d_out = d_out or cfg.d_model
+        hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        kw = dict(dtype=cfg.cdtype, param_dtype=cfg.pdtype,
+                  generator=generator, device=device)
+        self.wq = Linear(d_in, H * hd, use_bias=cfg.qkv_bias, **kw)
+        self.wk = Linear(d_in, KV * hd, use_bias=cfg.qkv_bias, **kw)
+        self.wv = Linear(d_in, KV * hd, use_bias=cfg.qkv_bias, **kw)
+        self.wo = Linear(H * hd, d_out, use_bias=False, **kw)
+
+    def qkv(self, x, x_kv):
+        cfg = self.cfg
+        B, S = x.shape[:2]
+        Skv = x_kv.shape[1]
+        q = self.wq(x).reshape(B, S, cfg.n_heads, cfg.hd)
+        k = self.wk(x_kv).reshape(B, Skv, cfg.n_kv_heads, cfg.hd)
+        v = self.wv(x_kv).reshape(B, Skv, cfg.n_kv_heads, cfg.hd)
+        return q, k, v
+
+    # ---------------- full-sequence (prefill / train) ----------------
+
+    def forward(self, x, *, angles=None, causal=True, window=None,
+                return_kv=False):
+        """x: (B, S, d_in) → (B, S, d_out) [, (k, v) for the cache]."""
+        B, S = x.shape[:2]
+        q, k, v = self.qkv(x, x)
+        if angles is not None:
+            q = apply_rope(q, angles)
+            k = apply_rope(k, angles)
+        if causal:
+            out = kops.flash_attention(q, k, v, causal=True, window=window)
+        else:
+            bias = None
+            if window is not None:
+                pos = torch.arange(S, dtype=torch.int32, device=x.device)
+                bias = _mask_bias(pos[None].expand(B, S), pos, causal=False,
+                                  window=window)
+            out = sdpa_ref(q, k, v, bias)
+        y = self.wo(out.reshape(B, S, -1))
+        return (y, (k, v)) if return_kv else y
+
+    # ---------------- single-token decode over a ring KV cache ---------------
+    #
+    # The cache is a ring of Smax slots: for full attention Smax = max_seq
+    # and slot = position; for a sliding window Smax = window.  Keys carry
+    # RoPE at their absolute position, so slot order does not matter and
+    # the only mask is slot validity (slot <= index, every slot once the
+    # ring has wrapped).
+
+    def decode(self, x, cache, index, *, angles=None):
+        """x: (B, 1, d_in); cache: {"k", "v"}: (B, Smax, KV, hd), updated in
+        place; index: the absolute position being written — an int or a
+        (B,) tensor (every row at its own position).  An int broadcasts to
+        every row and takes the same kernels.  Returns (y, cache)."""
+        B = x.shape[0]
+        q, k, v = self.qkv(x, x)
+        if angles is not None:
+            q = apply_rope(q, angles)
+            k = apply_rope(k, angles)
+        Smax = cache["k"].shape[1]
+        index = torch.as_tensor(index, dtype=torch.int32, device=x.device)
+        index = index.reshape(-1).expand(B)
+        slot = torch.remainder(index, Smax)
+        kops.cache_ring_update(cache["k"], k[:, 0], slot)
+        kops.cache_ring_update(cache["v"], v[:, 0], slot)
+        out = kops.decode_attention(q, cache["k"], cache["v"], index)
+        return self.wo(out.reshape(B, 1, -1)), cache
+
+    @staticmethod
+    def cache_len(cfg, max_seq: int) -> int:
+        if cfg.sliding_window is not None:
+            return min(max_seq, cfg.sliding_window)
+        return max_seq
+
+    @staticmethod
+    def cache_shape(cfg, batch: int, max_seq: int):
+        Smax = Attention.cache_len(cfg, max_seq)
+        kv_shape = (batch, Smax, cfg.n_kv_heads, cfg.hd)
+        axes = ("batch", "cache_seq", "kv_heads", None)
+        return {"k": (kv_shape, axes), "v": (kv_shape, axes)}

@@ -1,0 +1,81 @@
+"""Serve step functions (the serve half of ``repro.models.steps``).
+
+Each ``make_*`` returns a plain function of ``(params, ...)`` where
+``params`` is the ``LM`` module.  Nothing is jitted: the functions run
+eagerly under ``torch.no_grad`` and update the cache in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import LM
+
+
+def make_prefill_step(cfg: ModelConfig, max_seq: int):
+    @torch.no_grad()
+    def prefill_step(params: LM, batch):
+        return params.prefill(batch, max_seq)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    @torch.no_grad()
+    def decode_step(params: LM, tokens, cache):
+        return params.decode(tokens, cache)
+    return decode_step
+
+
+def make_fused_decode_step(cfg: ModelConfig):
+    """One decode step with sampling fused into the tail: returns the
+    per-row sampled tokens (B,) int32 alongside the logits, so a greedy
+    serving tick moves B int32s to the host instead of (B, 1, V) floats.
+
+    seed/rid/pos are (B,) int32 stateless RNG counters; temperature is (B,)
+    float32, 0 → greedy argmax (first index of the float32 maximum).  The
+    sampler is the fused-sample kernel on the card and its plain version on
+    the CPU."""
+    @torch.no_grad()
+    def fused_decode_step(params: LM, tokens, cache, seed, rid, pos,
+                          temperature):
+        logits, cache = params.decode(tokens, cache)
+        rows = logits[:, 0].float()
+        toks = kernel_ops.fused_sample(rows, seed, rid, pos, temperature)
+        return toks, logits, cache
+    return fused_decode_step
+
+
+def make_chunked_prefill_step(cfg: ModelConfig, max_seq: int, chunk: int):
+    """Prefill with bounded per-step work: a one-shot prefill of the first
+    ``chunk`` tokens builds the cache, then the rest of the prompt streams
+    through the decode path one token per step.  Produces the same
+    (last-position logits, cache) as ``make_prefill_step``."""
+    @torch.no_grad()
+    def chunked_prefill(params: LM, inputs):
+        tokens = inputs["tokens"]
+        S = tokens.shape[1]
+        if S <= chunk:
+            return params.prefill(inputs, max_seq)
+        logits, cache = params.prefill({**inputs, "tokens": tokens[:, :chunk]},
+                                       max_seq)
+        for j in range(chunk, S):
+            logits, cache = params.decode(tokens[:, j:j + 1], cache)
+        return logits, cache
+    return chunked_prefill
+
+
+def _map_spec(fn, spec):
+    if isinstance(spec, dict):
+        return {k: _map_spec(fn, v) for k, v in spec.items()}
+    return fn(spec)
+
+
+def cache_axes(cfg: ModelConfig, batch: int, max_seq: int):
+    """Logical-axes tree of the decode cache."""
+    return _map_spec(lambda s: s[2], LM.cache_spec(cfg, batch, max_seq))
+
+
+def cache_structs(cfg: ModelConfig, batch: int, max_seq: int):
+    """(shape, dtype) tree of the decode cache — no allocation."""
+    return _map_spec(lambda s: (s[0], s[1]), LM.cache_spec(cfg, batch, max_seq))

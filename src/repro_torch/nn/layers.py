@@ -1,0 +1,99 @@
+"""Core layers as ``nn.Module``s, with the parameter names and layouts of
+``repro.nn.layers`` (a Linear weight is ``(in_dim, out_dim)``), so the weight
+bridge maps the reference's parameter tree one to one.
+
+Parameters stay in the config's ``param_dtype`` and never take gradients:
+this package serves.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.nn.init import lecun_normal, normal_init
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Linear(nn.Module):
+    """``y = x @ w + b`` in the compute dtype.
+
+    The reference casts ``w`` from the param dtype to the compute dtype on
+    every call; in eager PyTorch that would re-read every float32 weight each
+    tick.  The cast is done once (``recast``, run at construction and after
+    the weights are loaded) and the compute-dtype copy ``w_c`` is kept — the
+    same arithmetic.  When the two dtypes agree, ``w_c`` is ``w`` itself."""
+
+    def __init__(self, in_dim: int, out_dim: int, *, dtype: torch.dtype,
+                 use_bias: bool = True, param_dtype=torch.float32,
+                 w_init=None, generator=None, device=None):
+        super().__init__()
+        w_init = w_init or lecun_normal(in_axis=0)
+        self.dtype = dtype
+        self.w = _param(w_init((in_dim, out_dim), generator=generator,
+                               device=device, dtype=param_dtype))
+        self.b = (_param(torch.zeros(out_dim, device=device, dtype=param_dtype))
+                  if use_bias else None)
+        self.register_buffer("w_c", None, persistent=False)
+        self.recast()
+
+    def recast(self):
+        self.w_c = self.w.detach().to(self.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.to(self.dtype) @ self.w_c
+        if self.b is not None:
+            y = y + self.b.to(y.dtype)
+        return y
+
+
+class Embedding(nn.Module):
+    def __init__(self, vocab: int, dim: int, *, param_dtype=torch.float32,
+                 scale: float = 1.0, generator=None, device=None):
+        super().__init__()
+        self.table = _param(normal_init(0.02 * scale)(
+            (vocab, dim), generator=generator, device=device,
+            dtype=param_dtype))
+
+    def forward(self, ids: torch.Tensor, *, dtype=None) -> torch.Tensor:
+        out = self.table[ids]
+        return out if dtype is None else out.to(dtype)
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """Tied readout: logits = x @ table.T in float32.  The reference's
+        einsum promotes the compute-dtype hidden state against the float32
+        table, so the table is read in float32 here too."""
+        return x.float() @ self.table.float().t()
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, *, eps: float = 1e-6,
+                 param_dtype=torch.float32, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = _param(torch.ones(dim, device=device, dtype=param_dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + self.eps)
+        return (y * self.scale.float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int, *, eps: float = 1e-5,
+                 param_dtype=torch.float32, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = _param(torch.ones(dim, device=device, dtype=param_dtype))
+        self.bias = _param(torch.zeros(dim, device=device, dtype=param_dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        y = y * self.scale.float() + self.bias.float()
+        return y.to(x.dtype)

@@ -1,0 +1,108 @@
+"""Each CUDA kernel of the port against its plain PyTorch version, on the
+card (marked ``cuda``; skips where there is no card).  Imports no JAX, so
+it runs on a machine with a card and no JAX:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \\
+        tests/test_torch_cuda_kernels.py
+
+Tolerances: attention atol = rtol = 1e-4 in float32 and 2e-2 in bf16 (the
+plain version rounds its probabilities to the value dtype, the kernels keep
+them in float32); the ring-slot write and greedy sampling exact; the
+sampler's hash bits bitwise and its noise within 1e-6.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.sample import sample_noise
+
+
+def _qkv(seed, B, Sq, Sk, H, KV, hd):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Sq, H, hd), dtype=np.float32)
+    k = rng.standard_normal((B, Sk, KV, hd), dtype=np.float32)
+    v = rng.standard_normal((B, Sk, KV, hd), dtype=np.float32)
+    return q, k, v
+
+
+def _mixed_index(B, Smax, seed):
+    rng = np.random.default_rng(seed)
+    fresh = rng.integers(0, Smax, size=B)
+    wrapped = rng.integers(Smax, 4 * Smax, size=B)
+    return np.where(np.arange(B) % 2 == 0, fresh, wrapped).astype(np.int32)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,Smax,KV,G,hd", [(8, 1024, 2, 8, 128),
+                                            (3, 100, 2, 2, 16),
+                                            (2, 4096, 8, 4, 80)])
+def test_decode_attention_kernel_matches_plain(cuda, dtype, tol, B, Smax, KV,
+                                               G, hd):
+    q, kc, vc = (torch.from_numpy(a).to(cuda, dtype)
+                 for a in _qkv(B + hd, B, 1, Smax, KV * G, KV, hd))
+    index = torch.as_tensor(_mixed_index(B, Smax, seed=B), device=cuda)
+    out = ops.decode_attention(q, kc, vc, index)
+    want = ref.decode_attention_ref(q, kc, vc, index)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("Sq,H,KV,hd,window", [(200, 16, 2, 128, None),
+                                               (64, 16, 2, 128, None),
+                                               (200, 32, 8, 80, 64),
+                                               (37, 4, 2, 8, None)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, Sq, H, KV, hd,
+                                              window):
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in _qkv(Sq + hd, 1, Sq, Sq, H, KV, hd))
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("new_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cache_ring_update_kernel_is_exact(cuda, dtype, new_dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    cache = torch.randn(8, 1024, 2, 128, generator=g, device=cuda).to(dtype)
+    new = torch.randn(8, 2, 128, generator=g, device=cuda).to(new_dtype)
+    slot = torch.tensor([0, 5, 1023, 77, 512, 3, 900, 64], dtype=torch.int32,
+                        device=cuda)
+    want = ref.cache_ring_update_ref(cache.clone(), new, slot)
+    ops.cache_ring_update(cache, new, slot)
+    assert torch.equal(cache, want)
+
+
+@pytest.mark.cuda
+def test_fused_sample_kernel_matches_plain(cuda):
+    B, V = 8, 151936
+    rng = np.random.default_rng(2)
+    logits = torch.from_numpy(rng.standard_normal((B, V), dtype=np.float32))
+    logits[0, [3, V - 2]] = logits[0].max() + 1.0      # tie: first index wins
+    logits = logits.to(cuda)
+    seed, rid, pos = (torch.from_numpy(rng.integers(
+        -2**31, 2**31 - 1, size=B, dtype=np.int64).astype(np.int32)).to(cuda)
+        for _ in range(3))
+    greedy = torch.zeros(B, device=cuda)
+    assert torch.equal(ops.fused_sample(logits, seed, rid, pos, greedy),
+                       ref.fused_sample_ref(logits, seed, rid, pos, greedy))
+    with pytest.raises(NotImplementedError, match="top-k"):
+        ops.fused_sample(logits, seed, rid, pos, greedy, top_k=5)
+    bits, g = sample_noise(seed, rid, pos, V)
+    want_bits = ref.sample_bits(seed.cpu(), rid.cpu(), pos.cpu(), V)
+    assert torch.equal(bits.cpu(), want_bits)
+    torch.testing.assert_close(g.cpu(), ref.gumbel_noise(want_bits),
+                               rtol=1e-6, atol=1e-6)
