@@ -9,21 +9,31 @@ Phases; any failure exits non-zero and prints no result line:
 2. kernels  — hold each kernel against its plain PyTorch version on the
               card, in bf16 at the shapes qwen2.5-3b serving gives it (plus
               one h2o-danube shape), and time kernel, plain version and one
-              library call doing the same work.  Tolerances: decode and
-              flash attention atol = rtol = 2e-2 (bf16 outputs; the plain
-              version rounds its probabilities to bf16, the kernels keep
-              them in f32); the ring-slot write and greedy sampling exact;
-              the sampler's hash bits bitwise and its noise within 1e-6.
-3. serve    — ``repro_torch.launch.serve.main`` on full-width qwen2.5-3b
-              (36 layers, random weights from a seed), prefill unchunked and
-              chunked by 64; every request must finish, greedy ticks must
-              move no logits, and every kernel's launch count must match
-              the ticks and admissions of the run.
-4. streams  — on the qwen2.5-3b smoke config in float32, greedy token
-              streams through the kernels equal those of the plain versions
-              (the same engine on the CPU, same weights).
-5. profile  — host time of a full-width decode tick, and the device time
-              per kernel over steady-state ticks (torch.profiler).
+              library call doing the same work.  Tolerances: decode, paged
+              decode and flash attention atol = rtol = 2e-2 (bf16 outputs;
+              the plain version rounds its probabilities to bf16, the
+              kernels keep them in f32); the paged decode equal to the dense
+              one bitwise under an identity table; the ring-slot and paged
+              writes and greedy sampling exact; the sampler's hash bits
+              bitwise and its noise within 1e-6.
+3. serve    — full-width qwen2.5-3b (36 layers, random weights from a seed)
+              on two paths, each with the launch counts set to 0 just before
+              it and read just after: ``repro_torch.launch.serve.main`` on
+              the dense pool, prefill unchunked and chunked by 64; and
+              ``ServingEngine(pool="paged", spec_k=3)`` on prompts that
+              share a 136-token prefix, with prefix sharing and speculative
+              verify on.  Every request must finish, greedy ticks must move
+              no logits, the paged run must hit the prefix registry and
+              accept drafts, and every kernel's launch count must match the
+              ticks, verify lanes and prefilled admissions of the run.
+4. streams  — full width: the paged + speculative greedy streams equal the
+              dense plain engine's, request for request.  Smoke config in
+              float32: greedy streams through the kernels equal those of the
+              plain versions (the same engine on the CPU, same weights), on
+              the dense plain and the paged + speculative engine.
+5. profile  — host time of a full-width decode tick and of a verify tick,
+              and the device time per kernel over steady-state ticks
+              (torch.profiler).
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -56,6 +66,11 @@ SERVE = ["--arch", "qwen2.5-3b", "--device", "cuda", "--requests", "8",
          "--slots", "8", "--max-seq", "1024", "--prompt-len", "200",
          "--gen-len", "16", "--seed", "0"]
 N_LAYERS = 36
+SLOTS, MAX_SEQ = 8, 1024
+# the paged + speculative run: 8 prompts of a shared 136-token prefix (17
+# blocks of 8), a unique 24-token tail and, tiled twice, the 16 tokens a
+# plain greedy run generated after prefix + tail (so drafts fire)
+PREFIX_LEN, TAIL_LEN, GEN_LEN, SPEC_K = 136, 24, 16, 3
 
 KERNEL_INFO = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -66,6 +81,11 @@ KERNEL_INFO = {
                      "src/repro/kernels/sample.py:68"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:83"),
+    "decode_attention_paged": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:143"),
+    "cache_paged_update": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                           "src/repro/kernels/decode_attention.py:196"),
 }
 
 
@@ -195,6 +215,84 @@ def kernel_phase(torch, ops, ref, sample_noise):
                                                    PEAK_BF16_S)
     rows["decode_attention"] = dict(max_abs_err=max(errs), **k1)
 
+    # K5: paged decode attention at the paged serve's shapes: q (8,1,16,128),
+    # a pool of 8 * 128 + 1 blocks of 8 (block 0 the trash block), a
+    # shuffled table, mixed and wrapped indices
+    H, KV, hd, bk, nk = 16, 2, 128, 8, 128
+    NB, Smax = B * nk + 1, nk * bk
+    q = randn(B, 1, H, hd)
+    kp, vp = randn(NB, bk, KV, hd), randn(NB, bk, KV, hd)
+    tbl = (1 + torch.randperm(B * nk, generator=g, device=dev)).reshape(
+        B, nk).to(torch.int32)
+    index = torch.tensor([0, 5, 200, Smax - 1, Smax, 3 * Smax + 7, 640, 77],
+                         dtype=torch.int32, device=dev)
+    got = ops.decode_attention_paged(q, kp, vp, tbl, index)
+    want = ref.decode_attention_paged_ref(q, kp, vp, tbl, index)
+    err = attn_err(got, want, "decode_attention_paged")
+    # K5 == K1 bitwise under an identity table (same split plan and tiles)
+    kc, vc = randn(B, Smax, KV, hd), randn(B, Smax, KV, hd)
+    ident = torch.arange(B * nk, dtype=torch.int32, device=dev).reshape(B, nk)
+    check(torch.equal(ops.decode_attention(q, kc, vc, index),
+                      ops.decode_attention_paged(
+                          q, kc.reshape(B * nk, bk, KV, hd),
+                          vc.reshape(B * nk, bk, KV, hd), ident, index)),
+          "decode_attention_paged != decode_attention under an identity "
+          "table")
+    live_b = torch.clamp(index + 1, max=Smax)
+    live = live_b.sum().item()
+    blocks = ((live_b + bk - 1) // bk).sum().item()
+    # q in, out, the live K/V rows, the table entries they need, the index
+    nbytes = 2 * B * H * hd * 2 + 2 * live * KV * hd * 2 + blocks * 4 + B * 4
+    # yardstick: one library attention over a view gathered beforehand
+    # (no single PyTorch call attends through a block table)
+    kg = kp[tbl.long()].reshape(B, Smax, KV, hd)
+    vg = vp[tbl.long()].reshape(B, Smax, KV, hd)
+    mask = (torch.arange(Smax, device=dev)[None, :]
+            <= index[:, None])[:, None, None, :]
+    rows["decode_attention_paged"] = dict(
+        max_abs_err=err,
+        ms=timed_ms(torch, lambda: ops.decode_attention_paged(
+            q, kp, vp, tbl, index)),
+        plain_ms=timed_ms(torch, lambda: ref.decode_attention_paged_ref(
+            q, kp, vp, tbl, index)),
+        library_ms=sdpa_ms(q, kg, vg, mask=mask),
+        shape="q (8,1,16,128), pool (1025,8,2,128) bf16, shuffled table "
+              "(8,128), index mixed and wrapped; library = SDPA over a "
+              "pre-gathered view")
+    rows["decode_attention_paged"]["bound_ms"], rows[
+        "decode_attention_paged"]["bound_by"] = bound(
+        nbytes, 4 * live * H * hd, PEAK_BF16_S)
+
+    # K6: paged write into that pool, distinct (blk, off) targets, exact in
+    # f32 and bf16 (new rows in f32 and bf16)
+    blk = torch.tensor([1, 1024, 7, 500, 33, 1, 900, 64], dtype=torch.int32,
+                       device=dev)
+    off = torch.tensor([0, 7, 3, 5, 1, 6, 2, 4], dtype=torch.int32,
+                       device=dev)
+    for dt in (torch.float32, bf16):
+        for new_dt in (torch.float32, bf16):
+            pool = randn(NB, bk, KV, hd, dtype=dt)
+            new = randn(B, KV, hd, dtype=new_dt)
+            want = ref.cache_paged_update_ref(pool.clone(), new, blk, off)
+            ops.cache_paged_update(pool, new, blk, off)
+            check(torch.equal(pool, want),
+                  f"cache_paged_update {dt}/{new_dt}: kernel != plain")
+    new = randn(B, KV, hd)
+    blk_l, off_l = blk.long(), off.long()
+
+    def lib_k6():
+        kp[blk_l, off_l] = new
+
+    rows["cache_paged_update"] = dict(
+        max_abs_err=0.0,
+        ms=timed_ms(torch, lambda: ops.cache_paged_update(kp, new, blk, off)),
+        plain_ms=timed_ms(torch, lambda: ref.cache_paged_update_ref(
+            kp, new, blk, off)),
+        library_ms=timed_ms(torch, lib_k6),
+        shape="pool (1025,8,2,128) bf16, new (8,2,128)")
+    rows["cache_paged_update"]["bound_ms"], rows["cache_paged_update"][
+        "bound_by"] = bound(B * KV * hd * 2 * 2 + B * 8, 0, PEAK_BF16_S)
+
     # K4: flash attention (prefill); qwen2.5-3b at Sq 64 and a ragged 200,
     # h2o-danube (hd 80) with its 4096 window and with a short window 64
     errs, k4 = [], {}
@@ -298,7 +396,8 @@ def serve_phase(torch, ops, serve):
         want = {"decode_attention": N_LAYERS * ticks,
                 "cache_ring_update": 2 * N_LAYERS * ticks,
                 "fused_sample": ticks,
-                "flash_attention": N_LAYERS * admissions}
+                "flash_attention": N_LAYERS * admissions,
+                "decode_attention_paged": 0, "cache_paged_update": 0}
         print(f"    launches {counts}")
         check(counts == want, f"launch counts {counts}, expected {want}")
         for name in launches:
@@ -308,7 +407,144 @@ def serve_phase(torch, ops, serve):
     return launches
 
 
+def run_shared(eng, prompts):
+    """Request 0 alone until it has streamed past the shared prefix (its
+    prefix blocks are then registered), then the other seven; run to the
+    end and return the greedy streams by request id."""
+    import numpy as np
+    from repro_torch.serving import Request
+    reqs = [Request(rid=i, prompt=np.asarray(p, np.int32), gen_len=GEN_LEN)
+            for i, p in enumerate(prompts)]
+    eng.submit(reqs[0], now=0.0)
+    done, step = [], 0
+    while eng.pos[0] < PREFIX_LEN:
+        step += 1
+        done.extend(eng.step(now=float(step)))
+    for r in reqs[1:]:
+        eng.submit(r, now=float(step))
+    while len(done) < len(reqs):
+        step += 1
+        check(step < 5000, "the shared-prefix run did not finish")
+        done.extend(eng.step(now=float(step)))
+    return {r.rid: list(r.tokens_out) for r in done}
+
+
+def shared_prompts(core):
+    """Prefix + tail_i + Y_i + Y_i, Y_i the 16 tokens a plain greedy run
+    generates after prefix + tail_i (drafts then find their n-grams)."""
+    import numpy as np
+    from repro_torch.serving import Request, ServingEngine
+    rng = np.random.default_rng(1)
+    vocab = core.cfg.vocab
+    prefix = rng.integers(3, vocab, PREFIX_LEN)
+    bases = [np.concatenate([prefix, rng.integers(3, vocab, TAIL_LEN)])
+             .astype(np.int32) for _ in range(SLOTS)]
+    eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=MAX_SEQ, core=core)
+    reqs = [Request(rid=i, prompt=b, gen_len=GEN_LEN)
+            for i, b in enumerate(bases)]
+    for r in reqs:
+        eng.submit(r, now=0.0)
+    done = []
+    while len(done) < len(reqs):
+        done.extend(eng.step(now=0.0))
+    ys = {r.rid: np.asarray(r.tokens_out, np.int32) for r in done}
+    return [np.concatenate([b, ys[i], ys[i]]) for i, b in enumerate(bases)]
+
+
+@contextlib.contextmanager
+def counted_steps(core):
+    """Count the engine's fused ticks and verify lanes (a verify tick of
+    window W decodes W lanes) by wrapping its step functions."""
+    calls = {"fused": 0, "verify": 0, "lanes": 0}
+    fused, verify = core.fused_decode, core.verify
+
+    def fused_counted(*args):
+        calls["fused"] += 1
+        return fused(*args)
+
+    def verify_counted(params, tokens, cache):
+        calls["verify"] += 1
+        calls["lanes"] += tokens.shape[1]
+        return verify(params, tokens, cache)
+
+    core.fused_decode, core.verify = fused_counted, verify_counted
+    try:
+        yield calls
+    finally:
+        core.fused_decode, core.verify = fused, verify
+
+
+def paged_serve_phase(torch, ops, core, prompts):
+    """ServingEngine(pool="paged", spec_k=3) at full width: prefix sharing
+    and speculative verify on; K5/K6 carry every decoded lane, K1/K2 none."""
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.slots import pool_geometry
+    bk = pool_geometry(SLOTS, MAX_SEQ)[0]
+    check(bk == 8, f"default block size {bk}, expected 8")
+    eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=MAX_SEQ, core=core,
+                        pool="paged", spec_k=SPEC_K, prefill_chunk=bk)
+    with counted_steps(core) as calls:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        streams = run_shared(eng, prompts)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        wall = time.perf_counter() - t0
+    life = eng.lifetime()
+    lanes = calls["fused"] + calls["lanes"]
+    print(f"  paged + spec_k={SPEC_K}, bk {bk}, prefill_chunk {bk}: "
+          f"{life['total_tokens']} tokens in {wall:.2f} s "
+          f"({life['total_tokens'] / wall:.1f} tok/s, host clock), "
+          f"{life['total_ticks']} ticks = {calls['fused']} fused + "
+          f"{calls['verify']} verify ({calls['lanes']} lanes)")
+    print(f"    prefix_hits={life['prefix_hits']} prefix_admits="
+          f"{life['prefix_admits']} tokens_shared={life['tokens_shared']} "
+          f"prefill_tokens={life['prefill_tokens']} prompt_tokens="
+          f"{life['prompt_tokens']} spec_proposed={life['spec_proposed']} "
+          f"spec_accepted={life['spec_accepted']} logits_pulls="
+          f"{life['logits_pulls']}")
+    check(life["total_completed"] == SLOTS,
+          f"{life['total_completed']}/{SLOTS} requests finished")
+    check(life["prefix_hits"] > 0, "no admission hit the prefix registry")
+    check(life["spec_proposed"] > 0, "no draft was proposed")
+    check(life["spec_accepted"] > 0, "no draft token was accepted")
+    check(life["logits_pulls"] == 0,
+          f"greedy serving pulled logits {life['logits_pulls']} times")
+    prefilled = life["prefix_admits"] - life["prefix_hits"]
+    want = {"decode_attention": 0, "cache_ring_update": 0,
+            "fused_sample": calls["fused"],
+            "flash_attention": N_LAYERS * prefilled,
+            "decode_attention_paged": N_LAYERS * lanes,
+            "cache_paged_update": 2 * N_LAYERS * lanes}
+    print(f"    launches {counts}")
+    check(counts == want, f"launch counts {counts}, expected {want}")
+    check(all(counts[k] > 0 for k in ("fused_sample", "flash_attention",
+                                      "decode_attention_paged",
+                                      "cache_paged_update")),
+          f"the paged path skipped a kernel: {counts}")
+    return counts, streams
+
+
 # --------------------------------------------------------------------- phase 4
+
+
+def full_width_streams_phase(core, prompts, paged_streams):
+    """The dense plain engine on the paged run's prompts and schedule.
+    prefill_chunk equals the block size on both sides: a shared prefix was
+    computed by another request's ticks, an unshared one by the request's
+    own, and they agree bit for bit only when both come from the same
+    operations at the same shapes.  Every op of the tick works row by row
+    at a fixed (8, 1) batch, and a one-shot prefill of one block runs at the
+    same M on both sides; an unchunked 200-token prefill would run the
+    projections at M = 200 on one side and M = 8 on the other."""
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=MAX_SEQ, core=core,
+                        prefill_chunk=8)
+    dense = run_shared(eng, prompts)
+    check(dense == paged_streams,
+          f"paged + spec streams {paged_streams} != dense plain {dense}")
+    print(f"  {len(dense)} full-width greedy streams equal (paged + "
+          f"spec_k={SPEC_K} vs dense plain), e.g. rid 0: {dense[0]}")
 
 
 def streams_phase(torch, ops):
@@ -323,9 +559,9 @@ def streams_phase(torch, ops):
     cpu = EngineCore(cfg, max_seq, params=copy.deepcopy(gpu.params).to("cpu"),
                      device="cpu")
 
-    def run(core):
+    def run(core, **kw):
         eng = ServingEngine(cfg, slots=3, max_seq=max_seq, prefill_chunk=6,
-                            core=core)
+                            core=core, **kw)
         rng = np.random.default_rng(0)
         reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, size=10 + i)
                         .astype(np.int32), gen_len=12) for i in range(6)]
@@ -338,45 +574,38 @@ def streams_phase(torch, ops):
                 return {r.rid: r.tokens_out for r in done}
         raise SmokeFailure("smoke-config streams did not finish")
 
-    ops.reset_launch_counts()
-    on_gpu = run(gpu)
-    counts = ops.launch_counts()
-    check(all(n > 0 for n in counts.values()),
-          f"smoke serving skipped a kernel: {counts}")
-    on_cpu = run(cpu)
-    check(on_gpu == on_cpu, f"kernel streams {on_gpu} != plain {on_cpu}")
-    print(f"  6 greedy streams equal (kernels vs plain), launches {counts}")
+    for name, kw, path in (
+            ("dense", {}, ("decode_attention", "cache_ring_update",
+                           "fused_sample", "flash_attention")),
+            ("paged + spec", dict(pool="paged", spec_k=SPEC_K),
+             ("decode_attention_paged", "cache_paged_update",
+              "flash_attention"))):
+        ops.reset_launch_counts()
+        on_gpu = run(gpu, **kw)
+        counts = ops.launch_counts()
+        check(all(counts[k] > 0 for k in path),
+              f"smoke serving ({name}) skipped a kernel: {counts}")
+        on_cpu = run(cpu, **kw)
+        check(on_gpu == on_cpu,
+              f"{name}: kernel streams {on_gpu} != plain {on_cpu}")
+        print(f"  {name}: 6 greedy streams equal (kernels vs plain), "
+              f"launches {counts}")
 
 
 # --------------------------------------------------------------------- phase 5
 
 
-def profile_phase(torch):
-    """Where a full-width decode tick's time goes: host time per tick, and
-    device time per kernel from torch.profiler over steady-state ticks (8
-    slots, prompts streaming through the tick, as with --prefill-chunk 64)."""
-    import numpy as np
+def profile_ticks(torch, eng, label, n, n_prof, counted=None):
+    """Host time per tick over ``n`` unprofiled ticks, then device time per
+    kernel from torch.profiler over ``n_prof`` more."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
-    from repro_torch.serving import ServingEngine, synthetic_requests
-    from repro_torch.sim.serving import WorkloadSpec
-
-    cfg = get_config("qwen2.5-3b")
-    eng = ServingEngine(cfg, slots=8, max_seq=1024, prefill_chunk=64,
-                        device="cuda")
-    for r in synthetic_requests(WorkloadSpec(prompt_len=200, gen_len=16), 8,
-                                cfg.vocab, rng=np.random.default_rng(0)):
-        eng.submit(r)
-    for _ in range(4):                  # admit every request, warm up
-        eng.step(now=0.0)
     torch.cuda.synchronize()
-    n = 20
     t0 = time.perf_counter()
     for _ in range(n):
         eng.step(now=0.0)
     torch.cuda.synchronize()
     tick_ms = (time.perf_counter() - t0) / n * 1e3
-    n_prof = 10
+    before = dict(counted or {})
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -390,11 +619,50 @@ def profile_phase(torch):
                        key=lambda kv: -kv[1])
     device_ms = sum(t for _, t in by_kernel)
     check(device_ms > 0, "the profiler saw no device time")
-    print(f"  tick: {tick_ms:.2f} ms host clock ({n} ticks, unprofiled); "
-          f"profiled {prof_ms:.2f} ms, device busy {device_ms:.2f} ms "
-          f"({device_ms / prof_ms:.0%} of the profiled tick)")
+    mix = ""
+    if counted is not None:
+        mix = (f"; the profiled ticks: {counted['fused'] - before['fused']} "
+               f"fused, {counted['verify'] - before['verify']} verify with "
+               f"{counted['lanes'] - before['lanes']} lanes")
+    print(f"  {label} tick: {tick_ms:.2f} ms host clock ({n} ticks, "
+          f"unprofiled); profiled {prof_ms:.2f} ms, device busy "
+          f"{device_ms:.2f} ms ({device_ms / prof_ms:.0%} of the profiled "
+          f"tick){mix}")
     for name, t in by_kernel[:12]:
         print(f"    {t:8.3f} ms/tick  {name[:90]}")
+
+
+def profile_phase(torch, core, prompts):
+    """Where a full-width tick's time goes.  Dense plain: 8 slots, prompts
+    streaming through the tick, as with --prefill-chunk 64.  Paged +
+    speculative: the 8 shared-prefix prompts admitted at once, prefill
+    chunk one block, so the window holds verify ticks (prompt lanes
+    streaming, then drafts)."""
+    import numpy as np
+    from repro_torch.serving import (
+        Request, ServingEngine, synthetic_requests,
+    )
+    from repro_torch.sim.serving import WorkloadSpec
+
+    cfg = core.cfg
+    eng = ServingEngine(cfg, slots=SLOTS, max_seq=MAX_SEQ, prefill_chunk=64,
+                        core=core)
+    for r in synthetic_requests(WorkloadSpec(prompt_len=200, gen_len=16), 8,
+                                cfg.vocab, rng=np.random.default_rng(0)):
+        eng.submit(r)
+    for _ in range(4):                  # admit every request, warm up
+        eng.step(now=0.0)
+    profile_ticks(torch, eng, "dense plain decode", n=20, n_prof=10)
+    del eng
+    eng = ServingEngine(cfg, slots=SLOTS, max_seq=MAX_SEQ, prefill_chunk=8,
+                        core=core, pool="paged", spec_k=SPEC_K)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, gen_len=GEN_LEN))
+    for _ in range(4):
+        eng.step(now=0.0)
+    with counted_steps(core) as calls:
+        profile_ticks(torch, eng, f"paged + spec_k={SPEC_K}", n=10,
+                      n_prof=5, counted=calls)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -410,10 +678,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 3
+    from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _lib, ops, ref
     from repro_torch.kernels.sample import sample_noise
     from repro_torch.launch import serve
+    from repro_torch.serving.engine import EngineCore
 
     resolve_device("cuda")       # TF32 off, as everywhere in the port
     t_start = time.perf_counter()
@@ -428,10 +698,18 @@ def main() -> int:
         rows = kernel_phase(torch, ops, ref, sample_noise)
         print("[3] serve qwen2.5-3b at full width")
         launches = serve_phase(torch, ops, serve)
+        core = EngineCore(get_config("qwen2.5-3b"), MAX_SEQ, seed=0,
+                          device="cuda")
+        prompts = shared_prompts(core)
+        paged_launches, paged_streams = paged_serve_phase(torch, ops, core,
+                                                          prompts)
+        for name, n in paged_launches.items():
+            launches[name] += n
         print("[4] greedy streams on the card")
+        full_width_streams_phase(core, prompts, paged_streams)
         streams_phase(torch, ops)
-        print("[5] where a full-width decode tick's time goes")
-        profile_phase(torch)
+        print("[5] where a full-width tick's time goes")
+        profile_phase(torch, core, prompts)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -34,8 +34,13 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "rt_cache_ring_update": [_P, _I, _L, _L, _P, _I, _L, _P, _I, _I, _I, _P],
+    "rt_cache_paged_update": [_P, _I, _L, _L, _P, _I, _L, _P, _P, _I, _I, _I,
+                              _I, _P],
     "rt_decode_attention": [_P, _L, _L, _P, _P, _L, _L, _L, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rt_decode_attention_paged": [_P, _L, _L, _P, _P, _L, _L, _L, _P, _L, _I,
+                                  _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _P],
     "rt_flash_attention": [_P, _L, _L, _L, _P, _P, _L, _L, _L, _P, _L, _L, _L,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rt_fused_sample": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _P],

@@ -14,13 +14,15 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (
-    cache_ring_update, decode_attention,
+    cache_paged_update, cache_ring_update, decode_attention,
+    decode_attention_paged,
 )
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.sample import fused_sample as _fused_sample_kernel
 
 __all__ = ["flash_attention", "decode_attention", "cache_ring_update",
-           "fused_sample", "KERNELS", "launch_counts", "reset_launch_counts"]
+           "decode_attention_paged", "cache_paged_update", "fused_sample",
+           "KERNELS", "launch_counts", "reset_launch_counts"]
 
 
 def fused_sample(logits, seed, rid, pos, temperature, *, top_k: int = 0):
@@ -41,6 +43,8 @@ KERNELS = {
     "cache_ring_update": cache_ring_update,
     "fused_sample": _fused_sample_kernel,
     "flash_attention": flash_attention,
+    "decode_attention_paged": decode_attention_paged,
+    "cache_paged_update": cache_paged_update,
 }
 
 

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the kernels on the serving path.
 
 Written from the JAX oracles in ``repro.kernels.ref``, with the same
-numerics: full-materialization attention with a float32 softmax, the
-indexed ring-slot scatter, and the murmur3-counter Gumbel-max sampler.  On a
+numerics: full-materialization attention with a float32 softmax (the paged
+form over the gathered block pool), the indexed ring-slot and paged
+scatters, and the murmur3-counter Gumbel-max sampler.  On a
 CPU tensor the kernel wrappers run these; on the card, tests and
 ``chip_smoke.py`` hold each CUDA kernel against them.
 """
@@ -59,6 +60,29 @@ def decode_attention_ref(q, k_cache, v_cache, index):
     out = _attend(q.reshape(B, 1, KV, H // KV, hd), k_cache, v_cache,
                   ok[:, None, None, None, :])
     return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def decode_attention_paged_ref(q, k_cache, v_cache, tbl, index):
+    """q: (B, 1, H, hd); caches: (NB, bk, KV, hd) physical block pools;
+    tbl: (B, nk) block table; index: int or (B,).  Gathers each row's
+    logical sequence ``pool[tbl[b]]`` → (nk·bk, KV, hd) and runs the dense
+    decode attention on it, so under an identity table it equals the dense
+    plain version bitwise."""
+    B, nk = tbl.shape
+    bk = k_cache.shape[1]
+    tbl = tbl.long()
+    kg = k_cache[tbl].reshape(B, nk * bk, *k_cache.shape[2:])
+    vg = v_cache[tbl].reshape(B, nk * bk, *v_cache.shape[2:])
+    return decode_attention_ref(q, kg, vg, index)
+
+
+def cache_paged_update_ref(cache, new, blk, off):
+    """cache: (NB, bk, KV, hd); new: (B, KV, hd); blk/off: (B,) — writes
+    ``new[b]`` into ``cache[blk[b], off[b]]`` in place and returns the
+    cache.  Rows that name the same (blk, off) collide: which one lands is
+    undefined, here as in the kernel."""
+    cache[blk.long(), off.long()] = new.to(cache.dtype)
+    return cache
 
 
 def cache_ring_update_ref(cache, new, slot):

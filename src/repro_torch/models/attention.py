@@ -1,11 +1,13 @@
 """GQA attention with RoPE: causal / sliding-window self-attention over a
-sequence, and one-token decode over a preallocated ring KV cache.
+sequence, and one-token decode over a preallocated ring KV cache or a
+shared block pool.
 
 The dense part of ``repro.models.attention``.  Causal self-attention goes
-through ``kops.flash_attention`` and decode through ``kops.cache_ring_update``
-and ``kops.decode_attention``: the hand kernels on the card, their plain
-versions on the CPU.  Split-K over a mesh, padded heads, the paged pool and
-cross-attention are not ported yet.
+through ``kops.flash_attention``, ring decode through
+``kops.cache_ring_update`` and ``kops.decode_attention``, paged decode
+through ``kops.cache_paged_update`` and ``kops.decode_attention_paged``: the
+hand kernels on the card, their plain versions on the CPU.  Split-K over a
+mesh, padded heads and cross-attention are not ported yet.
 """
 from __future__ import annotations
 
@@ -107,24 +109,56 @@ class Attention(nn.Module):
     # the only mask is slot validity (slot <= index, every slot once the
     # ring has wrapped).
 
-    def decode(self, x, cache, index, *, angles=None):
-        """x: (B, 1, d_in); cache: {"k", "v"}: (B, Smax, KV, hd), updated in
-        place; index: the absolute position being written — an int or a
-        (B,) tensor (every row at its own position).  An int broadcasts to
-        every row and takes the same kernels.  Returns (y, cache)."""
+    def decode(self, x, cache, index, *, angles=None, block_tbl=None):
+        """x: (B, 1, d_in); cache: {"k", "v"}: (B, Smax, KV, hd) rings, or
+        (NB, bk, KV, hd) block pools when ``block_tbl`` (B, nk) is given;
+        updated in place.  index: the absolute position being written — an
+        int or a (B,) tensor (every row at its own position).  An int
+        broadcasts to every row and takes the same kernels.  Returns
+        (y, cache)."""
         B = x.shape[0]
         q, k, v = self.qkv(x, x)
         if angles is not None:
             q = apply_rope(q, angles)
             k = apply_rope(k, angles)
-        Smax = cache["k"].shape[1]
         index = torch.as_tensor(index, dtype=torch.int32, device=x.device)
         index = index.reshape(-1).expand(B)
+        if block_tbl is not None:
+            out = self._decode_paged(q, k, v, cache, index, block_tbl)
+            return self.wo(out.reshape(B, 1, -1)), cache
+        Smax = cache["k"].shape[1]
         slot = torch.remainder(index, Smax)
         kops.cache_ring_update(cache["k"], k[:, 0], slot)
         kops.cache_ring_update(cache["v"], v[:, 0], slot)
         out = kops.decode_attention(q, cache["k"], cache["v"], index)
         return self.wo(out.reshape(B, 1, -1)), cache
+
+    # ---------------- paged decode (block-table KV pool) ------------------
+    #
+    # The cache leaves are a pool of NB blocks of bk positions shared by
+    # every slot; row b's (nk,) table row names the physical blocks of its
+    # logical sequence.  Shared prefix blocks appear in several rows at
+    # once and are only read: the engine's allocator makes the write target
+    # (pos // bk) a private block.
+
+    @staticmethod
+    def _decode_paged(q, k_new, v_new, cache, index, block_tbl):
+        """q/k_new/v_new: (B, 1, ·, hd); cache leaves (NB, bk, KV, hd);
+        block_tbl (B, nk); index (B,) int32 → (B, 1, H, hd)."""
+        NB, bk = cache["k"].shape[:2]
+        Smax = block_tbl.shape[1] * bk
+        # a sharded pool hands out global block ids that rem() folds into
+        # the shard's local pool; unsharded, ids are < NB and it is the
+        # identity
+        tbl = torch.remainder(block_tbl, NB)
+        rpos = torch.remainder(index, Smax)
+        rows = torch.arange(q.shape[0], device=q.device)
+        blk = tbl[rows, (rpos // bk).long()]
+        off = rpos % bk
+        kops.cache_paged_update(cache["k"], k_new[:, 0], blk, off)
+        kops.cache_paged_update(cache["v"], v_new[:, 0], blk, off)
+        return kops.decode_attention_paged(q, cache["k"], cache["v"], tbl,
+                                           index)
 
     @staticmethod
     def cache_len(cfg, max_seq: int) -> int:

@@ -39,7 +39,8 @@ class DecoderBlock(nn.Module):
         x = x + self.mlp(self.ln2(x))
         return (x, kv) if return_kv else x
 
-    def decode(self, x, cache, index, *, angles=None):
-        h, cache = self.attn.decode(self.ln1(x), cache, index, angles=angles)
+    def decode(self, x, cache, index, *, angles=None, block_tbl=None):
+        h, cache = self.attn.decode(self.ln1(x), cache, index, angles=angles,
+                                    block_tbl=block_tbl)
         x = x + h
         return x + self.mlp(self.ln2(x)), cache

@@ -27,6 +27,26 @@ def make_decode_step(cfg: ModelConfig):
     return decode_step
 
 
+def make_verify_step(cfg: ModelConfig):
+    """Speculative verify: feed a (B, W) window — per row, the committed
+    next input token and up to W-1 draft tokens — through W chained
+    ``params.decode`` calls, the same decode the plain tick runs, so the
+    logits at lane j equal the plain path's given the same fed prefix.
+    Returns the per-lane greedy tokens (B, W) int32, the logits (B, W, V)
+    and the cache, advanced W positions for every row; the engine rewinds
+    each row to its true position afterwards (``pool.set_index``)."""
+    @torch.no_grad()
+    def verify_step(params: LM, tokens, cache):
+        lanes = []
+        for j in range(tokens.shape[1]):
+            logits, cache = params.decode(tokens[:, j:j + 1], cache)
+            lanes.append(logits[:, 0])
+        logits = torch.stack(lanes, dim=1)                  # (B, W, V)
+        toks = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+        return toks, logits, cache
+    return verify_step
+
+
 def make_fused_decode_step(cfg: ModelConfig):
     """One decode step with sampling fused into the tail: returns the
     per-row sampled tokens (B,) int32 alongside the logits, so a greedy

@@ -170,16 +170,19 @@ class LM(nn.Module):
     def decode(self, tokens, cache):
         """tokens: (B, 1) → (logits (B, 1, V), cache).  cache["index"] is
         the absolute position of this token: an int32 scalar or a (B,)
-        vector.  The K/V leaves are written in place; the returned cache
-        shares them and carries index + 1."""
+        vector.  A "block_tbl" entry ((B, nk) int32, shared by every layer)
+        switches the K/V leaves to the paged (L, NB, bk, KV, hd) block
+        pools.  The K/V leaves are written in place; the returned cache
+        shares them and every other entry, and carries index + 1."""
         index = cache["index"]
+        tbl = cache.get("block_tbl")
         B = tokens.shape[0]
         h = self._embed(tokens)
         angles = _angles(self.cfg, B, 1, start=index, device=h.device)
         layers = cache["layers"]
         for i, blk in enumerate(self.blocks):
             h, _ = blk.decode(h, {"k": layers["k"][i], "v": layers["v"][i]},
-                              index, angles=angles)
+                              index, angles=angles, block_tbl=tbl)
         logits = self._logits(self.ln_f(h))
         return logits, {**cache, "index": index + 1}
 

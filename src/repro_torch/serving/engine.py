@@ -12,11 +12,22 @@ Every tick decodes one fixed-shape (slots, 1) token batch:
   (``steps.make_fused_decode_step``): greedy rows take the device-sampled
   token, so a greedy tick moves (slots,) int32s to the host; temperature
   rows pull their one logits row and keep their stateful per-request RNG.
+* **Speculative decoding** (``spec_k > 0``).  A prompt-lookup draft
+  (``serving/draft.py``) proposes up to k tokens per decode slot from the
+  slot's own history; one verify step (``steps.make_verify_step``) runs the
+  whole (slots, W) window and the engine accepts the longest exact-match
+  prefix.  Rejected tails rewind through the pool index vector, so their
+  K/V is re-covered later.  PREFILL rows stream up to W prompt tokens per
+  verify tick.  Acceptance is exact-match on sampled tokens, so streams
+  equal the plain path's for any sampling mode; caches that cannot rewind
+  (a sliding-window ring shorter than max_seq) serve the plain path.
+* **Paged pool** (``pool="paged"``).  K/V live in shared blocks named by
+  per-slot block tables; an admission whose block-aligned prompt prefix is
+  resident maps those blocks and runs no prefill for them, and every
+  prompt block the engine completes is registered for later admissions.
 
 The reference donates the cache to ``jit``; here the decode writes it in
-place.  Speculative decoding (``spec_k > 0``) is accepted and serves the
-plain path, as the reference does for families it cannot speculate on; the
-paged pool is not ported yet.
+place.
 """
 from __future__ import annotations
 
@@ -28,9 +39,12 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import LM
+from repro_torch.models.attention import Attention
 from repro_torch.models.steps import (
     make_decode_step, make_fused_decode_step, make_prefill_step,
+    make_verify_step,
 )
+from repro_torch.serving.draft import ngram_propose
 from repro_torch.serving.scheduler import FCFSScheduler, Request
 from repro_torch.serving.slots import make_pool
 
@@ -57,6 +71,7 @@ class EngineCore:
         self.prefill = make_prefill_step(cfg, max_seq)
         self.decode = make_decode_step(cfg)
         self.fused_decode = make_fused_decode_step(cfg)
+        self.verify = make_verify_step(cfg)
 
 
 class EngineStats:
@@ -92,6 +107,12 @@ class EngineStats:
         self._win_ticks += 1
         self._win_busy += busy_slots / max(slots, 1)
         self.queue_depth = queue_depth
+
+    def on_speculate(self, proposed: int, accepted: int):
+        self.total_spec_proposed += proposed
+        self.total_spec_accepted += accepted
+        self._win_spec_prop += proposed
+        self._win_spec_acc += accepted
 
     def on_complete(self, request: Request):
         tier = getattr(request, "tier", "interactive")
@@ -158,7 +179,9 @@ class ServingEngine:
     def __init__(self, cfg, *, slots: int, max_seq: int, seed: int = 0,
                  prefill_chunk: int | None = None,
                  core: EngineCore | None = None, replica_id: int = 0,
-                 pool: str = "dense", spec_k: int = 0, device="cuda"):
+                 pool: str = "dense", block_size: int | None = None,
+                 num_blocks: int | None = None, spec_k: int = 0,
+                 spec_ngram: int = 3, device="cuda"):
         self.cfg = cfg
         self.slots = slots
         self.max_seq = max_seq
@@ -170,10 +193,18 @@ class ServingEngine:
         self.prefill = self.core.prefill
         self.decode = self.core.decode
         self.pool = make_pool(cfg, slots, max_seq, pool=pool,
+                              block_size=block_size, num_blocks=num_blocks,
                               device=self.device)
+        # "paged" on a family with no pageable leaves (a sliding window
+        # shorter than max_seq) degenerates to the dense tree, and the
+        # engine's dense paths apply unchanged
+        self._paged = getattr(self.pool, "is_paged", False)
         self.prefill_tokens = 0      # prompt tokens actually computed
-        self.prompt_tokens = 0       # prompt tokens admitted
+        self.prompt_tokens = 0       # prompt tokens admitted (incl. shared)
         self._tokens_host = np.zeros(slots, np.int32)
+        # verify ticks read _tokens_host directly and defer the (slots, 1)
+        # device copy until a fused or legacy tick needs self.tokens
+        self._tokens_dirty = False
         self._stage_tokens()
         self.pos = np.zeros(slots, np.int64)        # per-slot position
         self.remaining = np.zeros(slots, np.int64)  # tokens left to generate
@@ -184,9 +215,17 @@ class ServingEngine:
         self.prefill_chunk = max(chunk, 1)
         self._prompt: list[np.ndarray | None] = [None] * slots
         self._fed = np.zeros(slots, np.int64)       # prompt tokens staged
-        # accepted for the reference's signature; the speculative verify
-        # path is not ported yet, so every tick is the plain fused tick
         self.spec_k = max(int(spec_k), 0)
+        self.spec_ngram = max(int(spec_ngram), 1)
+        # speculation needs a rewindable cache: a sliding-window ring
+        # shorter than max_seq wraps, and speculative writes would clobber
+        # live context that rewinding the index cannot restore.  Such
+        # configs serve the plain path; the knob is never an error.
+        self._spec_ok = (
+            self.spec_k > 0
+            and cfg.ssm is None and getattr(cfg, "hybrid", None) is None
+            and not cfg.enc_dec and not cfg.attn_free
+            and Attention.cache_len(cfg, max_seq) == max_seq)
         self.logits_pulls = 0        # host (·, V) logits materializations
         self.scheduler = FCFSScheduler()
         self.draining = False
@@ -224,6 +263,15 @@ class ServingEngine:
         if not self.draining:
             free = [s for s in range(self.slots) if not self.active[s]]
             while free and self.scheduler:
+                if self._paged:
+                    # head-of-line capacity gate: a paged pool can have free
+                    # slots but no free blocks; admitting anyway would fault
+                    # mid-decode, and skipping ahead would break FCFS order
+                    head = self.scheduler.peek()
+                    if not self.pool.can_admit(
+                            free[0], np.asarray(head.prompt).reshape(-1),
+                            head.gen_len):
+                        break
                 req = self.scheduler.pop()
                 slot = free.pop(0)
                 req.t_admit = now
@@ -260,11 +308,35 @@ class ServingEngine:
             gen_len = min(gen_len, self.max_seq - P)
         self.prompt_tokens += P
         self.stats.total_admitted += 1
+        if self._paged:
+            h_tok = self.pool.admit_slot(slot, prompt, gen_len)
+            if h_tok > 0:
+                # resident prefix: the shared blocks hold positions
+                # 0..h_tok-1, so no prefill runs; the rest of the prompt
+                # streams through the decode tick from position h_tok
+                self.prefill_tokens += P - h_tok
+                self.pool.set_slot_index(slot, h_tok)
+                self.pos[slot] = h_tok
+                self._prompt[slot] = prompt
+                self.remaining[slot] = gen_len
+                self.active[slot] = True
+                if request is not None:
+                    self.slot_owner[slot] = request
+                self._tokens_host[slot] = int(prompt[h_tok])
+                self._fed[slot] = h_tok + 1      # h_tok shared + 1 staged
+                self.phase[slot] = PHASE_PREFILL
+                self._stage_tokens()
+                return
         c = P if self.prefill_chunk >= P else self.prefill_chunk
         self.prefill_tokens += P
         inputs = {"tokens": torch.tensor(prompt[None, :c], device=self.device)}
         logits, cache1 = self.prefill(self.params, inputs)
         self.pool.write(cache1, slot, index=c)
+        if self._paged:
+            # blocks the one-shot prefill covered are complete prompt
+            # prefixes: publish them for later admissions to share
+            for j in range(c // self.pool.block_size):
+                self.pool.register_block(slot, j, prompt)
         self.pos[slot] = c
         self._prompt[slot] = prompt
         self.remaining[slot] = gen_len
@@ -291,10 +363,15 @@ class ServingEngine:
           pull the (slots, 1, V) logits and sample on the host.
         * **fused** — sampling runs in the decode tail on the device; greedy
           rows never move logits to the host.
+        * **verify** — with speculation on and a draft (or a streamable
+          prompt tail) present, one multi-position decode verifies a
+          (slots, W) window and the engine emits the accepted prefix.
         """
         if not self.active.any():
             return []
         if self.decode is not self.core.decode:
+            if self._tokens_dirty:
+                self._stage_tokens()
             logits, cache = self.decode(self.params, self.tokens,
                                         self.pool.cache)
             self.pool.cache = cache
@@ -302,6 +379,10 @@ class ServingEngine:
             self.logits_pulls += 1
             toks = np.argmax(rows, axis=1).astype(np.int32)
             return self._advance(toks, lambda s: rows[s], now)
+        if self._spec_ok:
+            drafts, window_w = self._plan_window()
+            if window_w >= 2:
+                return self._tick_verify(drafts, window_w, now)
         return self._tick_fused(now)
 
     # -------------------------------------------------- shared tick plumbing
@@ -310,6 +391,7 @@ class ServingEngine:
         """Copy every slot's next input token to the device."""
         self.tokens = torch.tensor(self._tokens_host[:, None],
                                    device=self.device)
+        self._tokens_dirty = False
 
     def _emit(self, slot: int, req, tok_dev: int, fetch_row) -> int:
         """One sampled token for a slot, device first: greedy rows take the
@@ -331,6 +413,13 @@ class ServingEngine:
             req = self.slot_owner.get(slot)
             if self.phase[slot] == PHASE_PREFILL:
                 prompt = self._prompt[slot]
+                pos = int(self.pos[slot])
+                if (self._paged and pos % self.pool.block_size == 0
+                        and pos <= len(prompt)):
+                    # a streamed block just filled with prompt tokens:
+                    # publish it (positions pos-bk..pos-1 are prompt[:pos])
+                    self.pool.register_block(
+                        slot, pos // self.pool.block_size - 1, prompt)
                 if self._fed[slot] < len(prompt):
                     self._tokens_host[slot] = int(prompt[self._fed[slot]])
                     self._fed[slot] += 1
@@ -367,6 +456,8 @@ class ServingEngine:
                 rid[slot] = req.rid
                 pos[slot] = len(req.tokens_out)
                 temp[slot] = req.sampling.temperature
+        if self._tokens_dirty:
+            self._stage_tokens()
         dev = lambda a: torch.tensor(a, device=self.device)
         toks, logits, cache = self.core.fused_decode(
             self.params, self.tokens, self.pool.cache, dev(seed), dev(rid),
@@ -380,13 +471,158 @@ class ServingEngine:
 
         return self._advance(toks_host, fetch_row, now)
 
+    # ------------------------------------------------------- speculative path
+
+    def _plan_window(self) -> tuple[dict[int, np.ndarray], int]:
+        """Collect n-gram drafts and size this tick's verify window.
+
+        Returns (drafts, W).  W is clamped so that no active row's window
+        writes past ``max_seq - 1``: the window advances every row's index
+        by W, and a wrapped write would clobber valid context (or a shared
+        prefix block) that rewinding cannot restore.  W < 2 buys nothing:
+        the caller falls back to the fused tick."""
+        drafts: dict[int, np.ndarray] = {}
+        w_cap = self.spec_k + 1
+        streamable = False
+        for slot in np.nonzero(self.active)[0]:
+            slot = int(slot)
+            w_cap = min(w_cap, self.max_seq - int(self.pos[slot]))
+            if self.phase[slot] == PHASE_PREFILL:
+                if self._fed[slot] < len(self._prompt[slot]):
+                    streamable = True
+                continue
+            req = self.slot_owner.get(slot)
+            lim = min(self.spec_k, int(self.remaining[slot]) - 1)
+            if not isinstance(req, Request) or lim <= 0:
+                continue
+            hist = np.asarray(req.prompt).ravel().tolist() + \
+                list(req.tokens_out)
+            d = ngram_propose(hist, k=lim, ngram=self.spec_ngram)
+            if d.size:
+                drafts[slot] = d
+        if not drafts and not streamable:
+            return {}, 0
+        return drafts, max(w_cap, 0)
+
+    def _tick_verify(self, drafts: dict[int, np.ndarray], W: int,
+                     now) -> list[int]:
+        """One multi-position decode over a (slots, W) window.
+
+        Lane 0 is every slot's staged token; decode lanes 1.. carry that
+        slot's draft, prefill lanes upcoming prompt tokens.  The engine
+        accepts the longest exact-match draft prefix per slot and rewinds
+        the pool index to the host positions: unconsumed lanes are
+        re-covered by later writes."""
+        B = self.slots
+        window = np.zeros((B, W), np.int32)
+        window[:, 0] = self._tokens_host
+        n_extra = np.zeros(B, np.int64)      # prompt tokens fed in lanes 1..
+        n_draft = np.zeros(B, np.int64)      # draft tokens staged in lanes 1..
+        for slot in np.nonzero(self.active)[0]:
+            slot = int(slot)
+            if self.phase[slot] == PHASE_PREFILL:
+                prompt = self._prompt[slot]
+                m = min(W - 1, len(prompt) - int(self._fed[slot]))
+                if m > 0:
+                    lo = int(self._fed[slot])
+                    window[slot, 1:1 + m] = prompt[lo:lo + m]
+                    n_extra[slot] = m
+            elif slot in drafts:
+                d = drafts[slot][:W - 1]
+                window[slot, 1:1 + len(d)] = d
+                n_draft[slot] = len(d)
+        toks, logits, cache = self.core.verify(
+            self.params, torch.tensor(window, device=self.device),
+            self.pool.cache)
+        self.pool.cache = cache
+        toks_host = toks.cpu().numpy()                  # (slots, W) int32
+
+        done: list[int] = []
+        for slot in np.nonzero(self.active)[0]:
+            slot = int(slot)
+            req = self.slot_owner.get(slot)
+
+            def fetch_row(lane, slot=slot):
+                self.logits_pulls += 1
+                return logits[slot, lane].float().cpu().numpy()
+
+            if self.phase[slot] == PHASE_PREFILL:
+                done.extend(self._advance_prefill_window(
+                    slot, req, int(n_extra[slot]), toks_host, fetch_row, now))
+            else:
+                done.extend(self._advance_decode_window(
+                    slot, req, window, int(n_draft[slot]), toks_host,
+                    fetch_row))
+        # host positions are truth: rejected and padding lanes' writes fall
+        # past the new horizon.  The next window reads _tokens_host, so the
+        # token copy waits until a fused or legacy tick needs it.
+        self.pool.set_index(self.pos.astype(np.int32))
+        self._tokens_dirty = True
+        return done
+
+    def _advance_prefill_window(self, slot, req, m, toks_host, fetch_row,
+                                now) -> list[int]:
+        """A PREFILL slot consumed lanes 0..m: the staged prompt token plus
+        m more.  Publish every prompt block the window completed, then
+        stage the next prompt token or turn to DECODE off lane m."""
+        prompt = self._prompt[slot]
+        pos_old = int(self.pos[slot])
+        self.pos[slot] += 1 + m
+        self._fed[slot] += m
+        pos_new = int(self.pos[slot])
+        if self._paged:
+            bs = self.pool.block_size
+            q = (pos_old // bs + 1) * bs
+            while q <= min(pos_new, len(prompt)):
+                self.pool.register_block(slot, q // bs - 1, prompt)
+                q += bs
+        if self._fed[slot] < len(prompt):
+            self._tokens_host[slot] = int(prompt[self._fed[slot]])
+            self._fed[slot] += 1
+        else:
+            self._tokens_host[slot] = self._emit(
+                slot, req, toks_host[slot, m], lambda s: fetch_row(m))
+            self.phase[slot] = PHASE_DECODE
+            if (isinstance(req, Request) and req.t_first_token is None
+                    and now is not None):
+                req.t_first_token = now
+        return []
+
+    def _advance_decode_window(self, slot, req, window, m, toks_host,
+                               fetch_row) -> list[int]:
+        """A DECODE slot with m draft lanes: accept the longest prefix where
+        the sampled token equals the draft and emit a+1 tokens.  Temperature
+        rows sample each lane with their host RNG, one draw per emitted
+        token as on the plain path."""
+        a = 0
+        for j in range(m + 1):
+            # one simulated plain tick per lane: the plain path's
+            # completing tick samples nothing, and neither may this one
+            self.pos[slot] += 1
+            self.remaining[slot] -= 1
+            if self.remaining[slot] <= 0:
+                self.stats.on_speculate(m, a)
+                self.active[slot] = False
+                return [slot]
+            tok = self._emit(slot, req, toks_host[slot, j],
+                             lambda s, j=j: fetch_row(j))
+            self._tokens_host[slot] = tok
+            if not (j < m and tok == int(window[slot, j + 1])):
+                break
+            a += 1
+        self.stats.on_speculate(m, a)
+        return []
+
     def release_slot(self, slot: int):
-        """Free a finished slot; its owner is cleared with it."""
+        """Free a finished slot; its owner is cleared with it, and a paged
+        slot drops its block references."""
         self.active[slot] = False
         self.phase[slot] = PHASE_FREE
         self._prompt[slot] = None
         self._fed[slot] = 0
         self.slot_owner.pop(slot, None)
+        if self._paged:
+            self.pool.release(slot)
 
     def preempt_slot(self, slot: int) -> Request | None:
         """Evict an in-flight request from its slot, rewound for requeue."""
@@ -405,11 +641,15 @@ class ServingEngine:
             req = self.preempt_slot(int(slot))
             if req is not None:
                 out.append(req)
+        if self._paged:
+            # with every slot released, dropping the registry's references
+            # drives every block refcount back to zero
+            self.pool.release_registry()
         return out
 
     def lifetime(self) -> dict:
         """Lifetime accumulators for fleet-level metrics."""
-        return {
+        out = {
             "latencies_ms": [float(v) for v in self.stats.latencies_ms],
             "total_tokens": int(self.stats.total_tokens),
             "total_completed": int(self.stats.total_completed),
@@ -426,6 +666,11 @@ class ServingEngine:
             "spec_accepted": int(self.stats.total_spec_accepted),
             "logits_pulls": int(self.logits_pulls),
         }
+        if self._paged:
+            out["prefix_hits"] = int(self.pool.n_prefix_hits)
+            out["prefix_admits"] = int(self.pool.n_admits)
+            out["tokens_shared"] = int(self.pool.tokens_shared)
+        return out
 
     @property
     def cache(self):

@@ -7,8 +7,9 @@ it runs on a machine with a card and no JAX:
 
 Tolerances: attention atol = rtol = 1e-4 in float32 and 2e-2 in bf16 (the
 plain version rounds its probabilities to the value dtype, the kernels keep
-them in float32); the ring-slot write and greedy sampling exact; the
-sampler's hash bits bitwise and its noise within 1e-6.
+them in float32); the paged kernel equal to the dense one bitwise under an
+identity table; the ring-slot and paged writes and greedy sampling exact;
+the sampler's hash bits bitwise and its noise within 1e-6.
 """
 import numpy as np
 import pytest
@@ -83,6 +84,69 @@ def test_cache_ring_update_kernel_is_exact(cuda, dtype, new_dtype):
                         device=cuda)
     want = ref.cache_ring_update_ref(cache.clone(), new, slot)
     ops.cache_ring_update(cache, new, slot)
+    assert torch.equal(cache, want)
+
+
+def _paged_inputs(cuda, dtype, B, nk, bk, KV, G, hd, seed):
+    """A pool of B*nk + 1 blocks (block 0 the trash block), a shuffled
+    table and mixed / wrapped indices."""
+    rng = np.random.default_rng(seed)
+    NB = B * nk + 1
+    q = rng.standard_normal((B, 1, KV * G, hd), dtype=np.float32)
+    k = rng.standard_normal((NB, bk, KV, hd), dtype=np.float32)
+    v = rng.standard_normal((NB, bk, KV, hd), dtype=np.float32)
+    tbl = (1 + rng.permutation(B * nk)).reshape(B, nk).astype(np.int32)
+    index = _mixed_index(B, nk * bk, seed)
+    t = lambda a, dt=dtype: torch.from_numpy(a).to(cuda, dt)
+    return (t(q), t(k), t(v), t(tbl, torch.int32), t(index, torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("bk", [4, 6, 8, 16, 64])
+def test_decode_attention_paged_kernel_matches_plain(cuda, dtype, tol, bk):
+    B, KV, G, hd = 8, 2, 8, 128
+    nk = max(1, 1024 // bk)
+    q, kp, vp, tbl, index = _paged_inputs(cuda, dtype, B, nk, bk, KV, G, hd,
+                                          seed=bk)
+    out = ops.decode_attention_paged(q, kp, vp, tbl, index)
+    want = ref.decode_attention_paged_ref(q, kp, vp, tbl, index)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bk", [6, 8])
+def test_decode_attention_paged_kernel_equals_dense_bitwise(cuda, dtype, bk):
+    """Lay a dense (B, Smax, KV, hd) ring into the pool under an identity
+    table: the paged kernel reproduces the dense kernel exactly."""
+    B, KV, G, hd, nk = 8, 2, 8, 128, 128
+    Smax = nk * bk
+    q, kc, vc = (torch.from_numpy(a).to(cuda, dtype)
+                 for a in _qkv(bk, B, 1, Smax, KV * G, KV, hd))
+    index = torch.as_tensor(_mixed_index(B, Smax, seed=bk), device=cuda)
+    tbl = torch.arange(B * nk, dtype=torch.int32, device=cuda).reshape(B, nk)
+    dense = ops.decode_attention(q, kc, vc, index)
+    paged = ops.decode_attention_paged(q, kc.reshape(B * nk, bk, KV, hd),
+                                       vc.reshape(B * nk, bk, KV, hd), tbl,
+                                       index)
+    assert torch.equal(dense, paged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("new_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cache_paged_update_kernel_is_exact(cuda, dtype, new_dtype):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    cache = torch.randn(1025, 8, 2, 128, generator=g, device=cuda).to(dtype)
+    new = torch.randn(8, 2, 128, generator=g, device=cuda).to(new_dtype)
+    blk = torch.tensor([1, 1024, 7, 500, 33, 1, 900, 64], dtype=torch.int32,
+                       device=cuda)
+    off = torch.tensor([0, 7, 3, 5, 1, 6, 2, 4], dtype=torch.int32,
+                       device=cuda)
+    want = ref.cache_paged_update_ref(cache.clone(), new, blk, off)
+    ops.cache_paged_update(cache, new, blk, off)
     assert torch.equal(cache, want)
 
 

@@ -80,18 +80,20 @@ def test_token_streams_equal_reference(prefill_chunk, temperature, top_k):
 
 
 def test_spec_k_serves_plain_path():
-    _, port_core = cores()
-    kw = dict(slots=2, max_seq=MAX_SEQ, prefill_chunk=6, core=port_core)
-    plain = run(ServingEngine(port_core.cfg, **kw), Request, SamplingParams())
-    spec = run(ServingEngine(port_core.cfg, spec_k=3, **kw), Request,
-               SamplingParams())
-    assert spec == plain
-
-
-def test_paged_pool_names_its_slice():
-    with pytest.raises(NotImplementedError, match="B2"):
-        make_pool(get_smoke_config(ARCH), 2, MAX_SEQ, pool="paged",
-                  device="cpu")
+    """spec_k > 0 speculates on the dense family, as the reference does: the
+    streams equal the plain path's and the reference spec engine's, and the
+    speculation counters equal the reference's (and are not 0)."""
+    ref_core, port_core = cores()
+    kw = dict(slots=2, max_seq=MAX_SEQ, prefill_chunk=6)
+    plain = run(ServingEngine(port_core.cfg, core=port_core, **kw), Request,
+                SamplingParams())
+    spec = ServingEngine(port_core.cfg, core=port_core, spec_k=3, **kw)
+    ref = RefServingEngine(ref_core.cfg, core=ref_core, spec_k=3, **kw)
+    assert run(spec, Request, SamplingParams()) == plain
+    assert run(ref, RefRequest, RefSamplingParams()) == plain
+    got, want = spec.lifetime(), ref.lifetime()
+    assert got == want
+    assert got["spec_proposed"] > 0
 
 
 @pytest.mark.parametrize("entry", [
@@ -99,8 +101,10 @@ def test_paged_pool_names_its_slice():
     lambda cfg: LM.init_cache(cfg, 2, MAX_SEQ),
     lambda cfg: SlotPool(cfg, 2, MAX_SEQ),
     lambda cfg: make_pool(cfg, 2, MAX_SEQ),
+    lambda cfg: make_pool(cfg, 2, MAX_SEQ, pool="paged"),
     lambda cfg: ServingEngine(cfg, slots=2, max_seq=MAX_SEQ),
-], ids=["LM", "init_cache", "SlotPool", "make_pool", "ServingEngine"])
+], ids=["LM", "init_cache", "SlotPool", "make_pool", "make_pool_paged",
+        "ServingEngine"])
 def test_entry_points_default_to_cuda(entry):
     import torch
     cfg = get_smoke_config(ARCH)
