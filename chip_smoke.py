@@ -8,32 +8,44 @@ Phases; any failure exits non-zero and prints no result line:
 1. build    — compile the Hopper kernels from ``src/repro_torch/kernels/csrc``.
 2. kernels  — hold each kernel against its plain PyTorch version on the
               card, in bf16 at the shapes qwen2.5-3b serving gives it (plus
-              one h2o-danube shape), and time kernel, plain version and one
-              library call doing the same work.  Tolerances: decode, paged
-              decode and flash attention atol = rtol = 2e-2 (bf16 outputs;
-              the plain version rounds its probabilities to bf16, the
-              kernels keep them in f32); the paged decode equal to the dense
-              one bitwise under an identity table; the ring-slot and paged
+              one h2o-danube shape), the SSD scan (K7) in float32 at the
+              shapes zamba2-2.7b's prefill gives it, and time kernel, plain
+              version and one library call doing the same work; then the
+              attention kernels again at zamba2's shared-attention shapes
+              (32 heads, G = 1, hd 80).  Tolerances: decode, paged decode
+              and flash attention atol = rtol = 2e-2 (bf16 outputs; the
+              plain version rounds its probabilities to bf16, the kernels
+              keep them in f32); the paged decode equal to the dense one
+              bitwise under an identity table; the ring-slot and paged
               writes and greedy sampling exact; the sampler's hash bits
-              bitwise and its noise within 1e-6.
+              bitwise and its noise within 1e-6; the SSD scan (y and final
+              state) atol = rtol = 3e-4, the reference's own (chunked and
+              sequential sums round differently).
 3. serve    — full-width qwen2.5-3b (36 layers, random weights from a seed)
               on two paths, each with the launch counts set to 0 just before
               it and read just after: ``repro_torch.launch.serve.main`` on
               the dense pool, prefill unchunked and chunked by 64; and
               ``ServingEngine(pool="paged", spec_k=3)`` on prompts that
               share a 136-token prefix, with prefix sharing and speculative
-              verify on.  Every request must finish, greedy ticks must move
-              no logits, the paged run must hit the prefix registry and
-              accept drafts, and every kernel's launch count must match the
-              ticks, verify lanes and prefilled admissions of the run.
-4. streams  — full width: the paged + speculative greedy streams equal the
-              dense plain engine's, request for request.  Smoke config in
-              float32: greedy streams through the kernels equal those of the
-              plain versions (the same engine on the CPU, same weights), on
-              the dense plain and the paged + speculative engine.
-5. profile  — host time of a full-width decode tick and of a verify tick,
-              and the device time per kernel over steady-state ticks
-              (torch.profiler).
+              verify on.  Then full-width zamba2-2.7b (54 Mamba2 layers in 9
+              groups, each followed by one of 2 shared attention blocks): the
+              CLI on the dense pool, unchunked and chunked by 64, and
+              ``ServingEngine(pool="paged", spec_k=3)``, which pages the
+              shared blocks' K/V and serves plain (recurrent state cannot
+              rewind).  Every request must finish, greedy ticks must move
+              no logits, the qwen paged run must hit the prefix registry and
+              accept drafts, the zamba2 one must propose none, and every
+              kernel's launch count must match the ticks, verify lanes and
+              prefilled admissions of the run.
+4. streams  — full width: the qwen paged + speculative greedy streams
+              equal the dense plain engine's, and the zamba2 paged ones the
+              zamba2 dense ones, request for request.  Smoke configs of both
+              in float32: greedy streams through the kernels equal those of
+              the plain versions (the same engine on the CPU, same weights),
+              on the dense and the paged engine.
+5. profile  — host time of a full-width qwen decode tick, of a verify tick
+              and of a zamba2 decode tick, and the device time per kernel
+              over steady-state ticks (torch.profiler).
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -58,6 +70,7 @@ PEAK_BYTES_S = 3.35e12       # H100 SXM HBM3
 PEAK_BF16_S = 989e12         # dense bf16 tensor-core rate
 PEAK_F32_S = 67e12           # float32 outside the tensor cores
 ATTN_TOL = 2e-2
+SSM_TOL = 3e-4
 NOISE_TOL = 1e-6
 SPIN_CYCLES = 2_000_000      # ~1 ms at the H100's clock
 
@@ -71,6 +84,13 @@ SLOTS, MAX_SEQ = 8, 1024
 # blocks of 8), a unique 24-token tail and, tiled twice, the 16 tokens a
 # plain greedy run generated after prefix + tail (so drafts fire)
 PREFIX_LEN, TAIL_LEN, GEN_LEN, SPEC_K = 136, 24, 16, 3
+# zamba2-2.7b at full width: 54 Mamba2 layers (one K7 launch each per
+# prefill) in 9 groups, each followed by a shared attention block (K4 at
+# prefill, K1 + 2 K2 or K5 + 2 K6 per tick)
+ZSERVE = ["--arch", "zamba2-2.7b", "--device", "cuda", "--requests", "8",
+          "--slots", "8", "--max-seq", "1024", "--prompt-len", "200",
+          "--gen-len", "16", "--seed", "0"]
+Z_MAMBA, Z_ATTN = 54, 9
 
 KERNEL_INFO = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -86,6 +106,8 @@ KERNEL_INFO = {
         "src/repro/kernels/decode_attention.py:143"),
     "cache_paged_update": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                            "src/repro/kernels/decode_attention.py:196"),
+    "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan.py:68"),
 }
 
 
@@ -132,6 +154,44 @@ def bound(nbytes: float, ops: float, peak_ops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / peak_ops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(torch, got, want, tol, what) -> float:
+    """max |got - want|; fails unless allclose at atol = rtol = tol."""
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+          f"{what}: kernel vs plain max |err| {err}")
+    return err
+
+
+def ssd_cost(Bsz, L, H, hd, N, *, T=64, state=True):
+    """(bytes, float32 operations) of the SSD scan on these shapes: each
+    input read once and y (and the final state) written once; the chunked
+    form at the kernel's tile of T tokens, causal and unpadded: per chunk
+    of n tokens C B^T and M X over the n(n+1)/2 causal pairs, C . state and
+    the state update over n x N x hd."""
+    ops = 0
+    for c0 in range(0, L, T):
+        n = min(T, L - c0)
+        tri = n * (n + 1) // 2
+        ops += 2 * tri * N + 2 * tri * hd + 2 * 2 * n * N * hd
+    elems = (2 * Bsz * L * H * hd + Bsz * L * H + H + 2 * Bsz * L * H * N
+             + (Bsz * H * hd * N if state else 0))
+    return 4 * elems, ops * Bsz * H
+
+
+def ssd_inputs(torch, g, Bsz, L, H=80, hd=64, N=64):
+    """K7's inputs as zamba2-2.7b's Mamba2 hands them over: float32, dt a
+    softplus, A = -linspace(1, 16, H) (the init), one B/C group repeated
+    over the heads."""
+    dev = torch.device("cuda")
+    x = torch.randn(Bsz, L, H, hd, generator=g, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn(Bsz, L, H, generator=g,
+                                                  device=dev))
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    Bm, C = (torch.randn(Bsz, L, 1, N, generator=g, device=dev)
+             .repeat_interleave(H, dim=2) for _ in range(2))
+    return x, dt, A, Bm, C
 
 
 # --------------------------------------------------------------------- phase 2
@@ -357,6 +417,31 @@ def kernel_phase(torch, ops, ref, sample_noise):
         shape="logits (8,151936) f32, greedy")
     rows["fused_sample"]["bound_ms"], rows["fused_sample"]["bound_by"] = bound(
         B * V * 4 + B * 20, B * V, PEAK_F32_S)
+
+    # K7: the SSD scan at zamba2-2.7b's prefill (80 heads, hd 64, N 64): a
+    # ragged 200-token prompt and an aligned batch of two of 256, y and the
+    # final state (the prefill always asks for it)
+    errs = []
+    for Bsz, L in ((1, 200), (2, 256)):
+        args = ssd_inputs(torch, g, Bsz, L)
+        y, h = ops.ssm_scan(*args, return_state=True)
+        want_y, want_h = ref.ssm_scan_ref(*args, return_state=True)
+        errs.append(max_err(torch, y, want_y, SSM_TOL, f"ssm_scan y ({Bsz}, {L})"))
+        errs.append(max_err(torch, h, want_h, SSM_TOL,
+                            f"ssm_scan final state ({Bsz}, {L})"))
+        check(torch.equal(ops.ssm_scan(*args), y),
+              "ssm_scan: y differs without return_state")
+    args = ssd_inputs(torch, g, 1, 200)
+    rows["ssm_scan"] = dict(
+        max_abs_err=max(errs),
+        ms=timed_ms(torch, lambda: ops.ssm_scan(*args, return_state=True)),
+        plain_ms=timed_ms(torch, lambda: ref.ssm_scan_ref(
+            *args, return_state=True)),
+        library_ms=None,      # no PyTorch call computes an SSD scan
+        shape="x (1,200,80,64), dt (1,200,80), B/C (1,200,80,64) f32, N 64, "
+              "with the final state")
+    rows["ssm_scan"]["bound_ms"], rows["ssm_scan"]["bound_by"] = bound(
+        *ssd_cost(1, 200, 80, 64, 64), PEAK_F32_S)
     for name, r in rows.items():
         print(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
@@ -365,13 +450,130 @@ def kernel_phase(torch, ops, ref, sample_noise):
     return rows
 
 
+def zamba2_attention_phase(torch, ops, ref):
+    """K1, K2, K4, K5 and K6 at zamba2-2.7b's shared attention (32 heads,
+    32 KV heads so G = 1, hd 80; 8 slots, max_seq 1024, rows near 200
+    tokens), in bf16: held against their plain versions and timed as in
+    kernel_phase.  Printed; the kernels line keeps the qwen2.5-3b shapes."""
+    F = torch.nn.functional
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(13)
+    B, H, KV, hd, Smax, bk = 8, 32, 32, 80, 1024, 8
+    nk = Smax // bk
+    randn = lambda *shape: torch.randn(*shape, generator=g,
+                                       device=dev).to(bf16)
+    index = 200 + 2 * torch.arange(B, dtype=torch.int32, device=dev)
+    live = (index + 1).sum().item()
+    mask = (torch.arange(Smax, device=dev)[None, :]
+            <= index[:, None])[:, None, None, :]
+    q = randn(B, 1, H, hd)
+    kc, vc = randn(B, Smax, KV, hd), randn(B, Smax, KV, hd)
+    NB = B * nk + 1
+    kp, vp = randn(NB, bk, KV, hd), randn(NB, bk, KV, hd)
+    tbl = (1 + torch.randperm(B * nk, generator=g, device=dev)).reshape(
+        B, nk).to(torch.int32)
+    kg = kp[tbl.long()].reshape(B, Smax, KV, hd)
+    vg = vp[tbl.long()].reshape(B, Smax, KV, hd)
+    new = randn(B, KV, hd)
+    rows_idx, slot_l = torch.arange(B, device=dev), index.long()
+    blk = tbl[rows_idx, slot_l // bk]
+    off = (index % bk).to(torch.int32)
+    S = 200
+    qs, ks, vs = randn(1, S, H, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
+    blocks = ((index + bk) // bk).sum().item()
+    sdpa = lambda q_, k_, v_, **kw: F.scaled_dot_product_attention(
+        q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2), **kw)
+
+    def lib_k2():
+        kc[rows_idx, slot_l] = new
+
+    def lib_k6():
+        kp[blk.long(), off.long()] = new
+
+    cases = {
+        "decode_attention": (
+            lambda: ops.decode_attention(q, kc, vc, index),
+            lambda: ref.decode_attention_ref(q, kc, vc, index),
+            lambda: sdpa(q, kc, vc, attn_mask=mask),
+            2 * B * H * hd * 2 + 2 * live * KV * hd * 2 + B * 4,
+            4 * live * H * hd, False),
+        "cache_ring_update": (
+            lambda: ops.cache_ring_update(kc, new, index),
+            lambda: ref.cache_ring_update_ref(kc, new, index), lib_k2,
+            B * KV * hd * 2 * 2 + B * 4, 0, True),
+        "flash_attention": (
+            lambda: ops.flash_attention(qs, ks, vs, causal=True),
+            lambda: ref.flash_attention_ref(qs, ks, vs, causal=True),
+            lambda: sdpa(qs, ks, vs, is_causal=True),
+            (2 * S * H * hd + 2 * S * KV * hd) * 2,
+            4 * (S * (S + 1) // 2) * H * hd, False),
+        "decode_attention_paged": (
+            lambda: ops.decode_attention_paged(q, kp, vp, tbl, index),
+            lambda: ref.decode_attention_paged_ref(q, kp, vp, tbl, index),
+            lambda: sdpa(q, kg, vg, attn_mask=mask),
+            2 * B * H * hd * 2 + 2 * live * KV * hd * 2 + blocks * 4 + B * 4,
+            4 * live * H * hd, False),
+        "cache_paged_update": (
+            lambda: ops.cache_paged_update(kp, new, blk, off),
+            lambda: ref.cache_paged_update_ref(kp, new, blk, off), lib_k6,
+            B * KV * hd * 2 * 2 + B * 8, 0, True),
+    }
+    for name, (kernel, plain, library, nbytes, flops, exact) in cases.items():
+        if exact:    # the writes land in the caches: compare copies
+            cache = kc if name == "cache_ring_update" else kp
+            before = cache.clone()
+            kernel()
+            got = cache.clone()
+            cache.copy_(before)
+            plain()
+            check(torch.equal(got, cache), f"{name} [zamba2]: kernel != "
+                                           f"plain")
+            err = 0.0
+        else:
+            err = max_err(torch, kernel(), plain(), ATTN_TOL,
+                          f"{name} [zamba2]")
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_S)
+        print(f"  zamba2 {name}: kernel {timed_ms(torch, kernel):.4f} ms, "
+              f"plain {timed_ms(torch, plain):.4f} ms, library "
+              f"{timed_ms(torch, library):.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}), max|err| {err}")
+
+
 # --------------------------------------------------------------------- phase 3
 
 
-def serve_phase(torch, ops, serve):
+def qwen_launches(ticks, prefilled, lanes=0, fused=None):
+    """qwen2.5-3b's launch counts: per layer one K1 and two K2 a dense tick
+    (or one K5 and two K6 a paged lane), one K4 a prefilled admission, one
+    K3 a fused tick."""
+    return {"decode_attention": N_LAYERS * ticks,
+            "cache_ring_update": 2 * N_LAYERS * ticks,
+            "fused_sample": ticks if fused is None else fused,
+            "flash_attention": N_LAYERS * prefilled,
+            "decode_attention_paged": N_LAYERS * lanes,
+            "cache_paged_update": 2 * N_LAYERS * lanes, "ssm_scan": 0}
+
+
+def zamba2_launches(ticks, prefilled, paged=False):
+    """zamba2-2.7b's: one K7 per Mamba2 layer and one K4 per group a
+    prefilled admission; per group one K1 and two K2 (or one K5 and two K6
+    paged) a tick; one K3 a tick (every tick is fused: no speculation)."""
+    dense_ticks, paged_ticks = (0, ticks) if paged else (ticks, 0)
+    return {"decode_attention": Z_ATTN * dense_ticks,
+            "cache_ring_update": 2 * Z_ATTN * dense_ticks,
+            "fused_sample": ticks, "flash_attention": Z_ATTN * prefilled,
+            "decode_attention_paged": Z_ATTN * paged_ticks,
+            "cache_paged_update": 2 * Z_ATTN * paged_ticks,
+            "ssm_scan": Z_MAMBA * prefilled}
+
+
+def serve_phase(torch, ops, serve, base_argv, expected):
+    """The serve CLI at full width, unchunked and chunked by 64; launch
+    counts must equal ``expected(ticks, admissions)``."""
     launches = {name: 0 for name in ops.KERNELS}
     for chunk in (None, 64):
-        argv = SERVE + ([] if chunk is None else ["--prefill-chunk", str(chunk)])
+        argv = base_argv + ([] if chunk is None else
+                            ["--prefill-chunk", str(chunk)])
         torch.cuda.reset_peak_memory_stats()
         buf = io.StringIO()
         ops.reset_launch_counts()
@@ -393,11 +595,7 @@ def serve_phase(torch, ops, serve):
         check(finished == 8, f"{finished}/8 requests finished")
         check(admissions == 8, f"{admissions} admissions for 8 requests")
         check(pulls == 0, f"greedy serving pulled logits {pulls} times")
-        want = {"decode_attention": N_LAYERS * ticks,
-                "cache_ring_update": 2 * N_LAYERS * ticks,
-                "fused_sample": ticks,
-                "flash_attention": N_LAYERS * admissions,
-                "decode_attention_paged": 0, "cache_paged_update": 0}
+        want = expected(ticks, admissions)
         print(f"    launches {counts}")
         check(counts == want, f"launch counts {counts}, expected {want}")
         for name in launches:
@@ -511,11 +709,7 @@ def paged_serve_phase(torch, ops, core, prompts):
     check(life["logits_pulls"] == 0,
           f"greedy serving pulled logits {life['logits_pulls']} times")
     prefilled = life["prefix_admits"] - life["prefix_hits"]
-    want = {"decode_attention": 0, "cache_ring_update": 0,
-            "fused_sample": calls["fused"],
-            "flash_attention": N_LAYERS * prefilled,
-            "decode_attention_paged": N_LAYERS * lanes,
-            "cache_paged_update": 2 * N_LAYERS * lanes}
+    want = qwen_launches(0, prefilled, lanes=lanes, fused=calls["fused"])
     print(f"    launches {counts}")
     check(counts == want, f"launch counts {counts}, expected {want}")
     check(all(counts[k] > 0 for k in ("fused_sample", "flash_attention",
@@ -547,13 +741,99 @@ def full_width_streams_phase(core, prompts, paged_streams):
           f"spec_k={SPEC_K} vs dense plain), e.g. rid 0: {dense[0]}")
 
 
-def streams_phase(torch, ops):
+def run_all(eng, requests):
+    """Submit every request at once, step to the end and return the greedy
+    streams by request id."""
+    for r in requests:
+        eng.submit(r, now=0.0)
+    done, step = [], 0
+    while len(done) < len(requests):
+        step += 1
+        check(step < 5000, "the run did not finish")
+        done.extend(eng.step(now=float(step)))
+    return {r.rid: list(r.tokens_out) for r in done}
+
+
+def zamba2_requests(vocab):
+    """8 requests of 200 random prompt tokens and 16 generated, seeded."""
+    import numpy as np
+    from repro_torch.serving import synthetic_requests
+    from repro_torch.sim.serving import WorkloadSpec
+    return synthetic_requests(WorkloadSpec(prompt_len=200, gen_len=GEN_LEN),
+                              SLOTS, vocab, rng=np.random.default_rng(2))
+
+
+def zamba2_paged_phase(torch, ops, core):
+    """ServingEngine(pool="paged", spec_k=3) at full width: the shared
+    blocks' K/V are paged (K5/K6 carry every tick, K1/K2 none), the Mamba2
+    state stays dense, nothing is shared or speculated."""
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=MAX_SEQ, core=core,
+                        pool="paged", spec_k=SPEC_K)
+    check(eng.pool.is_paged and not eng.pool.can_share,
+          "zamba2's paged pool must page the attention K/V and share nothing")
+    with counted_steps(core) as calls:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        streams = run_all(eng, zamba2_requests(core.cfg.vocab))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        wall = time.perf_counter() - t0
+    life = eng.lifetime()
+    print(f"  zamba2 paged + spec_k={SPEC_K}: {life['total_tokens']} tokens "
+          f"in {wall:.2f} s ({life['total_tokens'] / wall:.1f} tok/s, host "
+          f"clock), {calls['fused']} fused + {calls['verify']} verify ticks, "
+          f"admissions {life['prefix_admits']}, prefix_hits="
+          f"{life['prefix_hits']} spec_proposed={life['spec_proposed']} "
+          f"logits_pulls={life['logits_pulls']}")
+    check(life["total_completed"] == SLOTS,
+          f"{life['total_completed']}/{SLOTS} requests finished")
+    check(life["spec_proposed"] == 0 and calls["verify"] == 0,
+          "zamba2 speculated: recurrent state cannot rewind")
+    check(life["prefix_hits"] == 0, "zamba2 shared a prefix")
+    check(life["logits_pulls"] == 0,
+          f"greedy serving pulled logits {life['logits_pulls']} times")
+    want = zamba2_launches(calls["fused"], life["prefix_admits"], paged=True)
+    print(f"    launches {counts}")
+    check(counts == want, f"launch counts {counts}, expected {want}")
+    return counts, streams
+
+
+def zamba2_streams_phase(core, paged_streams):
+    """The dense plain engine on the same requests: the same greedy
+    streams, request for request (K5 reads the blocks in K1's order, K6
+    writes what K2 writes, the Mamba2 state is the same)."""
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=MAX_SEQ, core=core)
+    dense = run_all(eng, zamba2_requests(core.cfg.vocab))
+    check(dense == paged_streams,
+          f"zamba2 paged streams {paged_streams} != dense {dense}")
+    print(f"  {len(dense)} full-width zamba2 greedy streams equal (paged + "
+          f"spec_k={SPEC_K} vs dense), e.g. rid 0: {dense[0]}")
+
+
+SMOKE_PATHS = {
+    "qwen2.5-3b": (
+        ("dense", {}, ("decode_attention", "cache_ring_update",
+                       "fused_sample", "flash_attention")),
+        ("paged + spec", dict(pool="paged", spec_k=SPEC_K),
+         ("decode_attention_paged", "cache_paged_update", "flash_attention"))),
+    "zamba2-2.7b": (
+        ("dense", {}, ("ssm_scan", "flash_attention", "decode_attention",
+                       "cache_ring_update", "fused_sample")),
+        ("paged + spec", dict(pool="paged", spec_k=SPEC_K),
+         ("ssm_scan", "flash_attention", "decode_attention_paged",
+          "cache_paged_update", "fused_sample"))),
+}
+
+
+def streams_phase(torch, ops, arch):
     import numpy as np
     from repro_torch.configs import get_smoke_config
     from repro_torch.serving import Request, ServingEngine
     from repro_torch.serving.engine import EngineCore
 
-    cfg = get_smoke_config("qwen2.5-3b")
+    cfg = get_smoke_config(arch)
     max_seq = 48
     gpu = EngineCore(cfg, max_seq, seed=0, device="cuda")
     cpu = EngineCore(cfg, max_seq, params=copy.deepcopy(gpu.params).to("cpu"),
@@ -574,12 +854,7 @@ def streams_phase(torch, ops):
                 return {r.rid: r.tokens_out for r in done}
         raise SmokeFailure("smoke-config streams did not finish")
 
-    for name, kw, path in (
-            ("dense", {}, ("decode_attention", "cache_ring_update",
-                           "fused_sample", "flash_attention")),
-            ("paged + spec", dict(pool="paged", spec_k=SPEC_K),
-             ("decode_attention_paged", "cache_paged_update",
-              "flash_attention"))):
+    for name, kw, path in SMOKE_PATHS[arch]:
         ops.reset_launch_counts()
         on_gpu = run(gpu, **kw)
         counts = ops.launch_counts()
@@ -587,9 +862,9 @@ def streams_phase(torch, ops):
               f"smoke serving ({name}) skipped a kernel: {counts}")
         on_cpu = run(cpu, **kw)
         check(on_gpu == on_cpu,
-              f"{name}: kernel streams {on_gpu} != plain {on_cpu}")
-        print(f"  {name}: 6 greedy streams equal (kernels vs plain), "
-              f"launches {counts}")
+              f"{arch} {name}: kernel streams {on_gpu} != plain {on_cpu}")
+        print(f"  {arch} smoke, {name}: 6 greedy streams equal (kernels vs "
+              f"plain), launches {counts}")
 
 
 # --------------------------------------------------------------------- phase 5
@@ -632,16 +907,11 @@ def profile_ticks(torch, eng, label, n, n_prof, counted=None):
         print(f"    {t:8.3f} ms/tick  {name[:90]}")
 
 
-def profile_phase(torch, core, prompts):
-    """Where a full-width tick's time goes.  Dense plain: 8 slots, prompts
-    streaming through the tick, as with --prefill-chunk 64.  Paged +
-    speculative: the 8 shared-prefix prompts admitted at once, prefill
-    chunk one block, so the window holds verify ticks (prompt lanes
-    streaming, then drafts)."""
+def profile_dense_tick(torch, core, label):
+    """Dense plain: 8 slots, prompts streaming through the tick, as with
+    --prefill-chunk 64."""
     import numpy as np
-    from repro_torch.serving import (
-        Request, ServingEngine, synthetic_requests,
-    )
+    from repro_torch.serving import ServingEngine, synthetic_requests
     from repro_torch.sim.serving import WorkloadSpec
 
     cfg = core.cfg
@@ -652,8 +922,18 @@ def profile_phase(torch, core, prompts):
         eng.submit(r)
     for _ in range(4):                  # admit every request, warm up
         eng.step(now=0.0)
-    profile_ticks(torch, eng, "dense plain decode", n=20, n_prof=10)
-    del eng
+    profile_ticks(torch, eng, label, n=20, n_prof=10)
+
+
+def profile_phase(torch, core, prompts):
+    """Where a full-width qwen tick's time goes: the dense plain tick, then
+    paged + speculative: the 8 shared-prefix prompts admitted at once,
+    prefill chunk one block, so the window holds verify ticks (prompt lanes
+    streaming, then drafts)."""
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = core.cfg
+    profile_dense_tick(torch, core, "dense plain decode")
     eng = ServingEngine(cfg, slots=SLOTS, max_seq=MAX_SEQ, prefill_chunk=8,
                         core=core, pool="paged", spec_k=SPEC_K)
     for i, p in enumerate(prompts):
@@ -696,20 +976,40 @@ def main() -> int:
               f"(nvcc {_lib.build_seconds} s)")
         print("[2] kernels against their plain versions")
         rows = kernel_phase(torch, ops, ref, sample_noise)
+        zamba2_attention_phase(torch, ops, ref)
+        launches = {name: 0 for name in ops.KERNELS}
+
+        def add(counts):
+            for name, n in counts.items():
+                launches[name] += n
+
         print("[3] serve qwen2.5-3b at full width")
-        launches = serve_phase(torch, ops, serve)
+        add(serve_phase(torch, ops, serve, SERVE, qwen_launches))
         core = EngineCore(get_config("qwen2.5-3b"), MAX_SEQ, seed=0,
                           device="cuda")
         prompts = shared_prompts(core)
         paged_launches, paged_streams = paged_serve_phase(torch, ops, core,
                                                           prompts)
-        for name, n in paged_launches.items():
-            launches[name] += n
-        print("[4] greedy streams on the card")
+        add(paged_launches)
+        print("[4] greedy streams on the card: qwen2.5-3b")
         full_width_streams_phase(core, prompts, paged_streams)
-        streams_phase(torch, ops)
-        print("[5] where a full-width tick's time goes")
+        streams_phase(torch, ops, "qwen2.5-3b")
+        print("[5] where a full-width qwen2.5-3b tick's time goes")
         profile_phase(torch, core, prompts)
+        del core
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("[3] serve zamba2-2.7b at full width")
+        add(serve_phase(torch, ops, serve, ZSERVE, zamba2_launches))
+        zcore = EngineCore(get_config("zamba2-2.7b"), MAX_SEQ, seed=0,
+                           device="cuda")
+        z_launches, z_streams = zamba2_paged_phase(torch, ops, zcore)
+        add(z_launches)
+        print("[4] greedy streams on the card: zamba2-2.7b")
+        zamba2_streams_phase(zcore, z_streams)
+        streams_phase(torch, ops, "zamba2-2.7b")
+        print("[5] where a full-width zamba2-2.7b tick's time goes")
+        profile_dense_tick(torch, zcore, "zamba2 dense decode")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -45,6 +45,8 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rt_fused_sample": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _P],
     "rt_sample_noise": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "rt_ssm_scan": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _L, _L, _L, _P,
+                    _L, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -19,10 +19,11 @@ from repro_torch.kernels.decode_attention import (
 )
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.sample import fused_sample as _fused_sample_kernel
+from repro_torch.kernels.ssm_scan import ssm_scan
 
 __all__ = ["flash_attention", "decode_attention", "cache_ring_update",
            "decode_attention_paged", "cache_paged_update", "fused_sample",
-           "KERNELS", "launch_counts", "reset_launch_counts"]
+           "ssm_scan", "KERNELS", "launch_counts", "reset_launch_counts"]
 
 
 def fused_sample(logits, seed, rid, pos, temperature, *, top_k: int = 0):
@@ -45,6 +46,7 @@ KERNELS = {
     "flash_attention": flash_attention,
     "decode_attention_paged": decode_attention_paged,
     "cache_paged_update": cache_paged_update,
+    "ssm_scan": ssm_scan,
 }
 
 

@@ -3,7 +3,8 @@
 Written from the JAX oracles in ``repro.kernels.ref``, with the same
 numerics: full-materialization attention with a float32 softmax (the paged
 form over the gathered block pool), the indexed ring-slot and paged
-scatters, and the murmur3-counter Gumbel-max sampler.  On a
+scatters, the murmur3-counter Gumbel-max sampler, and the sequential SSD
+(Mamba2) recurrence.  On a
 CPU tensor the kernel wrappers run these; on the card, tests and
 ``chip_smoke.py`` hold each CUDA kernel against them.
 """
@@ -148,3 +149,25 @@ def fused_sample_ref(logits, seed, rid, pos, temperature, *, top_k: int = 0):
         scaled = torch.where(scaled >= kth, scaled, float("-inf"))
     score = torch.where(t > 0.0, scaled + g, x)
     return torch.argmax(score, dim=1).to(torch.int32)
+
+
+def ssm_scan_ref(x, dt, A, B, C, *, return_state: bool = False):
+    """SSD (Mamba2) recurrence, step by step (``repro.kernels.ref.
+    ssm_scan_ref``).  x: (Bsz, L, H, hd); dt: (Bsz, L, H); A: (H,)
+    (negative); B/C: (Bsz, L, H, N); all float32.  Returns y (Bsz, L, H, hd)
+    float32 with h_t = exp(dt_t A) h_{t-1} + dt_t x_t ⊗ B_t and
+    y_t = h_t · C_t; with ``return_state`` also the carried h after the last
+    token, (Bsz, H, hd, N) — the reference's ``_mamba2_final_state``
+    recomputes it with this same recurrence."""
+    x, dt, A, B, C = (t.float() for t in (x, dt, A, B, C))
+    Bsz, L, H, hd = x.shape
+    h = torch.zeros(Bsz, H, hd, B.shape[-1], dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(L):
+        a = torch.exp(dt[:, t] * A[None])                        # (Bsz, H)
+        h = (a[..., None, None] * h
+             + (dt[:, t, :, None] * x[:, t])[..., None] * B[:, t, :, None, :])
+        ys.append(torch.einsum("bhdn,bhn->bhd", h, C[:, t]))
+    y = torch.stack(ys, dim=1)
+    return (y, h) if return_state else y

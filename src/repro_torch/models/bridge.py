@@ -2,10 +2,13 @@
 
 PyTorch cannot reproduce ``LM.init(jax.random.PRNGKey(seed))``, so parity
 tests hand the reference's parameters over as numpy arrays (for example
-``jax.tree.map(np.asarray, params)``).  The reference stacks every layer on
-a leading axis under ``blocks``; here each layer is its own module, so
-``blocks/<path>[i]`` loads ``blocks.<i>.<path>``.  Every other parameter
-keeps its path.  This module imports no JAX.
+``jax.tree.map(np.asarray, params)``).  The reference stacks repeated
+modules on leading axes; here each is its own module in a ``ModuleList``,
+and the list indices of a port name index those axes: ``blocks.<i>.<path>``
+loads ``blocks/<path>[i]``, a hybrid's ``blocks.<g>.<i>.<path>`` loads
+``blocks/<path>[g, i]`` of the ``(G, A, …)`` stack, ``shared.<s>.<path>``
+loads ``shared/<path>[s]`` and ``down.<g>.w`` loads ``down/w[g]``.  Every
+other parameter keeps its path.  This module imports no JAX.
 """
 from __future__ import annotations
 
@@ -36,12 +39,9 @@ def from_reference(params_np, cfg: ModelConfig, device="cuda") -> LM:
     with torch.no_grad():
         for name, p in model.named_parameters():
             parts = name.split(".")
-            if parts[0] == "blocks":
-                layer, path = int(parts[1]), ("blocks", *parts[2:])
-                value = np.asarray(_leaf(params_np, path))[layer]
-            else:
-                path = tuple(parts)
-                value = np.asarray(_leaf(params_np, path))
+            path = tuple(p for p in parts if not p.isdigit())
+            index = tuple(int(p) for p in parts if p.isdigit())
+            value = np.asarray(_leaf(params_np, path))[index]
             if tuple(value.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: reference {value.shape} vs port "
                                  f"{tuple(p.shape)}")

@@ -1,0 +1,136 @@
+"""Mamba2 / SSD state-space block (``repro.models.mamba.Mamba2``), the
+zamba2 backbone.
+
+``forward`` runs the full sequence through ``kops.ssm_scan``: K7 on the
+card, the sequential recurrence on the CPU (the tensor's device decides,
+not ``cfg.use_pallas``).  With ``return_state`` it also returns the decode
+state after the last token — the scan's carried ``h`` and the last
+``d_conv - 1`` conv inputs — where the reference recomputes ``h`` with a
+second sequential scan (``LM._mamba2_final_state``).  ``decode`` is the
+one-token recurrence and writes the new state into the cache leaves it is
+given, in place.  Mamba1 (falcon-mamba) is not ported.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops as kops
+from repro_torch.nn import Conv1D, Linear, RMSNorm
+from repro_torch.nn.layers import _param
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0) everywhere (``F.softplus``
+    switches to the identity above 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Mamba2(nn.Module):
+    def __init__(self, cfg, *, generator=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        di, N = cfg.d_inner, cfg.ssm.d_state
+        H, G, k = cfg.ssm_heads, cfg.ssm.n_groups, cfg.ssm.d_conv
+        conv_ch = di + 2 * G * N
+        pd = cfg.pdtype
+        kw = dict(generator=generator, device=device)
+        self.in_proj = Linear(cfg.d_model, 2 * di + 2 * G * N + H,
+                              dtype=cfg.cdtype, use_bias=False,
+                              param_dtype=pd, **kw)
+        self.conv = Conv1D(conv_ch, conv_ch, k, param_dtype=pd,
+                           groups=conv_ch, **kw)
+        self.A_log = _param(torch.log(torch.linspace(
+            1.0, 16.0, H, device=device)).to(pd))
+        self.dt_bias = _param(torch.zeros(H, device=device, dtype=pd))
+        self.D = _param(torch.ones(H, device=device, dtype=pd))
+        # the reference applies this norm with RMSNorm's default eps
+        self.norm = RMSNorm(di, param_dtype=pd, device=device)
+        self.out_proj = Linear(di, cfg.d_model, dtype=cfg.cdtype,
+                               use_bias=False, param_dtype=pd, **kw)
+
+    def _split(self, zxbcdt):
+        """→ z, x, B, C, dt along the last axis, in that order."""
+        cfg = self.cfg
+        di, GN = cfg.d_inner, cfg.ssm.n_groups * cfg.ssm.d_state
+        return torch.split(zxbcdt, [di, di, GN, GN, cfg.ssm_heads], dim=-1)
+
+    def _heads(self, t, n_lead):
+        """(..., G*N) → (..., H, N) float32: each B/C group serves H/G
+        consecutive heads (``jnp.repeat``, not a tile)."""
+        cfg = self.cfg
+        G, N = cfg.ssm.n_groups, cfg.ssm.d_state
+        g = t.reshape(*t.shape[:n_lead], G, N).float()
+        return g.repeat_interleave(cfg.ssm_heads // G, dim=n_lead)
+
+    def _gate_out(self, y, z):
+        """y (..., di) float32 → out_proj(norm(y * silu(z)))."""
+        y = y.to(self.cfg.cdtype)
+        return self.out_proj(self.norm(y * F.silu(z)))
+
+    def forward(self, x, *, return_state: bool = False):
+        """x: (B, L, d) → (B, L, d) [, {"h": (B, H, hd, N) float32,
+        "conv": (B, min(L, k-1), conv_ch)}]."""
+        cfg = self.cfg
+        Bsz, L, _ = x.shape
+        di, GN = cfg.d_inner, cfg.ssm.n_groups * cfg.ssm.d_state
+        H, hd, k = cfg.ssm_heads, cfg.ssm.headdim, cfg.ssm.d_conv
+        z, xs, Bc, Cc, dt = self._split(self.in_proj(x))
+        conv_in = torch.cat([xs, Bc, Cc], dim=-1)
+        conv_out = F.silu(self.conv(conv_in, causal=True, dtype=cfg.cdtype))
+        xs, Bc, Cc = torch.split(conv_out, [di, GN, GN], dim=-1)
+        dt = softplus(dt.float() + self.dt_bias.float())        # (B, L, H)
+        A = -torch.exp(self.A_log.float())                       # (H,)
+        xh = xs.reshape(Bsz, L, H, hd).float()
+        out = kops.ssm_scan(xh, dt, A, self._heads(Bc, 2),
+                            self._heads(Cc, 2), chunk=cfg.ssm.chunk,
+                            return_state=return_state)
+        y, h_last = out if return_state else (out, None)
+        y = y + xh * self.D.float()[None, None, :, None]
+        y = self._gate_out(y.reshape(Bsz, L, di), z)
+        if return_state:
+            return y, {"h": h_last, "conv": conv_in[:, -(k - 1):]}
+        return y
+
+    def decode(self, x, state):
+        """x: (B, 1, d); state {"h": (B, H, hd, N) float32, "conv":
+        (B, k-1, conv_ch)}, both written in place → (y, state)."""
+        cfg = self.cfg
+        Bsz = x.shape[0]
+        di, GN = cfg.d_inner, cfg.ssm.n_groups * cfg.ssm.d_state
+        H, hd = cfg.ssm_heads, cfg.ssm.headdim
+        z, xs, Bc, Cc, dt = self._split(self.in_proj(x))
+        conv_in = torch.cat([xs, Bc, Cc], dim=-1)                # (B, 1, ch)
+        window = torch.cat([state["conv"], conv_in], dim=1)      # (B, k, ch)
+        w = self.conv.w.to(conv_in.dtype)                        # (k, 1, ch)
+        co = (window * w.transpose(0, 1)).sum(dim=1, keepdim=True)
+        if self.conv.b is not None:
+            co = co + self.conv.b.to(co.dtype)
+        xs, Bc, Cc = torch.split(F.silu(co), [di, GN, GN], dim=-1)
+        dt = softplus(dt.float() + self.dt_bias.float())[:, 0]   # (B, H)
+        A = -torch.exp(self.A_log.float())
+        x_t = xs[:, 0].reshape(Bsz, H, hd).float()
+        B_t, C_t = self._heads(Bc[:, 0], 1), self._heads(Cc[:, 0], 1)
+        a = torch.exp(dt * A[None])
+        h = (a[..., None, None] * state["h"]
+             + (dt[..., None] * x_t)[..., None] * B_t[:, :, None, :])
+        y = torch.einsum("bhdn,bhn->bhd", h, C_t)
+        y = y + x_t * self.D.float()[None, :, None]
+        out = self._gate_out(y.reshape(Bsz, 1, di), z)
+        # the new state is complete before the old one is overwritten
+        state["h"].copy_(h)
+        state["conv"].copy_(window[:, 1:])
+        return out, state
+
+    @staticmethod
+    def state_shape(cfg, batch: int):
+        di, N, k = cfg.d_inner, cfg.ssm.d_state, cfg.ssm.d_conv
+        H, hd, G = cfg.ssm_heads, cfg.ssm.headdim, cfg.ssm.n_groups
+        conv_ch = di + 2 * G * N
+        return {
+            "h": ((batch, H, hd, N), torch.float32,
+                  ("batch", None, None, None)),
+            "conv": ((batch, k - 1, conv_ch), cfg.cdtype,
+                     ("batch", None, "d_inner")),
+        }

@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, map_spec
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int):
@@ -85,17 +85,11 @@ def make_chunked_prefill_step(cfg: ModelConfig, max_seq: int, chunk: int):
     return chunked_prefill
 
 
-def _map_spec(fn, spec):
-    if isinstance(spec, dict):
-        return {k: _map_spec(fn, v) for k, v in spec.items()}
-    return fn(spec)
-
-
 def cache_axes(cfg: ModelConfig, batch: int, max_seq: int):
     """Logical-axes tree of the decode cache."""
-    return _map_spec(lambda s: s[2], LM.cache_spec(cfg, batch, max_seq))
+    return map_spec(lambda s: s[2], LM.cache_spec(cfg, batch, max_seq))
 
 
 def cache_structs(cfg: ModelConfig, batch: int, max_seq: int):
     """(shape, dtype) tree of the decode cache — no allocation."""
-    return _map_spec(lambda s: (s[0], s[1]), LM.cache_spec(cfg, batch, max_seq))
+    return map_spec(lambda s: (s[0], s[1]), LM.cache_spec(cfg, batch, max_seq))

@@ -1,10 +1,15 @@
-"""The language model of the dense family (``repro.models.transformer.LM``).
+"""The language model of the dense, SSM (Mamba2) and hybrid (zamba2)
+families (``repro.models.transformer.LM``).
 
 The reference stacks the layers' parameters on a leading axis and runs them
-under ``lax.scan``; here every layer is its own ``DecoderBlock`` in an
-``nn.ModuleList`` and a Python loop walks them.  The decode cache keeps the
-reference's tree — ``{"index", "layers": {"k", "v"}}`` with ``(L, B, Smax,
-KV, hd)`` leaves — and decode writes it in place through per-layer views,
+under ``lax.scan``; here every layer is its own module in an
+``nn.ModuleList`` and a Python loop walks them.  A hybrid model holds its
+Mamba2 layers as G groups of A (``blocks[g][i]``), the shared attention
+blocks (``shared[s]``) and one down projection per group (``down[g]``).
+The decode cache keeps the reference's tree — ``{"index", "layers": {"k",
+"v"}}`` (dense), ``{"index", "layers": {"h", "conv"}}`` (SSM), ``{"index",
+"mamba": {"h", "conv"}, "attn": {"k", "v"}}`` (hybrid, mamba leaves
+``(G, A, B, …)``) — and decode writes it in place through per-layer views,
 where the reference donates the buffers to ``jit``.
 
 Entry points:
@@ -24,8 +29,11 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention
-from repro_torch.models.blocks import DecoderBlock, norm_cls
+from repro_torch.models.blocks import (
+    DecoderBlock, SharedAttnBlock, SSMBlock, norm_cls,
+)
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.mamba import Mamba2
 from repro_torch.models.rotary import rope_angles, text_positions
 from repro_torch.nn import Embedding, Linear
 
@@ -33,10 +41,8 @@ from repro_torch.nn import Embedding, Linear
 def _check_family(cfg: ModelConfig):
     if cfg.enc_dec:
         raise NotImplementedError("enc-dec models wait for slice C5")
-    if cfg.hybrid is not None:
-        raise NotImplementedError("hybrid models wait for slice C4")
-    if cfg.ssm is not None:
-        raise NotImplementedError("SSM models wait for slice C3")
+    if cfg.ssm is not None and cfg.ssm.version != 2:
+        raise NotImplementedError("Mamba1 (falcon-mamba) waits for slice C3")
     if cfg.m_rope or cfg.family == "vlm":
         raise NotImplementedError("VLM models wait for slice C2")
     if cfg.moe is not None:
@@ -44,8 +50,25 @@ def _check_family(cfg: ModelConfig):
 
 
 def _angles(cfg: ModelConfig, batch: int, seq: int, start=0, device=None):
+    if cfg.ssm is not None and cfg.hybrid is None:
+        return None
     pos = text_positions(batch, seq, start, device=device)
     return rope_angles(pos, cfg.hd, cfg.rope_theta)
+
+
+def _hybrid_groups(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.hybrid.attn_every
+
+
+def _stack_states(states: list[dict]) -> dict:
+    return {n: torch.stack([s[n] for s in states]) for n in states[0]}
+
+
+def map_spec(fn, spec):
+    """fn over the leaves of a cache-spec tree (nested dicts)."""
+    if isinstance(spec, dict):
+        return {k: map_spec(fn, v) for k, v in spec.items()}
+    return fn(spec)
 
 
 def zero_aux(device=None) -> dict:
@@ -63,8 +86,24 @@ class LM(nn.Module):
         kw = dict(generator=gen, device=device)
         self.embed = Embedding(cfg.vocab, cfg.d_model, param_dtype=cfg.pdtype,
                                **kw)
-        self.blocks = nn.ModuleList(DecoderBlock(cfg, **kw)
-                                    for _ in range(cfg.n_layers))
+        if cfg.hybrid is not None:
+            G, A = _hybrid_groups(cfg), cfg.hybrid.attn_every
+            self.blocks = nn.ModuleList(
+                nn.ModuleList(SSMBlock(cfg, **kw) for _ in range(A))
+                for _ in range(G))
+            self.shared = nn.ModuleList(
+                SharedAttnBlock(cfg, **kw)
+                for _ in range(cfg.hybrid.n_shared_blocks))
+            self.down = nn.ModuleList(
+                Linear(2 * cfg.d_model, cfg.d_model, dtype=cfg.cdtype,
+                       use_bias=False, param_dtype=cfg.pdtype, **kw)
+                for _ in range(G))
+        elif cfg.ssm is not None:
+            self.blocks = nn.ModuleList(SSMBlock(cfg, **kw)
+                                        for _ in range(cfg.n_layers))
+        else:
+            self.blocks = nn.ModuleList(DecoderBlock(cfg, **kw)
+                                        for _ in range(cfg.n_layers))
         self.ln_f = norm_cls(cfg)(cfg.d_model, eps=cfg.norm_eps,
                                   param_dtype=cfg.pdtype, device=device)
         # the untied readout multiplies in float32, as the reference's einsum
@@ -102,9 +141,33 @@ class LM(nn.Module):
         B, S = tokens.shape
         h = self._embed(tokens)
         angles = _angles(self.cfg, B, S, device=h.device)
-        for blk in self.blocks:
-            h = blk(h, angles=angles)
+        if self.cfg.hybrid is not None:
+            h = self._apply_hybrid(h, angles)
+        elif self.cfg.ssm is not None:
+            for blk in self.blocks:
+                h = blk(h)
+        else:
+            for blk in self.blocks:
+                h = blk(h, angles=angles)
         return self._logits(self.ln_f(h)), zero_aux(h.device)
+
+    def _groups(self):
+        """(g, the group's SSM blocks, its shared block, its down
+        projection): shared blocks go round-robin over the groups."""
+        n = len(self.shared)
+        return ((g, group, self.shared[g % n], down) for g, (group, down)
+                in enumerate(zip(self.blocks, self.down)))
+
+    def _apply_hybrid(self, h, angles):
+        """Zamba2: groups of attn_every SSM layers, each followed by a
+        shared attention block over concat(h, emb0) and the group's down
+        projection."""
+        emb0 = h
+        for _, group, shared, down in self._groups():
+            for blk in group:
+                h = blk(h)
+            h = h + down(shared(torch.cat([h, emb0], dim=-1), angles=angles))
+        return h
 
     # ------------------------------------------------------------- cache
 
@@ -113,19 +176,31 @@ class LM(nn.Module):
         """Tree of (shape, dtype, logical_axes) describing the decode state."""
         _check_family(cfg)
         L = cfg.n_layers
+        spec = {"index": ((), torch.int32, ())}
         kv = Attention.cache_shape(cfg, batch, max_seq)
-        return {"index": ((), torch.int32, ()),
-                "layers": {n: ((L,) + s, cfg.cdtype, ("layers",) + ax)
-                           for n, (s, ax) in kv.items()}}
+        if cfg.hybrid is not None:
+            G, A = _hybrid_groups(cfg), cfg.hybrid.attn_every
+            ss = Mamba2.state_shape(cfg, batch)
+            spec["mamba"] = {n: ((G, A) + s, dt, ("layers", "layers") + ax)
+                             for n, (s, dt, ax) in ss.items()}
+            spec["attn"] = {n: ((G,) + s, cfg.cdtype, ("layers",) + ax)
+                            for n, (s, ax) in kv.items()}
+        elif cfg.ssm is not None:
+            ss = Mamba2.state_shape(cfg, batch)
+            spec["layers"] = {n: ((L,) + s, dt, ("layers",) + ax)
+                              for n, (s, dt, ax) in ss.items()}
+        else:
+            spec["layers"] = {n: ((L,) + s, cfg.cdtype, ("layers",) + ax)
+                              for n, (s, ax) in kv.items()}
+        return spec
 
     @staticmethod
     def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                    device="cuda"):
         spec = LM.cache_spec(cfg, batch, max_seq)
         device = resolve_device(device)
-        zeros = lambda s: torch.zeros(s[0], dtype=s[1], device=device)
-        return {"index": zeros(spec["index"]),
-                "layers": {n: zeros(s) for n, s in spec["layers"].items()}}
+        return map_spec(
+            lambda s: torch.zeros(s[0], dtype=s[1], device=device), spec)
 
     # ------------------------------------------------------------- prefill
 
@@ -137,15 +212,40 @@ class LM(nn.Module):
         B, S = tokens.shape
         h = self._embed(tokens)
         angles = _angles(cfg, B, S, device=h.device)
-        ks, vs = [], []
-        for blk in self.blocks:
-            h, kv = self._decoder_prefill_block(blk, h, angles, max_seq)
-            ks.append(kv["k"])
-            vs.append(kv["v"])
-        logits = self._logits(self.ln_f(h[:, -1:]))
-        cache = {"index": torch.tensor(S, dtype=torch.int32, device=h.device),
-                 "layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
-        return logits, cache
+        cache = {"index": torch.tensor(S, dtype=torch.int32, device=h.device)}
+        if cfg.hybrid is not None:
+            h, states = self._prefill_hybrid(h, angles, max_seq)
+            cache.update(states)
+        elif cfg.ssm is not None:
+            states = []
+            for blk in self.blocks:
+                h, st = blk(h, return_state=True)
+                states.append(st)
+            cache["layers"] = _stack_states(states)
+        else:
+            kvs = []
+            for blk in self.blocks:
+                h, kv = self._decoder_prefill_block(blk, h, angles, max_seq)
+                kvs.append(kv)
+            cache["layers"] = _stack_states(kvs)
+        return self._logits(self.ln_f(h[:, -1:])), cache
+
+    def _prefill_hybrid(self, h, angles, max_seq):
+        """The hybrid forward, keeping every Mamba2 layer's final state and
+        every shared block's K/V laid out as its ring cache."""
+        emb0 = h
+        mamba, attn = [], []
+        for _, group, shared, down in self._groups():
+            states = []
+            for blk in group:
+                h, st = blk(h, return_state=True)
+                states.append(st)
+            mamba.append(_stack_states(states))
+            x2, (k, v) = shared(torch.cat([h, emb0], dim=-1), angles=angles,
+                                return_kv=True)
+            h = h + down(x2)
+            attn.append(self._kv_to_ring(k, v, max_seq))
+        return h, {"mamba": _stack_states(mamba), "attn": _stack_states(attn)}
 
     def _decoder_prefill_block(self, blk, x, angles, max_seq):
         x, (k, v) = blk(x, angles=angles, return_kv=True)
@@ -172,17 +272,38 @@ class LM(nn.Module):
         the absolute position of this token: an int32 scalar or a (B,)
         vector.  A "block_tbl" entry ((B, nk) int32, shared by every layer)
         switches the K/V leaves to the paged (L, NB, bk, KV, hd) block
-        pools.  The K/V leaves are written in place; the returned cache
-        shares them and every other entry, and carries index + 1."""
+        pools.  The K/V and SSM state leaves are written in place; the
+        returned cache shares them and every other entry, and carries
+        index + 1."""
         index = cache["index"]
         tbl = cache.get("block_tbl")
         B = tokens.shape[0]
         h = self._embed(tokens)
         angles = _angles(self.cfg, B, 1, start=index, device=h.device)
-        layers = cache["layers"]
-        for i, blk in enumerate(self.blocks):
-            h, _ = blk.decode(h, {"k": layers["k"][i], "v": layers["v"][i]},
-                              index, angles=angles, block_tbl=tbl)
+        if self.cfg.hybrid is not None:
+            h = self._decode_hybrid(h, cache, index, angles, tbl)
+        else:
+            layers = cache["layers"]
+            for i, blk in enumerate(self.blocks):
+                layer = {n: leaf[i] for n, leaf in layers.items()}
+                if self.cfg.ssm is not None:
+                    h, _ = blk.decode(h, layer)
+                else:
+                    h, _ = blk.decode(h, layer, index, angles=angles,
+                                      block_tbl=tbl)
         logits = self._logits(self.ln_f(h))
         return logits, {**cache, "index": index + 1}
+
+    def _decode_hybrid(self, h, cache, index, angles, tbl):
+        emb0 = h
+        mamba, attn = cache["mamba"], cache["attn"]
+        for g, group, shared, down in self._groups():
+            for i, blk in enumerate(group):
+                h, _ = blk.decode(h, {n: leaf[g, i]
+                                      for n, leaf in mamba.items()})
+            x2, _ = shared.decode(torch.cat([h, emb0], dim=-1),
+                                  {n: leaf[g] for n, leaf in attn.items()},
+                                  index, angles=angles, block_tbl=tbl)
+            h = h + down(x2)
+        return h
 

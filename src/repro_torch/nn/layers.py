@@ -8,6 +8,7 @@ this package serves.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.nn.init import lecun_normal, normal_init
@@ -80,6 +81,45 @@ class RMSNorm(nn.Module):
         var = xf.square().mean(dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + self.eps)
         return (y * self.scale.float()).to(x.dtype)
+
+
+class Conv1D(nn.Module):
+    """NLC 1-D convolution (``repro.nn.layers.Conv1D``), the Mamba short
+    conv.  The weight keeps the reference's ``(k, in/groups, out)`` layout,
+    so the bridge copies it as is; ``forward`` hands ``F.conv1d`` its
+    ``(out, in/groups, k)`` view.  The output is as long as the input:
+    ``causal=True`` pads k-1 steps on the left, otherwise the padding is
+    split as XLA's "SAME" splits it.  The reference runs this
+    outside any Pallas kernel (``lax.conv_general_dilated``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, *,
+                 use_bias: bool = True, param_dtype=torch.float32,
+                 groups: int = 1, generator=None, device=None):
+        super().__init__()
+        self.groups = groups
+        fan_in = in_ch // groups * kernel
+        std = (1.0 / max(fan_in, 1)) ** 0.5
+        self.w = _param(normal_init(std)(
+            (kernel, in_ch // groups, out_ch), generator=generator,
+            device=device, dtype=param_dtype))
+        self.b = (_param(torch.zeros(out_ch, device=device, dtype=param_dtype))
+                  if use_bias else None)
+
+    def forward(self, x: torch.Tensor, *, causal: bool = False,
+                dtype=None) -> torch.Tensor:
+        """x: (B, L, C) → (B, L, out) in ``dtype`` (default x's), laid out
+        NLC (channels last and contiguous, as the reference's)."""
+        w = self.w if dtype is None else self.w.to(dtype)
+        x = x if dtype is None else x.to(dtype)
+        k = w.shape[0]
+        # causal: k-1 steps on the left; "SAME": the reference's split
+        left = k - 1 if causal else (k - 1) // 2
+        xt = F.pad(x.transpose(1, 2), (left, k - 1 - left))   # (B, C, L+k-1)
+        y = F.conv1d(xt, w.permute(2, 1, 0),
+                     groups=self.groups).transpose(1, 2).contiguous()
+        if self.b is not None:
+            y = y + self.b.to(y.dtype)
+        return y
 
 
 class LayerNorm(nn.Module):

@@ -9,7 +9,8 @@ Tolerances: attention atol = rtol = 1e-4 in float32 and 2e-2 in bf16 (the
 plain version rounds its probabilities to the value dtype, the kernels keep
 them in float32); the paged kernel equal to the dense one bitwise under an
 identity table; the ring-slot and paged writes and greedy sampling exact;
-the sampler's hash bits bitwise and its noise within 1e-6.
+the sampler's hash bits bitwise and its noise within 1e-6; the SSD scan
+(float32) atol = rtol = 3e-4, the reference's own.
 """
 import numpy as np
 import pytest
@@ -46,7 +47,8 @@ def cuda():
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("B,Smax,KV,G,hd", [(8, 1024, 2, 8, 128),
                                             (3, 100, 2, 2, 16),
-                                            (2, 4096, 8, 4, 80)])
+                                            (2, 4096, 8, 4, 80),
+                                            (8, 1024, 32, 1, 80)])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, tol, B, Smax, KV,
                                                G, hd):
     q, kc, vc = (torch.from_numpy(a).to(cuda, dtype)
@@ -63,7 +65,8 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, tol, B, Smax, KV,
 @pytest.mark.parametrize("Sq,H,KV,hd,window", [(200, 16, 2, 128, None),
                                                (64, 16, 2, 128, None),
                                                (200, 32, 8, 80, 64),
-                                               (37, 4, 2, 8, None)])
+                                               (37, 4, 2, 8, None),
+                                               (200, 32, 32, 80, None)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, Sq, H, KV, hd,
                                               window):
     q, k, v = (torch.from_numpy(a).to(cuda, dtype)
@@ -110,6 +113,19 @@ def test_decode_attention_paged_kernel_matches_plain(cuda, dtype, tol, bk):
     nk = max(1, 1024 // bk)
     q, kp, vp, tbl, index = _paged_inputs(cuda, dtype, B, nk, bk, KV, G, hd,
                                           seed=bk)
+    out = ops.decode_attention_paged(q, kp, vp, tbl, index)
+    want = ref.decode_attention_paged_ref(q, kp, vp, tbl, index)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_decode_attention_paged_kernel_at_zamba2_heads(cuda, dtype, tol):
+    """zamba2's shared attention: 32 heads, one per KV head (G = 1), hd 80."""
+    B, KV, G, hd, bk, nk = 8, 32, 1, 80, 8, 128
+    q, kp, vp, tbl, index = _paged_inputs(cuda, dtype, B, nk, bk, KV, G, hd,
+                                          seed=80)
     out = ops.decode_attention_paged(q, kp, vp, tbl, index)
     want = ref.decode_attention_paged_ref(q, kp, vp, tbl, index)
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
@@ -170,3 +186,59 @@ def test_fused_sample_kernel_matches_plain(cuda):
     assert torch.equal(bits.cpu(), want_bits)
     torch.testing.assert_close(g.cpu(), ref.gumbel_noise(want_bits),
                                rtol=1e-6, atol=1e-6)
+
+
+def _scan_inputs(B, L, H, hd, N, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, L, H, hd), dtype=np.float32)
+    dt = np.logaddexp(rng.standard_normal((B, L, H)), 0).astype(np.float32)
+    A = -np.exp(rng.standard_normal(H)).astype(np.float32)
+    Bm = rng.standard_normal((B, L, H, N), dtype=np.float32)
+    C = rng.standard_normal((B, L, H, N), dtype=np.float32)
+    return x, dt, A, Bm, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,hd,N,chunk", [
+    (1, 200, 80, 64, 64, 128),      # zamba2-2.7b's prefill: ragged
+    (2, 256, 80, 64, 64, 128),      # aligned
+    (1, 100, 2, 8, 4, 64),          # the reference's ragged case
+    (2, 64, 4, 16, 8, 32),
+    (2, 130, 3, 40, 16, 128),       # hd not a multiple of 32
+    (1, 1, 4, 16, 8, 128),          # one token
+])
+def test_ssm_scan_kernel_matches_plain(cuda, B, L, H, hd, N, chunk):
+    """y and the final state within atol = rtol = 3e-4 (the reference's
+    Pallas-vs-oracle tolerance: chunked and sequential sums round
+    differently)."""
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _scan_inputs(B, L, H, hd, N, seed=L + H)]
+    before = ops.ssm_scan.launches
+    y = ops.ssm_scan(*args, chunk=chunk)
+    y2, h = ops.ssm_scan(*args, chunk=chunk, return_state=True)
+    assert ops.ssm_scan.launches == before + 2
+    want_y, want_h = ref.ssm_scan_ref(*args, return_state=True)
+    torch.testing.assert_close(y, want_y, atol=3e-4, rtol=3e-4)
+    assert torch.equal(y, y2)
+    torch.testing.assert_close(h, want_h, atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_reads_the_model_layout(cuda):
+    """x, B and C as views into one (B, L, di + 2N) conv output, as Mamba2
+    hands them over: strides, not copies."""
+    Bsz, L, H, hd, N = 2, 150, 8, 64, 64
+    di = H * hd
+    rng = np.random.default_rng(5)
+    conv = torch.from_numpy(rng.standard_normal(
+        (Bsz, L, di + 2 * N), dtype=np.float32)).to(cuda)
+    x = conv[..., :di].reshape(Bsz, L, H, hd)
+    Bm = conv[..., di:di + N][:, :, None, :].expand(Bsz, L, H, N)
+    C = conv[..., di + N:][:, :, None, :].expand(Bsz, L, H, N)
+    assert not x.is_contiguous() and Bm.stride(2) == 0
+    _, dt, A, _, _ = (torch.from_numpy(a).to(cuda)
+                      for a in _scan_inputs(Bsz, L, H, hd, N, seed=6))
+    y, h = ops.ssm_scan(x, dt, A, Bm, C, return_state=True)
+    want_y, want_h = ref.ssm_scan_ref(x, dt, A, Bm, C, return_state=True)
+    torch.testing.assert_close(y, want_y, atol=3e-4, rtol=3e-4)
+    torch.testing.assert_close(h, want_h, atol=3e-4, rtol=3e-4)

@@ -32,6 +32,7 @@ def test_import_leaves_jax_and_reference_out():
         "import repro_torch, repro_torch.launch.serve, repro_torch.models.bridge\n"
         "import repro_torch.kernels.ops, repro_torch.models.steps\n"
         "import repro_torch.serving.draft, repro_torch.serving.slots\n"
+        "import repro_torch.models.mamba, repro_torch.kernels.ssm_scan\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
