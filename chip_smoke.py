@@ -45,7 +45,9 @@ Phases; any failure exits non-zero and prints no result line:
               on the dense and the paged engine.
 5. profile  — host time of a full-width qwen decode tick, of a verify tick
               and of a zamba2 decode tick, and the device time per kernel
-              over steady-state ticks (torch.profiler).
+              over steady-state ticks (torch.profiler); then one profiled
+              qwen admission (a 200-token prefill), K4's share beside the
+              rest.
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -148,6 +150,37 @@ def timed_ms(torch, fn, reps=25, warmup=3) -> float:
         pairs.append((e0, e1))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def ptxas_report(log: str, pattern: str = r"flash|decode"):
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    kernel in nvcc's ``-Xptxas -v`` output whose name matches ``pattern``,
+    demangled where c++filt is at hand."""
+    entries, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            entries.append((name, int(m.group(1)), *spills))
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            e[0] for e in entries), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) == len(entries):     # "void (anonymous namespace)::f<..>(..)"
+        entries = [(n.replace("(anonymous namespace)::", "").split("(")[0]
+                    .split(" ", 1)[-1], *e[1:]) for n, e in zip(names, entries)]
+    return [e for e in entries if re.search(pattern, e[0])]
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -298,6 +331,13 @@ def kernel_phase(torch, ops, ref, sample_noise):
                           vc.reshape(B * nk, bk, KV, hd), ident, index)),
           "decode_attention_paged != decode_attention under an identity "
           "table")
+    # two identical calls give bitwise-equal outputs (no atomics)
+    check(torch.equal(ops.decode_attention(q, kc, vc, index),
+                      ops.decode_attention(q, kc, vc, index)),
+          "decode_attention: two identical calls differ")
+    check(torch.equal(ops.decode_attention_paged(q, kp, vp, tbl, index),
+                      ops.decode_attention_paged(q, kp, vp, tbl, index)),
+          "decode_attention_paged: two identical calls differ")
     live_b = torch.clamp(index + 1, max=Smax)
     live = live_b.sum().item()
     blocks = ((live_b + bk - 1) // bk).sum().item()
@@ -354,12 +394,15 @@ def kernel_phase(torch, ops, ref, sample_noise):
         "bound_by"] = bound(B * KV * hd * 2 * 2 + B * 8, 0, PEAK_BF16_S)
 
     # K4: flash attention (prefill); qwen2.5-3b at Sq 64 and a ragged 200,
-    # h2o-danube (hd 80) with its 4096 window and with a short window 64
+    # h2o-danube (hd 80) with its 4096 window and with a short window 64,
+    # and hd 8 and 16 (the smoke configs' widths: the tensor-core body pads
+    # them to 16 in shared memory)
     errs, k4 = [], {}
     for name, (S, H, KV, hd, window) in {
             "qwen200": (200, 16, 2, 128, None), "qwen64": (64, 16, 2, 128, None),
             "danube": (200, 32, 8, 80, 4096),
-            "danube_w64": (200, 32, 8, 80, 64)}.items():
+            "danube_w64": (200, 32, 8, 80, 64),
+            "hd8": (200, 16, 2, 8, None), "hd16": (37, 4, 2, 16, 16)}.items():
         q, k, v = randn(1, S, H, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
         got = ops.flash_attention(q, k, v, causal=True, window=window)
         want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
@@ -888,23 +931,65 @@ def profile_ticks(torch, eng, label, n, n_prof, counted=None):
             eng.step(now=0.0)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) / n_prof * 1e3
-    by_kernel = sorted(((e.key, e.self_device_time_total / 1e3 / n_prof)
-                        for e in prof.key_averages()
-                        if e.self_device_time_total > 0),
-                       key=lambda kv: -kv[1])
-    device_ms = sum(t for _, t in by_kernel)
-    check(device_ms > 0, "the profiler saw no device time")
     mix = ""
     if counted is not None:
         mix = (f"; the profiled ticks: {counted['fused'] - before['fused']} "
                f"fused, {counted['verify'] - before['verify']} verify with "
                f"{counted['lanes'] - before['lanes']} lanes")
+    device_ms = report_profile(prof, n_prof)
     print(f"  {label} tick: {tick_ms:.2f} ms host clock ({n} ticks, "
           f"unprofiled); profiled {prof_ms:.2f} ms, device busy "
           f"{device_ms:.2f} ms ({device_ms / prof_ms:.0%} of the profiled "
           f"tick){mix}")
-    for name, t in by_kernel[:12]:
-        print(f"    {t:8.3f} ms/tick  {name[:90]}")
+    print_profile(prof, n_prof)
+
+
+def _by_kernel(prof, n):
+    return sorted(((e.key, e.self_device_time_total / 1e3 / n)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), key=lambda kv: -kv[1])
+
+
+def report_profile(prof, n) -> float:
+    """Device busy ms per profiled step; fails if the profiler saw none."""
+    device_ms = sum(t for _, t in _by_kernel(prof, n))
+    check(device_ms > 0, "the profiler saw no device time")
+    return device_ms
+
+
+def print_profile(prof, n, top=12):
+    for name, t in _by_kernel(prof, n)[:top]:
+        print(f"    {t:8.3f} ms/step  {name[:90]}")
+
+
+def profile_admission(torch, core):
+    """One qwen2.5-3b admission: the unchunked prefill of a 200-token prompt
+    into a free slot (``ServingEngine.admit``), after one warm-up admission;
+    host time and device time per kernel, K4's share beside the rest."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=MAX_SEQ, core=core)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(3, core.cfg.vocab, 200).astype(np.int32)
+               for _ in range(2)]
+    eng.admit(0, prompts[0], GEN_LEN)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.admit(1, prompts[1], GEN_LEN)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = report_profile(prof, 1)
+    k4_ms = sum(t for name, t in _by_kernel(prof, 1) if "flash" in name)
+    print(f"  qwen2.5-3b admission (200-token prefill): {wall_ms:.2f} ms host "
+          f"clock (profiled), device busy {device_ms:.2f} ms; K4 "
+          f"{k4_ms:.3f} ms ({k4_ms / device_ms:.1%} of the device time)")
+    print_profile(prof, 1)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def profile_dense_tick(torch, core, label):
@@ -946,6 +1031,7 @@ def profile_phase(torch, core, prompts):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    profile_admission(torch, core)
 
 
 def main() -> int:
@@ -974,6 +1060,11 @@ def main() -> int:
         _lib.load()
         print(f"[1] build: {time.perf_counter() - t0:.1f} s "
               f"(nvcc {_lib.build_seconds} s)")
+        if _lib.build_log is None:
+            print("  (library reused from an earlier build: no ptxas output)")
+        for name, regs, st, ld in ptxas_report(_lib.build_log or ""):
+            print(f"  ptxas {name}: {regs} registers, spill stores {st} B, "
+                  f"spill loads {ld} B")
         print("[2] kernels against their plain versions")
         rows = kernel_phase(torch, ops, ref, sample_noise)
         zamba2_attention_phase(torch, ops, ref)

@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 # dtype codes of csrc/common.cuh: the dtypes the configs compute in
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -37,20 +37,23 @@ _SIGNATURES = {
     "rt_cache_paged_update": [_P, _I, _L, _L, _P, _I, _L, _P, _P, _I, _I, _I,
                               _I, _P],
     "rt_decode_attention": [_P, _L, _L, _P, _P, _L, _L, _L, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                            *[_I] * 11, _P],
     "rt_decode_attention_paged": [_P, _L, _L, _P, _P, _L, _L, _L, _P, _L, _I,
-                                  _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _I, _P],
+                                  _P, _P, _P, _P, *[_I] * 11, _P],
     "rt_flash_attention": [_P, _L, _L, _L, _P, _P, _L, _L, _L, _P, _L, _L, _L,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rt_fused_sample": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _P],
     "rt_sample_noise": [_P, _P, _P, _P, _P, _I, _I, _P],
     "rt_ssm_scan": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _L, _L, _L, _P,
                     _L, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
+# host-side queries of the library's own reckoning (they launch nothing)
+_QUERIES = {"rt_flash_smem_bytes": [_I, _I]}
+
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None     # wall time of the build, when built here
+build_log: str | None = None           # nvcc's output (ptxas registers, spills)
 
 
 def _nvcc() -> str:
@@ -76,7 +79,8 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _build(target: Path):
+def _build(target: Path) -> str:
+    """Compile and link into ``target``; returns nvcc's output."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -87,11 +91,12 @@ def _build(target: Path):
             procs.append((src, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        failed = []
+        failed, logs = [], []
         for src, proc in procs:
             out, _ = proc.communicate()
+            logs.append(f"{src.name}:\n{out}")
             if proc.returncode != 0:
-                failed.append(f"{src.name}:\n{out}")
+                failed.append(logs[-1])
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_so = Path(tmp) / target.name
@@ -101,23 +106,28 @@ def _build(target: Path):
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed:\n" + link.stdout)
         os.replace(tmp_so, target)     # atomic: concurrent builders agree
+    return "\n".join(logs)
 
 
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call if needed."""
-    global _lib, build_seconds
+    global _lib, build_seconds, build_log
     if _lib is not None:
         return _lib
     target = BUILD_DIR / f"librepro_torch_kernels-{_digest()}.so"
     if not target.exists():
         t0 = time.perf_counter()
-        _build(target)
+        build_log = _build(target)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(target))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in _QUERIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
     _lib = lib
     return lib
 
@@ -152,3 +162,13 @@ def per_row(x, like: torch.Tensor, dtype) -> torch.Tensor:
     B = like.shape[0] (a scalar broadcasts to every row)."""
     t = torch.as_tensor(x, dtype=dtype, device=like.device)
     return t.reshape(-1).expand(like.shape[0]).contiguous()
+
+
+def rows_16b(hd: int, *tensors) -> bool:
+    """Every (hd,) row of the tensors (head_dim last and contiguous) starts
+    on a 16-byte boundary and spans whole 16-byte vectors: a kernel may
+    move it 16 bytes at a time."""
+    per16 = 16 // tensors[0].element_size()
+    return hd % per16 == 0 and all(
+        t.data_ptr() % 16 == 0 and all(st % per16 == 0 for st in t.stride()[:-1])
+        for t in tensors)

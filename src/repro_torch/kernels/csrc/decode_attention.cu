@@ -4,36 +4,55 @@
 // K1 replaces repro/kernels/decode_attention.py::decode_attention_bkgd
 // (_decode_kernel): one query token per row attends, GQA, over that row's
 // live ring slots (slot <= index[b]; every slot once index >= Smax), online
-// softmax in float32, scale hd**-0.5.
+// softmax in float32, scale hd**-0.5.  K5 replaces
+// decode_attention_paged_bkgd (_decode_paged_kernel): K1 over a shared pool
+// of (NB, bk, KV, hd) blocks, where logical key t of row b lives at
+// pool[tbl[b, t / bk], t % bk].
 //
 // Bound: bytes.  Each live K/V row is read once and used for G = H/KV query
 // heads, a handful of FLOPs per byte against the ~295 the card needs before
-// its tensor cores limit.  The TPU kernel walks K blocks one after another
-// in VMEM; here B*KV blocks alone (16 at slots=8 on qwen2.5-3b) would leave
-// most of the 132 SMs idle, so the Smax range is split across blocks
-// (split-K / flash-decoding): pass 1 writes per-split partial (m, l, acc),
-// pass 2 merges them with the log-sum-exp rule.  Splits past a row's
-// horizon return at once, so a short row reads only its own live slots.
-// The caches are read in the model layout (B, Smax, KV, hd) through
-// strides: no transposed copy of the cache per layer and tick.  Any Smax is
-// taken; the ragged last tile is cut at the live range.
-//
-// K5 replaces decode_attention_paged_bkgd (_decode_paged_kernel): K1 over a
-// shared pool of (NB, bk, KV, hd) blocks, where logical key t of row b lives
-// at pool[tbl[b, t / bk], t % bk].  Bound: bytes, as K1 (live K/V rows plus
-// the table).  K1 and K5 are ONE partial kernel templated on the key-address
-// policy (dense: row base + t*stride1; paged: pool + tbl[b, t/bk]*stride0 +
-// (t%bk)*stride1), with one split plan and one combine kernel: the same
-// tiles, the same accumulation order, so under an identity table K5 equals
+// its tensor cores limit.  At serving sizes the live K/V is a few MB (a
+// microsecond at 3.35 TB/s), so what the kernel pays in practice is the
+// latency of its dependent steps; the design keeps many key rows in flight
+// and few steps in a row:
+//   * B*KV blocks alone (16 at slots=8 on qwen2.5-3b) would leave most of
+//     the 132 SMs idle, so Smax is cut into splits across blocks (split-K /
+//     flash-decoding), by one plan of host-known shapes (split_plan in
+//     decode_attention.py).  Splits past a row's horizon return at once.
+//   * Inside a block, each warp lane holds 16 bytes of a key row (hd 128
+//     bf16 = 16 lanes, hd 80 = 10 of 16), so a warp reads 32 / lanes-per-row
+//     rows at once with one vector load a lane, in the model layout (or
+//     through the table) and straight into registers: nothing is staged in
+//     shared memory and there is no barrier in the key loop.  The G query
+//     heads of the KV head sit in registers (pre-scaled by hd**-0.5 log2 e,
+//     so the softmax runs on exp2), the dot products reduce by shuffles
+//     within the row's lanes, and each row group of lanes runs its own
+//     online softmax over its keys (interleaved across the block), U rows at
+//     a step with one rescale.  The next step's K and V rows are loaded
+//     while this step's dot products reduce.
+//   * At the end the row groups of a warp merge by shuffles and the warps
+//     of a block once in shared memory, in a fixed order.  With one split
+//     the block writes the output; otherwise a combine kernel, one block per
+//     (row, query head) and one thread per output element, merges the
+//     splits' (m, l, acc) in split order with the log-sum-exp rule.  No
+//     atomics: two identical calls give bitwise-equal outputs.
+//   * Keys past a row's horizon are masked by select, never by multiplying
+//     with 0: rewound speculative lanes leave stale K/V there, and inactive
+//     rows read the trash block; a masked lane re-reads the split's first
+//     key instead of the stale row.
+// K1 and K5 are ONE partial kernel templated on the key-address policy
+// (dense: row base + t*stride1; paged: pool + tbl[b, t/bk]*stride0 +
+// (t%bk)*stride1), with one split plan and one combine: the same keys in
+// the same lanes in the same order, so under an identity table K5 equals
 // K1 bitwise.  The split's slice of the table row is loaded into shared
-// memory once, and every key row looks its block up there, so any bk >= 1
-// (one that does not divide the 64-key tile too) and any nk are taken.  The
-// pool is read in the model layout through strides (the reference wrapper's
-// swapaxes would copy the whole pool twice per layer and tick), offsets are
-// 64-bit (NB*bk*KV*hd passes 2^31 on large pools), and keys past a row's
-// horizon are masked by select, never by multiplying with 0: rewound
-// speculative lanes leave stale K/V there, and inactive rows read the trash
-// block.  Block ids must lie in [0, NB): the model reduces them mod NB.
+// memory once, so any bk >= 1 is taken.  The pool is read in the model
+// layout through strides (the reference wrapper's swapaxes would copy the
+// whole pool twice per layer and tick), offsets are 64-bit (NB*bk*KV*hd
+// passes 2^31 on large pools), and block ids must lie in [0, NB): the model
+// reduces them mod NB.  float32 and bf16 share the body (16 bytes a lane
+// are 4 or 8 elements); rows that are not 16-byte aligned, or an hd that is
+// not a multiple of those, are read element by element into the same
+// registers.
 //
 // K2 replaces cache_ring_update_bs (_ring_update_kernel): cache[b, slot[b]]
 // = new[b], cast to the cache dtype, in place.  K6 replaces
@@ -48,71 +67,121 @@
 
 namespace {
 
-constexpr int DEC_THREADS = 128;
-constexpr int DEC_TILE = 64;  // keys staged in shared memory at a time
+constexpr int DEC_WARPS = 4;
+constexpr int DEC_THREADS = 32 * DEC_WARPS;
+
+// the bits of element e of a 16-byte vector of T, in its 32-bit word
+template <typename T>
+__device__ __forceinline__ unsigned elem_bits(const T* p, int e) {
+  if constexpr (sizeof(T) == 4)
+    return __float_as_uint(p[e]);
+  else
+    return (unsigned)__bfloat16_as_ushort(p[e]) << (16 * (e & 1));
+}
+
+// Elements [0, 16 / sizeof(T)) of a row as 16 raw bytes; zeros past
+// n_valid.  vec: the row is 16-byte aligned (one vector load).
+template <typename T>
+__device__ __forceinline__ uint4 load16(const T* p, int n_valid, bool vec) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (vec && n_valid >= VEC) return __ldg(reinterpret_cast<const uint4*>(p));
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < VEC; ++e)
+    if (e < n_valid) w[e * 4 / VEC] |= elem_bits(p, e);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <typename T>
+__device__ __forceinline__ void unpack16(uint4 r, float (&f)[16 / sizeof(T)]) {
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[e] = __uint_as_float(w[e]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      f[2 * e] = __uint_as_float(w[e] << 16);
+      f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+    }
+  }
+}
 
 // PAGED = false: k/v are (B, Smax, KV, hd) rings, kv_sb the row stride.
 // PAGED = true: k/v are (NB, bk, KV, hd) pools, kv_sb the block stride, and
 // tbl (B, nk) names row b's blocks; Smax = nk * bk.
-template <typename T, bool PAGED>
+// Block (split, kvh * gchunks + gc, b) takes query heads
+// kvh*G + gc*GMAX ... (at most GMAX of them) over the split's keys.
+template <typename T, bool PAGED, int GMAX>
 __global__ void __launch_bounds__(DEC_THREADS) decode_partial_kernel(
     const T* __restrict__ q, long long q_sb, long long q_sh,
     const T* __restrict__ k, const T* __restrict__ v, long long kv_sb,
     long long kv_ss, long long kv_sh, const int* __restrict__ tbl,
     long long tbl_sb, int bk, const int* __restrict__ index,
-    float* __restrict__ part_acc, float* __restrict__ part_ml, int KV, int G,
-    int hd, int Smax, int split_len, int n_splits, float scale) {
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+    T* __restrict__ out, float* __restrict__ part_acc,
+    float* __restrict__ part_ml, int KV, int G, int hd, int lpr_log2,
+    int Smax, int split_len, int n_splits, float scale_log2, int vec) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int U = GMAX >= 8 ? 2 : 4;  // key rows a lane group has in flight
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int gchunks = (G + GMAX - 1) / GMAX;
+  const int kvh = blockIdx.y / gchunks;
+  const int g0 = (blockIdx.y - kvh * gchunks) * GMAX;
+  const int ng = min(GMAX, G - g0);
+  const int H = KV * G, h0 = kvh * G + g0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int hdp = hd + 1;  // padded row: conflict-free column reads
+  const int lpr = 1 << lpr_log2;            // lanes per key row
+  const int rpw = 32 >> lpr_log2;           // key rows a warp reads at once
+  const int sub = lane >> lpr_log2, d0 = (lane & (lpr - 1)) * VEC;
+  const int nd = hd - d0;                   // this lane's valid elements
 
   extern __shared__ float smem[];
-  float* qs = smem;                   // G * hd, pre-scaled query heads
-  float* kvs = qs + G * hd;           // DEC_TILE * hdp, K then V tile
-  float* ss = kvs + DEC_TILE * hdp;   // G * DEC_TILE, scores then probs
-  float* acc = ss + G * DEC_TILE;     // G * hd
-  float* m_s = acc + G * hd;          // G running max
-  float* l_s = m_s + G;               // G running sum
-  float* a_s = l_s + G;               // G rescale of this tile
-  int* tbl_s = (int*)(a_s + G);       // PAGED: the split's block ids
+  float* ml_s = smem;                          // [DEC_WARPS][GMAX][2]
+  float* acc_s = ml_s + DEC_WARPS * GMAX * 2;  // [DEC_WARPS][GMAX][hd]
+  int* tbl_s = (int*)(acc_s + DEC_WARPS * GMAX * hd);  // PAGED: split's ids
 
-  const long long pbase = ((long long)b * KV + kvh) * n_splits + split;
-  float* pacc = part_acc + pbase * G * hd;
-  float* pml = part_ml + pbase * G * 2;
+  // q's loads first: they do not wait on the index
+  float qv[GMAX][VEC];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (g < ng && nd > 0)
+      raw = load16(q + b * q_sb + (long long)(h0 + g) * q_sh + d0, nd, vec);
+    unpack16<T>(raw, qv[g]);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) qv[g][e] *= scale_log2;
+  }
 
   const int idx = index[b];
   const int n_live = idx < Smax ? idx + 1 : Smax;
   const int lo = split * split_len;
   const int hi = min(lo + split_len, n_live);
+  const long long prow = (long long)b * H + h0;  // (b, h0) row of out/parts
   if (lo >= hi) {  // the whole split lies past this row's horizon
-    for (int i = tid; i < G; i += blockDim.x) {
-      pml[2 * i] = RT_NEG;
-      pml[2 * i + 1] = 0.f;
+    for (int i = tid; i < ng * hd; i += DEC_THREADS) {
+      const long long r = prow + i / hd;
+      if (n_splits == 1)
+        out[r * hd + i % hd] = from_f32<T>(0.f);
+      else
+        part_acc[(r * n_splits + split) * hd + i % hd] = 0.f;
     }
-    for (int i = tid; i < G * hd; i += blockDim.x) pacc[i] = 0.f;
+    if (n_splits > 1)
+      for (int g = tid; g < ng; g += DEC_THREADS) {
+        part_ml[((prow + g) * n_splits + split) * 2] = RT_NEG;
+        part_ml[((prow + g) * n_splits + split) * 2 + 1] = 0.f;
+      }
     return;
   }
 
-  for (int i = tid; i < G * hd; i += blockDim.x) {
-    const int g = i / hd, d = i - g * hd;
-    qs[i] = to_f32(q[b * q_sb + (long long)(kvh * G + g) * q_sh + d]) * scale;
-    acc[i] = 0.f;
-  }
-  for (int i = tid; i < G; i += blockDim.x) {
-    m_s[i] = RT_NEG;
-    l_s[i] = 0.f;
-  }
-  // key-address policy: the offset of key t's (hd,) row in k and v
-  const int first = lo / (PAGED ? bk : 1);
+  const int first = PAGED ? lo / bk : 0;
   if constexpr (PAGED) {
-    for (int i = tid; i <= (hi - 1) / bk - first; i += blockDim.x)
+    for (int i = tid; i <= (hi - 1) / bk - first; i += DEC_THREADS)
       tbl_s[i] = tbl[b * tbl_sb + first + i];
+    __syncthreads();
   }
-  __syncthreads();
-
+  // key-address policy: the offset of key t's row in k and v, plus d0
   const long long base =
-      (PAGED ? 0 : (long long)b * kv_sb) + (long long)kvh * kv_sh;
+      (PAGED ? 0 : (long long)b * kv_sb) + (long long)kvh * kv_sh + d0;
   auto key_row = [&](int t) -> long long {
     if constexpr (PAGED)
       return base + (long long)tbl_s[t / bk - first] * kv_sb +
@@ -120,121 +189,215 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_partial_kernel(
     else
       return base + (long long)t * kv_ss;
   };
-  for (int t0 = lo; t0 < hi; t0 += DEC_TILE) {
-    const int nt = min(DEC_TILE, hi - t0);  // every key of [lo, hi) is live
-    for (int i = tid; i < nt * hd; i += blockDim.x) {
-      const int c = i / hd, d = i - c * hd;
-      kvs[c * hdp + d] = to_f32(k[key_row(t0 + c) + d]);
-    }
-    __syncthreads();
-    for (int i = tid; i < G * DEC_TILE; i += blockDim.x) {
-      const int g = i / DEC_TILE, c = i - g * DEC_TILE;
-      float s = RT_NEG_INF;
-      if (c < nt) {
-        const float* qr = qs + g * hd;
-        const float* kr = kvs + c * hdp;
-        float dot = 0.f;
-        for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot;
-      }
-      ss[i] = s;
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += nwarps) {  // one warp per query head
-      float* sr = ss + g * DEC_TILE;
-      float mx = RT_NEG;
-      for (int c = lane; c < nt; c += 32) mx = fmaxf(mx, sr[c]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int c = lane; c < DEC_TILE; c += 32) {
-        const float p = c < nt ? expf(sr[c] - m_new) : 0.f;
-        sr[c] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[g] = alpha;
-        l_s[g] = alpha * l_s[g] + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < nt * hd; i += blockDim.x) {
-      const int c = i / hd, d = i - c * hd;
-      kvs[c * hdp + d] = to_f32(v[key_row(t0 + c) + d]);
-    }
-    __syncthreads();
-    for (int i = tid; i < G * hd; i += blockDim.x) {
-      const int g = i / hd, d = i - g * hd;
-      const float* pr = ss + g * DEC_TILE;
-      float o = 0.f;
-      for (int c = 0; c < nt; ++c) o = fmaf(pr[c], kvs[c * hdp + d], o);
-      acc[i] = acc[i] * a_s[g] + o;
-    }
-    __syncthreads();
+
+  float m[GMAX], l[GMAX], acc[GMAX][VEC];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    m[g] = RT_NEG;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
   }
-  for (int i = tid; i < G * hd; i += blockDim.x) pacc[i] = acc[i];
-  for (int i = tid; i < G; i += blockDim.x) {
-    pml[2 * i] = m_s[i];
-    pml[2 * i + 1] = l_s[i];
+
+  // keys are dealt to lane groups in turn: group (warp, sub) takes
+  // lo + warp*rpw + sub + i*stride; a step takes U of them
+  const int stride = DEC_WARPS * rpw;
+  const int step = U * stride;
+  auto load_rows = [&](const T* src, int kbase, uint4 (&r)[U]) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = kbase + sub + u * stride;
+      r[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (nd > 0) r[u] = load16(src + key_row(t < hi ? t : lo), nd, vec);
+    }
+  };
+  uint4 kr[U], vr[U];
+  int kbase = lo + warp * rpw;
+  if (kbase < hi) {
+    load_rows(k, kbase, kr);
+    load_rows(v, kbase, vr);
+  }
+  for (; kbase < hi; kbase += step) {  // warp-uniform: shuffles below
+    uint4 kn[U], vn[U];  // the next step's rows, in flight meanwhile
+    if (kbase + step < hi) {
+      load_rows(k, kbase + step, kn);
+      load_rows(v, kbase + step, vn);
+    }
+
+    float s[U][GMAX];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kf[VEC];
+      unpack16<T>(kr[u], kf);
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) dot = fmaf(qv[g][e], kf[e], dot);
+        s[u][g] = dot;
+      }
+    }
+    for (int off = 1; off < lpr; off <<= 1)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g)
+          s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], off);
+
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      float mx = m[g];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (kbase + sub + u * stride >= hi) s[u][g] = RT_NEG_INF;
+        mx = fmaxf(mx, s[u][g]);
+      }
+      const float alpha = exp2f(m[g] - mx);
+      m[g] = mx;
+      float p[U], psum = 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        p[u] = exp2f(s[u][g] - mx);  // masked: exp2(-inf) = 0
+        psum += p[u];
+      }
+      l[g] = l[g] * alpha + psum;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[g][e] *= alpha;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float vf[VEC];
+        unpack16<T>(vr[u], vf);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p[u], vf[e], acc[g][e]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      kr[u] = kn[u];
+      vr[u] = vn[u];
+    }
+  }
+
+  // merge the warp's lane groups (butterfly over the group index)
+  for (int off = lpr; off < 32; off <<= 1)
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float lo_ = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float M = fmaxf(m[g], mo);
+      const float wa = exp2f(m[g] - M), wb = exp2f(mo - M);
+      m[g] = M;
+      l[g] = l[g] * wa + lo_ * wb;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+        acc[g][e] = acc[g][e] * wa + ao * wb;
+      }
+    }
+  if (sub == 0) {
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      if (g >= ng) break;
+      if (lane == 0) {
+        ml_s[(warp * GMAX + g) * 2] = m[g];
+        ml_s[(warp * GMAX + g) * 2 + 1] = l[g];
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        if (e < nd) acc_s[(warp * GMAX + g) * hd + d0 + e] = acc[g][e];
+    }
+  }
+  __syncthreads();
+  // merge the block's warps in warp order
+  for (int i = tid; i < ng * hd; i += DEC_THREADS) {
+    const int g = i / hd, d = i - g * hd;
+    float M = RT_NEG;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) M = fmaxf(M, ml_s[(w * GMAX + g) * 2]);
+    float L = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) {
+      const float wt = exp2f(ml_s[(w * GMAX + g) * 2] - M);
+      L += wt * ml_s[(w * GMAX + g) * 2 + 1];
+      o += wt * acc_s[(w * GMAX + g) * hd + d];
+    }
+    const long long r = prow + g;
+    if (n_splits == 1) {
+      out[r * hd + d] = from_f32<T>(o / fmaxf(L, 1e-30f));
+    } else {
+      part_acc[(r * n_splits + split) * hd + d] = o;
+      if (d == 0) {
+        part_ml[(r * n_splits + split) * 2] = M;
+        part_ml[(r * n_splits + split) * 2 + 1] = L;
+      }
+    }
   }
 }
 
+// One block per (query head, row), one thread per output element: the
+// splits' (m, l) pairs are read once into shared memory, their weights
+// exp2(m_s - M) computed once, and every element sums its splits in split
+// order.  An empty split has m = RT_NEG and l = acc = 0.
 template <typename T>
 __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
                                       const float* __restrict__ part_ml,
-                                      T* __restrict__ out, int KV, int G,
-                                      int hd, int n_splits) {
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const long long base = ((long long)b * KV + kvh) * n_splits;
-  for (int i = threadIdx.x; i < G * hd; i += blockDim.x) {
-    const int g = i / hd;
-    float M = RT_NEG;
-    for (int s = 0; s < n_splits; ++s)
-      M = fmaxf(M, part_ml[((base + s) * G + g) * 2]);
-    float L = 0.f, o = 0.f;
-    for (int s = 0; s < n_splits; ++s) {
-      const float* ml = part_ml + ((base + s) * G + g) * 2;
-      const float w = expf(ml[0] - M);  // an empty split has l = acc = 0
-      L += w * ml[1];
-      o += w * part_acc[(base + s) * G * hd + i];
-    }
-    out[((long long)b * KV + kvh) * G * hd + i] =
-        from_f32<T>(o / fmaxf(L, 1e-30f));
+                                      T* __restrict__ out, int H, int hd,
+                                      int n_splits) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const long long r = (long long)b * H + h;
+  extern __shared__ float cs[];
+  float* ml = cs;                 // [n_splits][2]
+  float* w = cs + 2 * n_splits;   // [n_splits]
+  for (int i = threadIdx.x; i < 2 * n_splits; i += blockDim.x)
+    ml[i] = part_ml[r * n_splits * 2 + i];
+  __syncthreads();
+  float M = RT_NEG;
+  for (int s = 0; s < n_splits; ++s) M = fmaxf(M, ml[2 * s]);
+  for (int s = threadIdx.x; s < n_splits; s += blockDim.x)
+    w[s] = exp2f(ml[2 * s] - M);
+  __syncthreads();
+  float L = 0.f;
+  for (int s = 0; s < n_splits; ++s) L += w[s] * ml[2 * s + 1];
+  const float inv = 1.f / fmaxf(L, 1e-30f);
+  const float* pa = part_acc + r * n_splits * hd;
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    float o = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < n_splits; ++s) o = fmaf(w[s], pa[s * hd + d], o);
+    out[r * hd + d] = from_f32<T>(o * inv);
   }
 }
 
-template <typename T, bool PAGED>
+template <typename T, bool PAGED, int GMAX>
 cudaError_t launch_decode(const void* q, long long q_sb, long long q_sh,
                           const void* k, const void* v, long long kv_sb,
                           long long kv_ss, long long kv_sh, const int* tbl,
                           long long tbl_sb, int bk, const int* index,
                           void* out, float* part_acc, float* part_ml, int B,
-                          int KV, int G, int hd, int Smax, int split_len,
-                          int n_splits, cudaStream_t stream) {
+                          int KV, int G, int hd, int lpr_log2, int Smax,
+                          int split_len, int n_splits, int vec,
+                          cudaStream_t stream) {
   static size_t granted = 0;
   // a split of split_len keys spans at most split_len / bk + 2 blocks
   const int n_tbl = PAGED ? split_len / bk + 2 : 0;
-  const size_t smem =
-      (size_t)(2 * G * hd + DEC_TILE * (hd + 1) + G * DEC_TILE + 3 * G) *
-          sizeof(float) +
-      (size_t)n_tbl * sizeof(int);
+  const size_t smem = (size_t)DEC_WARPS * GMAX * (hd + 2) * sizeof(float) +
+                      (size_t)n_tbl * sizeof(int);
   cudaError_t err =
-      rt_allow_smem(decode_partial_kernel<T, PAGED>, smem, &granted);
+      rt_allow_smem(decode_partial_kernel<T, PAGED, GMAX>, smem, &granted);
   if (err != cudaSuccess) return err;
-  const float scale = 1.0f / sqrtf((float)hd);
-  decode_partial_kernel<T, PAGED><<<dim3(n_splits, KV, B), DEC_THREADS, smem,
-                                    stream>>>(
-      (const T*)q, q_sb, q_sh, (const T*)k, (const T*)v, kv_sb, kv_ss, kv_sh,
-      tbl, tbl_sb, bk, index, part_acc, part_ml, KV, G, hd, Smax, split_len,
-      n_splits, scale);
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
+  const int gchunks = (G + GMAX - 1) / GMAX;
+  decode_partial_kernel<T, PAGED, GMAX>
+      <<<dim3(n_splits, KV * gchunks, B), DEC_THREADS, smem, stream>>>(
+          (const T*)q, q_sb, q_sh, (const T*)k, (const T*)v, kv_sb, kv_ss,
+          kv_sh, tbl, tbl_sb, bk, index, (T*)out, part_acc, part_ml, KV, G,
+          hd, lpr_log2, Smax, split_len, n_splits, scale_log2, vec);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_combine_kernel<T><<<dim3(KV, B), 128, 0, stream>>>(
-      part_acc, part_ml, (T*)out, KV, G, hd, n_splits);
+  if (err != cudaSuccess || n_splits == 1) return err;
+  const int threads = min(256, max(32, (hd + 31) / 32 * 32));
+  decode_combine_kernel<T><<<dim3(KV * G, B), threads,
+                             3 * n_splits * sizeof(float), stream>>>(
+      part_acc, part_ml, (T*)out, KV * G, hd, n_splits);
   return cudaGetLastError();
 }
 
@@ -281,23 +444,51 @@ cudaError_t launch_rows(void* cache, long long c_s0, long long c_s1,
   return cudaGetLastError();
 }
 
+template <typename T, bool PAGED>
+cudaError_t launch_decode_g(const void* q, long long q_sb, long long q_sh,
+                            const void* k, const void* v, long long kv_sb,
+                            long long kv_ss, long long kv_sh, const int* tbl,
+                            long long tbl_sb, int bk, const int* index,
+                            void* out, float* part_acc, float* part_ml, int B,
+                            int KV, int G, int hd, int gmax, int lpr_log2,
+                            int Smax, int split_len, int n_splits, int vec,
+                            cudaStream_t stream) {
+#define RT_DEC_G(GM)                                                          \
+  case GM:                                                                    \
+    return launch_decode<T, PAGED, GM>(                                       \
+        q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sh, tbl, tbl_sb, bk, index, out, \
+        part_acc, part_ml, B, KV, G, hd, lpr_log2, Smax, split_len, n_splits, \
+        vec, stream);
+  switch (gmax) {
+    RT_DEC_G(1)
+    RT_DEC_G(2)
+    RT_DEC_G(4)
+    RT_DEC_G(8)
+  }
+#undef RT_DEC_G
+  return cudaErrorInvalidValue;
+}
+
 template <bool PAGED>
 int decode_entry(const void* q, long long q_sb, long long q_sh, const void* k,
                  const void* v, long long kv_sb, long long kv_ss,
                  long long kv_sh, const int* tbl, long long tbl_sb, int bk,
                  const int* index, void* out, float* part_acc,
                  float* part_ml, int dtype, int B, int KV, int G, int hd,
-                 int Smax, int split_len, int n_splits, void* stream) {
+                 int gmax, int lpr_log2, int Smax, int split_len,
+                 int n_splits, int vec, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
     case RT_F32:
-      return launch_decode<float, PAGED>(
+      return launch_decode_g<float, PAGED>(
           q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sh, tbl, tbl_sb, bk, index,
-          out, part_acc, part_ml, B, KV, G, hd, Smax, split_len, n_splits, st);
+          out, part_acc, part_ml, B, KV, G, hd, gmax, lpr_log2, Smax,
+          split_len, n_splits, vec, st);
     case RT_BF16:
-      return launch_decode<__nv_bfloat16, PAGED>(
+      return launch_decode_g<__nv_bfloat16, PAGED>(
           q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sh, tbl, tbl_sb, bk, index,
-          out, part_acc, part_ml, B, KV, G, hd, Smax, split_len, n_splits, st);
+          out, part_acc, part_ml, B, KV, G, hd, gmax, lpr_log2, Smax,
+          split_len, n_splits, vec, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -323,12 +514,12 @@ extern "C" int rt_decode_attention(
     const void* q, long long q_sb, long long q_sh, const void* k,
     const void* v, long long kv_sb, long long kv_ss, long long kv_sh,
     const int* index, void* out, float* part_acc, float* part_ml, int dtype,
-    int B, int KV, int G, int hd, int Smax, int split_len, int n_splits,
-    void* stream) {
+    int B, int KV, int G, int hd, int gmax, int lpr_log2, int Smax,
+    int split_len, int n_splits, int vec, void* stream) {
   return decode_entry<false>(q, q_sb, q_sh, k, v, kv_sb, kv_ss, kv_sh,
                              nullptr, 0, 1, index, out, part_acc, part_ml,
-                             dtype, B, KV, G, hd, Smax, split_len, n_splits,
-                             stream);
+                             dtype, B, KV, G, hd, gmax, lpr_log2, Smax,
+                             split_len, n_splits, vec, stream);
 }
 
 extern "C" int rt_decode_attention_paged(
@@ -336,10 +527,12 @@ extern "C" int rt_decode_attention_paged(
     const void* v, long long kv_s0, long long kv_s1, long long kv_sh,
     const int* tbl, long long tbl_sb, int bk, const int* index, void* out,
     float* part_acc, float* part_ml, int dtype, int B, int KV, int G, int hd,
-    int Smax, int split_len, int n_splits, void* stream) {
+    int gmax, int lpr_log2, int Smax, int split_len, int n_splits, int vec,
+    void* stream) {
   return decode_entry<true>(q, q_sb, q_sh, k, v, kv_s0, kv_s1, kv_sh, tbl,
                             tbl_sb, bk, index, out, part_acc, part_ml, dtype,
-                            B, KV, G, hd, Smax, split_len, n_splits, stream);
+                            B, KV, G, hd, gmax, lpr_log2, Smax, split_len,
+                            n_splits, vec, stream);
 }
 
 extern "C" int rt_cache_ring_update(void* cache, int cache_dtype,

@@ -6,8 +6,9 @@ K2 ``cache_ring_update_bs``, K5 ``decode_attention_paged_bkgd`` and K6
 ``cache_paged_update_bs``.  The CUDA kernels live in
 ``csrc/decode_attention.cu``, whose head note says what bounds them on the
 H100 and what their design does about it.  K1 and K5 are one partial
-kernel with two key-address policies, one split plan and one combine
-kernel; K2 and K6 one row-write body.
+kernel with two key-address policies (16-byte vector loads straight into
+registers, one online softmax per lane group, no atomics), one split plan
+and one combine kernel; K2 and K6 one row-write body.
 
 Each wrapper runs its kernel on CUDA tensors and its plain PyTorch version
 (``repro_torch.kernels.ref``) on CPU tensors; ``launches`` counts kernel
@@ -17,13 +18,16 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _lib, ref
 
-DEC_TILE = 64            # keys per shared-memory tile, as in the CUDA source
-BLOCKS_PER_SM = 4        # split-K target: this many blocks per SM
+DEC_TILE = 64            # split granule: splits are whole tiles of keys
+BLOCKS_PER_SM = 2        # split-K target: about this many blocks per SM
+MAX_SPLIT_LEN = 4096     # keys one block walks at most
+GMAX = 8                 # query heads a block holds in registers
 
 
 @functools.lru_cache(maxsize=None)
@@ -33,12 +37,65 @@ def _sm_count(device_index: int) -> int:
 
 def split_plan(B: int, KV: int, Smax: int, sm_count: int) -> tuple[int, int]:
     """(split_len, n_splits): cut Smax into tile-aligned splits so that the
-    B*KV*n_splits blocks fill about BLOCKS_PER_SM blocks per SM."""
+    B*KV*n_splits blocks come to about BLOCKS_PER_SM blocks per SM, each
+    split at most MAX_SPLIT_LEN keys.  Planned from shapes alone, never
+    from the index, and shared by K1 and K5 (their bitwise equality rests
+    on it)."""
     max_splits = math.ceil(Smax / DEC_TILE)
     want = math.ceil(BLOCKS_PER_SM * sm_count / max(B * KV, 1))
-    n = min(max_splits, max(1, want))
+    n = min(max_splits, max(1, want, math.ceil(Smax / MAX_SPLIT_LEN)))
     split_len = math.ceil(math.ceil(Smax / n) / DEC_TILE) * DEC_TILE
     return split_len, math.ceil(Smax / split_len)
+
+
+class Geometry(NamedTuple):
+    """How csrc/decode_attention.cu lays one call out: ``lanes_per_row``
+    lanes hold 16 bytes of a key row each, a block takes ``gmax`` query
+    heads (``gchunks`` blocks per KV head), and Smax is cut by
+    ``split_plan``."""
+    lanes_per_row: int
+    gmax: int
+    gchunks: int
+    split_len: int
+    n_splits: int
+
+
+def geometry(B: int, H: int, KV: int, hd: int, Smax: int, dtype,
+             sm_count: int) -> Geometry:
+    """The launch layout of K1 and K5 (one function for both); raises for
+    an hd wider than a warp's 32 lanes of 16 bytes."""
+    per16 = 16 // torch.empty((), dtype=dtype).element_size()
+    lanes = math.ceil(hd / per16)
+    if lanes > 32:
+        raise ValueError(f"hd {hd} in {dtype}: at most {32 * per16}")
+    G = H // KV
+    gmax = min(GMAX, 1 << (G - 1).bit_length())
+    gchunks = math.ceil(G / gmax)
+    split_len, n_splits = split_plan(B, KV * gchunks, Smax, sm_count)
+    return Geometry(1 << (lanes - 1).bit_length(), gmax, gchunks, split_len,
+                    n_splits)
+
+
+def _launch(fn, q, k_cache, v_cache, index, KV, Smax, table_args):
+    """Shared body of the K1 and K5 wrappers: plan, allocate, launch."""
+    B, _, H, hd = q.shape
+    code = _lib.dtype_code(q, k_cache, v_cache)
+    idx = _lib.per_row(index, q, torch.int32)
+    geo = geometry(B, H, KV, hd, Smax, q.dtype,
+                   _sm_count(q.device.index or 0))
+    out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
+    n = geo.n_splits if geo.n_splits > 1 else 0    # one split writes out
+    part_acc = torch.empty((B, H, n, hd), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B, H, n, 2), dtype=torch.float32, device=q.device)
+    err = fn(q.data_ptr(), q.stride(0), q.stride(2), k_cache.data_ptr(),
+             v_cache.data_ptr(), k_cache.stride(0), k_cache.stride(1),
+             k_cache.stride(2), *table_args, idx.data_ptr(), out.data_ptr(),
+             part_acc.data_ptr(), part_ml.data_ptr(), code, B, KV, H // KV,
+             hd, geo.gmax, geo.lanes_per_row.bit_length() - 1, Smax,
+             geo.split_len, geo.n_splits,
+             int(_lib.rows_16b(hd, q, k_cache, v_cache)), _lib.stream_ptr(q))
+    return out, err
 
 
 def decode_attention(q, k_cache, v_cache, index):
@@ -58,22 +115,8 @@ def decode_attention(q, k_cache, v_cache, index):
         raise ValueError("head_dim must be contiguous and K/V strides equal")
     if not (k_cache.is_cuda and v_cache.is_cuda):
         raise ValueError("q and the caches must lie on one CUDA device")
-    code = _lib.dtype_code(q, k_cache, v_cache)
-    idx = _lib.per_row(index, q, torch.int32)
-    G = H // KV
-    split_len, n_splits = split_plan(B, KV, Smax,
-                                     _sm_count(q.device.index or 0))
-    out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
-    part_acc = torch.empty((B, KV, n_splits, G, hd), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B, KV, n_splits, G, 2), dtype=torch.float32,
-                          device=q.device)
-    err = _lib.load().rt_decode_attention(
-        q.data_ptr(), q.stride(0), q.stride(2), k_cache.data_ptr(),
-        v_cache.data_ptr(), k_cache.stride(0), k_cache.stride(1),
-        k_cache.stride(2), idx.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), code, B, KV, G, hd, Smax,
-        split_len, n_splits, _lib.stream_ptr(q))
+    out, err = _launch(_lib.load().rt_decode_attention, q, k_cache, v_cache,
+                       index, KV, Smax, ())
     _lib.check(err, "decode_attention")
     decode_attention.launches += 1
     return out
@@ -104,25 +147,12 @@ def decode_attention_paged(q, k_cache, v_cache, tbl, index):
     if not (k_cache.is_cuda and v_cache.is_cuda and tbl.is_cuda):
         raise ValueError("q, the pools and the table must lie on one CUDA "
                          "device")
-    code = _lib.dtype_code(q, k_cache, v_cache)
-    idx = _lib.per_row(index, q, torch.int32)
     tbl = tbl.to(torch.int32)
     if tbl.stride(1) != 1:
         tbl = tbl.contiguous()
-    G, Smax = H // KV, nk * bk
-    split_len, n_splits = split_plan(B, KV, Smax,
-                                     _sm_count(q.device.index or 0))
-    out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
-    part_acc = torch.empty((B, KV, n_splits, G, hd), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B, KV, n_splits, G, 2), dtype=torch.float32,
-                          device=q.device)
-    err = _lib.load().rt_decode_attention_paged(
-        q.data_ptr(), q.stride(0), q.stride(2), k_cache.data_ptr(),
-        v_cache.data_ptr(), k_cache.stride(0), k_cache.stride(1),
-        k_cache.stride(2), tbl.data_ptr(), tbl.stride(0), bk, idx.data_ptr(),
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), code, B, KV,
-        G, hd, Smax, split_len, n_splits, _lib.stream_ptr(q))
+    out, err = _launch(_lib.load().rt_decode_attention_paged, q, k_cache,
+                       v_cache, index, KV, nk * bk, (tbl.data_ptr(),
+                                                      tbl.stride(0), bk))
     _lib.check(err, "decode_attention_paged")
     decode_attention_paged.launches += 1
     return out

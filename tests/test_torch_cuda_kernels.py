@@ -6,9 +6,11 @@ it runs on a machine with a card and no JAX:
         tests/test_torch_cuda_kernels.py
 
 Tolerances: attention atol = rtol = 1e-4 in float32 and 2e-2 in bf16 (the
-plain version rounds its probabilities to the value dtype, the kernels keep
-them in float32); the paged kernel equal to the dense one bitwise under an
-identity table; the ring-slot and paged writes and greedy sampling exact;
+plain version rounds its normalised probabilities to the value dtype, the
+decode kernels keep them in float32 and the prefill kernel rounds the
+unnormalised ones to bf16 for its tensor-core product); the paged kernel
+equal to the dense one bitwise under an identity table, and two identical
+decode calls equal bitwise; the ring-slot and paged writes and greedy sampling exact;
 the sampler's hash bits bitwise and its noise within 1e-6; the SSD scan
 (float32) atol = rtol = 3e-4, the reference's own.
 """
@@ -35,6 +37,20 @@ def _mixed_index(B, Smax, seed):
     return np.where(np.arange(B) % 2 == 0, fresh, wrapped).astype(np.int32)
 
 
+def _index(regime, B, Smax, seed):
+    """Decode indices: every row fresh (slot <= index < Smax), every row
+    wrapped (index >= Smax: all slots live), every row at index 0 (one live
+    key), or alternating fresh and wrapped."""
+    rng = np.random.default_rng(seed)
+    if regime == "fresh":
+        return rng.integers(0, Smax, size=B).astype(np.int32)
+    if regime == "wrapped":
+        return rng.integers(Smax, 4 * Smax, size=B).astype(np.int32)
+    if regime == "zero":
+        return np.zeros(B, np.int32)
+    return _mixed_index(B, Smax, seed)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -43,37 +59,90 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["mixed", "fresh", "wrapped", "zero"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("B,Smax,KV,G,hd", [(8, 1024, 2, 8, 128),
                                             (3, 100, 2, 2, 16),
                                             (2, 4096, 8, 4, 80),
-                                            (8, 1024, 32, 1, 80)])
+                                            (8, 1024, 32, 1, 80),
+                                            (2, 1000, 4, 5, 64),
+                                            (2, 300, 1, 16, 128),
+                                            (3, 50, 2, 2, 10)])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, tol, B, Smax, KV,
-                                               G, hd):
+                                               G, hd, regime):
+    """Smax 100, 1000, 300 and 50 are not multiples of the 64-key tile; G 5
+    and 16 leave a block's register heads part-empty or take two blocks; hd
+    10 is read element by element."""
     q, kc, vc = (torch.from_numpy(a).to(cuda, dtype)
                  for a in _qkv(B + hd, B, 1, Smax, KV * G, KV, hd))
-    index = torch.as_tensor(_mixed_index(B, Smax, seed=B), device=cuda)
+    index = torch.as_tensor(_index(regime, B, Smax, seed=B), device=cuda)
     out = ops.decode_attention(q, kc, vc, index)
     want = ref.decode_attention_ref(q, kc, vc, index)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+# K4 cases (Sq, H, KV, hd, window): the sweep over Sq, hd, G and the window
+# (KV 2; Sq 15/16/17 straddle a warp's 16 rows, 200 and 1000 ragged block
+# tiles), then shapes of the configs (h2o-danube's G 4, zamba2's 32 heads).
+FLASH_CASES = [(Sq, 2 * G, 2, hd, window)
+               for Sq in (1, 15, 16, 17, 64, 200, 1000)
+               for hd in (8, 16, 64, 80, 128)
+               for G in (1, 2, 8)
+               for window in (None, 64)] + [
+    (200, 32, 8, 80, 64), (37, 4, 2, 8, None), (200, 32, 32, 80, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("Sq,H,KV,hd,window", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, Sq, H, KV, hd,
+                                              window):
+    """bf16 runs the tensor-core body (hd padded to 16), float32 the exact
+    FMA body."""
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in _qkv(Sq + hd, 1, Sq, Sq, H, KV, hd))
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("Sq,H,KV,hd,window", [(200, 16, 2, 128, None),
-                                               (64, 16, 2, 128, None),
-                                               (200, 32, 8, 80, 64),
-                                               (37, 4, 2, 8, None),
-                                               (200, 32, 32, 80, None)])
-def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, Sq, H, KV, hd,
-                                              window):
-    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
-               for a in _qkv(Sq + hd, 1, Sq, Sq, H, KV, hd))
-    out = ops.flash_attention(q, k, v, causal=True, window=window)
-    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
-    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+def test_attention_kernels_read_unaligned_rows(cuda, dtype, tol):
+    """Rows that do not start on 16-byte boundaries (views into a wider
+    tensor, row pitch hd + 1) take the element-by-element loads of K4 and
+    K1: the same results as the plain versions."""
+    B, S, H, KV, hd = 2, 100, 8, 2, 64
+    rng = np.random.default_rng(11)
+    wide = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape[:-1] + (shape[-1] + 1,), dtype=np.float32)).to(
+            cuda, dtype)[..., :shape[-1]]
+    q, k, v = wide(B, S, H, hd), wide(B, S, KV, hd), wide(B, S, KV, hd)
+    assert q.stride(2) == hd + 1
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, causal=True).float(),
+        ref.flash_attention_ref(q, k, v, causal=True).float(),
+        atol=tol, rtol=tol)
+    qd = q[:, :1]
+    index = torch.as_tensor(_mixed_index(B, S, seed=3), device=cuda)
+    torch.testing.assert_close(
+        ops.decode_attention(qd, k, v, index).float(),
+        ref.decode_attention_ref(qd, k, v, index).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_smem_reckoning_matches_the_source(cuda, dtype):
+    """The wrapper's shared-memory reckoning is the CUDA source's own."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import smem_bytes
+    lib = _lib.load()
+    for hd in range(1, 257):
+        assert (lib.rt_flash_smem_bytes(_lib.DTYPE_CODES[dtype], hd)
+                == smem_bytes(dtype, hd)), hd
 
 
 @pytest.mark.cuda
@@ -105,14 +174,18 @@ def _paged_inputs(cuda, dtype, B, nk, bk, KV, G, hd, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["mixed", "fresh", "wrapped", "zero"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("bk", [4, 6, 8, 16, 64])
-def test_decode_attention_paged_kernel_matches_plain(cuda, dtype, tol, bk):
+def test_decode_attention_paged_kernel_matches_plain(cuda, dtype, tol, bk,
+                                                     regime):
+    """nk * bk = 1020 (bk 6) is not a multiple of the 64-key tile."""
     B, KV, G, hd = 8, 2, 8, 128
     nk = max(1, 1024 // bk)
-    q, kp, vp, tbl, index = _paged_inputs(cuda, dtype, B, nk, bk, KV, G, hd,
-                                          seed=bk)
+    q, kp, vp, tbl, _ = _paged_inputs(cuda, dtype, B, nk, bk, KV, G, hd,
+                                      seed=bk)
+    index = torch.as_tensor(_index(regime, B, nk * bk, seed=bk), device=cuda)
     out = ops.decode_attention_paged(q, kp, vp, tbl, index)
     want = ref.decode_attention_paged_ref(q, kp, vp, tbl, index)
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
@@ -148,6 +221,23 @@ def test_decode_attention_paged_kernel_equals_dense_bitwise(cuda, dtype, bk):
                                        vc.reshape(B * nk, bk, KV, hd), tbl,
                                        index)
     assert torch.equal(dense, paged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,KV,G,hd,bk,nk", [(8, 2, 8, 128, 8, 128),
+                                             (8, 32, 1, 80, 8, 128)])
+def test_decode_attention_kernels_are_deterministic(cuda, dtype, B, KV, G, hd,
+                                                    bk, nk):
+    """Two identical K1 calls, and two identical K5 calls, give bitwise
+    equal outputs (the splits merge in a fixed order, without atomics)."""
+    q, kp, vp, tbl, index = _paged_inputs(cuda, dtype, B, nk, bk, KV, G, hd,
+                                          seed=hd)
+    kc, vc = (p[1:].reshape(B, nk * bk, KV, hd) for p in (kp, vp))
+    assert torch.equal(ops.decode_attention(q, kc, vc, index),
+                       ops.decode_attention(q, kc, vc, index))
+    assert torch.equal(ops.decode_attention_paged(q, kp, vp, tbl, index),
+                       ops.decode_attention_paged(q, kp, vp, tbl, index))
 
 
 @pytest.mark.cuda
