@@ -8,9 +8,11 @@ Phases; any failure exits non-zero and prints no result line:
 1. build    — compile the Hopper kernels from ``src/repro_torch/kernels/csrc``.
 2. kernels  — hold each kernel against its plain PyTorch version on the
               card, in bf16 at the shapes qwen2.5-3b serving gives it (plus
-              one h2o-danube shape), the SSD scan (K7) in float32 at the
-              shapes zamba2-2.7b's prefill gives it, and time kernel, plain
-              version and one library call doing the same work; then the
+              one h2o-danube shape), the sampler (K3) at qwen2.5-3b's and
+              zamba2-2.7b's vocabularies, the SSD scan (K7) in float32 at the
+              shapes zamba2-2.7b's prefill gives it (timed at 64, 200 and
+              2048 tokens), and time kernel, plain version and one library
+              call doing the same work; then the
               attention kernels again at zamba2's shared-attention shapes
               (32 heads, G = 1, hd 80).  Tolerances: decode, paged decode
               and flash attention atol = rtol = 2e-2 (bf16 outputs; the
@@ -20,7 +22,8 @@ Phases; any failure exits non-zero and prints no result line:
               writes and greedy sampling exact; the sampler's hash bits
               bitwise and its noise within 1e-6; the SSD scan (y and final
               state) atol = rtol = 3e-4, the reference's own (chunked and
-              sequential sums round differently).
+              sequential sums round differently); two identical calls of
+              K1, K5, K3 and K7 bitwise equal.
 3. serve    — full-width qwen2.5-3b (36 layers, random weights from a seed)
               on two paths, each with the launch counts set to 0 just before
               it and read just after: ``repro_torch.launch.serve.main`` on
@@ -47,7 +50,8 @@ Phases; any failure exits non-zero and prints no result line:
               and of a zamba2 decode tick, and the device time per kernel
               over steady-state ticks (torch.profiler); then one profiled
               qwen admission (a 200-token prefill), K4's share beside the
-              rest.
+              rest; and a zamba2-2.7b decode tick and one profiled
+              zamba2-2.7b admission, K7's and K4's shares beside the rest.
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -71,6 +75,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12       # H100 SXM HBM3
 PEAK_BF16_S = 989e12         # dense bf16 tensor-core rate
 PEAK_F32_S = 67e12           # float32 outside the tensor cores
+PEAK_TF32_S = 495e12         # dense TF32 tensor-core rate (3 per 3xTF32 product)
 ATTN_TOL = 2e-2
 SSM_TOL = 3e-4
 NOISE_TOL = 1e-6
@@ -93,6 +98,8 @@ ZSERVE = ["--arch", "zamba2-2.7b", "--device", "cuda", "--requests", "8",
           "--slots", "8", "--max-seq", "1024", "--prompt-len", "200",
           "--gen-len", "16", "--seed", "0"]
 Z_MAMBA, Z_ATTN = 54, 9
+# the kernels of a zamba2 prefill, by a pattern of their CUDA names
+ZAMBA2_KERNELS = (("K7", "ssd|ssm"), ("K4", "flash"))
 
 KERNEL_INFO = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -152,7 +159,7 @@ def timed_ms(torch, fn, reps=25, warmup=3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def ptxas_report(log: str, pattern: str = r"flash|decode"):
+def ptxas_report(log: str, pattern: str = r"flash|decode|sample|ssd"):
     """(kernel, registers, spill store bytes, spill load bytes) of every
     kernel in nvcc's ``-Xptxas -v`` output whose name matches ``pattern``,
     demangled where c++filt is at hand."""
@@ -197,9 +204,11 @@ def max_err(torch, got, want, tol, what) -> float:
     return err
 
 
-def ssd_cost(Bsz, L, H, hd, N, *, T=64, state=True):
+def ssd_cost(Bsz, L, H, hd, N, *, groups=1, T=64, state=True):
     """(bytes, float32 operations) of the SSD scan on these shapes: each
-    input read once and y (and the final state) written once; the chunked
+    input read once (B and C as ``groups`` groups, one on zamba2's layout,
+    where every head reads the same rows) and y (and the final state)
+    written once; the chunked
     form at the kernel's tile of T tokens, causal and unpadded: per chunk
     of n tokens C B^T and M X over the n(n+1)/2 causal pairs, C . state and
     the state update over n x N x hd."""
@@ -208,23 +217,136 @@ def ssd_cost(Bsz, L, H, hd, N, *, T=64, state=True):
         n = min(T, L - c0)
         tri = n * (n + 1) // 2
         ops += 2 * tri * N + 2 * tri * hd + 2 * 2 * n * N * hd
-    elems = (2 * Bsz * L * H * hd + Bsz * L * H + H + 2 * Bsz * L * H * N
+    elems = (2 * Bsz * L * H * hd + Bsz * L * H + H
+             + 2 * Bsz * L * groups * N
              + (Bsz * H * hd * N if state else 0))
     return 4 * elems, ops * Bsz * H
 
 
 def ssd_inputs(torch, g, Bsz, L, H=80, hd=64, N=64):
     """K7's inputs as zamba2-2.7b's Mamba2 hands them over: float32, dt a
-    softplus, A = -linspace(1, 16, H) (the init), one B/C group repeated
-    over the heads."""
+    softplus, A = -linspace(1, 16, H) (the init), one B/C group expanded
+    over the heads (a view with a head stride of 0)."""
     dev = torch.device("cuda")
     x = torch.randn(Bsz, L, H, hd, generator=g, device=dev)
     dt = torch.nn.functional.softplus(torch.randn(Bsz, L, H, generator=g,
                                                   device=dev))
     A = -torch.linspace(1.0, 16.0, H, device=dev)
     Bm, C = (torch.randn(Bsz, L, 1, N, generator=g, device=dev)
-             .repeat_interleave(H, dim=2) for _ in range(2))
+             .expand(Bsz, L, H, N) for _ in range(2))
     return x, dt, A, Bm, C
+
+
+SAMPLE_SHAPES = {"qwen2.5-3b": (8, 151936), "zamba2-2.7b": (8, 32000)}
+SSD_LENGTHS = (64, 200, 2048)
+
+
+def sample_rows(torch, ops, ref, sample_noise, g):
+    """K3 at qwen2.5-3b's and zamba2-2.7b's vocabularies, 8 rows: greedy
+    tokens bitwise equal to the plain version and to torch.argmax (a tie
+    across a split boundary goes to the first index), hash bits bitwise,
+    noise within 1e-6, the sampled token the Gumbel max; timed greedy
+    beside the plain version and torch.argmax.  Returns qwen's row with
+    zamba2's under "others"."""
+    from repro_torch.kernels.sample import split_plan
+    from repro_torch.kernels._lib import sm_count
+    dev = torch.device("cuda")
+    out = {}
+    for arch, (B, V) in SAMPLE_SHAPES.items():
+        split_len, n_splits = split_plan(B, V, sm_count(0))
+        logits = torch.randn(B, V, generator=g, device=dev)
+        k = split_len * (n_splits // 2)              # a split boundary
+        logits[0, [k, k - 1, V - 3]] = logits[0].max() + 1.0
+        seed = torch.arange(B, dtype=torch.int32, device=dev) * 7919 - 3
+        rid = torch.arange(B, dtype=torch.int32, device=dev) + 100
+        pos = torch.arange(B, dtype=torch.int32, device=dev) * 13
+        greedy = torch.zeros(B, device=dev)
+        got = ops.fused_sample(logits, seed, rid, pos, greedy)
+        check(torch.equal(got, ref.fused_sample_ref(logits, seed, rid, pos,
+                                                    greedy)),
+              f"fused_sample (greedy, V {V}): kernel != plain")
+        check(torch.equal(got, torch.argmax(logits, dim=1).to(torch.int32)),
+              f"fused_sample (greedy, V {V}): kernel != torch.argmax")
+        check(int(got[0]) == k - 1,
+              f"fused_sample (V {V}): tie not broken to the first index")
+        bits, noise = sample_noise(seed, rid, pos, V)
+        want_bits = ref.sample_bits(seed.cpu(), rid.cpu(), pos.cpu(), V)
+        check(torch.equal(bits.cpu(), want_bits), "sample hash bits differ")
+        want_noise = ref.gumbel_noise(want_bits)
+        check(torch.allclose(noise.cpu(), want_noise, rtol=NOISE_TOL,
+                             atol=NOISE_TOL), "Gumbel noise differs")
+        temp = torch.full((B,), 0.7, device=dev)
+        got_t = ops.fused_sample(logits, seed, rid, pos, temp)
+        check(torch.equal(got_t, ops.fused_sample(logits, seed, rid, pos,
+                                                  temp)),
+              "fused_sample (temperature): two identical calls differ")
+        score = logits.float() / 0.7 + want_noise.to(dev)
+        best = score.max(dim=1).values
+        at_got = score.gather(1, got_t.long()[:, None])[:, 0]
+        # equal token, or a near-tie that a last-ulp difference in g can flip
+        check(bool(torch.all(at_got >= best - 1e-5 * best.abs())),
+              "fused_sample (temperature): kernel token is not the Gumbel max")
+        row = dict(
+            max_abs_err=0.0,
+            ms=timed_ms(torch, lambda: ops.fused_sample(logits, seed, rid,
+                                                        pos, greedy)),
+            plain_ms=timed_ms(torch, lambda: ref.fused_sample_ref(
+                logits, seed, rid, pos, greedy)),
+            library_ms=timed_ms(torch, lambda: torch.argmax(logits, dim=1)),
+            shape=f"logits ({B},{V}) f32, greedy, {n_splits} splits of "
+                  f"{split_len}")
+        row["bound_ms"], row["bound_by"] = bound(B * V * 4 + B * 20, B * V,
+                                                 PEAK_F32_S)
+        out[arch] = row
+    qwen = out.pop("qwen2.5-3b")
+    qwen["others"] = out
+    return qwen
+
+
+def ssd_rows(torch, ops, ref, g):
+    """K7 held against its plain version at (1, 200) and (2, 256), both y
+    and the final state, two identical calls bitwise equal; then timed with
+    the final state at (1, L) for L in SSD_LENGTHS.  Returns the (1, 200)
+    row with the others under "others".  The bound: the larger of the
+    bytes and the 3xTF32 products at the tensor cores' TF32 rate."""
+    errs = []
+    for Bsz, L in ((1, 200), (2, 256)):
+        args = ssd_inputs(torch, g, Bsz, L)
+        y, h = ops.ssm_scan(*args, return_state=True)
+        want_y, want_h = ref.ssm_scan_ref(*args, return_state=True)
+        errs.append(max_err(torch, y, want_y, SSM_TOL,
+                            f"ssm_scan y ({Bsz}, {L})"))
+        errs.append(max_err(torch, h, want_h, SSM_TOL,
+                            f"ssm_scan final state ({Bsz}, {L})"))
+        check(torch.equal(ops.ssm_scan(*args), y),
+              "ssm_scan: y differs without return_state")
+        y2, h2 = ops.ssm_scan(*args, return_state=True)
+        check(torch.equal(y, y2) and torch.equal(h, h2),
+              f"ssm_scan ({Bsz}, {L}): two identical calls differ")
+    rows = {}
+    for L in SSD_LENGTHS:
+        args = ssd_inputs(torch, g, 1, L)
+        y, h = ops.ssm_scan(*args, return_state=True)
+        want_y, want_h = ref.ssm_scan_ref(*args, return_state=True)
+        err = max(max_err(torch, y, want_y, SSM_TOL, f"ssm_scan y (1, {L})"),
+                  max_err(torch, h, want_h, SSM_TOL,
+                          f"ssm_scan final state (1, {L})"))
+        nbytes, flops = ssd_cost(1, L, 80, 64, 64)
+        row = dict(
+            max_abs_err=max(errs + [err]),
+            ms=timed_ms(torch, lambda: ops.ssm_scan(*args,
+                                                    return_state=True)),
+            plain_ms=timed_ms(torch, lambda: ref.ssm_scan_ref(
+                *args, return_state=True), reps=5, warmup=1),
+            library_ms=None,      # no PyTorch call computes an SSD scan
+            shape=f"x (1,{L},80,64), dt (1,{L},80), B/C (1,{L},1,64) "
+                  f"expanded to 80 heads, f32, with the final state")
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 3 * flops,
+                                                 PEAK_TF32_S)
+        rows[L] = row
+    main = rows.pop(200)
+    main["others"] = {f"L={L}": r for L, r in rows.items()}
+    return main
 
 
 # --------------------------------------------------------------------- phase 2
@@ -421,75 +543,23 @@ def kernel_phase(torch, ops, ref, sample_noise):
                                                    PEAK_BF16_S)
     rows["flash_attention"] = dict(max_abs_err=max(errs), **k4)
 
-    # K3: fused sampling over qwen2.5-3b's 151,936-token vocabulary
-    V = 151936
-    logits = randn(B, V, dtype=torch.float32)
-    logits[0, [7, V - 3]] = logits[0].max() + 1.0   # tie: first index wins
-    seed = torch.arange(B, dtype=torch.int32, device=dev) * 7919 - 3
-    rid = torch.arange(B, dtype=torch.int32, device=dev) + 100
-    pos = torch.arange(B, dtype=torch.int32, device=dev) * 13
-    greedy = torch.zeros(B, device=dev)
-    got = ops.fused_sample(logits, seed, rid, pos, greedy)
-    check(torch.equal(got, ref.fused_sample_ref(logits, seed, rid, pos,
-                                                greedy)),
-          "fused_sample (greedy): kernel != plain")
-    check(torch.equal(got, torch.argmax(logits, dim=1).to(torch.int32)),
-          "fused_sample (greedy): kernel != torch.argmax")
-    check(int(got[0]) == 7, "fused_sample: tie not broken to the first index")
-    bits, noise = sample_noise(seed, rid, pos, V)
-    want_bits = ref.sample_bits(seed.cpu(), rid.cpu(), pos.cpu(), V)
-    check(torch.equal(bits.cpu(), want_bits), "sample hash bits differ")
-    want_noise = ref.gumbel_noise(want_bits)
-    check(torch.allclose(noise.cpu(), want_noise, rtol=NOISE_TOL,
-                         atol=NOISE_TOL), "Gumbel noise differs")
-    temp = torch.full((B,), 0.7, device=dev)
-    got_t = ops.fused_sample(logits, seed, rid, pos, temp)
-    score = logits.float() / 0.7 + want_noise.to(dev)
-    best = score.max(dim=1).values
-    at_got = score.gather(1, got_t.long()[:, None])[:, 0]
-    # equal token, or a near-tie that a last-ulp difference in g can flip
-    check(bool(torch.all(at_got >= best - 1e-5 * best.abs())),
-          "fused_sample (temperature): kernel token is not the Gumbel max")
-    rows["fused_sample"] = dict(
-        max_abs_err=0.0,
-        ms=timed_ms(torch, lambda: ops.fused_sample(logits, seed, rid, pos,
-                                                    greedy)),
-        plain_ms=timed_ms(torch, lambda: ref.fused_sample_ref(
-            logits, seed, rid, pos, greedy)),
-        library_ms=timed_ms(torch, lambda: torch.argmax(logits, dim=1)),
-        shape="logits (8,151936) f32, greedy")
-    rows["fused_sample"]["bound_ms"], rows["fused_sample"]["bound_by"] = bound(
-        B * V * 4 + B * 20, B * V, PEAK_F32_S)
+    # K3: fused sampling over qwen2.5-3b's 151,936-token vocabulary (the
+    # kernels line) and zamba2-2.7b's 32,000
+    rows["fused_sample"] = sample_rows(torch, ops, ref, sample_noise, g)
 
     # K7: the SSD scan at zamba2-2.7b's prefill (80 heads, hd 64, N 64): a
     # ragged 200-token prompt and an aligned batch of two of 256, y and the
-    # final state (the prefill always asks for it)
-    errs = []
-    for Bsz, L in ((1, 200), (2, 256)):
-        args = ssd_inputs(torch, g, Bsz, L)
-        y, h = ops.ssm_scan(*args, return_state=True)
-        want_y, want_h = ref.ssm_scan_ref(*args, return_state=True)
-        errs.append(max_err(torch, y, want_y, SSM_TOL, f"ssm_scan y ({Bsz}, {L})"))
-        errs.append(max_err(torch, h, want_h, SSM_TOL,
-                            f"ssm_scan final state ({Bsz}, {L})"))
-        check(torch.equal(ops.ssm_scan(*args), y),
-              "ssm_scan: y differs without return_state")
-    args = ssd_inputs(torch, g, 1, 200)
-    rows["ssm_scan"] = dict(
-        max_abs_err=max(errs),
-        ms=timed_ms(torch, lambda: ops.ssm_scan(*args, return_state=True)),
-        plain_ms=timed_ms(torch, lambda: ref.ssm_scan_ref(
-            *args, return_state=True)),
-        library_ms=None,      # no PyTorch call computes an SSD scan
-        shape="x (1,200,80,64), dt (1,200,80), B/C (1,200,80,64) f32, N 64, "
-              "with the final state")
-    rows["ssm_scan"]["bound_ms"], rows["ssm_scan"]["bound_by"] = bound(
-        *ssd_cost(1, 200, 80, 64, 64), PEAK_F32_S)
+    # final state (the prefill always asks for it); then timed at the
+    # chunked prefill's one chunk (64), the unchunked prompt (200, the
+    # kernels line) and a long prompt (2048)
+    rows["ssm_scan"] = ssd_rows(torch, ops, ref, g)
     for name, r in rows.items():
-        print(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
-              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), max|err| "
-              f"{r['max_abs_err']}")
+        for label, rr in {"": r, **r.get("others", {})}.items():
+            print(f"  {name}{' ' + label if label else ''}: {rr['shape']}: "
+                  f"kernel {rr['ms']:.4f} ms, plain {rr['plain_ms']:.4f} ms, "
+                  f"library {rr['library_ms']} ms, bound "
+                  f"{rr['bound_ms']:.5f} ms ({rr['bound_by']}), max|err| "
+                  f"{rr['max_abs_err']}")
     return rows
 
 
@@ -962,10 +1032,12 @@ def print_profile(prof, n, top=12):
         print(f"    {t:8.3f} ms/step  {name[:90]}")
 
 
-def profile_admission(torch, core):
-    """One qwen2.5-3b admission: the unchunked prefill of a 200-token prompt
-    into a free slot (``ServingEngine.admit``), after one warm-up admission;
-    host time and device time per kernel, K4's share beside the rest."""
+def profile_admission(torch, core, label="qwen2.5-3b",
+                      kernels=(("K4", "flash"),)):
+    """One admission: the unchunked prefill of a 200-token prompt into a
+    free slot (``ServingEngine.admit``), after one warm-up admission; host
+    time and device time per kernel, each named kernel's share (by a
+    pattern of its CUDA names) beside the rest."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import ServingEngine
@@ -982,10 +1054,15 @@ def profile_admission(torch, core):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device_ms = report_profile(prof, 1)
-    k4_ms = sum(t for name, t in _by_kernel(prof, 1) if "flash" in name)
-    print(f"  qwen2.5-3b admission (200-token prefill): {wall_ms:.2f} ms host "
-          f"clock (profiled), device busy {device_ms:.2f} ms; K4 "
-          f"{k4_ms:.3f} ms ({k4_ms / device_ms:.1%} of the device time)")
+    shares = []
+    for name, pattern in kernels:
+        k_ms = sum(t for key, t in _by_kernel(prof, 1)
+                   if re.search(pattern, key))
+        shares.append(f"{name} {k_ms:.3f} ms ({k_ms / device_ms:.1%} of the "
+                      f"device time)")
+    print(f"  {label} admission (200-token prefill): {wall_ms:.2f} ms host "
+          f"clock (profiled), device busy {device_ms:.2f} ms; "
+          + "; ".join(shares))
     print_profile(prof, 1)
     del eng
     gc.collect()
@@ -1099,8 +1176,10 @@ def main() -> int:
         print("[4] greedy streams on the card: zamba2-2.7b")
         zamba2_streams_phase(zcore, z_streams)
         streams_phase(torch, ops, "zamba2-2.7b")
-        print("[5] where a full-width zamba2-2.7b tick's time goes")
+        print("[5] where a full-width zamba2-2.7b tick's and admission's "
+              "time goes")
         profile_dense_tick(torch, zcore, "zamba2 dense decode")
+        profile_admission(torch, zcore, "zamba2-2.7b", ZAMBA2_KERNELS)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

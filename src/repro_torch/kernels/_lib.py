@@ -13,6 +13,7 @@ Nothing here runs at import: ``import repro_torch`` works where there is no
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -42,14 +43,14 @@ _SIGNATURES = {
                                   _P, _P, _P, _P, *[_I] * 11, _P],
     "rt_flash_attention": [_P, _L, _L, _L, _P, _P, _L, _L, _L, _P, _L, _L, _L,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "rt_fused_sample": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _P],
+    "rt_fused_sample": [_P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rt_sample_noise": [_P, _P, _P, _P, _P, _I, _I, _P],
     "rt_ssm_scan": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _L, _L, _L, _P,
-                    _L, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                    _L, _L, _L, _P, _P, _P, *[_I] * 11, _P],
 }
 
 # host-side queries of the library's own reckoning (they launch nothing)
-_QUERIES = {"rt_flash_smem_bytes": [_I, _I]}
+_QUERIES = {"rt_flash_smem_bytes": [_I, _I], "rt_ssm_smem_bytes": [_I, _I, _I]}
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None     # wall time of the build, when built here
@@ -130,6 +131,12 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_longlong
     _lib = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on the H100 SXM)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def check(err: int, name: str):

@@ -16,7 +16,6 @@ launches.
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import NamedTuple
 
@@ -28,11 +27,6 @@ DEC_TILE = 64            # split granule: splits are whole tiles of keys
 BLOCKS_PER_SM = 2        # split-K target: about this many blocks per SM
 MAX_SPLIT_LEN = 4096     # keys one block walks at most
 GMAX = 8                 # query heads a block holds in registers
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def split_plan(B: int, KV: int, Smax: int, sm_count: int) -> tuple[int, int]:
@@ -82,7 +76,7 @@ def _launch(fn, q, k_cache, v_cache, index, KV, Smax, table_args):
     code = _lib.dtype_code(q, k_cache, v_cache)
     idx = _lib.per_row(index, q, torch.int32)
     geo = geometry(B, H, KV, hd, Smax, q.dtype,
-                   _sm_count(q.device.index or 0))
+                   _lib.sm_count(q.device.index or 0))
     out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
     n = geo.n_splits if geo.n_splits > 1 else 0    # one split writes out
     part_acc = torch.empty((B, H, n, hd), dtype=torch.float32,

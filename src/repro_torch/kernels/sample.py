@@ -2,7 +2,9 @@
 
 Replaces ``repro/kernels/sample.py::fused_sample_bv``.  The CUDA kernel
 lives in ``csrc/sample.cu``, whose head note says what bounds it on the
-H100 and what its design does about it.
+H100 and what its design does about it: each row is cut into ``split_plan``
+ranges of whole 16-byte vectors, one block a range, and a merge reduces the
+ranges' (score, first index) pairs.
 
 The wrapper runs the kernel on CUDA tensors and its plain PyTorch version
 (``repro_torch.kernels.ref``) on CPU tensors; ``launches`` counts kernel
@@ -10,9 +12,27 @@ launches.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import _lib, ref
+
+SAMPLE_VEC = 4            # float32 columns in one 16-byte load
+MIN_SPLIT = 1024          # columns one block takes at least: 256 threads x 4
+BLOCKS_PER_SM = 2         # split target: about this many blocks per SM
+
+
+def split_plan(B: int, V: int, sm_count: int) -> tuple[int, int]:
+    """(split_len, n_splits): cut each of the B rows of V columns into
+    ranges of whole 16-byte vectors (split_len a multiple of SAMPLE_VEC),
+    none empty, so that the B * n_splits blocks come to about
+    BLOCKS_PER_SM blocks per SM, and no more ranges than V has whole
+    MIN_SPLIT-column stretches (rounded up)."""
+    want = math.ceil(BLOCKS_PER_SM * sm_count / max(B, 1))
+    n = max(1, min(want, math.ceil(V / MIN_SPLIT)))
+    split_len = math.ceil(math.ceil(V / n) / SAMPLE_VEC) * SAMPLE_VEC
+    return split_len, math.ceil(V / split_len)
 
 
 def fused_sample(logits, seed, rid, pos, temperature):
@@ -25,14 +45,18 @@ def fused_sample(logits, seed, rid, pos, temperature):
         raise ValueError("logits must be (B, V) float32 with unit column "
                          "stride")
     B, V = logits.shape
+    split_len, n_splits = split_plan(B, V,
+                                     _lib.sm_count(logits.device.index or 0))
     seed, rid, pos = (_lib.per_row(x, logits, torch.int32)
                       for x in (seed, rid, pos))
     temp = _lib.per_row(temperature, logits, torch.float32)
     out = torch.empty(B, dtype=torch.int32, device=logits.device)
+    part = torch.empty(2 * B * n_splits if n_splits > 1 else 0,
+                       dtype=torch.int32, device=logits.device)
     err = _lib.load().rt_fused_sample(
         logits.data_ptr(), logits.stride(0), seed.data_ptr(), rid.data_ptr(),
-        pos.data_ptr(), temp.data_ptr(), out.data_ptr(), B, V,
-        _lib.stream_ptr(logits))
+        pos.data_ptr(), temp.data_ptr(), out.data_ptr(), part.data_ptr(), B,
+        V, split_len, n_splits, _lib.stream_ptr(logits))
     _lib.check(err, "fused_sample")
     fused_sample.launches += 1
     return out

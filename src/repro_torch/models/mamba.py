@@ -58,10 +58,13 @@ class Mamba2(nn.Module):
 
     def _heads(self, t, n_lead):
         """(..., G*N) → (..., H, N) float32: each B/C group serves H/G
-        consecutive heads (``jnp.repeat``, not a tile)."""
+        consecutive heads (``jnp.repeat``, not a tile).  One group is a view
+        with a head stride of 0, not a copy per head."""
         cfg = self.cfg
         G, N = cfg.ssm.n_groups, cfg.ssm.d_state
         g = t.reshape(*t.shape[:n_lead], G, N).float()
+        if G == 1:
+            return g.expand(*g.shape[:n_lead], cfg.ssm_heads, N)
         return g.repeat_interleave(cfg.ssm_heads // G, dim=n_lead)
 
     def _gate_out(self, y, z):

@@ -10,15 +10,18 @@ plain version rounds its normalised probabilities to the value dtype, the
 decode kernels keep them in float32 and the prefill kernel rounds the
 unnormalised ones to bf16 for its tensor-core product); the paged kernel
 equal to the dense one bitwise under an identity table, and two identical
-decode calls equal bitwise; the ring-slot and paged writes and greedy sampling exact;
-the sampler's hash bits bitwise and its noise within 1e-6; the SSD scan
-(float32) atol = rtol = 3e-4, the reference's own.
+decode calls equal bitwise; the ring-slot and paged writes and greedy sampling exact
+(bitwise equal to torch.argmax at every split plan); the sampler's hash bits
+bitwise and its noise within 1e-6; the SSD scan (float32) atol = rtol =
+3e-4, the reference's own, and two identical calls of either equal bitwise.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import sample as smp
+from repro_torch.kernels import ssm_scan as ssp
 from repro_torch.kernels.sample import sample_noise
 
 
@@ -278,6 +281,156 @@ def test_fused_sample_kernel_matches_plain(cuda):
                                rtol=1e-6, atol=1e-6)
 
 
+def _counters(rng, B, cuda):
+    return tuple(torch.from_numpy(rng.integers(
+        -2**31, 2**31 - 1, size=B, dtype=np.int64).astype(np.int32)).to(cuda)
+        for _ in range(3))
+
+
+def _sample(monkeypatch, split_len, *args):
+    """fused_sample under a forced split plan of ``split_len`` columns a
+    range (None: its own plan)."""
+    with monkeypatch.context() as m:
+        if split_len is not None:
+            m.setattr(smp, "split_plan",
+                      lambda B, V, sm: (split_len, -(-V // split_len)))
+        return smp.fused_sample(*args)
+
+
+def _split_lens(V):
+    """The default plan and forced ones: one vector a split, a few, the
+    served plans' 1000 and 4608, and one split for the whole row."""
+    return (None, 4, 64, 1000, 4608, -(-V // 4) * 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [1, 3, 4, 1000, 32000, 151936, 151937])
+def test_fused_sample_greedy_equals_argmax_for_every_split(cuda, monkeypatch, V):
+    """Greedy tokens bitwise equal to torch.argmax and to the plain version
+    whatever the split plan (the pair order is total)."""
+    B = 8
+    rng = np.random.default_rng(V)
+    logits = torch.from_numpy(rng.standard_normal((B, V), dtype=np.float32))
+    if V > 1:      # a repeated maximum in one row
+        logits[1, [V // 3, V - 1]] = logits[1].max() + 1.0
+    logits = logits.to(cuda)
+    seed, rid, pos = _counters(rng, B, cuda)
+    greedy = torch.zeros(B, device=cuda)
+    want = torch.argmax(logits, dim=1).to(torch.int32)
+    assert torch.equal(ref.fused_sample_ref(logits, seed, rid, pos, greedy),
+                       want)
+    assert torch.equal(ops.fused_sample(logits, seed, rid, pos, greedy), want)
+    for split_len in _split_lens(V):
+        got = _sample(monkeypatch, split_len, logits, seed, rid, pos, greedy)
+        assert torch.equal(got, want), split_len
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_len", [4, 8, 1000, 4608])
+def test_fused_sample_ties_across_a_split_boundary(cuda, monkeypatch, split_len):
+    """Equal maxima on both sides of a split boundary, in one split, in
+    distant splits and three at once: the first index wins every time."""
+    B, V = 6, 151936
+    rng = np.random.default_rng(split_len)
+    logits = torch.from_numpy(rng.standard_normal((B, V), dtype=np.float32))
+    k = 3 * split_len                          # a split boundary
+    ties = [(k - 1, k), (k, k + 1), (k - 1, V - 1), (0, k), (k + 1, k, k - 1),
+            (V - 1, k)]
+    for b, cols in enumerate(ties):
+        logits[b, list(cols)] = logits[b].max() + 1.0
+    logits = logits.to(cuda)
+    seed, rid, pos = _counters(rng, B, cuda)
+    greedy = torch.zeros(B, device=cuda)
+    want = torch.tensor([min(c) for c in ties], dtype=torch.int32,
+                        device=cuda)
+    assert torch.equal(torch.argmax(logits, dim=1).to(torch.int32), want)
+    for sl in (None, split_len):
+        got = _sample(monkeypatch, sl, logits, seed, rid, pos, greedy)
+        assert torch.equal(got, want), sl
+
+
+@pytest.mark.cuda
+def test_fused_sample_nan_and_all_inf_rows(cuda, monkeypatch):
+    """NaN above everything (the first NaN wins), an all -inf row takes
+    index 0, as torch.argmax does."""
+    B, V = 5, 32000
+    rng = np.random.default_rng(9)
+    logits = torch.from_numpy(rng.standard_normal((B, V), dtype=np.float32))
+    logits[0, [17000, 20000, 3]] = float("nan")
+    logits[1] = float("-inf")
+    logits[2, 5] = float("nan")
+    logits[3] = float("-inf")
+    logits[3, V - 1] = -1e30
+    logits[4, [100, 31000]] = float("inf")
+    logits = logits.to(cuda)
+    seed, rid, pos = _counters(rng, B, cuda)
+    greedy = torch.zeros(B, device=cuda)
+    want = torch.argmax(logits, dim=1).to(torch.int32)
+    assert want.tolist() == [3, 0, 5, V - 1, 100]
+    assert torch.equal(torch.argmax(logits.cpu(), dim=1).to(torch.int32),
+                       want.cpu())
+    for split_len in (None, 4, 1000, 32000):
+        got = _sample(monkeypatch, split_len, logits, seed, rid, pos, greedy)
+        assert torch.equal(got, want), split_len
+
+
+def _gumbel_max_ok(logits, got, seed, rid, pos, t):
+    """The token holds the maximum of logits / t + g (g from the plain
+    version), up to a near-tie that a last-ulp difference in g can flip."""
+    V = logits.shape[1]
+    g = ref.gumbel_noise(ref.sample_bits(seed.cpu(), rid.cpu(), pos.cpu(), V))
+    score = logits.float().cpu() / t + g
+    best = score.max(dim=1).values
+    at = score.gather(1, got.long().cpu()[:, None])[:, 0]
+    return bool(torch.all(at >= best - 1e-5 * best.abs()))
+
+
+@pytest.mark.cuda
+def test_fused_sample_reads_unaligned_rows(cuda, monkeypatch):
+    """Row views whose start is not on 16 bytes (an odd row stride, an
+    offset base) take the kernel's element loads, greedy and sampled."""
+    B, V = 4, 32000
+    rng = np.random.default_rng(11)
+    base = torch.from_numpy(rng.standard_normal((B, V + 1),
+                                                dtype=np.float32)).to(cuda)
+    seed, rid, pos = _counters(rng, B, cuda)
+    greedy, temp = torch.zeros(B, device=cuda), torch.full((B,), 0.9,
+                                                           device=cuda)
+    for view in (base[:, :V], base[:, 1:]):
+        assert view.stride(0) == V + 1
+        want = torch.argmax(view, dim=1).to(torch.int32)
+        for split_len in (None, 4, 1000):
+            assert torch.equal(_sample(monkeypatch, split_len, view, seed,
+                                       rid, pos, greedy), want)
+            got = _sample(monkeypatch, split_len, view, seed, rid, pos, temp)
+            assert _gumbel_max_ok(view, got, seed, rid, pos, 0.9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [32000, 151936])
+def test_fused_sample_is_deterministic(cuda, monkeypatch, V):
+    """Two identical calls give the same tokens, greedy and sampled, and
+    the sampled token is the Gumbel max at every split plan."""
+    B = 8
+    rng = np.random.default_rng(V + 1)
+    logits = torch.from_numpy(rng.standard_normal(
+        (B, V), dtype=np.float32)).to(cuda)
+    seed, rid, pos = _counters(rng, B, cuda)
+    temp = torch.tensor([0.0, 0.7, 1.0, 0.0, 1.3, 0.5, 2.0, 0.7],
+                        device=cuda)
+    first = ops.fused_sample(logits, seed, rid, pos, temp)
+    assert torch.equal(first, ops.fused_sample(logits, seed, rid, pos, temp))
+    for split_len in _split_lens(V):
+        got = _sample(monkeypatch, split_len, logits, seed, rid, pos, temp)
+        assert torch.equal(got, _sample(monkeypatch, split_len, logits, seed,
+                                        rid, pos, temp))
+        rows = temp > 0
+        assert torch.equal(got[~rows], torch.argmax(logits[~rows], dim=1)
+                           .to(torch.int32))
+        assert _gumbel_max_ok(logits[rows], got[rows], seed[rows], rid[rows],
+                              pos[rows], temp[rows].cpu()[:, None])
+
+
 def _scan_inputs(B, L, H, hd, N, seed):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, L, H, hd), dtype=np.float32)
@@ -296,6 +449,16 @@ def _scan_inputs(B, L, H, hd, N, seed):
     (2, 64, 4, 16, 8, 32),
     (2, 130, 3, 40, 16, 128),       # hd not a multiple of 32
     (1, 1, 4, 16, 8, 128),          # one token
+    (1, 63, 4, 64, 64, 128),        # one chunk, ragged
+    (1, 64, 80, 64, 64, 128),       # zamba2's chunked prefill: one chunk
+    (1, 65, 4, 64, 64, 128),        # one token into a second chunk
+    (1, 129, 4, 64, 64, 128),
+    (1, 1000, 4, 64, 64, 128),
+    (1, 2048, 80, 64, 64, 128),     # a long prompt: 32 chunks
+    (2, 150, 3, 40, 8, 128),        # hd and N not multiples of 16
+    (1, 97, 2, 10, 6, 64),          # rows not on 16 bytes: element copies
+    (1, 130, 2, 128, 128, 128),     # the widest tiles
+    (2, 77, 3, 8, 8, 10),           # zamba2's smoke widths, a short chunk
 ])
 def test_ssm_scan_kernel_matches_plain(cuda, B, L, H, hd, N, chunk):
     """y and the final state within atol = rtol = 3e-4 (the reference's
@@ -332,3 +495,48 @@ def test_ssm_scan_kernel_reads_the_model_layout(cuda):
     want_y, want_h = ref.ssm_scan_ref(x, dt, A, Bm, C, return_state=True)
     torch.testing.assert_close(y, want_y, atol=3e-4, rtol=3e-4)
     torch.testing.assert_close(h, want_h, atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [64, 200])
+def test_ssm_scan_kernel_takes_one_group_for_every_head(cuda, L):
+    """B and C with a head stride of 0 (Mamba2 with one group hands them
+    over so) equal the same values copied per head."""
+    Bsz, H, hd, N = 2, 8, 64, 64
+    x, dt, A, _, _ = (torch.from_numpy(a).to(cuda)
+                      for a in _scan_inputs(Bsz, L, H, hd, N, seed=L))
+    rng = np.random.default_rng(L + 1)
+    Bg, Cg = (torch.from_numpy(rng.standard_normal(
+        (Bsz, L, 1, N), dtype=np.float32)).to(cuda) for _ in range(2))
+    Bv, Cv = Bg.expand(Bsz, L, H, N), Cg.expand(Bsz, L, H, N)
+    assert Bv.stride(2) == 0
+    y, h = ops.ssm_scan(x, dt, A, Bv, Cv, return_state=True)
+    y2, h2 = ops.ssm_scan(x, dt, A, Bv.contiguous(), Cv.contiguous(),
+                          return_state=True)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    want_y, want_h = ref.ssm_scan_ref(x, dt, A, Bv, Cv, return_state=True)
+    torch.testing.assert_close(y, want_y, atol=3e-4, rtol=3e-4)
+    torch.testing.assert_close(h, want_h, atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [64, 200, 2048])
+def test_ssm_scan_kernel_is_deterministic(cuda, L):
+    """Two identical calls give bitwise-equal y and final state."""
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _scan_inputs(1, L, 80, 64, 64, seed=3)]
+    y, h = ops.ssm_scan(*args, return_state=True)
+    y2, h2 = ops.ssm_scan(*args, return_state=True)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_smem_reckoning_matches_the_source(cuda):
+    """The wrapper's shared-memory reckoning is the CUDA source's own."""
+    from repro_torch.kernels import _lib
+    lib = _lib.load()
+    for hd in range(1, ssp.MAX_WIDTH + 1):
+        for N in (1, 4, 8, 13, 64, 128):
+            state, out = ssp.smem_bytes(hd, N)
+            assert lib.rt_ssm_smem_bytes(0, hd, N) == state, (hd, N)
+            assert lib.rt_ssm_smem_bytes(1, hd, N) == out, (hd, N)

@@ -1,7 +1,8 @@
-"""Host-side tiling of the port's attention kernels, checked on the CPU:
-the split plan that K1 and K5 share, their launch geometry, and K4's
-shared-memory reckoning against the 227 KB a block may use on the H100.
-The kernels themselves run only on the card
+"""Host-side tiling of the port's kernels, checked on the CPU: the split
+plan that K1 and K5 share, their launch geometry, K4's shared-memory
+reckoning against the 227 KB a block may use on the H100, the sampler's
+(K3) split of each row, and the SSD scan's (K7) chunk and tile plan and
+shared memory.  The kernels themselves run only on the card
 (``tests/test_torch_cuda_kernels.py``)."""
 import math
 
@@ -10,6 +11,8 @@ import torch
 
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import sample as smp
+from repro_torch.kernels import ssm_scan as ssp
 
 SMS = (1, 8, 132)
 SMAX = (1, 7, 63, 64, 65, 100, 1000, 1020, 1024, 4096, 4100, 32768, 131072)
@@ -116,3 +119,115 @@ def test_rows_16b_picks_the_vector_loads(dtype):
     assert not rows_16b(64, shifted)
     odd = torch.zeros(2, 10, 4, per16 + 2, dtype=dtype)           # hd 6 / 10
     assert not rows_16b(per16 + 2, odd)
+
+
+# K3: the sampler's split of each logits row across the SMs
+
+VOCABS = (1, 3, 4, 5, 1000, 1023, 1024, 1025, 4097, 32000, 151936, 151937,
+          262144)
+
+
+@pytest.mark.parametrize("sm_count", SMS)
+@pytest.mark.parametrize("B", [1, 3, 8, 64])
+def test_sample_split_plan_covers_v_in_whole_vectors(B, sm_count):
+    for V in VOCABS:
+        split_len, n = smp.split_plan(B, V, sm_count)
+        assert split_len > 0 and split_len % smp.SAMPLE_VEC == 0
+        assert n * split_len >= V                  # every column in a split
+        assert (n - 1) * split_len < V             # no split empty
+        assert n <= math.ceil(V / smp.MIN_SPLIT)
+        # about BLOCKS_PER_SM blocks per SM where V has the columns for it
+        assert (2 * B * n >= smp.BLOCKS_PER_SM * sm_count
+                or n == math.ceil(V / smp.MIN_SPLIT))
+
+
+def test_sample_split_plan_at_the_served_shapes():
+    """qwen2.5-3b's 8 slots over 151,936 logits: 33 ranges of 4608 columns
+    (264 blocks); zamba2-2.7b's 32,000: 32 of 1000."""
+    assert smp.split_plan(8, 151936, 132) == (4608, 33)
+    assert smp.split_plan(8, 32000, 132) == (1000, 32)
+    assert smp.split_plan(1, 151936, 132) == (1020, 149)
+    assert smp.split_plan(8, 1000, 132) == (1000, 1)
+
+
+# K7: the SSD scan's chunk and tile plan
+
+@pytest.mark.parametrize("chunk", [1, 10, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd,N", [(8, 8), (8, 4), (16, 8), (40, 16),
+                                  (64, 64), (80, 128), (128, 128)])
+def test_ssm_plan_covers_l_and_hd(hd, N, chunk):
+    for L in (1, 2, 31, 32, 33, 63, 64, 65, 100, 129, 200, 1000, 2048):
+        p = ssp.plan(2, L, 3, hd, N, chunk)
+        assert p.T == min(chunk, ssp.SSD_TILE)
+        assert p.n_chunks * p.T >= L > (p.n_chunks - 1) * p.T
+        assert p.DW % ssp.SSD_DG == 0 and p.DW >= hd > p.DW - ssp.SSD_DG
+        assert p.NK % 8 == 0 and p.NK >= N > p.NK - 8
+        # the state blocks take every chunk's every SSD_DG state rows, the
+        # output blocks' two query tiles every token of every chunk
+        assert p.state_grid == p.n_chunks * p.DW // ssp.SSD_DG
+        assert p.output_grid == 2 * p.n_chunks
+        assert 2 * ssp.SSD_QT >= p.T
+        if p.n_chunks == 1:
+            assert p.pass_grid == 0 and p.workspace == 0
+        else:
+            # the pass takes every float4 of every (row, head) state
+            assert p.pass_grid * ssp.PASS_THREADS * 4 >= p.DW * p.NK
+            assert (p.pass_grid - 1) * ssp.PASS_THREADS * 4 < p.DW * p.NK
+            assert p.workspace == 2 * 3 * p.n_chunks * (p.DW * p.NK + 1)
+        assert ssp.plan(2, L, 3, hd, N, chunk, return_state=False)\
+            .state_grid == (0 if p.n_chunks == 1 else p.state_grid)
+
+
+def test_ssm_plan_fills_the_card_at_one_chunk():
+    """zamba2-2.7b's chunked prefill calls the scan at (1, 64, 80, 64, 64):
+    one chunk, so 160 state blocks and 160 output blocks (grids of
+    (x, 80 heads, 1 row)) for 132 SMs."""
+    p = ssp.plan(1, 64, 80, 64, 64, 128)
+    assert p.state_grid * 80 >= 132 and p.output_grid * 80 >= 132
+
+
+def test_ssm_plan_at_the_served_shapes():
+    assert ssp.plan(1, 64, 80, 64, 64, 128) == ssp.Plan(
+        T=64, n_chunks=1, DW=64, NK=64, state_grid=2, pass_grid=0,
+        output_grid=2, workspace=0)
+    assert ssp.plan(1, 200, 80, 64, 64, 128) == ssp.Plan(
+        T=64, n_chunks=4, DW=64, NK=64, state_grid=8, pass_grid=8,
+        output_grid=8, workspace=80 * 4 * (64 * 64 + 1))
+    assert ssp.plan(1, 2048, 80, 64, 64, 128).output_grid == 32 * 2
+
+
+def test_ssm_width_covers_hd_and_n():
+    """The kernel instance's padded width: the least of 32, 64 and 128
+    that holds both hd and N (zamba2-2.7b's 64 and 64 take 64)."""
+    for hd in range(1, ssp.MAX_WIDTH + 1):
+        for N in range(1, ssp.MAX_WIDTH + 1):
+            W = ssp.width(hd, N)
+            assert W in (32, 64, 128) and W >= max(hd, N)
+            assert W == 32 or W // 2 < max(hd, N)
+            assert ssp.plan(1, 64, 1, hd, N, 64).DW <= W
+    assert ssp.width(64, 64) == 64 and ssp.width(8, 8) == 32
+    assert ssp.width(40, 8) == 64 and ssp.width(10, 100) == 128
+
+
+@pytest.mark.parametrize("hd", [1, 8, 40, 64, 80, 127, 128])
+def test_ssm_smem_fits_a_block(hd):
+    for N in range(1, ssp.MAX_WIDTH + 1):
+        state, out = ssp.smem_bytes(hd, N)
+        assert 0 < state <= ssp.SMEM_LIMIT and 0 < out <= ssp.SMEM_LIMIT
+
+
+def test_ssm_smem_at_the_served_shapes():
+    """zamba2-2.7b (hd 64, N 64): 64 rows of x and B at pitch 40 and 72;
+    32 rows of C, 64 of B, 64 of the state and 32 of M at pitch 68, 64 of x
+    at 72 — three output blocks an SM."""
+    assert ssp.smem_bytes(64, 64) == (
+        4 * (64 * 40 + 64 * 72 + 3 * 64),
+        4 * ((32 + 64 + 64) * 68 + 32 * 68 + 64 * 72 + 2 * 64))
+    assert 3 * ssp.smem_bytes(64, 64)[1] <= 228 * 1024
+
+
+def test_ssm_plan_refuses_widths_past_the_tiles():
+    with pytest.raises(ValueError, match="hd"):
+        ssp.plan(1, 64, 2, 129, 64, 128)
+    with pytest.raises(ValueError, match="N"):
+        ssp.plan(1, 64, 2, 64, 129, 128)
