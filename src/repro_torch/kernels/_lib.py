@@ -33,14 +33,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# argument types of the launching entry points after the CUDA device each
+# takes first (load() prepends it); the last is the stream
+_NEW_ROWS = [_P, _P, _L, _L, _I]         # k_new, v_new, strides, dtype
 _SIGNATURES = {
-    "rt_cache_ring_update": [_P, _I, _L, _L, _P, _I, _L, _P, _I, _I, _I, _P],
+    "rt_cache_ring_update": [_P, _I, _L, _L, _P, _I, _L, _P, _I, _I, _I, _I,
+                             _P],
     "rt_cache_paged_update": [_P, _I, _L, _L, _P, _I, _L, _P, _P, _I, _I, _I,
-                              _I, _P],
-    "rt_decode_attention": [_P, _L, _L, _P, _P, _L, _L, _L, _P, _P, _P, _P,
-                            *[_I] * 11, _P],
+                              _I, _I, _P],
+    "rt_decode_attention": [_P, _L, _L, _P, _P, _L, _L, _L, _P, *_NEW_ROWS,
+                            _P, _P, _P, *[_I] * 11, _P],
     "rt_decode_attention_paged": [_P, _L, _L, _P, _P, _L, _L, _L, _P, _L, _I,
-                                  _P, _P, _P, _P, *[_I] * 11, _P],
+                                  _P, *_NEW_ROWS, _P, _P, _P, *[_I] * 11, _P],
     "rt_flash_attention": [_P, _L, _L, _L, _P, _P, _L, _L, _L, _P, _L, _L, _L,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rt_fused_sample": [_P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -123,7 +127,7 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(target))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes = argtypes
+        fn.argtypes = [_I, *argtypes]
         fn.restype = ctypes.c_int
     for name, argtypes in _QUERIES.items():
         fn = getattr(lib, name)
@@ -147,12 +151,17 @@ def check(err: int, name: str):
 
 def stream_ptr(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as the C functions take
-    it.  The library links its own CUDA runtime, whose current device is 0,
-    so a tensor on another device is refused rather than launched there."""
-    if t.device.index not in (None, 0):
-        raise NotImplementedError(f"the kernel library launches on cuda:0 "
-                                  f"only, got {t.device}")
+    it."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name: str, t: torch.Tensor, *args):
+    """Call the library's entry point ``name`` for tensors on ``t``'s CUDA
+    device: the device index first (the library links its own CUDA runtime
+    and makes that device current for the launch), then ``args``, then
+    PyTorch's current stream on that device.  Raises on a non-zero
+    cudaError_t."""
+    check(getattr(load(), name)(t.device.index, *args, stream_ptr(t)), name)
 
 
 def dtype_code(*tensors) -> int:

@@ -40,13 +40,48 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The library links its own CUDA runtime; the current device is the
+// thread's, shared with PyTorch's runtime.  Every entry point takes the
+// device of its tensors and holds one of these while it launches: that
+// device is current inside, and the caller's is current again after.
+class RtDevice {
+ public:
+  explicit RtDevice(int device) {
+    err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess && prev_ != device) {
+      err_ = cudaSetDevice(device);
+      restore_ = err_ == cudaSuccess;
+    }
+  }
+  ~RtDevice() {
+    if (restore_) cudaSetDevice(prev_);
+  }
+  RtDevice(const RtDevice&) = delete;
+  RtDevice& operator=(const RtDevice&) = delete;
+  cudaError_t status() const { return err_; }
+
+ private:
+  int prev_ = 0;
+  bool restore_ = false;
+  cudaError_t err_;
+};
+
+constexpr int RT_MAX_DEVICES = 64;
+
 // Opt a kernel into more than 48 KB of dynamic shared memory (H100: up to
-// 227 KB a block).  Remembers the largest size already granted.
+// 227 KB a block).  cudaFuncSetAttribute acts on the current device, so
+// the largest size granted is remembered per device: granted[device].
 template <typename K>
-static cudaError_t rt_allow_smem(K kernel, size_t bytes, size_t* granted) {
-  if (bytes <= 48 * 1024 || bytes <= *granted) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
+static cudaError_t rt_allow_smem(K kernel, size_t bytes,
+                                 size_t (&granted)[RT_MAX_DEVICES]) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= RT_MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (bytes <= granted[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) *granted = bytes;
+  if (err == cudaSuccess) granted[dev] = bytes;
   return err;
 }

@@ -491,9 +491,9 @@ cudaError_t launch_mma(const void* q, long long q_sb, long long q_ss,
                        long long o_sh, int B, int Sq, int Sk, int H, int KV,
                        int hd, int causal, int window, int vec_q, int vec_kv,
                        cudaStream_t stream) {
-  static size_t granted = 0;
+  static size_t granted[RT_MAX_DEVICES] = {};
   const size_t smem = mma_smem_bytes(HDP);
-  cudaError_t err = rt_allow_smem(flash_mma_kernel<HDP>, smem, &granted);
+  cudaError_t err = rt_allow_smem(flash_mma_kernel<HDP>, smem, granted);
   if (err != cudaSuccess) return err;
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
   const dim3 grid((Sq + FA_MMA_BQ - 1) / FA_MMA_BQ, H, B);
@@ -513,9 +513,9 @@ cudaError_t launch_flash(const void* q, long long q_sb, long long q_ss,
                          long long o_sh, int B, int Sq, int Sk, int H, int KV,
                          int hd, int causal, int window,
                          cudaStream_t stream) {
-  static size_t granted = 0;
+  static size_t granted[RT_MAX_DEVICES] = {};
   const size_t smem = fma_smem_bytes(hd);
-  cudaError_t err = rt_allow_smem(flash_kernel<T>, smem, &granted);
+  cudaError_t err = rt_allow_smem(flash_kernel<T>, smem, granted);
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf((float)hd);
   const dim3 grid((Sq + FA_BQ - 1) / FA_BQ, H, B);
@@ -536,11 +536,13 @@ extern "C" long long rt_flash_smem_bytes(int dtype, int hd) {
 }
 
 extern "C" int rt_flash_attention(
-    const void* q, long long q_sb, long long q_ss, long long q_sh,
+    int device, const void* q, long long q_sb, long long q_ss, long long q_sh,
     const void* k, const void* v, long long kv_sb, long long kv_ss,
     long long kv_sh, void* out, long long o_sb, long long o_ss,
     long long o_sh, int dtype, int B, int Sq, int Sk, int H, int KV, int hd,
     int causal, int window, int vec_q, int vec_kv, void* stream) {
+  RtDevice on(device);
+  if (on.status() != cudaSuccess) return (int)on.status();
   cudaStream_t st = (cudaStream_t)stream;
   if (use_mma(dtype, hd)) {
 #define RT_FA_MMA(HDP)                                                       \

@@ -202,7 +202,8 @@ __global__ void sample_noise_kernel(const int* __restrict__ seed,
 
 // part: 2 * B * n_splits words of scratch (scores, then indices); unused
 // when n_splits == 1
-extern "C" int rt_fused_sample(const float* logits, long long row_stride,
+extern "C" int rt_fused_sample(int device, const float* logits,
+                               long long row_stride,
                                const int* seed, const int* rid,
                                const int* pos, const float* temp, int* out,
                                void* part, int B, int V, int split_len,
@@ -211,6 +212,8 @@ extern "C" int rt_fused_sample(const float* logits, long long row_stride,
       (long long)(n_splits - 1) * split_len >= V ||
       (long long)n_splits * split_len < V)
     return (int)cudaErrorInvalidValue;
+  RtDevice on(device);
+  if (on.status() != cudaSuccess) return (int)on.status();
   float* part_s = (float*)part;
   int* part_i = (int*)part + (long long)B * n_splits;
   sample_split_kernel<<<dim3(n_splits, B), SAMPLE_THREADS, 0,
@@ -224,9 +227,11 @@ extern "C" int rt_fused_sample(const float* logits, long long row_stride,
   return (int)cudaGetLastError();
 }
 
-extern "C" int rt_sample_noise(const int* seed, const int* rid,
+extern "C" int rt_sample_noise(int device, const int* seed, const int* rid,
                                const int* pos, int* bits, float* g, int B,
                                int V, void* stream) {
+  RtDevice on(device);
+  if (on.status() != cudaSuccess) return (int)on.status();
   sample_noise_kernel<<<dim3(64, B), 256, 0, (cudaStream_t)stream>>>(
       seed, rid, pos, bits, g, V);
   return (int)cudaGetLastError();

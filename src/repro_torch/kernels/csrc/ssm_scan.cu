@@ -532,10 +532,11 @@ cudaError_t ssd_launch(const float* x, long long x_sb, long long x_sl,
   const int nc = (L + T - 1) / T;
   const int DW = rup(hd, SSD_DG), NK = rup(N, 8);
   constexpr size_t smem_a = state_smem_bytes(W), smem_c = output_smem_bytes(W);
-  static size_t granted_state = 0, granted_out = 0;
-  cudaError_t err = rt_allow_smem(ssd_state_kernel<W>, smem_a, &granted_state);
+  static size_t granted_state[RT_MAX_DEVICES] = {};
+  static size_t granted_out[RT_MAX_DEVICES] = {};
+  cudaError_t err = rt_allow_smem(ssd_state_kernel<W>, smem_a, granted_state);
   if (err == cudaSuccess)
-    err = rt_allow_smem(ssd_output_kernel<W>, smem_c, &granted_out);
+    err = rt_allow_smem(ssd_output_kernel<W>, smem_c, granted_out);
   if (err != cudaSuccess) return err;
 
   float* decay = nc > 1 ? ws + (long long)B * H * nc * DW * NK : nullptr;
@@ -566,7 +567,7 @@ cudaError_t ssd_launch(const float* x, long long x_sb, long long x_sl,
 // DW = 32 * ceil(hd / 32), its columns to NK = 8 * ceil(N / 8).
 // ws: B*H*nc*(DW*NK + 1) floats, needed when nc > 1.
 extern "C" int rt_ssm_scan(
-    const void* x, long long x_sb, long long x_sl, long long x_sh,
+    int device, const void* x, long long x_sb, long long x_sl, long long x_sh,
     const void* dt, long long dt_sb, long long dt_sl, long long dt_sh,
     const void* A, const void* Bm, long long b_sb, long long b_sl,
     long long b_sh, const void* Cm, long long c_sb, long long c_sl,
@@ -578,6 +579,8 @@ extern "C" int rt_ssm_scan(
       pass_grid < 0 || out_grid < 1)
     return (int)cudaErrorInvalidValue;
   if (L > T && ws == nullptr) return (int)cudaErrorInvalidValue;
+  RtDevice on(device);
+  if (on.status() != cudaSuccess) return (int)on.status();
   const int W = width_of(hd, N);
   using Launch = decltype(&ssd_launch<64>);
   const Launch launch = W == 32   ? &ssd_launch<32>

@@ -63,13 +63,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
                          f"{smem_bytes(q.dtype, hd)} bytes of shared memory "
                          f"a block, over the {SMEM_LIMIT} the card allows")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
-    err = _lib.load().rt_flash_attention(
-        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2), k.data_ptr(),
-        v.data_ptr(), k.stride(0), k.stride(1), k.stride(2), out.data_ptr(),
-        out.stride(0), out.stride(1), out.stride(2), code, B, Sq, Sk, H, KV,
-        hd, int(causal), int(window or 0), int(_lib.rows_16b(hd, q)),
-        int(_lib.rows_16b(hd, k, v)), _lib.stream_ptr(q))
-    _lib.check(err, "flash_attention")
+    _lib.launch(
+        "rt_flash_attention", q, q.data_ptr(), q.stride(0), q.stride(1),
+        q.stride(2), k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1),
+        k.stride(2), out.data_ptr(), out.stride(0), out.stride(1),
+        out.stride(2), code, B, Sq, Sk, H, KV, hd, int(causal),
+        int(window or 0), int(_lib.rows_16b(hd, q)),
+        int(_lib.rows_16b(hd, k, v)))
     flash_attention.launches += 1
     return out
 

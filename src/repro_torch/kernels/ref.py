@@ -3,8 +3,9 @@
 Written from the JAX oracles in ``repro.kernels.ref``, with the same
 numerics: full-materialization attention with a float32 softmax (the paged
 form over the gathered block pool), the indexed ring-slot and paged
-scatters, the murmur3-counter Gumbel-max sampler, and the sequential SSD
-(Mamba2) recurrence.  On a
+scatters, decode with the row write folded in as the two scatters and the
+attention in turn, the murmur3-counter Gumbel-max sampler, and the
+sequential SSD (Mamba2) recurrence.  On a
 CPU tensor the kernel wrappers run these; on the card, tests and
 ``chip_smoke.py`` hold each CUDA kernel against them.
 """
@@ -49,14 +50,19 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def _rows_index(index, B, device):
+    """An int or (B,) index as a (B,) int32 tensor."""
+    return torch.as_tensor(index, dtype=torch.int32,
+                           device=device).reshape(-1).expand(B)
+
+
 def decode_attention_ref(q, k_cache, v_cache, index):
     """q: (B, 1, H, hd); caches: (B, Smax, KV, hd); slots > index masked.
     ``index`` is an int or a (B,) tensor: row b sees slots <= index[b]
     (every slot once the ring has wrapped)."""
     B, _, H, hd = q.shape
     Smax, KV = k_cache.shape[1], k_cache.shape[2]
-    idx = torch.as_tensor(index, dtype=torch.int32, device=q.device)
-    idx = idx.reshape(-1).expand(B)
+    idx = _rows_index(index, B, q.device)
     ok = (torch.arange(Smax, device=q.device)[None, :] <= idx[:, None])
     out = _attend(q.reshape(B, 1, KV, H // KV, hd), k_cache, v_cache,
                   ok[:, None, None, None, :])
@@ -92,6 +98,33 @@ def cache_ring_update_ref(cache, new, slot):
     rows = torch.arange(cache.shape[0], device=cache.device)
     cache[rows, slot.long()] = new.to(cache.dtype)
     return cache
+
+
+def decode_attention_write_ref(q, k_new, v_new, k_cache, v_cache, index):
+    """The write instance of K1 as the unfused composition: k_new and v_new
+    (B, KV, hd) into slot ``index % Smax`` of each row (two
+    ``cache_ring_update_ref``), then ``decode_attention_ref``."""
+    slot = torch.remainder(_rows_index(index, q.shape[0], q.device),
+                           k_cache.shape[1])
+    cache_ring_update_ref(k_cache, k_new, slot)
+    cache_ring_update_ref(v_cache, v_new, slot)
+    return decode_attention_ref(q, k_cache, v_cache, index)
+
+
+def decode_attention_paged_write_ref(q, k_new, v_new, k_cache, v_cache, tbl,
+                                     index):
+    """The write instance of K5 as the unfused composition: k_new and v_new
+    into logical key rpos = ``index % (nk·bk)`` of each row,
+    ``pool[tbl[b, rpos // bk], rpos % bk]`` (two ``cache_paged_update_ref``),
+    then ``decode_attention_paged_ref``."""
+    B, nk = tbl.shape
+    bk = k_cache.shape[1]
+    rpos = torch.remainder(_rows_index(index, B, q.device), nk * bk)
+    blk = tbl[torch.arange(B, device=q.device), (rpos // bk).long()]
+    off = rpos % bk
+    cache_paged_update_ref(k_cache, k_new, blk, off)
+    cache_paged_update_ref(v_cache, v_new, blk, off)
+    return decode_attention_paged_ref(q, k_cache, v_cache, tbl, index)
 
 
 def _mul32(v, m: int):

@@ -53,11 +53,10 @@ def fused_sample(logits, seed, rid, pos, temperature):
     out = torch.empty(B, dtype=torch.int32, device=logits.device)
     part = torch.empty(2 * B * n_splits if n_splits > 1 else 0,
                        dtype=torch.int32, device=logits.device)
-    err = _lib.load().rt_fused_sample(
-        logits.data_ptr(), logits.stride(0), seed.data_ptr(), rid.data_ptr(),
-        pos.data_ptr(), temp.data_ptr(), out.data_ptr(), part.data_ptr(), B,
-        V, split_len, n_splits, _lib.stream_ptr(logits))
-    _lib.check(err, "fused_sample")
+    _lib.launch("rt_fused_sample", logits, logits.data_ptr(),
+                logits.stride(0), seed.data_ptr(), rid.data_ptr(),
+                pos.data_ptr(), temp.data_ptr(), out.data_ptr(),
+                part.data_ptr(), B, V, split_len, n_splits)
     fused_sample.launches += 1
     return out
 
@@ -79,8 +78,6 @@ def sample_noise(seed, rid, pos, V: int):
     B = seed.shape[0]
     bits = torch.empty((B, V), dtype=torch.int32, device=seed.device)
     g = torch.empty((B, V), dtype=torch.float32, device=seed.device)
-    err = _lib.load().rt_sample_noise(
-        seed.data_ptr(), rid.data_ptr(), pos.data_ptr(), bits.data_ptr(),
-        g.data_ptr(), B, V, _lib.stream_ptr(seed))
-    _lib.check(err, "sample_noise")
+    _lib.launch("rt_sample_noise", seed, seed.data_ptr(), rid.data_ptr(),
+                pos.data_ptr(), bits.data_ptr(), g.data_ptr(), B, V)
     return bits.to(torch.int64) & 0xFFFFFFFF, g

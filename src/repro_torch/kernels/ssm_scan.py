@@ -127,16 +127,15 @@ def ssm_scan(x, dt, A, B, C, *, chunk: int = 128, return_state: bool = False):
          if return_state else None)
     ws = (torch.empty(p.workspace, dtype=torch.float32, device=x.device)
           if p.workspace else None)
-    err = _lib.load().rt_ssm_scan(
-        x.data_ptr(), x.stride(0), x.stride(1), x.stride(2), dt.data_ptr(),
-        dt.stride(0), dt.stride(1), dt.stride(2), A.data_ptr(), B.data_ptr(),
-        B.stride(0), B.stride(1), B.stride(2), C.data_ptr(), C.stride(0),
-        C.stride(1), C.stride(2), y.data_ptr(),
+    _lib.launch(
+        "rt_ssm_scan", x, x.data_ptr(), x.stride(0), x.stride(1),
+        x.stride(2), dt.data_ptr(), dt.stride(0), dt.stride(1), dt.stride(2),
+        A.data_ptr(), B.data_ptr(), B.stride(0), B.stride(1), B.stride(2),
+        C.data_ptr(), C.stride(0), C.stride(1), C.stride(2), y.data_ptr(),
         None if h is None else h.data_ptr(),
         None if ws is None else ws.data_ptr(), Bsz, L, H, hd, N, p.T,
         p.state_grid, p.pass_grid, p.output_grid, int(_lib.rows_16b(hd, x)),
-        int(_lib.rows_16b(N, B, C)), _lib.stream_ptr(x))
-    _lib.check(err, "ssm_scan")
+        int(_lib.rows_16b(N, B, C)))
     ssm_scan.launches += 1
     return (y, h) if return_state else y
 

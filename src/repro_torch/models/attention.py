@@ -3,11 +3,15 @@ sequence, and one-token decode over a preallocated ring KV cache or a
 shared block pool.
 
 The dense part of ``repro.models.attention``.  Causal self-attention goes
-through ``kops.flash_attention``, ring decode through
-``kops.cache_ring_update`` and ``kops.decode_attention``, paged decode
-through ``kops.cache_paged_update`` and ``kops.decode_attention_paged``: the
-hand kernels on the card, their plain versions on the CPU.  Split-K over a
-mesh, padded heads and cross-attention are not ported yet.
+through ``kops.flash_attention``.  Decode writes the token's K/V and
+attends in one call, ``kops.decode_attention_write`` over the ring or
+``kops.decode_attention_paged_write`` through the block table, where the
+reference calls ``cache_ring_update`` (``cache_paged_update``) twice and
+then ``decode_attention`` (``decode_attention_paged``): one kernel launch a
+layer on the card, bitwise equal to the three, and the same three plain
+versions in turn on the CPU.  The kernel finds the written slot or block
+from the index and the table itself.  Split-K over a mesh, padded heads
+and cross-attention are not ported yet.
 """
 from __future__ import annotations
 
@@ -125,12 +129,9 @@ class Attention(nn.Module):
         index = index.reshape(-1).expand(B)
         if block_tbl is not None:
             out = self._decode_paged(q, k, v, cache, index, block_tbl)
-            return self.wo(out.reshape(B, 1, -1)), cache
-        Smax = cache["k"].shape[1]
-        slot = torch.remainder(index, Smax)
-        kops.cache_ring_update(cache["k"], k[:, 0], slot)
-        kops.cache_ring_update(cache["v"], v[:, 0], slot)
-        out = kops.decode_attention(q, cache["k"], cache["v"], index)
+        else:       # slot index % Smax of each row's ring
+            out = kops.decode_attention_write(q, k[:, 0], v[:, 0], cache["k"],
+                                              cache["v"], index)
         return self.wo(out.reshape(B, 1, -1)), cache
 
     # ---------------- paged decode (block-table KV pool) ------------------
@@ -144,21 +145,15 @@ class Attention(nn.Module):
     @staticmethod
     def _decode_paged(q, k_new, v_new, cache, index, block_tbl):
         """q/k_new/v_new: (B, 1, ·, hd); cache leaves (NB, bk, KV, hd);
-        block_tbl (B, nk); index (B,) int32 → (B, 1, H, hd)."""
-        NB, bk = cache["k"].shape[:2]
-        Smax = block_tbl.shape[1] * bk
+        block_tbl (B, nk); index (B,) int32 → (B, 1, H, hd).  The token's
+        K/V land at logical key index % (nk·bk) of the row, in the block
+        the table names for it."""
         # a sharded pool hands out global block ids that rem() folds into
         # the shard's local pool; unsharded, ids are < NB and it is the
-        # identity
-        tbl = torch.remainder(block_tbl, NB)
-        rpos = torch.remainder(index, Smax)
-        rows = torch.arange(q.shape[0], device=q.device)
-        blk = tbl[rows, (rpos // bk).long()]
-        off = rpos % bk
-        kops.cache_paged_update(cache["k"], k_new[:, 0], blk, off)
-        kops.cache_paged_update(cache["v"], v_new[:, 0], blk, off)
-        return kops.decode_attention_paged(q, cache["k"], cache["v"], tbl,
-                                           index)
+        # identity.  The kernel takes ids in [0, NB) only.
+        tbl = torch.remainder(block_tbl, cache["k"].shape[0])
+        return kops.decode_attention_paged_write(
+            q, k_new[:, 0], v_new[:, 0], cache["k"], cache["v"], tbl, index)
 
     @staticmethod
     def cache_len(cfg, max_seq: int) -> int:

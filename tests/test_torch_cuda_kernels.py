@@ -14,11 +14,18 @@ decode calls equal bitwise; the ring-slot and paged writes and greedy sampling e
 (bitwise equal to torch.argmax at every split plan); the sampler's hash bits
 bitwise and its noise within 1e-6; the SSD scan (float32) atol = rtol =
 3e-4, the reference's own, and two identical calls of either equal bitwise.
+Decode with the row write folded in equal, output and caches, to the row
+writes and the decode one after the other, bitwise (paged: active rows,
+and the pool outside the trash block); ``top_k`` sampling on the card equal
+to the same plain call on the CPU.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sample as smp
 from repro_torch.kernels import ssm_scan as ssp
@@ -272,13 +279,200 @@ def test_fused_sample_kernel_matches_plain(cuda):
     greedy = torch.zeros(B, device=cuda)
     assert torch.equal(ops.fused_sample(logits, seed, rid, pos, greedy),
                        ref.fused_sample_ref(logits, seed, rid, pos, greedy))
-    with pytest.raises(NotImplementedError, match="top-k"):
-        ops.fused_sample(logits, seed, rid, pos, greedy, top_k=5)
+    # top-k runs the plain version on the card, as the reference routes it
+    # to its oracle: the CPU's tokens
+    temp = torch.tensor([0.0, 0.7, 1.0, 0.0, 1.3, 0.5, 2.0, 0.7],
+                        device=cuda)
+    for k in (1, 5, 50):
+        got = ops.fused_sample(logits, seed, rid, pos, temp, top_k=k)
+        assert got.is_cuda
+        assert torch.equal(got.cpu(), ref.fused_sample_ref(
+            logits.cpu(), seed.cpu(), rid.cpu(), pos.cpu(), temp.cpu(),
+            top_k=k))
     bits, g = sample_noise(seed, rid, pos, V)
     want_bits = ref.sample_bits(seed.cpu(), rid.cpu(), pos.cpu(), V)
     assert torch.equal(bits.cpu(), want_bits)
     torch.testing.assert_close(g.cpu(), ref.gumbel_noise(want_bits),
                                rtol=1e-6, atol=1e-6)
+
+
+def _row_write_inputs(cuda, dtype, new_dtype, shape, pitch, seed):
+    """A (B, S, KV, hd) cache and (B, KV, hd) new rows in the given dtypes;
+    pitch > hd lays each (KV, hd) row out with a wider pitch, so no row
+    starts on 16 bytes."""
+    B, S, KV, hd = shape
+    rng = np.random.default_rng(seed)
+    cache = torch.from_numpy(rng.standard_normal(
+        (B, S, KV * pitch), dtype=np.float32)).to(cuda, dtype)
+    if pitch == hd:
+        new = torch.from_numpy(rng.standard_normal(
+            (B, KV, hd), dtype=np.float32)).to(cuda, new_dtype)
+        return cache.view(B, S, KV, hd), new
+    new = torch.from_numpy(rng.standard_normal(
+        (B, KV * pitch + 1), dtype=np.float32)).to(cuda, new_dtype)
+    return cache[..., :KV * hd].view(B, S, KV, hd), \
+        new[:, 1:KV * hd + 1].view(B, KV, hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("new_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pitch", [((8, 1024, 32, 80), 80),
+                                         ((8, 1024, 2, 128), 128),
+                                         ((3, 50, 1, 10), 10),
+                                         ((4, 64, 2, 64), 65)])
+def test_row_writes_take_any_row(cuda, dtype, new_dtype, shape, pitch):
+    """K2 and K6 a 16-byte vector a thread: zamba2's (32, 80) rows, qwen's
+    (2, 128), a row of 10 elements (a partial vector) and rows off 16-byte
+    boundaries (element loads and stores), exact in every dtype pair."""
+    B, S, KV, hd = shape
+    cache, new = _row_write_inputs(cuda, dtype, new_dtype, shape, pitch,
+                                   seed=hd)
+    if pitch != hd:
+        assert not dec._rows_vec(cache, new)
+    slot = torch.arange(B, dtype=torch.int32, device=cuda) * 7 % S
+    want = ref.cache_ring_update_ref(cache.clone(), new, slot)
+    ops.cache_ring_update(cache, new, slot)
+    assert torch.equal(cache, want)
+    pool = cache.reshape(B * S // 2, 2, KV, hd) if pitch == hd else cache
+    blk = (torch.arange(B, dtype=torch.int32, device=cuda) * 5 + 1) % \
+        pool.shape[0]
+    off = torch.arange(B, dtype=torch.int32, device=cuda) % pool.shape[1]
+    want = ref.cache_paged_update_ref(pool.clone(), new, blk, off)
+    ops.cache_paged_update(pool, new, blk, off)
+    assert torch.equal(pool, want)
+
+
+def _write_index(B, Smax, seed):
+    """Mixed fresh and wrapped rows, with row 0 writing key 0 (split 0),
+    row 1 key Smax - 1 (the last split) and row 2 wrapped onto key 5."""
+    index = _mixed_index(B, Smax, seed)
+    index[:3] = [0, Smax - 1, 2 * Smax + 5][:B]
+    return index
+
+
+def _split_plan_forced(monkeypatch, split_len):
+    """K1/K5 under the default plan (None), one split, or 64-key splits."""
+    if split_len == "one":
+        monkeypatch.setattr(dec, "split_plan", lambda B, KV, Smax, sm: (
+            -(-Smax // dec.DEC_TILE) * dec.DEC_TILE, 1))
+    elif split_len is not None:
+        monkeypatch.setattr(dec, "split_plan", lambda B, KV, Smax, sm: (
+            split_len, -(-Smax // split_len)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_len", [None, "one", 64])
+@pytest.mark.parametrize("new_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Smax,KV,G,hd", [(8, 1024, 2, 8, 128),
+                                            (8, 1024, 32, 1, 80),
+                                            (4, 300, 2, 16, 128),
+                                            (3, 100, 4, 1, 80)])
+def test_decode_attention_write_equals_unfused_bitwise(
+        cuda, monkeypatch, dtype, new_dtype, split_len, B, Smax, KV, G, hd):
+    """The write instance of K1 against K2, K2, K1: output and both caches
+    bitwise, G 1, 8 and 16 (two blocks a KV head cover the written key),
+    one split and many."""
+    _split_plan_forced(monkeypatch, split_len)
+    q, kc, vc = (torch.from_numpy(a).to(cuda, dtype)
+                 for a in _qkv(Smax + G, B, 1, Smax, KV * G, KV, hd))
+    _, kn, vn = (torch.from_numpy(a[:, 0]).to(cuda, new_dtype)
+                 for a in _qkv(hd, B, 1, 1, KV, KV, hd))
+    index = torch.as_tensor(_write_index(B, Smax, seed=G), device=cuda)
+    kf, vf = kc.clone(), vc.clone()
+    out = ops.decode_attention_write(q, kn, vn, kf, vf, index)
+    slot = torch.remainder(index, Smax)
+    ops.cache_ring_update(kc, kn, slot)
+    ops.cache_ring_update(vc, vn, slot)
+    assert torch.equal(out, ops.decode_attention(q, kc, vc, index))
+    assert torch.equal(kf, kc) and torch.equal(vf, vc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_write_unaligned_rows_equal_unfused(cuda, dtype):
+    """q, caches and new rows off 16-byte boundaries (q at row pitch
+    hd + 1, the rest one element past an aligned start): element loads and
+    stores, still bitwise."""
+    B, Smax, KV, G, hd = 3, 200, 2, 4, 64
+    rng = np.random.default_rng(21)
+    q = torch.from_numpy(rng.standard_normal(
+        (B, 1, KV * G, hd + 1), dtype=np.float32)).to(cuda, dtype)[..., :hd]
+
+    def shifted(*shape):
+        flat = torch.from_numpy(rng.standard_normal(
+            math.prod(shape) + 1, dtype=np.float32)).to(cuda, dtype)
+        return flat[1:].view(shape)
+
+    kc, vc = shifted(B, Smax, KV, hd), shifted(B, Smax, KV, hd)
+    kn, vn = shifted(B, KV, hd), shifted(B, KV, hd)
+    assert kc.data_ptr() % 16 and kn.data_ptr() % 16
+    index = torch.as_tensor(_write_index(B, Smax, seed=5), device=cuda)
+    kf, vf = kc.clone(), vc.clone()
+    out = ops.decode_attention_write(q, kn, vn, kf, vf, index)
+    slot = torch.remainder(index, Smax)
+    ops.cache_ring_update(kc, kn, slot)
+    ops.cache_ring_update(vc, vn, slot)
+    assert torch.equal(out, ops.decode_attention(q, kc, vc, index))
+    assert torch.equal(kf, kc) and torch.equal(vf, vc)
+
+
+def _paged_write_unfused(q, kn, vn, kp, vp, tbl, index):
+    """K6, K6, K5 on the pools in place, as the model ran them before."""
+    B, nk = tbl.shape
+    bk = kp.shape[1]
+    rpos = torch.remainder(index, nk * bk)
+    blk = tbl[torch.arange(B, device=tbl.device), (rpos // bk).long()]
+    ops.cache_paged_update(kp, kn, blk, rpos % bk)
+    ops.cache_paged_update(vp, vn, blk, rpos % bk)
+    return ops.decode_attention_paged(q, kp, vp, tbl, index)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_len", [None, "one"])
+@pytest.mark.parametrize("new_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bk", [1, 8])
+@pytest.mark.parametrize("KV,G,hd", [(2, 8, 128), (32, 1, 80), (2, 16, 128)])
+def test_decode_attention_paged_write_equals_unfused_bitwise(
+        cuda, monkeypatch, dtype, new_dtype, split_len, bk, KV, G, hd):
+    """The write instance of K5 against K6, K6, K5 through a shuffled
+    table: output and both pools bitwise."""
+    _split_plan_forced(monkeypatch, split_len)
+    B = 8
+    nk = 1024 // bk
+    q, kp, vp, tbl, _ = _paged_inputs(cuda, dtype, B, nk, bk, KV, G, hd,
+                                      seed=bk + G)
+    _, kn, vn = (torch.from_numpy(a[:, 0]).to(cuda, new_dtype)
+                 for a in _qkv(hd, B, 1, 1, KV, KV, hd))
+    index = torch.as_tensor(_write_index(B, nk * bk, seed=bk), device=cuda)
+    kf, vf = kp.clone(), vp.clone()
+    out = ops.decode_attention_paged_write(q, kn, vn, kf, vf, tbl, index)
+    assert torch.equal(out, _paged_write_unfused(q, kn, vn, kp, vp, tbl,
+                                                 index))
+    assert torch.equal(kf, kp) and torch.equal(vf, vp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_write_inactive_rows_on_the_trash_block(cuda, dtype):
+    """Rows 5..7 are inactive: their table rows all name the trash block 0,
+    so their writes collide there.  Active rows' outputs and every pool
+    block but the trash block equal the unfused path bitwise."""
+    B, KV, G, hd, bk, nk = 8, 2, 8, 128, 8, 128
+    q, kp, vp, tbl, _ = _paged_inputs(cuda, dtype, B, nk, bk, KV, G, hd,
+                                      seed=99)
+    tbl[5:] = 0
+    _, kn, vn = (torch.from_numpy(a[:, 0]).to(cuda, dtype)
+                 for a in _qkv(7, B, 1, 1, KV, KV, hd))
+    index = torch.as_tensor(_write_index(B, nk * bk, seed=3), device=cuda)
+    index[5:] = torch.tensor([0, 8, 700], dtype=torch.int32)  # 5, 6 collide
+    kf, vf = kp.clone(), vp.clone()
+    out = ops.decode_attention_paged_write(q, kn, vn, kf, vf, tbl, index)
+    want = _paged_write_unfused(q, kn, vn, kp, vp, tbl, index)
+    assert torch.equal(out[:5], want[:5])
+    assert torch.equal(kf[1:], kp[1:]) and torch.equal(vf[1:], vp[1:])
 
 
 def _counters(rng, B, cuda):

@@ -2,13 +2,18 @@
 plan that K1 and K5 share, their launch geometry, K4's shared-memory
 reckoning against the 227 KB a block may use on the H100, the sampler's
 (K3) split of each row, and the SSD scan's (K7) chunk and tile plan and
-shared memory.  The kernels themselves run only on the card
-(``tests/test_torch_cuda_kernels.py``)."""
+shared memory; and that every wrapper hands the library its tensors'
+device and that device's stream.  The kernels themselves run only on the
+card (``tests/test_torch_cuda_kernels.py``)."""
 import math
+import types
+import warnings
 
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
+from repro_torch.kernels import _lib, ops
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import sample as smp
@@ -231,3 +236,52 @@ def test_ssm_plan_refuses_widths_past_the_tiles():
         ssp.plan(1, 64, 2, 129, 64, 128)
     with pytest.raises(ValueError, match="N"):
         ssp.plan(1, 64, 2, 64, 129, 128)
+
+
+def _drive_every_wrapper(dev):
+    """One call of each kernel wrapper on (fake) tensors on ``dev``."""
+    B, H, KV, hd, Smax, bk = 2, 4, 2, 16, 64, 8
+    z = lambda *shape, dt=torch.float32: torch.zeros(*shape, dtype=dt,
+                                                     device=dev)
+    q, kc, vc = z(B, 1, H, hd), z(B, Smax, KV, hd), z(B, Smax, KV, hd)
+    kp, vp = z(17, bk, KV, hd), z(17, bk, KV, hd)
+    kn, vn = z(B, KV, hd), z(B, KV, hd)
+    idx, tbl = z(B, dt=torch.int32), z(B, Smax // bk, dt=torch.int32)
+    ops.decode_attention(q, kc, vc, idx)
+    ops.decode_attention_write(q, kn, vn, kc, vc, idx)
+    ops.decode_attention_paged(q, kp, vp, tbl, idx)
+    ops.decode_attention_paged_write(q, kn, vn, kp, vp, tbl, idx)
+    ops.cache_ring_update(kc, kn, idx)
+    ops.cache_paged_update(kp, kn, idx, idx)
+    ops.flash_attention(z(1, 8, H, hd), z(1, 8, KV, hd), z(1, 8, KV, hd))
+    ops.fused_sample(z(B, 100), idx, idx, idx, z(B))
+    smp.sample_noise(idx, idx, idx, 100)
+    ops.ssm_scan(z(1, 8, 2, 16), z(1, 8, 2), z(2), z(1, 8, 2, 4),
+                 z(1, 8, 2, 4))
+
+
+@pytest.mark.parametrize("device_index", [0, 1, 3])
+def test_wrappers_launch_on_their_tensors_device(monkeypatch, device_index):
+    """The library launches on any CUDA device: every entry point gets the
+    tensors' device index first and PyTorch's current stream on that device
+    last, with as many arguments as its ctypes signature declares.  Fake
+    CUDA tensors and a recording library stand in for the card."""
+    calls = []
+
+    class Recorder:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(_lib, "load", Recorder)
+    monkeypatch.setattr(_lib, "sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: (
+        types.SimpleNamespace(cuda_stream=1000 + device.index)))
+    with warnings.catch_warnings(), FakeTensorMode():
+        warnings.simplefilter("ignore")     # fake tensors' data_ptr
+        _drive_every_wrapper(torch.device("cuda", device_index))
+    assert sorted({name for name, _ in calls}) == sorted(_lib._SIGNATURES)
+    assert len(calls) == 10
+    for name, args in calls:
+        assert args[0] == device_index, name
+        assert args[-1] == 1000 + device_index, name
+        assert len(args) == 1 + len(_lib._SIGNATURES[name]), name

@@ -5,7 +5,11 @@
   oracles and its Pallas kernels in interpret mode, on the same numpy
   inputs: attention within atol = rtol = 2e-5 in float32, the write
   exactly; under an identity table the paged plain version equals the
-  dense one bitwise.
+  dense one bitwise.  ``ops.decode_attention_paged_write`` (K5 with the
+  K6 write folded in) against the reference's two ``cache_paged_update``
+  calls and ``decode_attention_paged``: the pools exactly, outputs within
+  the same tolerance (2e-2 against the Pallas kernel over bf16 pools,
+  which keeps its probabilities in float32).
 - ``Attention.decode`` with a block table and ``LM.decode`` on a paged
   cache at bridged weights: outputs and written pool rows within
   atol = rtol = 2e-5, rows not written bit-identical.
@@ -114,6 +118,53 @@ def test_cache_paged_update_plain_is_exact(cache_dtype):
     untouched[blk] = False
     assert torch.equal(tc[torch.from_numpy(untouched)],
                        before[torch.from_numpy(untouched)])
+
+
+@pytest.mark.parametrize("cache_dtype,tol", [("float32", ATOL),
+                                             ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("index", [[0, 7, 30], [45, 70, 33], [5, 40, 95]])
+def test_decode_attention_paged_write_plain_matches_reference(index,
+                                                              cache_dtype,
+                                                              tol):
+    """Indices below Smax = 32, wrapped past it, and mixed per row; each
+    row writes into its own block of a shuffled table."""
+    B, H, KV, hd, bk, nk = 3, 4, 2, 32, 4, 8
+    NB, Smax = B * nk + 1, nk * bk
+    q = _rand((B, 1, H, hd), 11)
+    kc, vc = _rand((NB, bk, KV, hd), 12), _rand((NB, bk, KV, hd), 13)
+    kn, vn = _rand((B, KV, hd), 14), _rand((B, KV, hd), 15)
+    rng = np.random.default_rng(16)
+    tbl = (1 + rng.permutation(B * nk)).reshape(B, nk).astype(np.int32)
+    idx = np.asarray(index, np.int32)
+    dt = getattr(torch, cache_dtype)
+    tk, tv = _t(kc).to(dt), _t(vc).to(dt)
+    uk, uv = tk.clone(), tv.clone()
+    out = ops.decode_attention_paged_write(_t(q), _t(kn), _t(vn), tk, tv,
+                                           _t(tbl), _t(idx))
+    # what the port ran before the fold, one call after another
+    rpos = idx % Smax
+    blk = tbl[np.arange(B), rpos // bk]
+    off = (rpos % bk).astype(np.int32)
+    ops.cache_paged_update(uk, _t(kn), _t(blk), _t(off))
+    ops.cache_paged_update(uv, _t(vn), _t(blk), _t(off))
+    assert torch.equal(out, ops.decode_attention_paged(_t(q), uk, uv,
+                                                       _t(tbl), _t(idx)))
+    assert torch.equal(tk, uk) and torch.equal(tv, uv)
+    # the reference: two table-routed writes (Pallas), then paged decode
+    jk = jops.cache_paged_update(jnp.asarray(kc).astype(cache_dtype),
+                                 jnp.asarray(kn), blk, off, interpret=True)
+    jv = jops.cache_paged_update(jnp.asarray(vc).astype(cache_dtype),
+                                 jnp.asarray(vn), blk, off, interpret=True)
+    np.testing.assert_array_equal(tk.float().numpy(),
+                                  np.asarray(jk, np.float32))
+    np.testing.assert_array_equal(tv.float().numpy(),
+                                  np.asarray(jv, np.float32))
+    np.testing.assert_allclose(
+        out.numpy(), np.asarray(jref.decode_attention_paged_ref(
+            q, jk, jv, tbl, idx), np.float32), atol=ATOL, rtol=RTOL)
+    pallas = jops.decode_attention_paged(q, jk, jv, tbl, idx, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas, np.float32),
+                               atol=tol, rtol=tol)
 
 
 # -------------------------------------------------------- model on a paged pool
