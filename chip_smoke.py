@@ -3,68 +3,74 @@
 
     python3 chip_smoke.py
 
-Phases; any failure exits non-zero and prints no result line:
+Phases 3 to 5 run for each served model in turn (qwen2.5-3b, zamba2-2.7b,
+olmoe-1b-7b, falcon-mamba-7b), each model freed before the next is built.
+Any failure exits non-zero and prints no result line.
 
 1. build    — compile the Hopper kernels from ``src/repro_torch/kernels/csrc``.
 2. kernels  — hold each kernel against its plain PyTorch version on the
               card, in bf16 at the shapes qwen2.5-3b serving gives it (plus
-              one h2o-danube shape), the sampler (K3) at qwen2.5-3b's and
-              zamba2-2.7b's vocabularies, the SSD scan (K7) in float32 at the
+              one h2o-danube shape), the sampler (K3) at every served
+              model's vocabulary, the SSD scan (K7) in float32 at the
               shapes zamba2-2.7b's prefill gives it (timed at 64, 200 and
               2048 tokens), and time kernel, plain version and one library
-              call doing the same work; then the
-              attention kernels again at zamba2's shared-attention shapes
-              (32 heads, G = 1, hd 80).  Tolerances: decode, paged decode
-              and flash attention atol = rtol = 2e-2 (bf16 outputs; the
-              plain version rounds its probabilities to bf16, the kernels
-              keep them in f32); the paged decode equal to the dense one
-              bitwise under an identity table; the ring-slot and paged
-              writes and greedy sampling exact; the sampler's hash bits
-              bitwise and its noise within 1e-6; the SSD scan (y and final
-              state) atol = rtol = 3e-4, the reference's own (chunked and
-              sequential sums round differently); two identical calls of
-              K1, K5, K3 and K7 bitwise equal.  The write instances of K1
-              and K5 (what decode runs: the row's K/V write folded into
-              the attention's launch), at qwen2.5-3b's and zamba2-2.7b's
-              shapes, with the written key in the first and in the last
-              split, indices below Smax, wrapped and mixed, bf16 and
-              float32 new rows: output and caches bitwise equal to K2,
-              K2, K1 (K6, K6, K5), caches equal to the plain composition
-              and the output within 2e-2 of it; timed beside K1 (K5)
-              alone and the unfused three.
-3. serve    — full-width qwen2.5-3b (36 layers, random weights from a seed)
-              on two paths, each with the launch counts set to 0 just before
-              it and read just after: ``repro_torch.launch.serve.main`` on
-              the dense pool, prefill unchunked and chunked by 64; and
-              ``ServingEngine(pool="paged", spec_k=3)`` on prompts that
-              share a 136-token prefix, with prefix sharing and speculative
-              verify on.  Then full-width zamba2-2.7b (54 Mamba2 layers in 9
-              groups, each followed by one of 2 shared attention blocks): the
-              CLI on the dense pool, unchunked and chunked by 64, and
-              ``ServingEngine(pool="paged", spec_k=3)``, which pages the
-              shared blocks' K/V and serves plain (recurrent state cannot
-              rewind).  Every request must finish, greedy ticks must move
-              no logits, the qwen paged run must hit the prefix registry and
-              accept drafts, the zamba2 one must propose none, and every
-              kernel's launch count must match the ticks, verify lanes and
-              prefilled admissions of the run: decode runs the write
-              instances only, each carrying the layer's two row writes,
-              and the standalone K1, K2, K5 and K6 launch 0 times.
-4. streams  — full width: the qwen paged + speculative greedy streams
-              equal the dense plain engine's, and the zamba2 paged ones the
-              zamba2 dense ones, request for request.  Smoke configs of both
-              in float32: greedy streams through the kernels equal those of
-              the plain versions (the same engine on the CPU, same weights),
-              on the dense and the paged engine.
-5. profile  — host time of a full-width qwen decode tick, of a verify tick
-              and of a zamba2 decode tick, and the device time per kernel
-              over steady-state ticks (torch.profiler; device busy is the
-              sum over the device's own events, printed beside the sum
-              over host ops and kernels alike, which counts a kernel
-              launched by an aten op twice); then one profiled
-              qwen admission (a 200-token prefill), K4's share beside the
-              rest; and a zamba2-2.7b decode tick and one profiled
-              zamba2-2.7b admission, K7's and K4's shares beside the rest.
+              call doing the same work; then the attention kernels again
+              at zamba2's shared-attention shapes (32 heads, G = 1, hd 80)
+              and olmoe-1b-7b's (16 heads, G = 1, hd 128).  Tolerances:
+              decode, paged decode and flash attention atol = rtol = 2e-2
+              (bf16 outputs; the plain version rounds its probabilities to
+              bf16, the kernels keep them in f32); the paged decode equal
+              to the dense one bitwise under an identity table; the
+              ring-slot and paged writes and greedy sampling exact; the
+              sampler's hash bits bitwise and its noise within 1e-6; the
+              SSD scan (y and final state) atol = rtol = 3e-4, the
+              reference's own (chunked and sequential sums round
+              differently); two identical calls of K1, K5, K3 and K7
+              bitwise equal.  The write instances of K1 and K5 (what
+              decode runs: the row's K/V write folded into the attention's
+              launch), at all three attention shapes, with the written key
+              in the first and in the last split, indices below Smax,
+              wrapped and mixed, bf16 and float32 new rows: output and
+              caches bitwise equal to K2, K2, K1 (K6, K6, K5), caches equal
+              to the plain composition and the output within 2e-2 of it;
+              timed beside K1 (K5) alone and the unfused three.
+3. serve    — each model at full width and depth, random weights from a
+              seed, on paths that each have the launch counts set to 0 just
+              before and read just after: ``repro_torch.launch.serve.main``
+              on the dense pool, prefill unchunked and chunked by 64; and
+              ``ServingEngine(pool="paged", spec_k=3)``.  qwen2.5-3b and
+              olmoe-1b-7b run it on prompts that share a 136-token prefix,
+              with prefix sharing and speculative verify on; zamba2-2.7b
+              pages its shared blocks' K/V and falcon-mamba-7b has nothing
+              to page, and both serve plain (recurrent state cannot
+              rewind).  olmoe's CLI runs at the published capacity factor
+              1.25; its paged run on a dropless copy (capacity_factor =
+              E/K) and then at 1.25.  Every request must finish, greedy
+              ticks must move no logits, the paged runs of the decoder
+              models must hit the prefix registry and accept drafts, the
+              recurrent ones propose none, and every kernel's launch count
+              must match the ticks, verify lanes and prefilled admissions
+              of the run: decode runs the write instances only, each
+              carrying the layer's two row writes, and the standalone K1,
+              K2, K5 and K6 launch 0 times.
+4. streams  — full width: the paged (+ speculative) greedy streams equal
+              the dense plain engine's, request for request, for qwen,
+              zamba2, falcon and dropless olmoe (at 1.25 they are printed,
+              not held, beside the drop fraction of one-shot forwards).
+              Smoke configs in float32: greedy streams through the kernels
+              equal those of the plain versions (the same engine on the
+              CPU, same weights), on the dense and the paged engine.
+5. profile  — host time of a full-width decode tick (and of a qwen verify
+              tick) beside the byte floor of the weights it reads, and the
+              device time per kernel over steady-state ticks
+              (torch.profiler; device busy is the sum over the device's
+              own events, printed beside the sum over host ops and kernels
+              alike, which counts a kernel launched by an aten op twice);
+              then one profiled 200-token admission per model, the named
+              kernels' shares (K4, K7) beside the rest.  olmoe's MoE
+              layers and falcon's selective scans are timed as ranges of
+              their own; falcon's scan loops also by the host clock in an
+              unprofiled admission.
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -113,6 +119,11 @@ ZSERVE = ["--arch", "zamba2-2.7b", "--device", "cuda", "--requests", "8",
 Z_MAMBA, Z_ATTN = 54, 9
 # the kernels of a zamba2 prefill, by a pattern of their CUDA names
 ZAMBA2_KERNELS = (("K7", "ssd|ssm"), ("K4", "flash"))
+# olmoe-1b-7b at full width: 16 layers of attention (16 heads, 16 KV heads,
+# hd 128) and a 64-expert top-8 MoE; falcon-mamba-7b: 64 Mamba1 layers, no
+# attention.  The CLI serves both as it serves qwen2.5-3b.
+OSERVE = ["--arch", "olmoe-1b-7b"] + SERVE[2:]
+FSERVE = ["--arch", "falcon-mamba-7b"] + SERVE[2:]
 
 KERNEL_INFO = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -262,17 +273,18 @@ def ssd_inputs(torch, g, Bsz, L, H=80, hd=64, N=64):
     return x, dt, A, Bm, C
 
 
-SAMPLE_SHAPES = {"qwen2.5-3b": (8, 151936), "zamba2-2.7b": (8, 32000)}
+SAMPLE_SHAPES = {"qwen2.5-3b": (8, 151936), "zamba2-2.7b": (8, 32000),
+                 "olmoe-1b-7b": (8, 50304), "falcon-mamba-7b": (8, 65024)}
 SSD_LENGTHS = (64, 200, 2048)
 
 
 def sample_rows(torch, ops, ref, sample_noise, g):
-    """K3 at qwen2.5-3b's and zamba2-2.7b's vocabularies, 8 rows: greedy
-    tokens bitwise equal to the plain version and to torch.argmax (a tie
-    across a split boundary goes to the first index), hash bits bitwise,
-    noise within 1e-6, the sampled token the Gumbel max; timed greedy
-    beside the plain version and torch.argmax.  Returns qwen's row with
-    zamba2's under "others"."""
+    """K3 at every served model's vocabulary (SAMPLE_SHAPES), 8 rows:
+    greedy tokens bitwise equal to the plain version and to torch.argmax (a
+    tie across a split boundary goes to the first index), hash bits
+    bitwise, noise within 1e-6, the sampled token the Gumbel max; timed
+    greedy beside the plain version and torch.argmax.  Returns qwen's row
+    with the others under "others"."""
     from repro_torch.kernels.sample import split_plan
     from repro_torch.kernels._lib import sm_count
     dev = torch.device("cuda")
@@ -714,16 +726,17 @@ def kernel_phase(torch, ops, ref, sample_noise):
     return rows
 
 
-def zamba2_attention_phase(torch, ops, ref):
-    """K1, K2, K4, K5 and K6 at zamba2-2.7b's shared attention (32 heads,
-    32 KV heads so G = 1, hd 80; 8 slots, max_seq 1024, rows near 200
+def attention_shapes_phase(torch, ops, ref, label, H, KV, hd, seed):
+    """K1, K2, K4, K5 and K6 at another model's attention shapes (zamba2's
+    shared attention: 32 heads, 32 KV heads, hd 80; olmoe-1b-7b: 16 heads,
+    16 KV heads, hd 128; both G = 1; 8 slots, max_seq 1024, rows near 200
     tokens), in bf16: held against their plain versions and timed as in
     kernel_phase; then the write instances of K1 and K5 there.  Printed;
     the kernels line keeps the qwen2.5-3b shapes."""
     F = torch.nn.functional
     dev, bf16 = torch.device("cuda"), torch.bfloat16
-    g = torch.Generator(device=dev).manual_seed(13)
-    B, H, KV, hd, Smax, bk = 8, 32, 32, 80, 1024, 8
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, Smax, bk = 8, 1024, 8
     nk = Smax // bk
     randn = lambda *shape: torch.randn(*shape, generator=g,
                                        device=dev).to(bf16)
@@ -791,35 +804,38 @@ def zamba2_attention_phase(torch, ops, ref):
             got = cache.clone()
             cache.copy_(before)
             plain()
-            check(torch.equal(got, cache), f"{name} [zamba2]: kernel != "
+            check(torch.equal(got, cache), f"{name} [{label}]: kernel != "
                                            f"plain")
             err = 0.0
         else:
             err = max_err(torch, kernel(), plain(), ATTN_TOL,
-                          f"{name} [zamba2]")
+                          f"{name} [{label}]")
         b_ms, b_by = bound(nbytes, flops, PEAK_BF16_S)
-        print(f"  zamba2 {name}: kernel {timed_ms(torch, kernel):.4f} ms, "
+        print(f"  {label} {name}: kernel {timed_ms(torch, kernel):.4f} ms, "
               f"plain {timed_ms(torch, plain):.4f} ms, library "
               f"{timed_ms(torch, library):.4f} ms, bound {b_ms:.5f} ms "
               f"({b_by}), max|err| {err}")
     for paged in (False, True):
-        write_instance_row(torch, ops, ref, g, "zamba2-2.7b", H, KV, hd, paged)
+        write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged)
 
 
 # --------------------------------------------------------------------- phase 3
 
 
-def qwen_launches(ticks, prefilled, lanes=0, fused=None):
-    """qwen2.5-3b's launch counts: per layer one K1 write instance a dense
-    tick (or one K5 write instance a paged lane), each carrying the layer's
-    two row writes; one K4 a prefilled admission, one K3 a fused tick.  The
-    standalone K1, K2, K5 and K6 launch 0 times."""
-    return {"decode_attention": 0, "cache_ring_update": 0,
-            "fused_sample": ticks if fused is None else fused,
-            "flash_attention": N_LAYERS * prefilled,
-            "decode_attention_paged": 0, "cache_paged_update": 0,
-            "ssm_scan": 0, "decode_attention_write": N_LAYERS * ticks,
-            "decode_attention_paged_write": N_LAYERS * lanes}
+def decoder_launches(n_layers):
+    """A decoder model's launch counts (qwen2.5-3b's 36 layers,
+    olmoe-1b-7b's 16): per layer one K1 write instance a dense tick (or one
+    K5 write instance a paged lane), each carrying the layer's two row
+    writes; one K4 per layer a prefilled admission, one K3 a fused tick.
+    The standalone K1, K2, K5 and K6 launch 0 times."""
+    def launches(ticks, prefilled, lanes=0, fused=None):
+        return {"decode_attention": 0, "cache_ring_update": 0,
+                "fused_sample": ticks if fused is None else fused,
+                "flash_attention": n_layers * prefilled,
+                "decode_attention_paged": 0, "cache_paged_update": 0,
+                "ssm_scan": 0, "decode_attention_write": n_layers * ticks,
+                "decode_attention_paged_write": n_layers * lanes}
+    return launches
 
 
 def zamba2_launches(ticks, prefilled, paged=False):
@@ -835,6 +851,14 @@ def zamba2_launches(ticks, prefilled, paged=False):
             "ssm_scan": Z_MAMBA * prefilled,
             "decode_attention_write": Z_ATTN * dense_ticks,
             "decode_attention_paged_write": Z_ATTN * paged_ticks}
+
+
+def mamba1_launches(ticks, prefilled):
+    """falcon-mamba-7b's: one K3 a tick (every tick is fused: recurrent
+    state cannot rewind, so nothing is speculated) and nothing else: the
+    model has no attention, and Mamba1's scan is no kernel of the JAX
+    package."""
+    return {**{name: 0 for name in KERNEL_INFO}, "fused_sample": ticks}
 
 
 def check_launches(counts, want, what):
@@ -881,8 +905,7 @@ def serve_phase(torch, ops, serve, base_argv, expected):
         check_launches(counts, expected(ticks, admissions), "serve")
         for name in launches:
             launches[name] += counts[name]
-        gc.collect()
-        torch.cuda.empty_cache()
+        free(torch)
     return launches
 
 
@@ -991,10 +1014,14 @@ def paged_serve_phase(torch, ops, core, prompts):
     check(life["logits_pulls"] == 0,
           f"greedy serving pulled logits {life['logits_pulls']} times")
     prefilled = life["prefix_admits"] - life["prefix_hits"]
-    check_launches(counts, qwen_launches(0, prefilled, lanes=lanes,
-                                         fused=calls["fused"]), "paged")
-    check(all(counts[k] > 0 for k in ("fused_sample", "flash_attention",
-                                      "decode_attention_paged_write")),
+    check_launches(counts, decoder_launches(core.cfg.n_layers)(
+        0, prefilled, lanes=lanes, fused=calls["fused"]), "paged")
+    # K3 samples the fused ticks only (verify lanes take the argmax of
+    # their logits, as the reference's verify step does): when drafts are
+    # accepted all the way (olmoe-1b-7b), every tick may be a verify tick
+    path = ("flash_attention", "decode_attention_paged_write") + (
+        ("fused_sample",) if calls["fused"] else ())
+    check(all(counts[k] > 0 for k in path),
           f"the paged path skipped a kernel: {counts}")
     return counts, streams
 
@@ -1002,21 +1029,48 @@ def paged_serve_phase(torch, ops, core, prompts):
 # --------------------------------------------------------------------- phase 4
 
 
-def full_width_streams_phase(core, prompts, paged_streams):
+def dense_shared(core, prompts):
     """The dense plain engine on the paged run's prompts and schedule.
     prefill_chunk equals the block size on both sides: a shared prefix was
     computed by another request's ticks, an unshared one by the request's
     own, and they agree bit for bit only when both come from the same
     operations at the same shapes.  Every op of the tick works row by row
-    at a fixed (8, 1) batch, and a one-shot prefill of one block runs at the
-    same M on both sides; an unchunked 200-token prefill would run the
-    projections at M = 200 on one side and M = 8 on the other."""
+    at a fixed (8, 1) batch (MoE's expert slabs too: C = N there), and a
+    one-shot prefill of one block runs at the same M on both sides; an
+    unchunked 200-token prefill would run the projections at M = 200 on
+    one side and M = 8 on the other."""
     from repro_torch.serving import ServingEngine
     eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=MAX_SEQ, core=core,
                         prefill_chunk=8)
-    dense = run_shared(eng, prompts)
+    return run_shared(eng, prompts)
+
+
+def first_difference(torch, core, prompts, got, want):
+    """Where two greedy stream sets first part: the request, the step, the
+    two tokens and the logit margin (top 1 less top 2) at that step on
+    ``want``'s side, from a one-shot forward over the prompt and ``want``'s
+    tokens before the step; None where they agree."""
+    import numpy as np
+    for rid in sorted(want):
+        for step, (a, b) in enumerate(zip(got[rid], want[rid])):
+            if a != b:
+                toks = np.concatenate([prompts[rid], want[rid][:step]])
+                with torch.no_grad():
+                    logits, _ = core.params({"tokens": torch.tensor(
+                        toks[None], dtype=torch.int32, device=core.device)})
+                top = logits[0, -1].float().topk(2).values
+                return (f"request {rid}, step {step}: {a} vs {b}, logit "
+                        f"margin there {(top[0] - top[1]).item():.4g}")
+    return None
+
+
+def full_width_streams_phase(torch, core, prompts, paged_streams):
+    """The paged + speculative streams equal the dense plain ones."""
+    dense = dense_shared(core, prompts)
     check(dense == paged_streams,
-          f"paged + spec streams {paged_streams} != dense plain {dense}")
+          f"paged + spec streams differ from the dense plain ones at "
+          f"{first_difference(torch, core, prompts, paged_streams, dense)}: "
+          f"{paged_streams} != {dense}")
     print(f"  {len(dense)} full-width greedy streams equal (paged + "
           f"spec_k={SPEC_K} vs dense plain), e.g. rid 0: {dense[0]}")
 
@@ -1034,7 +1088,7 @@ def run_all(eng, requests):
     return {r.rid: list(r.tokens_out) for r in done}
 
 
-def zamba2_requests(vocab):
+def random_requests(vocab):
     """8 requests of 200 random prompt tokens and 16 generated, seeded."""
     import numpy as np
     from repro_torch.serving import synthetic_requests
@@ -1043,55 +1097,70 @@ def zamba2_requests(vocab):
                               SLOTS, vocab, rng=np.random.default_rng(2))
 
 
-def zamba2_paged_phase(torch, ops, core):
-    """ServingEngine(pool="paged", spec_k=3) at full width: the shared
-    blocks' K/V are paged (K5's write instance carries every tick, K1's
-    none), the Mamba2 state stays dense, nothing is shared or
-    speculated."""
+def recurrent_paged_phase(torch, ops, core, label, expected):
+    """ServingEngine(pool="paged", spec_k=3) at full width on a model with
+    recurrent state: nothing is shared or speculated.  zamba2-2.7b pages
+    its shared blocks' K/V (K5's write instance carries every tick, K1's
+    none) and keeps the Mamba2 state dense; falcon-mamba-7b has nothing to
+    page, and "paged" is the dense pool.  Launch counts must equal
+    ``expected(fused ticks, admissions)``."""
     from repro_torch.serving import ServingEngine
     eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=MAX_SEQ, core=core,
                         pool="paged", spec_k=SPEC_K)
-    check(eng.pool.is_paged and not eng.pool.can_share,
-          "zamba2's paged pool must page the attention K/V and share nothing")
+    pages = core.cfg.hybrid is not None
+    check(eng._paged == pages and not getattr(eng.pool, "can_share", False),
+          f"{label}'s paged pool must {'' if pages else 'not '}page the "
+          f"attention K/V and share nothing")
     with counted_steps(core) as calls:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        streams = run_all(eng, zamba2_requests(core.cfg.vocab))
+        streams = run_all(eng, random_requests(core.cfg.vocab))
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         wall = time.perf_counter() - t0
     life = eng.lifetime()
-    print(f"  zamba2 paged + spec_k={SPEC_K}: {life['total_tokens']} tokens "
+    admitted, hits = eng.stats.total_admitted, life.get("prefix_hits", 0)
+    print(f"  {label} paged + spec_k={SPEC_K}: {life['total_tokens']} tokens "
           f"in {wall:.2f} s ({life['total_tokens'] / wall:.1f} tok/s, host "
           f"clock), {calls['fused']} fused + {calls['verify']} verify ticks, "
-          f"admissions {life['prefix_admits']}, prefix_hits="
-          f"{life['prefix_hits']} spec_proposed={life['spec_proposed']} "
-          f"logits_pulls={life['logits_pulls']}")
+          f"admissions {admitted}, prefix_hits={hits} spec_proposed="
+          f"{life['spec_proposed']} logits_pulls={life['logits_pulls']}")
     check(life["total_completed"] == SLOTS,
           f"{life['total_completed']}/{SLOTS} requests finished")
     check(life["spec_proposed"] == 0 and calls["verify"] == 0,
-          "zamba2 speculated: recurrent state cannot rewind")
-    check(life["prefix_hits"] == 0, "zamba2 shared a prefix")
+          f"{label} speculated: recurrent state cannot rewind")
+    check(hits == 0, f"{label} shared a prefix")
     check(life["logits_pulls"] == 0,
           f"greedy serving pulled logits {life['logits_pulls']} times")
-    check_launches(counts, zamba2_launches(calls["fused"],
-                                           life["prefix_admits"], paged=True),
-                   "zamba2 paged")
+    check_launches(counts, expected(calls["fused"], admitted),
+                   f"{label} paged")
     return counts, streams
 
 
-def zamba2_streams_phase(core, paged_streams):
+def recurrent_streams_phase(core, label, paged_streams):
     """The dense plain engine on the same requests: the same greedy
     streams, request for request (K5 reads the blocks in K1's order, its
-    write instance writes what K1's writes, the Mamba2 state is the
+    write instance writes what K1's writes, the recurrent state is the
     same)."""
     from repro_torch.serving import ServingEngine
     eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=MAX_SEQ, core=core)
-    dense = run_all(eng, zamba2_requests(core.cfg.vocab))
+    dense = run_all(eng, random_requests(core.cfg.vocab))
     check(dense == paged_streams,
-          f"zamba2 paged streams {paged_streams} != dense {dense}")
-    print(f"  {len(dense)} full-width zamba2 greedy streams equal (paged + "
+          f"{label} paged streams {paged_streams} != dense {dense}")
+    print(f"  {len(dense)} full-width {label} greedy streams equal (paged + "
           f"spec_k={SPEC_K} vs dense), e.g. rid 0: {dense[0]}")
+
+
+def drop_fracs(torch, core, prompts):
+    """drop_frac of a one-shot forward over each prompt, averaged over the
+    MoE layers (the forward's aux sums them)."""
+    out = []
+    for p in prompts:
+        with torch.no_grad():
+            _, aux = core.params({"tokens": torch.tensor(
+                p[None], dtype=torch.int32, device=core.device)})
+        out.append(aux["drop_frac"].item() / core.cfg.n_layers)
+    return out
 
 
 SMOKE_PATHS = {
@@ -1106,6 +1175,15 @@ SMOKE_PATHS = {
         ("paged + spec", dict(pool="paged", spec_k=SPEC_K),
          ("ssm_scan", "flash_attention", "decode_attention_paged_write",
           "fused_sample"))),
+    "olmoe-1b-7b": (
+        ("dense", {}, ("decode_attention_write", "fused_sample",
+                       "flash_attention")),
+        ("paged + spec", dict(pool="paged", spec_k=SPEC_K),
+         ("decode_attention_paged_write", "flash_attention"))),
+    "falcon-mamba-7b": (
+        ("dense", {}, ("fused_sample",)),
+        ("paged + spec", dict(pool="paged", spec_k=SPEC_K),
+         ("fused_sample",))),
 }
 
 
@@ -1155,9 +1233,92 @@ def streams_phase(torch, ops, arch):
 # --------------------------------------------------------------------- phase 5
 
 
-def profile_ticks(torch, eng, label, n, n_prof, counted=None):
+@contextlib.contextmanager
+def annotated(torch, label, modules):
+    """Each call of these modules inside a ``record_function(label)``
+    range, by forward hooks: the model's code is unchanged, and nothing
+    runs once the block ends."""
+    ranges, handles = [], []
+
+    def enter(module, args):
+        ranges.append(torch.profiler.record_function(label))
+        ranges[-1].__enter__()
+
+    def leave(module, args, out):
+        ranges.pop().__exit__(None, None, None)
+
+    for m in modules:
+        handles += [m.register_forward_pre_hook(enter),
+                    m.register_forward_hook(leave)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+@contextlib.contextmanager
+def timed_scan(torch, stats):
+    """Mamba1's ``selective_scan`` inside a ``record_function`` range, its
+    host time (the Python loop's launches, no synchronize) and calls added
+    to ``stats``."""
+    from repro_torch.models import mamba
+    scan = mamba.selective_scan
+
+    def wrapped(*args):
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("selective_scan"):
+            out = scan(*args)
+        stats["host_s"] += time.perf_counter() - t0
+        stats["calls"] += 1
+        return out
+
+    mamba.selective_scan = wrapped
+    try:
+        yield stats
+    finally:
+        mamba.selective_scan = scan
+
+
+def range_ms(prof, label, n) -> float:
+    """Device ms per step of the kernels launched inside ``label``'s
+    ranges (the host-side range events, whose device time sums the
+    kernels of every op they enclose)."""
+    from torch.autograd import DeviceType
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.key == label and e.device_type == DeviceType.CPU
+               ) / 1e3 / n
+
+
+def weight_floor(model):
+    """(GB, ms) of the weights a decode tick reads at least once: every
+    Linear's compute-dtype copy, the MoE expert stacks' copies and a tied
+    readout's float32 table, over 3.35 TB/s."""
+    from repro_torch.models.moe import MoE
+    from repro_torch.nn import Linear
+    nbytes = 0
+    for m in model.modules():
+        if isinstance(m, Linear):
+            nbytes += m.w_c.numel() * m.w_c.element_size()
+        elif isinstance(m, MoE):
+            nbytes += sum(t.numel() * t.element_size()
+                          for t in (m.gate_c, m.up_c, m.down_c))
+    if model.lm_head is None:
+        nbytes += model.embed.table.numel() * model.embed.table.element_size()
+    return nbytes / 1e9, nbytes / PEAK_BYTES_S * 1e3
+
+
+def range_shares(prof, ranges, n, device_ms):
+    return "".join(f"; {label} {range_ms(prof, label, n):.3f} ms of device "
+                   f"time ({range_ms(prof, label, n) / device_ms:.1%})"
+                   for label in ranges)
+
+
+def profile_ticks(torch, eng, label, n, n_prof, counted=None,
+                  annotate=contextlib.nullcontext, ranges=()):
     """Host time per tick over ``n`` unprofiled ticks, then device time per
-    kernel from torch.profiler over ``n_prof`` more."""
+    kernel from torch.profiler over ``n_prof`` more, inside ``annotate()``
+    with the device time of each of its ``ranges``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1166,8 +1327,8 @@ def profile_ticks(torch, eng, label, n, n_prof, counted=None):
     torch.cuda.synchronize()
     tick_ms = (time.perf_counter() - t0) / n * 1e3
     before = dict(counted or {})
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with annotate(), profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_prof):
             eng.step(now=0.0)
@@ -1182,18 +1343,23 @@ def profile_ticks(torch, eng, label, n, n_prof, counted=None):
     print(f"  {label} tick: {tick_ms:.2f} ms host clock ({n} ticks, "
           f"unprofiled); profiled {prof_ms:.2f} ms, device busy "
           f"{device_ms:.2f} ms ({device_ms / prof_ms:.0%} of the profiled "
-          f"tick; {summed_ms:.2f} ms summed over ops and kernels){mix}")
+          f"tick; {summed_ms:.2f} ms summed over ops and kernels){mix}"
+          f"{range_shares(prof, ranges, n_prof, device_ms)}")
     print_profile(prof, n_prof)
 
 
 def _by_kernel(prof, n, device_only=False):
     """(name, self device ms per step) of the profiled events, largest
     first; ``device_only``: the device's own events (kernels, copies,
-    sets), not the host ops that launched them."""
+    sets), not the host ops that launched them.  A ``record_function``
+    range's device-side event spans the device timeline from its first
+    kernel to its last, idle time included: it is no work, and left out
+    (``range_ms`` reads a range's kernels)."""
     from torch.autograd import DeviceType
     return sorted(((e.key, e.self_device_time_total / 1e3 / n)
                    for e in prof.key_averages()
                    if e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False)
                    and (not device_only or e.device_type == DeviceType.CUDA)),
                   key=lambda kv: -kv[1])
 
@@ -1215,22 +1381,30 @@ def print_profile(prof, n, top=12):
 
 
 def profile_admission(torch, core, label="qwen2.5-3b",
-                      kernels=(("K4", "flash"),)):
+                      kernels=(("K4", "flash"),),
+                      annotate=contextlib.nullcontext, ranges=()):
     """One admission: the unchunked prefill of a 200-token prompt into a
-    free slot (``ServingEngine.admit``), after one warm-up admission; host
-    time and device time per kernel, each named kernel's share (by a
-    pattern of its CUDA names) beside the rest."""
+    free slot (``ServingEngine.admit``), after one warm-up admission; its
+    host time unprofiled, then another's profiled: device time per kernel,
+    each named kernel's share (by a pattern of its CUDA names) and each
+    range's beside the rest.  Both run inside an ``annotate()`` of their
+    own.  Returns the unprofiled host ms."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import ServingEngine
     eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=MAX_SEQ, core=core)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(3, core.cfg.vocab, 200).astype(np.int32)
-               for _ in range(2)]
+               for _ in range(3)]
     eng.admit(0, prompts[0], GEN_LEN)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with annotate():
+        t0 = time.perf_counter()
+        eng.admit(2, prompts[2], GEN_LEN)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    with annotate(), profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.admit(1, prompts[1], GEN_LEN)
         torch.cuda.synchronize()
@@ -1242,19 +1416,20 @@ def profile_admission(torch, core, label="qwen2.5-3b",
                    if re.search(pattern, key))
         shares.append(f"{name} {k_ms:.3f} ms ({k_ms / device_ms:.1%} of the "
                       f"device time)")
-    print(f"  {label} admission (200-token prefill): {wall_ms:.2f} ms host "
-          f"clock (profiled), device busy {device_ms:.2f} ms "
-          f"({summed_ms:.2f} ms summed over ops and kernels); "
-          + "; ".join(shares))
+    print(f"  {label} admission (200-token prefill): {plain_ms:.2f} ms host "
+          f"clock unprofiled, {wall_ms:.2f} ms profiled, device busy "
+          f"{device_ms:.2f} ms ({summed_ms:.2f} ms summed over ops and "
+          f"kernels)" + "".join("; " + x for x in shares)
+          + range_shares(prof, ranges, 1, device_ms))
     print_profile(prof, 1)
     del eng
-    gc.collect()
-    torch.cuda.empty_cache()
+    free(torch)
+    return plain_ms
 
 
-def profile_dense_tick(torch, core, label):
+def profile_dense_tick(torch, core, label, **kw):
     """Dense plain: 8 slots, prompts streaming through the tick, as with
-    --prefill-chunk 64."""
+    --prefill-chunk 64; the weights' byte floor of a tick beside it."""
     import numpy as np
     from repro_torch.serving import ServingEngine, synthetic_requests
     from repro_torch.sim.serving import WorkloadSpec
@@ -1267,7 +1442,10 @@ def profile_dense_tick(torch, core, label):
         eng.submit(r)
     for _ in range(4):                  # admit every request, warm up
         eng.step(now=0.0)
-    profile_ticks(torch, eng, label, n=20, n_prof=10)
+    gb, floor_ms = weight_floor(core.params)
+    print(f"  {label}: a tick reads at least {gb:.2f} GB of weights, a byte "
+          f"floor of {floor_ms:.3f} ms at 3.35 TB/s")
+    profile_ticks(torch, eng, label, n=20, n_prof=10, **kw)
 
 
 def profile_phase(torch, core, prompts):
@@ -1289,9 +1467,115 @@ def profile_phase(torch, core, prompts):
         profile_ticks(torch, eng, f"paged + spec_k={SPEC_K}", n=10,
                       n_prof=5, counted=calls)
     del eng
+    free(torch)
+    profile_admission(torch, core)
+
+
+def free(torch):
+    """Drop what the last phase left and return the card's cached blocks
+    (the next model needs the room)."""
     gc.collect()
     torch.cuda.empty_cache()
-    profile_admission(torch, core)
+
+
+def peak_gib(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def olmoe_phases(torch, ops, serve, EngineCore, cfg, add):
+    """olmoe-1b-7b at full width: the CLI at the published capacity factor
+    1.25 (an unchunked 200-token prefill drops tokens); the paged +
+    speculative run, the dense plain streams and phase 5 on a dropless
+    copy (capacity_factor = E/K: C = N·K, so no expert can overflow and the
+    streams cannot depend on which tokens share a batch); then the same
+    two runs at 1.25, their streams compared and printed, not held equal,
+    beside the drop_frac of one-shot forwards over the prompts."""
+    import dataclasses
+    print("[3] serve olmoe-1b-7b at full width (capacity factor "
+          f"{cfg.moe.capacity_factor})")
+    t0 = time.perf_counter()
+    add(serve_phase(torch, ops, serve, OSERVE,
+                    decoder_launches(cfg.n_layers)))
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=E / K))
+    torch.cuda.reset_peak_memory_stats()
+    core = EngineCore(dropless, MAX_SEQ, seed=0, device="cuda")
+    print(f"  dropless copy, capacity_factor = E/K = {E / K:g}: C = N·K, no "
+          f"expert can overflow; the stream equality of phase 4 is held on "
+          f"it")
+    prompts = shared_prompts(core)
+    launches, streams = paged_serve_phase(torch, ops, core, prompts)
+    add(launches)
+    drops = drop_fracs(torch, core, prompts)
+    check(max(drops) == 0.0, f"the dropless copy dropped tokens: {drops}")
+    print("[4] greedy streams on the card: olmoe-1b-7b (dropless copy)")
+    full_width_streams_phase(torch, core, prompts, streams)
+    streams_phase(torch, ops, "olmoe-1b-7b")
+    print("[5] where a full-width olmoe-1b-7b tick's and admission's time "
+          "goes (dropless copy)")
+    moe = [blk.moe for blk in core.params.blocks]
+    annotate = lambda: annotated(torch, "moe", moe)
+    profile_dense_tick(torch, core, "olmoe dense decode", annotate=annotate,
+                       ranges=("moe",))
+    profile_admission(torch, core, "olmoe-1b-7b", annotate=annotate,
+                      ranges=("moe",))
+    print(f"  peak device memory {peak_gib(torch):.2f} GiB")
+    del core, moe, annotate
+    free(torch)
+    print(f"[3] olmoe-1b-7b at capacity factor {cfg.moe.capacity_factor}: "
+          f"the paged + speculative run and the dense plain streams")
+    core = EngineCore(cfg, MAX_SEQ, seed=0, device="cuda")
+    launches, streams = paged_serve_phase(torch, ops, core, prompts)
+    add(launches)
+    dense = dense_shared(core, prompts)
+    where = first_difference(torch, core, prompts, streams, dense)
+    drops = drop_fracs(torch, core, prompts)
+    print(f"  streams {'equal' if where is None else 'differ: ' + where} "
+          f"(not held: with drops a token's experts depend on its batch); "
+          f"one-shot forward over each {len(prompts[0])}-token prompt: "
+          f"drop_frac per layer {min(drops):.4f} to {max(drops):.4f}")
+    del core
+    free(torch)
+    print(f"  olmoe-1b-7b: {time.perf_counter() - t0:.1f} s")
+
+
+def falcon_phases(torch, ops, serve, EngineCore, cfg, add):
+    """falcon-mamba-7b at full width: the CLI, the paged + speculative
+    engine (nothing to page, nothing speculated), its streams against the
+    dense engine's, and phase 5 with the selective scan's host time."""
+    print("[3] serve falcon-mamba-7b at full width")
+    t0 = time.perf_counter()
+    add(serve_phase(torch, ops, serve, FSERVE, mamba1_launches))
+    torch.cuda.reset_peak_memory_stats()
+    core = EngineCore(cfg, MAX_SEQ, seed=0, device="cuda")
+    launches, streams = recurrent_paged_phase(torch, ops, core,
+                                              "falcon-mamba-7b",
+                                              mamba1_launches)
+    add(launches)
+    print("[4] greedy streams on the card: falcon-mamba-7b")
+    recurrent_streams_phase(core, "falcon-mamba-7b", streams)
+    streams_phase(torch, ops, "falcon-mamba-7b")
+    print("[5] where a full-width falcon-mamba-7b tick's and admission's "
+          "time goes")
+    profile_dense_tick(torch, core, "falcon dense decode")
+    scans = []                  # per admission: the scans' host time
+
+    def annotate():
+        scans.append({"host_s": 0.0, "calls": 0})
+        return timed_scan(torch, scans[-1])
+
+    plain_ms = profile_admission(torch, core, "falcon-mamba-7b", kernels=(),
+                                 annotate=annotate,
+                                 ranges=("selective_scan",))
+    scan_ms = scans[0]["host_s"] * 1e3
+    print(f"  the unprofiled admission's {scans[0]['calls']} selective "
+          f"scans: {scan_ms:.2f} ms host clock ({scan_ms / plain_ms:.0%}; "
+          f"the loop's launches, 199 a layer, no synchronize)")
+    print(f"  peak device memory {peak_gib(torch):.2f} GiB")
+    del core
+    free(torch)
+    print(f"  falcon-mamba-7b: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1327,7 +1611,10 @@ def main() -> int:
                   f"spill loads {ld} B")
         print("[2] kernels against their plain versions")
         rows = kernel_phase(torch, ops, ref, sample_noise)
-        zamba2_attention_phase(torch, ops, ref)
+        attention_shapes_phase(torch, ops, ref, "zamba2-2.7b", 32, 32, 80,
+                               seed=13)
+        attention_shapes_phase(torch, ops, ref, "olmoe-1b-7b", 16, 16, 128,
+                               seed=17)
         launches = {name: 0 for name in ops.KERNELS}
 
         def add(counts):
@@ -1335,7 +1622,8 @@ def main() -> int:
                 launches[name] += n
 
         print("[3] serve qwen2.5-3b at full width")
-        add(serve_phase(torch, ops, serve, SERVE, qwen_launches))
+        add(serve_phase(torch, ops, serve, SERVE,
+                        decoder_launches(N_LAYERS)))
         core = EngineCore(get_config("qwen2.5-3b"), MAX_SEQ, seed=0,
                           device="cuda")
         prompts = shared_prompts(core)
@@ -1343,26 +1631,34 @@ def main() -> int:
                                                           prompts)
         add(paged_launches)
         print("[4] greedy streams on the card: qwen2.5-3b")
-        full_width_streams_phase(core, prompts, paged_streams)
+        full_width_streams_phase(torch, core, prompts, paged_streams)
         streams_phase(torch, ops, "qwen2.5-3b")
         print("[5] where a full-width qwen2.5-3b tick's time goes")
         profile_phase(torch, core, prompts)
         del core
-        gc.collect()
-        torch.cuda.empty_cache()
+        free(torch)
         print("[3] serve zamba2-2.7b at full width")
         add(serve_phase(torch, ops, serve, ZSERVE, zamba2_launches))
         zcore = EngineCore(get_config("zamba2-2.7b"), MAX_SEQ, seed=0,
                            device="cuda")
-        z_launches, z_streams = zamba2_paged_phase(torch, ops, zcore)
+        z_launches, z_streams = recurrent_paged_phase(
+            torch, ops, zcore, "zamba2-2.7b",
+            lambda ticks, prefilled: zamba2_launches(ticks, prefilled,
+                                                     paged=True))
         add(z_launches)
         print("[4] greedy streams on the card: zamba2-2.7b")
-        zamba2_streams_phase(zcore, z_streams)
+        recurrent_streams_phase(zcore, "zamba2-2.7b", z_streams)
         streams_phase(torch, ops, "zamba2-2.7b")
         print("[5] where a full-width zamba2-2.7b tick's and admission's "
               "time goes")
         profile_dense_tick(torch, zcore, "zamba2 dense decode")
         profile_admission(torch, zcore, "zamba2-2.7b", ZAMBA2_KERNELS)
+        del zcore
+        free(torch)
+        olmoe_phases(torch, ops, serve, EngineCore,
+                     get_config("olmoe-1b-7b"), add)
+        falcon_phases(torch, ops, serve, EngineCore,
+                      get_config("falcon-mamba-7b"), add)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

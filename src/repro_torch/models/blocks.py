@@ -1,14 +1,15 @@
-"""Layer blocks: the dense decoder block (pre-norm attention + SwiGLU), the
-pre-norm Mamba2 block and zamba2's shared attention block.  The MoE and
-encoder-decoder blocks of ``repro.models.blocks`` and Mamba1 are not ported
-yet."""
+"""Layer blocks: the decoder block (pre-norm attention + SwiGLU or MoE),
+the pre-norm Mamba block (Mamba1 or Mamba2) and zamba2's shared attention
+block.  The encoder-decoder blocks of ``repro.models.blocks`` are not
+ported yet."""
 from __future__ import annotations
 
 from torch import nn
 
 from repro_torch.models.attention import Attention
-from repro_torch.models.mamba import Mamba2
+from repro_torch.models.mamba import Mamba1, Mamba2
 from repro_torch.models.mlp import SwiGLU
+from repro_torch.models.moe import MoE
 from repro_torch.nn import LayerNorm, RMSNorm
 
 
@@ -17,48 +18,66 @@ def norm_cls(cfg):
 
 
 class DecoderBlock(nn.Module):
-    """Pre-norm attention + SwiGLU — the dense family."""
+    """Pre-norm attention + (SwiGLU | MoE) — the dense and MoE families."""
 
     def __init__(self, cfg, *, generator=None, device=None):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError("MoE blocks wait for slice C1 of the "
-                                      "port")
         self.cfg = cfg
         norm = norm_cls(cfg)
         nkw = dict(eps=cfg.norm_eps, param_dtype=cfg.pdtype, device=device)
         self.ln1 = norm(cfg.d_model, **nkw)
         self.attn = Attention(cfg, generator=generator, device=device)
         self.ln2 = norm(cfg.d_model, **nkw)
-        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dtype=cfg.cdtype,
-                          param_dtype=cfg.pdtype, generator=generator,
-                          device=device)
+        fkw = dict(dtype=cfg.cdtype, param_dtype=cfg.pdtype,
+                   generator=generator, device=device)
+        if cfg.moe is not None:
+            self.moe = MoE(cfg.d_model, cfg.moe, **fkw)
+        else:
+            self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, **fkw)
 
-    def forward(self, x, *, angles=None, causal=True, return_kv=False):
+    def _ffn(self, x):
+        """→ (y, the MoE aux or None), as the reference's ``_ffn``."""
+        if self.cfg.moe is not None:
+            return self.moe(x)
+        return self.mlp(x), None
+
+    def forward(self, x, *, angles=None, causal=True, return_kv=False,
+                return_aux=False):
+        """x → x, or (x[, (k, v)][, aux]) as ``return_kv`` and
+        ``return_aux`` ask."""
         h, kv = self.attn(self.ln1(x), angles=angles, causal=causal,
                           window=self.cfg.sliding_window, return_kv=True)
         x = x + h
-        x = x + self.mlp(self.ln2(x))
-        return (x, kv) if return_kv else x
+        h, aux = self._ffn(self.ln2(x))
+        x = x + h
+        out = (x,) + ((kv,) if return_kv else ()) + (
+            (aux,) if return_aux else ())
+        return out if len(out) > 1 else x
 
     def decode(self, x, cache, index, *, angles=None, block_tbl=None):
         h, cache = self.attn.decode(self.ln1(x), cache, index, angles=angles,
                                     block_tbl=block_tbl)
         x = x + h
-        return x + self.mlp(self.ln2(x)), cache
+        return x + self._ffn(self.ln2(x))[0], cache
 
 
 class SSMBlock(nn.Module):
-    """Pre-norm Mamba2 block — the ssm family and the zamba2 backbone."""
+    """Pre-norm Mamba block — the ssm family (Mamba1 for ``ssm.version``
+    1) and the zamba2 backbone (Mamba2)."""
 
     def __init__(self, cfg, *, generator=None, device=None):
         super().__init__()
-        if cfg.ssm.version != 2:
-            raise NotImplementedError("Mamba1 (falcon-mamba) waits for "
-                                      "slice C3 of the port")
         self.ln = RMSNorm(cfg.d_model, eps=cfg.norm_eps,
                           param_dtype=cfg.pdtype, device=device)
-        self.mamba = Mamba2(cfg, generator=generator, device=device)
+        self.mamba = self.impl(cfg)(cfg, generator=generator, device=device)
+
+    @staticmethod
+    def impl(cfg):
+        return Mamba1 if cfg.ssm.version == 1 else Mamba2
+
+    @staticmethod
+    def state_shape(cfg, batch: int):
+        return SSMBlock.impl(cfg).state_shape(cfg, batch)
 
     def forward(self, x, *, return_state: bool = False):
         """x: (B, L, d) → x + mamba(ln(x)) [, the decode state]."""

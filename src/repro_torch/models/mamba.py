@@ -1,14 +1,20 @@
-"""Mamba2 / SSD state-space block (``repro.models.mamba.Mamba2``), the
-zamba2 backbone.
+"""State-space blocks: Mamba1 (falcon-mamba) and Mamba2 / SSD (the zamba2
+backbone), the port of ``repro.models.mamba``.
 
-``forward`` runs the full sequence through ``kops.ssm_scan``: K7 on the
-card, the sequential recurrence on the CPU (the tensor's device decides,
-not ``cfg.use_pallas``).  With ``return_state`` it also returns the decode
-state after the last token — the scan's carried ``h`` and the last
+``Mamba2.forward`` runs the full sequence through ``kops.ssm_scan``: K7 on
+the card, the sequential recurrence on the CPU (the tensor's device
+decides, not ``cfg.use_pallas``).  With ``return_state`` it also returns the
+decode state after the last token — the scan's carried ``h`` and the last
 ``d_conv - 1`` conv inputs — where the reference recomputes ``h`` with a
-second sequential scan (``LM._mamba2_final_state``).  ``decode`` is the
-one-token recurrence and writes the new state into the cache leaves it is
-given, in place.  Mamba1 (falcon-mamba) is not ported.
+second sequential scan (``LM._mamba2_final_state``).
+
+``Mamba1.forward`` runs ``selective_scan``, the reference's ``lax.scan``
+over the tokens (the JAX package has no kernel for it), and returns ``y``
+and the final state from one pass where the reference scans twice
+(``Mamba1.apply``, ``LM._mamba1_final_state``).
+
+``decode`` is the one-token recurrence of either and writes the new state
+into the cache leaves it is given, in place.
 """
 from __future__ import annotations
 
@@ -25,6 +31,108 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: logaddexp(x, 0) everywhere (``F.softplus``
     switches to the identity above 20)."""
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def selective_scan(x, dt, A, Bm, C):
+    """Mamba1's selective scan: h_t = exp(dt_t ⊗ A) · h_{t-1} + (dt_t · x_t)
+    ⊗ B_t from h = 0, y_t = h_t · C_t, all float32.  x, dt: (B, L, di);
+    A: (di, N); Bm, C: (B, L, N) → (y (B, L, di), h_L (B, di, N)).
+
+    Only the recurrence is a loop: the decays and input terms of every step
+    are computed at once, ``(B, L, di, N)`` each, and step t is one
+    multiply-add that writes h_t over its input term; y is one batched
+    product over all the states afterwards."""
+    L = x.shape[1]
+    decay = torch.exp(dt[..., None] * A)
+    hs = (dt * x)[..., None] * Bm[:, :, None, :]
+    for t in range(1, L):
+        hs[:, t].addcmul_(decay[:, t], hs[:, t - 1])
+    y = torch.einsum("bldn,bln->bld", hs, C)
+    # a copy: a view would keep every layer's (B, L, di, N) buffer alive
+    # until the prefill's states are stacked
+    return y, hs[:, -1].clone()
+
+
+class Mamba1(nn.Module):
+    def __init__(self, cfg, *, generator=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        di, N, R = cfg.d_inner, cfg.ssm.d_state, cfg.dt_rank
+        pd, cd = cfg.pdtype, cfg.cdtype
+        kw = dict(param_dtype=pd, generator=generator, device=device)
+        self.in_proj = Linear(cfg.d_model, 2 * di, dtype=cd, use_bias=False,
+                              **kw)
+        self.conv = Conv1D(di, di, cfg.ssm.d_conv, groups=di, **kw)
+        self.x_proj = Linear(di, R + 2 * N, dtype=cd, use_bias=False, **kw)
+        # the reference hands dt_proj float32 inputs and no dtype: float32
+        self.dt_proj = Linear(R, di, dtype=torch.float32, **kw)
+        self.A_log = _param(torch.log(torch.arange(
+            1, N + 1, dtype=torch.float32, device=device)).expand(
+            di, N).to(pd).contiguous())
+        self.D = _param(torch.ones(di, device=device, dtype=pd))
+        self.out_proj = Linear(di, cfg.d_model, dtype=cd, use_bias=False,
+                               **kw)
+
+    def _dbc(self, x_conv):
+        """x_conv (..., di) → dt (..., di), B, C (..., N), all float32."""
+        N, R = self.cfg.ssm.d_state, self.cfg.dt_rank
+        dt_r, Bc, Cc = torch.split(self.x_proj(x_conv).float(), [R, N, N],
+                                   dim=-1)
+        return softplus(self.dt_proj(dt_r)), Bc, Cc
+
+    def _out(self, y, xf, z):
+        """y (..., di) float32 → out_proj((y + x·D) * silu(z))."""
+        y = y + xf * self.D.float()
+        return self.out_proj(y.to(self.cfg.cdtype) * F.silu(z))
+
+    def forward(self, x, *, return_state: bool = False):
+        """x: (B, L, d) → (B, L, d) [, {"h": (B, di, N) float32, "conv":
+        (B, min(L, k-1), di)}]."""
+        cfg = self.cfg
+        x_in, z = self.in_proj(x).chunk(2, dim=-1)
+        x_conv = F.silu(self.conv(x_in, causal=True, dtype=cfg.cdtype))
+        dt, Bc, Cc = self._dbc(x_conv)
+        A = -torch.exp(self.A_log.float())                       # (di, N)
+        xf = x_conv.float()
+        y, h_last = selective_scan(xf, dt, A, Bc, Cc)
+        out = self._out(y, xf, z)
+        if return_state:
+            # the conv inputs' tail as the reference slices it: shorter
+            # than k-1 rows after a shorter prompt (ROADMAP §3)
+            return out, {"h": h_last,
+                         "conv": x_in[:, -(cfg.ssm.d_conv - 1):].clone()}
+        return out
+
+    def decode(self, x, state):
+        """x: (B, 1, d); state {"h": (B, di, N) float32, "conv": (B, k-1,
+        di)}, both written in place → (y, state)."""
+        x_in, z = self.in_proj(x).chunk(2, dim=-1)               # (B, 1, di)
+        window = torch.cat([state["conv"], x_in], dim=1)         # (B, k, di)
+        w = self.conv.w.to(x_in.dtype)                           # (k, 1, di)
+        xc = (window * w.transpose(0, 1)).sum(dim=1, keepdim=True)
+        if self.conv.b is not None:
+            xc = xc + self.conv.b.to(xc.dtype)
+        x_conv = F.silu(xc)
+        dt, Bc, Cc = self._dbc(x_conv)
+        A = -torch.exp(self.A_log.float())
+        dt_t, x_t = dt[:, 0], x_conv[:, 0].float()
+        h = (torch.exp(dt_t[..., None] * A[None]) * state["h"]
+             + (dt_t * x_t)[..., None] * Bc[:, 0][:, None, :])
+        y = torch.einsum("bdn,bn->bd", h, Cc[:, 0])
+        out = self._out(y[:, None], x_t[:, None], z)
+        # the new state is complete before the old one is overwritten
+        state["h"].copy_(h)
+        state["conv"].copy_(window[:, 1:])
+        return out, state
+
+    @staticmethod
+    def state_shape(cfg, batch: int):
+        di, N, k = cfg.d_inner, cfg.ssm.d_state, cfg.ssm.d_conv
+        return {
+            "h": ((batch, di, N), torch.float32, ("batch", "d_inner", None)),
+            "conv": ((batch, k - 1, di), cfg.cdtype,
+                     ("batch", None, "d_inner")),
+        }
 
 
 class Mamba2(nn.Module):

@@ -1,5 +1,5 @@
-"""The language model of the dense, SSM (Mamba2) and hybrid (zamba2)
-families (``repro.models.transformer.LM``).
+"""The language model of the dense, MoE, SSM (Mamba1 and Mamba2) and hybrid
+(zamba2) families (``repro.models.transformer.LM``).
 
 The reference stacks the layers' parameters on a leading axis and runs them
 under ``lax.scan``; here every layer is its own module in an
@@ -7,16 +7,18 @@ under ``lax.scan``; here every layer is its own module in an
 Mamba2 layers as G groups of A (``blocks[g][i]``), the shared attention
 blocks (``shared[s]``) and one down projection per group (``down[g]``).
 The decode cache keeps the reference's tree — ``{"index", "layers": {"k",
-"v"}}`` (dense), ``{"index", "layers": {"h", "conv"}}`` (SSM), ``{"index",
-"mamba": {"h", "conv"}, "attn": {"k", "v"}}`` (hybrid, mamba leaves
-``(G, A, B, …)``) — and decode writes it in place through per-layer views,
-where the reference donates the buffers to ``jit``.
+"v"}}`` (dense, MoE), ``{"index", "layers": {"h", "conv"}}`` (SSM),
+``{"index", "mamba": {"h", "conv"}, "attn": {"k", "v"}}`` (hybrid, mamba
+leaves ``(G, A, B, …)``) — and decode writes it in place through
+per-layer views, where the reference donates the buffers to ``jit``.
 
 Entry points:
   LM(cfg, device=..., seed=...)            seeded init, the reference's
                                            distributions; on cuda unless
                                            device="cpu" is asked for
-  model(inputs)                            -> (logits, aux)   # LM.apply
+  model(inputs)                            -> (logits, aux)   # LM.apply;
+                                           aux sums the MoE layers'
+                                           lb_loss, z_loss, drop_frac
   model.prefill(inputs, max_seq)           -> (last-position logits, cache)
   model.decode(tokens, cache)              -> (logits, cache)
   LM.cache_spec(cfg, batch, max_seq)       -> tree of (shape, dtype, axes)
@@ -33,7 +35,7 @@ from repro_torch.models.blocks import (
     DecoderBlock, SharedAttnBlock, SSMBlock, norm_cls,
 )
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.mamba import Mamba2
+from repro_torch.models.moe import MoE
 from repro_torch.models.rotary import rope_angles, text_positions
 from repro_torch.nn import Embedding, Linear
 
@@ -41,12 +43,8 @@ from repro_torch.nn import Embedding, Linear
 def _check_family(cfg: ModelConfig):
     if cfg.enc_dec:
         raise NotImplementedError("enc-dec models wait for slice C5")
-    if cfg.ssm is not None and cfg.ssm.version != 2:
-        raise NotImplementedError("Mamba1 (falcon-mamba) waits for slice C3")
     if cfg.m_rope or cfg.family == "vlm":
         raise NotImplementedError("VLM models wait for slice C2")
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE models wait for slice C1")
 
 
 def _angles(cfg: ModelConfig, batch: int, seq: int, start=0, device=None):
@@ -74,6 +72,15 @@ def map_spec(fn, spec):
 def zero_aux(device=None) -> dict:
     z = lambda: torch.zeros((), dtype=torch.float32, device=device)
     return {"lb_loss": z(), "z_loss": z(), "drop_frac": z()}
+
+
+def add_aux(total: dict, aux) -> dict:
+    """``total`` plus a layer's aux, over ``total``'s keys (the
+    reference's ``_aux_of`` and its sum over the layer scan)."""
+    if not aux:
+        return total
+    return {k: v + aux[k].float() if k in aux else v
+            for k, v in total.items()}
 
 
 class LM(nn.Module):
@@ -117,9 +124,10 @@ class LM(nn.Module):
         return self.embed.table.device
 
     def recast(self):
-        """Refresh every Linear's compute-dtype weight copy (after loading)."""
+        """Refresh every compute-dtype weight copy, the Linears' and the
+        expert stacks' (after loading)."""
         for m in self.modules():
-            if isinstance(m, Linear):
+            if isinstance(m, (Linear, MoE)):
                 m.recast()
 
     # ------------------------------------------------------------- shared
@@ -141,6 +149,7 @@ class LM(nn.Module):
         B, S = tokens.shape
         h = self._embed(tokens)
         angles = _angles(self.cfg, B, S, device=h.device)
+        aux = zero_aux(h.device)
         if self.cfg.hybrid is not None:
             h = self._apply_hybrid(h, angles)
         elif self.cfg.ssm is not None:
@@ -148,8 +157,9 @@ class LM(nn.Module):
                 h = blk(h)
         else:
             for blk in self.blocks:
-                h = blk(h, angles=angles)
-        return self._logits(self.ln_f(h)), zero_aux(h.device)
+                h, a = blk(h, angles=angles, return_aux=True)
+                aux = add_aux(aux, a)
+        return self._logits(self.ln_f(h)), aux
 
     def _groups(self):
         """(g, the group's SSM blocks, its shared block, its down
@@ -180,13 +190,13 @@ class LM(nn.Module):
         kv = Attention.cache_shape(cfg, batch, max_seq)
         if cfg.hybrid is not None:
             G, A = _hybrid_groups(cfg), cfg.hybrid.attn_every
-            ss = Mamba2.state_shape(cfg, batch)
+            ss = SSMBlock.state_shape(cfg, batch)
             spec["mamba"] = {n: ((G, A) + s, dt, ("layers", "layers") + ax)
                              for n, (s, dt, ax) in ss.items()}
             spec["attn"] = {n: ((G,) + s, cfg.cdtype, ("layers",) + ax)
                             for n, (s, ax) in kv.items()}
         elif cfg.ssm is not None:
-            ss = Mamba2.state_shape(cfg, batch)
+            ss = SSMBlock.state_shape(cfg, batch)
             spec["layers"] = {n: ((L,) + s, dt, ("layers",) + ax)
                               for n, (s, dt, ax) in ss.items()}
         else:

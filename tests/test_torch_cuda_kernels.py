@@ -78,7 +78,8 @@ def cuda():
                                             (8, 1024, 32, 1, 80),
                                             (2, 1000, 4, 5, 64),
                                             (2, 300, 1, 16, 128),
-                                            (3, 50, 2, 2, 10)])
+                                            (3, 50, 2, 2, 10),
+                                            (8, 1024, 16, 1, 128)])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, tol, B, Smax, KV,
                                                G, hd, regime):
     """Smax 100, 1000, 300 and 50 are not multiples of the 64-key tile; G 5
@@ -94,13 +95,15 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, tol, B, Smax, KV,
 
 # K4 cases (Sq, H, KV, hd, window): the sweep over Sq, hd, G and the window
 # (KV 2; Sq 15/16/17 straddle a warp's 16 rows, 200 and 1000 ragged block
-# tiles), then shapes of the configs (h2o-danube's G 4, zamba2's 32 heads).
+# tiles), then shapes of the configs (h2o-danube's G 4, zamba2's 32 heads,
+# olmoe-1b-7b's 16 heads of 128 with G 1).
 FLASH_CASES = [(Sq, 2 * G, 2, hd, window)
                for Sq in (1, 15, 16, 17, 64, 200, 1000)
                for hd in (8, 16, 64, 80, 128)
                for G in (1, 2, 8)
                for window in (None, 64)] + [
-    (200, 32, 8, 80, 64), (37, 4, 2, 8, None), (200, 32, 32, 80, None)]
+    (200, 32, 8, 80, 64), (37, 4, 2, 8, None), (200, 32, 32, 80, None),
+    (200, 16, 16, 128, None), (64, 16, 16, 128, None)]
 
 
 @pytest.mark.cuda
@@ -368,7 +371,8 @@ def _split_plan_forced(monkeypatch, split_len):
 @pytest.mark.parametrize("B,Smax,KV,G,hd", [(8, 1024, 2, 8, 128),
                                             (8, 1024, 32, 1, 80),
                                             (4, 300, 2, 16, 128),
-                                            (3, 100, 4, 1, 80)])
+                                            (3, 100, 4, 1, 80),
+                                            (8, 1024, 16, 1, 128)])
 def test_decode_attention_write_equals_unfused_bitwise(
         cuda, monkeypatch, dtype, new_dtype, split_len, B, Smax, KV, G, hd):
     """The write instance of K1 against K2, K2, K1: output and both caches
@@ -434,7 +438,8 @@ def _paged_write_unfused(q, kn, vn, kp, vp, tbl, index):
 @pytest.mark.parametrize("new_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bk", [1, 8])
-@pytest.mark.parametrize("KV,G,hd", [(2, 8, 128), (32, 1, 80), (2, 16, 128)])
+@pytest.mark.parametrize("KV,G,hd", [(2, 8, 128), (32, 1, 80), (2, 16, 128),
+                                     (16, 1, 128)])
 def test_decode_attention_paged_write_equals_unfused_bitwise(
         cuda, monkeypatch, dtype, new_dtype, split_len, bk, KV, G, hd):
     """The write instance of K5 against K6, K6, K5 through a shuffled
@@ -498,7 +503,8 @@ def _split_lens(V):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("V", [1, 3, 4, 1000, 32000, 151936, 151937])
+@pytest.mark.parametrize("V", [1, 3, 4, 1000, 32000, 50304, 65024, 151936,
+                               151937])
 def test_fused_sample_greedy_equals_argmax_for_every_split(cuda, monkeypatch, V):
     """Greedy tokens bitwise equal to torch.argmax and to the plain version
     whatever the split plan (the pair order is total)."""
@@ -601,7 +607,7 @@ def test_fused_sample_reads_unaligned_rows(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("V", [32000, 151936])
+@pytest.mark.parametrize("V", [32000, 50304, 65024, 151936])
 def test_fused_sample_is_deterministic(cuda, monkeypatch, V):
     """Two identical calls give the same tokens, greedy and sampled, and
     the sampled token is the Gumbel max at every split plan."""
@@ -734,3 +740,90 @@ def test_ssm_scan_smem_reckoning_matches_the_source(cuda):
             state, out = ssp.smem_bytes(hd, N)
             assert lib.rt_ssm_smem_bytes(0, hd, N) == state, (hd, N)
             assert lib.rt_ssm_smem_bytes(1, hd, N) == out, (hd, N)
+
+
+# ------------------------------------------- MoE and Mamba1 layers on the card
+
+
+def _olmoe_moe(device, dtype, capacity_factor=1.25, d_ff=1024):
+    """olmoe-1b-7b's MoE layer (64 experts, top 8, d 2048), weights from a
+    seed."""
+    from repro_torch.models import MoECfg
+    from repro_torch.models.moe import MoE
+    g = torch.Generator(device=device).manual_seed(0)
+    mcfg = MoECfg(n_experts=64, top_k=8, d_ff_expert=d_ff,
+                  capacity_factor=capacity_factor)
+    return MoE(2048, mcfg, dtype=dtype, generator=g, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8, 200])
+@pytest.mark.parametrize("capacity_factor", [1.25, 8.0])
+def test_moe_is_repeatable_on_the_card(cuda, N, capacity_factor):
+    """bf16 at olmoe's width: two identical calls bitwise equal, output and
+    aux (the combine sums in a fixed order, no atomics), all on the card;
+    tokens drop at N = 200 with the published capacity factor 1.25 and
+    never with E/K = 8."""
+    moe = _olmoe_moe(cuda, torch.bfloat16, capacity_factor)
+    g = torch.Generator(device=cuda).manual_seed(N)
+    x = torch.randn(1, N, 2048, generator=g, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        y, aux = moe(x)
+        y2, aux2 = moe(x)
+    assert y.device == x.device and y.dtype == torch.bfloat16
+    assert all(v.device == x.device for v in aux.values())
+    assert torch.equal(y, y2)
+    assert all(torch.equal(aux[k], aux2[k]) for k in aux)
+    drops = aux["drop_frac"].item()
+    assert drops > 0 if (N == 200 and capacity_factor == 1.25) else drops == 0
+
+
+@pytest.mark.cuda
+def test_moe_on_the_card_matches_the_cpu(cuda):
+    """float32, 200 tokens at capacity factor 1.25: the card routes and
+    drops exactly as the CPU does, y within 1e-4."""
+    import copy
+    moe = _olmoe_moe("cpu", torch.float32, d_ff=128)
+    gpu = copy.deepcopy(moe).to(cuda)
+    x = torch.randn(200, 2048, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        p, e, _, _ = moe.route(x)
+        gp, ge, _, _ = gpu.route(x.to(cuda))
+        y, dropped, counts = moe.dispatch_compute_combine(x, e, p, 31)
+        gy, gdropped, gcounts = gpu.dispatch_compute_combine(
+            x.to(cuda), ge, gp, 31)
+    assert torch.equal(ge.cpu(), e) and bool(dropped.any())
+    assert torch.equal(gdropped.cpu(), dropped)
+    assert torch.equal(gcounts.cpu(), counts)
+    torch.testing.assert_close(gy.cpu(), y, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mamba1_on_the_card_matches_the_cpu(cuda):
+    """One falcon-mamba-7b layer at full width in float32, a 200-token
+    prompt: output and final state within 1e-4 of the CPU's, then one
+    decode step; two identical calls on the card bitwise equal."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models.mamba import Mamba1
+    cfg = get_config("falcon-mamba-7b", n_layers=1, dtype="float32")
+    m = Mamba1(cfg, generator=torch.Generator().manual_seed(0))
+    gm = copy.deepcopy(m).to(cuda)
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(1, 200, cfg.d_model, generator=gen)
+    x1 = torch.randn(1, 1, cfg.d_model, generator=gen)
+    with torch.no_grad():
+        y, st = m(x, return_state=True)
+        gy, gst = gm(x.to(cuda), return_state=True)
+        gy2, _ = gm(x.to(cuda), return_state=True)
+        assert torch.equal(gy, gy2)
+        torch.testing.assert_close(gy.cpu(), y, atol=1e-4, rtol=1e-4)
+        for n in ("h", "conv"):
+            torch.testing.assert_close(gst[n].cpu(), st[n], atol=1e-4,
+                                       rtol=1e-4)
+        st = {n: v.contiguous() for n, v in st.items()}
+        gst = {n: v.contiguous() for n, v in gst.items()}
+        d, _ = m.decode(x1, st)
+        gd, _ = gm.decode(x1.to(cuda), gst)
+    torch.testing.assert_close(gd.cpu(), d, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(gst["h"].cpu(), st["h"], atol=1e-4, rtol=1e-4)

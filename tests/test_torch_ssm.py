@@ -11,7 +11,6 @@ CPU.
 - ``Conv1D`` (causal and "SAME", depthwise and dense) within 1e-6.
 - ``Mamba2`` forward and one-token decode (output and both state leaves) at
   bridged weights, with one and two B/C groups, within atol = rtol = 1e-5.
-- ``SSMBlock`` refuses Mamba1.
 """
 import dataclasses
 import functools
@@ -31,7 +30,6 @@ from repro.nn import Conv1D as RefConv1D
 
 from repro_torch.kernels import ops, ref
 from repro_torch.models import HybridCfg, ModelConfig, MoECfg, SSMCfg
-from repro_torch.models.blocks import SSMBlock
 from repro_torch.models.bridge import from_reference
 from repro_torch.nn import Conv1D
 
@@ -198,8 +196,3 @@ def test_mamba2_forward_and_decode_match(n_groups):
     for n in ("h", "conv"):
         close(tstate[n], rst[n])
 
-
-def test_ssm_block_refuses_mamba1():
-    cfg = port_cfg(TINY_CFGS["ssm1"])
-    with pytest.raises(NotImplementedError, match="Mamba1"):
-        SSMBlock(cfg)
