@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases 3 to 5 run for each served model in turn (qwen2.5-3b, zamba2-2.7b,
-olmoe-1b-7b, falcon-mamba-7b), each model freed before the next is built.
-Any failure exits non-zero and prints no result line.
+olmoe-1b-7b, falcon-mamba-7b, qwen2-vl-7b, seamless-m4t-medium), each
+model freed before the next is built.  Any failure exits non-zero and
+prints no result line.
 
 1. build    — compile the Hopper kernels from ``src/repro_torch/kernels/csrc``.
 2. kernels  — hold each kernel against its plain PyTorch version on the
@@ -15,8 +16,11 @@ Any failure exits non-zero and prints no result line.
               shapes zamba2-2.7b's prefill gives it (timed at 64, 200 and
               2048 tokens), and time kernel, plain version and one library
               call doing the same work; then the attention kernels again
-              at zamba2's shared-attention shapes (32 heads, G = 1, hd 80)
-              and olmoe-1b-7b's (16 heads, G = 1, hd 128).  Tolerances:
+              at zamba2's shared-attention shapes (32 heads, G = 1, hd 80),
+              olmoe-1b-7b's (16 heads, G = 1, hd 128), qwen2-vl-7b's (28
+              heads over 4 KV heads, G = 7, hd 128, max_seq 2048, K4 at
+              1224 tokens) and seamless-m4t-medium's (16 heads, G = 1, hd
+              64).  Tolerances:
               decode, paged decode and flash attention atol = rtol = 2e-2
               (bf16 outputs; the plain version rounds its probabilities to
               bf16, the kernels keep them in f32); the paged decode equal
@@ -33,7 +37,8 @@ Any failure exits non-zero and prints no result line.
               wrapped and mixed, bf16 and float32 new rows: output and
               caches bitwise equal to K2, K2, K1 (K6, K6, K5), caches equal
               to the plain composition and the output within 2e-2 of it;
-              timed beside K1 (K5) alone and the unfused three.
+              timed beside K1 (K5) alone and the unfused three, at all
+              five attention shapes.
 3. serve    — each model at full width and depth, random weights from a
               seed, on paths that each have the launch counts set to 0 just
               before and read just after: ``repro_torch.launch.serve.main``
@@ -45,18 +50,31 @@ Any failure exits non-zero and prints no result line.
               to page, and both serve plain (recurrent state cannot
               rewind).  olmoe's CLI runs at the published capacity factor
               1.25; its paged run on a dropless copy (capacity_factor =
-              E/K) and then at 1.25.  Every request must finish, greedy
+              E/K) and then at 1.25.  qwen2-vl-7b's CLI serves 1224-token
+              prompts (1024 patch positions, 200 text tokens) at max_seq
+              2048, its --prefill-chunk 64 raised to 1025; its paged run
+              puts 1024 shared patch positions before the shared prefix.
+              seamless-m4t-medium is driven through ``ServingEngine`` (the
+              CLI makes no frames, as in the reference): 8 requests of 200
+              decoder tokens over frames of distinct encoder lengths in
+              128..1024, dense unchunked and chunked by 64 and paged with
+              spec_k=3 (served plain).  Every request must finish, greedy
               ticks must move no logits, the paged runs of the decoder
-              models must hit the prefix registry and accept drafts, the
-              recurrent ones propose none, and every kernel's launch count
+              models must hit the prefix registry, verify windows and
+              accept drafts (qwen2-vl-7b's random-weight streams repeat no
+              token, so its drafts are proposed and verified and the
+              accepted count printed), the recurrent ones and seamless
+              propose none, and every kernel's launch count
               must match the ticks, verify lanes and prefilled admissions
               of the run: decode runs the write instances only, each
               carrying the layer's two row writes, and the standalone K1,
-              K2, K5 and K6 launch 0 times.
+              K2, K5 and K6 launch 0 times; seamless's K4 runs 12 times an
+              admission, so none ran in the encoder.
 4. streams  — full width: the paged (+ speculative) greedy streams equal
               the dense plain engine's, request for request, for qwen,
-              zamba2, falcon and dropless olmoe (at 1.25 they are printed,
-              not held, beside the drop fraction of one-shot forwards).
+              zamba2, falcon, dropless olmoe, qwen2-vl and seamless (at
+              1.25 olmoe's are printed, not held, beside the drop fraction
+              of one-shot forwards).
               Smoke configs in float32: greedy streams through the kernels
               equal those of the plain versions (the same engine on the
               CPU, same weights), on the dense and the paged engine.
@@ -66,11 +84,13 @@ Any failure exits non-zero and prints no result line.
               (torch.profiler; device busy is the sum over the device's
               own events, printed beside the sum over host ops and kernels
               alike, which counts a kernel launched by an aten op twice);
-              then one profiled 200-token admission per model, the named
+              then one profiled admission per model (200 tokens; 1224 for
+              qwen2-vl; seamless's with its encoder frames), the named
               kernels' shares (K4, K7) beside the rest.  olmoe's MoE
-              layers and falcon's selective scans are timed as ranges of
-              their own; falcon's scan loops also by the host clock in an
-              unprofiled admission.
+              layers, falcon's selective scans and seamless's encoder and
+              cross attention are timed as ranges of their own; falcon's
+              scan loops also by the host clock in an unprofiled
+              admission.
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -124,6 +144,20 @@ ZAMBA2_KERNELS = (("K7", "ssd|ssm"), ("K4", "flash"))
 # attention.  The CLI serves both as it serves qwen2.5-3b.
 OSERVE = ["--arch", "olmoe-1b-7b"] + SERVE[2:]
 FSERVE = ["--arch", "falcon-mamba-7b"] + SERVE[2:]
+# qwen2-vl-7b at full width: 28 layers of 28 heads over 4 KV heads (G 7),
+# hd 128, vocab 152064.  Every prompt opens with the 1024 patch positions
+# (the engine feeds zero patches there), so the CLI's prompts are 1224
+# tokens long and max_seq is 2048; --prefill-chunk 64 is raised to 1025
+VL_PROMPT, VL_MAX_SEQ = 1224, 2048
+VSERVE = ["--arch", "qwen2-vl-7b", "--device", "cuda", "--requests", "8",
+          "--slots", "8", "--max-seq", str(VL_MAX_SEQ), "--prompt-len",
+          str(VL_PROMPT), "--gen-len", "16", "--seed", "0"]
+# seamless-m4t-medium at full width: 12 encoder and 12 decoder layers of 16
+# heads of 64 (G 1), vocab 256206.  The CLI makes no frames, so it is
+# driven through ServingEngine: 8 requests of a 200-token decoder prompt,
+# 16 generated, over frames of distinct encoder lengths in 128..1024 drawn
+# from ENC_SEED
+ENC_SEED = 0
 
 KERNEL_INFO = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -274,7 +308,9 @@ def ssd_inputs(torch, g, Bsz, L, H=80, hd=64, N=64):
 
 
 SAMPLE_SHAPES = {"qwen2.5-3b": (8, 151936), "zamba2-2.7b": (8, 32000),
-                 "olmoe-1b-7b": (8, 50304), "falcon-mamba-7b": (8, 65024)}
+                 "olmoe-1b-7b": (8, 50304), "falcon-mamba-7b": (8, 65024),
+                 "qwen2-vl-7b": (8, 152064),
+                 "seamless-m4t-medium": (8, 256206)}
 SSD_LENGTHS = (64, 200, 2048)
 
 
@@ -398,10 +434,11 @@ def write_indices(Smax):
                   2 * Smax + 300]}
 
 
-def write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged):
+def write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged,
+                       Smax=1024):
     """K1's write instance (``decode_attention_write``), or K5's through a
-    shuffled table over a pool of 1025 blocks of 8 (``paged``), at
-    (8, H, KV, hd), Smax 1024, bf16 caches: in each index regime with bf16
+    shuffled table over a pool of 8 · Smax / 8 + 1 blocks of 8 (``paged``),
+    at (8, H, KV, hd), bf16 caches: in each index regime with bf16
     new rows, and mixed with float32 new rows, the output and both caches
     bitwise equal to the unfused kernels K2, K2, K1 (K6, K6, K5), the
     caches equal to the plain composition and the output within ATTN_TOL
@@ -410,7 +447,7 @@ def write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged):
     operations plus the new rows read and written into both caches.  No
     single PyTorch call writes and attends: library_ms is None."""
     dev, bf16 = torch.device("cuda"), torch.bfloat16
-    B, Smax, bk = 8, 1024, 8
+    B, bk = 8, 8
     nk = Smax // bk
     randn = lambda *shape, dtype=bf16: torch.randn(
         *shape, generator=g, device=dev).to(dtype)
@@ -491,8 +528,8 @@ def write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged):
         plain_ms=timed_ms(torch, lambda: plain(kn, vn, kc, vc, idx)),
         library_ms=None,
         shape=f"{label}: q (8,1,{H},{hd}), "
-              + (f"pool ({B * nk + 1},8,{KV},{hd}), shuffled table (8,128)"
-                 if paged else f"caches (8,1024,{KV},{hd})")
+              + (f"pool ({B * nk + 1},8,{KV},{hd}), shuffled table (8,{nk})"
+                 if paged else f"caches (8,{Smax},{KV},{hd})")
               + f" bf16, new (8,{KV},{hd}), index mixed and wrapped")
     row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * live * H * hd,
                                              PEAK_BF16_S)
@@ -726,21 +763,25 @@ def kernel_phase(torch, ops, ref, sample_noise):
     return rows
 
 
-def attention_shapes_phase(torch, ops, ref, label, H, KV, hd, seed):
-    """K1, K2, K4, K5 and K6 at another model's attention shapes (zamba2's
-    shared attention: 32 heads, 32 KV heads, hd 80; olmoe-1b-7b: 16 heads,
-    16 KV heads, hd 128; both G = 1; 8 slots, max_seq 1024, rows near 200
-    tokens), in bf16: held against their plain versions and timed as in
-    kernel_phase; then the write instances of K1 and K5 there.  Printed;
-    the kernels line keeps the qwen2.5-3b shapes."""
+def attention_shapes_phase(torch, ops, ref, label, H, KV, hd, seed,
+                           Smax=1024, S=200):
+    """K1, K2, K4, K5 and K6 at another model's attention shapes, 8 slots:
+    zamba2's shared attention (32 heads, 32 KV heads, hd 80), olmoe-1b-7b
+    (16 heads, 16 KV heads, hd 128) and seamless-m4t-medium's decoder (16
+    heads, 16 KV heads, hd 64), all G = 1, max_seq 1024, prompts of 200
+    tokens; qwen2-vl-7b (28 heads over 4 KV heads, G = 7, hd 128), max_seq
+    2048, prompts of 1224 tokens.  Decode rows sit near S tokens, K4 runs
+    one S-token prompt.  In bf16: held against their plain versions and
+    timed as in kernel_phase; then the write instances of K1 and K5 there.
+    Printed; the kernels line keeps the qwen2.5-3b shapes."""
     F = torch.nn.functional
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(seed)
-    B, Smax, bk = 8, 1024, 8
+    B, bk = 8, 8
     nk = Smax // bk
     randn = lambda *shape: torch.randn(*shape, generator=g,
                                        device=dev).to(bf16)
-    index = 200 + 2 * torch.arange(B, dtype=torch.int32, device=dev)
+    index = S + 2 * torch.arange(B, dtype=torch.int32, device=dev)
     live = (index + 1).sum().item()
     mask = (torch.arange(Smax, device=dev)[None, :]
             <= index[:, None])[:, None, None, :]
@@ -756,11 +797,11 @@ def attention_shapes_phase(torch, ops, ref, label, H, KV, hd, seed):
     rows_idx, slot_l = torch.arange(B, device=dev), index.long()
     blk = tbl[rows_idx, slot_l // bk]
     off = (index % bk).to(torch.int32)
-    S = 200
     qs, ks, vs = randn(1, S, H, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
     blocks = ((index + bk) // bk).sum().item()
     sdpa = lambda q_, k_, v_, **kw: F.scaled_dot_product_attention(
-        q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2), **kw)
+        q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+        enable_gqa=H != KV, **kw)
 
     def lib_k2():
         kc[rows_idx, slot_l] = new
@@ -811,12 +852,13 @@ def attention_shapes_phase(torch, ops, ref, label, H, KV, hd, seed):
             err = max_err(torch, kernel(), plain(), ATTN_TOL,
                           f"{name} [{label}]")
         b_ms, b_by = bound(nbytes, flops, PEAK_BF16_S)
-        print(f"  {label} {name}: kernel {timed_ms(torch, kernel):.4f} ms, "
-              f"plain {timed_ms(torch, plain):.4f} ms, library "
+        where = f" (1,{S},{H},{hd})" if name == "flash_attention" else ""
+        print(f"  {label} {name}{where}: kernel {timed_ms(torch, kernel):.4f} "
+              f"ms, plain {timed_ms(torch, plain):.4f} ms, library "
               f"{timed_ms(torch, library):.4f} ms, bound {b_ms:.5f} ms "
               f"({b_by}), max|err| {err}")
     for paged in (False, True):
-        write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged)
+        write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged, Smax)
 
 
 # --------------------------------------------------------------------- phase 3
@@ -910,16 +952,17 @@ def serve_phase(torch, ops, serve, base_argv, expected):
 
 
 def run_shared(eng, prompts):
-    """Request 0 alone until it has streamed past the shared prefix (its
-    prefix blocks are then registered), then the other seven; run to the
-    end and return the greedy streams by request id."""
+    """Request 0 alone until it has streamed past the shared prefix (a
+    VLM's patch positions and PREFIX_LEN tokens; its prefix blocks are then
+    registered), then the other seven; run to the end and return the
+    greedy streams by request id."""
     import numpy as np
     from repro_torch.serving import Request
     reqs = [Request(rid=i, prompt=np.asarray(p, np.int32), gen_len=GEN_LEN)
             for i, p in enumerate(prompts)]
     eng.submit(reqs[0], now=0.0)
     done, step = [], 0
-    while eng.pos[0] < PREFIX_LEN:
+    while eng.pos[0] < eng.cfg.n_vision_patches + PREFIX_LEN:
         step += 1
         done.extend(eng.step(now=float(step)))
     for r in reqs[1:]:
@@ -933,15 +976,20 @@ def run_shared(eng, prompts):
 
 def shared_prompts(core):
     """Prefix + tail_i + Y_i + Y_i, Y_i the 16 tokens a plain greedy run
-    generates after prefix + tail_i (drafts then find their n-grams)."""
+    generates after prefix + tail_i (drafts then find their n-grams).  A
+    VLM's prompts open with the same patch positions (token ids drawn from
+    a seed of their own; the patches replace their embeddings)."""
     import numpy as np
     from repro_torch.serving import Request, ServingEngine
     rng = np.random.default_rng(1)
     vocab = core.cfg.vocab
     prefix = rng.integers(3, vocab, PREFIX_LEN)
+    prefix = np.concatenate([np.random.default_rng(4).integers(
+        3, vocab, core.cfg.n_vision_patches), prefix])
     bases = [np.concatenate([prefix, rng.integers(3, vocab, TAIL_LEN)])
              .astype(np.int32) for _ in range(SLOTS)]
-    eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=MAX_SEQ, core=core)
+    eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=core.max_seq,
+                        core=core)
     reqs = [Request(rid=i, prompt=b, gen_len=GEN_LEN)
             for i, b in enumerate(bases)]
     for r in reqs:
@@ -976,16 +1024,18 @@ def counted_steps(core):
         core.fused_decode, core.verify = fused, verify
 
 
-def paged_serve_phase(torch, ops, core, prompts):
+def paged_serve_phase(torch, ops, core, prompts, hold_accepted=True):
     """ServingEngine(pool="paged", spec_k=3) at full width: prefix sharing
     and speculative verify on; K5's write instance carries every decoded
-    lane, K1's none."""
+    lane, K1's none.  Drafts must be proposed, and accepted unless
+    ``hold_accepted`` is False (then the count is printed)."""
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.slots import pool_geometry
-    bk = pool_geometry(SLOTS, MAX_SEQ)[0]
+    bk = pool_geometry(SLOTS, core.max_seq)[0]
     check(bk == 8, f"default block size {bk}, expected 8")
-    eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=MAX_SEQ, core=core,
-                        pool="paged", spec_k=SPEC_K, prefill_chunk=bk)
+    eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=core.max_seq,
+                        core=core, pool="paged", spec_k=SPEC_K,
+                        prefill_chunk=bk)
     with counted_steps(core) as calls:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -995,7 +1045,8 @@ def paged_serve_phase(torch, ops, core, prompts):
         wall = time.perf_counter() - t0
     life = eng.lifetime()
     lanes = calls["fused"] + calls["lanes"]
-    print(f"  paged + spec_k={SPEC_K}, bk {bk}, prefill_chunk {bk}: "
+    print(f"  paged + spec_k={SPEC_K}, bk {bk}, prefill_chunk "
+          f"{eng.prefill_chunk}: "
           f"{life['total_tokens']} tokens in {wall:.2f} s "
           f"({life['total_tokens'] / wall:.1f} tok/s, host clock), "
           f"{life['total_ticks']} ticks = {calls['fused']} fused + "
@@ -1010,7 +1061,9 @@ def paged_serve_phase(torch, ops, core, prompts):
           f"{life['total_completed']}/{SLOTS} requests finished")
     check(life["prefix_hits"] > 0, "no admission hit the prefix registry")
     check(life["spec_proposed"] > 0, "no draft was proposed")
-    check(life["spec_accepted"] > 0, "no draft token was accepted")
+    check(calls["verify"] > 0, "no verify window ran")
+    check(life["spec_accepted"] > 0 or not hold_accepted,
+          "no draft token was accepted")
     check(life["logits_pulls"] == 0,
           f"greedy serving pulled logits {life['logits_pulls']} times")
     prefilled = life["prefix_admits"] - life["prefix_hits"]
@@ -1038,10 +1091,11 @@ def dense_shared(core, prompts):
     at a fixed (8, 1) batch (MoE's expert slabs too: C = N there), and a
     one-shot prefill of one block runs at the same M on both sides; an
     unchunked 200-token prefill would run the projections at M = 200 on
-    one side and M = 8 on the other."""
+    one side and M = 8 on the other.  (A VLM raises both to its patches +
+    1: the one-shot part is the shared patch prefix on both sides.)"""
     from repro_torch.serving import ServingEngine
-    eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=MAX_SEQ, core=core,
-                        prefill_chunk=8)
+    eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=core.max_seq,
+                        core=core, prefill_chunk=8)
     return run_shared(eng, prompts)
 
 
@@ -1056,12 +1110,23 @@ def first_difference(torch, core, prompts, got, want):
             if a != b:
                 toks = np.concatenate([prompts[rid], want[rid][:step]])
                 with torch.no_grad():
-                    logits, _ = core.params({"tokens": torch.tensor(
-                        toks[None], dtype=torch.int32, device=core.device)})
+                    logits, _ = core.params(model_inputs(torch, core, toks))
                 top = logits[0, -1].float().topk(2).values
                 return (f"request {rid}, step {step}: {a} vs {b}, logit "
                         f"margin there {(top[0] - top[1]).item():.4g}")
     return None
+
+
+def model_inputs(torch, core, toks):
+    """One prompt as the model's inputs, a VLM's zero patches with it (as
+    the engine feeds them)."""
+    cfg = core.cfg
+    inputs = {"tokens": torch.tensor(toks[None], dtype=torch.int32,
+                                     device=core.device)}
+    if cfg.family == "vlm":
+        inputs["patches"] = torch.zeros(1, cfg.n_vision_patches, cfg.d_model,
+                                        dtype=cfg.cdtype, device=core.device)
+    return inputs
 
 
 def full_width_streams_phase(torch, core, prompts, paged_streams):
@@ -1184,6 +1249,18 @@ SMOKE_PATHS = {
         ("dense", {}, ("fused_sample",)),
         ("paged + spec", dict(pool="paged", spec_k=SPEC_K),
          ("fused_sample",))),
+    "qwen2-vl-7b": (
+        ("dense", {}, ("decode_attention_write", "fused_sample",
+                       "flash_attention")),
+        ("paged + spec", dict(pool="paged", spec_k=SPEC_K),
+         ("decode_attention_paged_write", "flash_attention"))),
+    # an encoder-decoder serves plain with spec_k > 0: every tick is fused
+    "seamless-m4t-medium": (
+        ("dense", {}, ("decode_attention_write", "fused_sample",
+                       "flash_attention")),
+        ("paged + spec", dict(pool="paged", spec_k=SPEC_K),
+         ("decode_attention_paged_write", "fused_sample",
+          "flash_attention"))),
 }
 
 
@@ -1202,9 +1279,12 @@ def streams_phase(torch, ops, arch):
     def run(core, **kw):
         eng = ServingEngine(cfg, slots=3, max_seq=max_seq, prefill_chunk=6,
                             core=core, **kw)
-        rng = np.random.default_rng(0)
+        rng, frng = np.random.default_rng(0), np.random.default_rng(1)
         reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, size=10 + i)
-                        .astype(np.int32), gen_len=12) for i in range(6)]
+                        .astype(np.int32), gen_len=12,
+                        frames=frng.standard_normal((5 + 3 * i, cfg.d_model))
+                        .astype(np.float32) if cfg.enc_dec else None)
+                for i in range(6)]
         done = []
         for step in range(500):
             for r in reqs[2 * step:2 * step + 2]:       # staggered arrivals
@@ -1234,27 +1314,24 @@ def streams_phase(torch, ops, arch):
 
 
 @contextlib.contextmanager
-def annotated(torch, label, modules):
-    """Each call of these modules inside a ``record_function(label)``
-    range, by forward hooks: the model's code is unchanged, and nothing
-    runs once the block ends."""
-    ranges, handles = [], []
+def annotated(torch, label, objs, method="forward"):
+    """Each call of ``method`` on these objects inside a
+    ``record_function(label)`` range, by a wrapper set on each instance:
+    the model's code is unchanged, and the class's method shows again once
+    the block ends."""
+    def ranged(fn):
+        def call(*args, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kw)
+        return call
 
-    def enter(module, args):
-        ranges.append(torch.profiler.record_function(label))
-        ranges[-1].__enter__()
-
-    def leave(module, args, out):
-        ranges.pop().__exit__(None, None, None)
-
-    for m in modules:
-        handles += [m.register_forward_pre_hook(enter),
-                    m.register_forward_hook(leave)]
+    for o in objs:
+        setattr(o, method, ranged(getattr(o, method)))
     try:
         yield
     finally:
-        for h in handles:
-            h.remove()
+        for o in objs:
+            delattr(o, method)
 
 
 @contextlib.contextmanager
@@ -1290,14 +1367,29 @@ def range_ms(prof, label, n) -> float:
                ) / 1e3 / n
 
 
-def weight_floor(model):
-    """(GB, ms) of the weights a decode tick reads at least once: every
-    Linear's compute-dtype copy, the MoE expert stacks' copies and a tied
-    readout's float32 table, over 3.35 TB/s."""
+def tick_floor(torch, eng):
+    """(GB, ms) of what a decode tick reads at least once, over 3.35
+    TB/s: every Linear's compute-dtype copy, the MoE expert stacks' copies
+    and a tied readout's float32 table; for an encoder-decoder not the
+    encoder's weights or the cross K/V projections (they run at admission),
+    but the cross K/V rows below each active row's cross_len."""
     from repro_torch.models.moe import MoE
     from repro_torch.nn import Linear
+    model = eng.params
+    skip = set()
     nbytes = 0
+    if model.cfg.enc_dec:
+        skip = {id(m) for m in model.enc_blocks.modules()} | {
+            id(m) for b in model.dec_blocks
+            for m in (b.cross_attn.wk, b.cross_attn.wv)}
+        cross = eng.pool.cache["cross"]["k"]
+        active = torch.as_tensor(eng.active, device=cross.device)
+        rows = int(eng.pool.cache["cross_len"][active].sum())
+        nbytes += 2 * cross.shape[0] * rows * cross[0, 0, 0].numel() * \
+            cross.element_size()
     for m in model.modules():
+        if id(m) in skip:
+            continue
         if isinstance(m, Linear):
             nbytes += m.w_c.numel() * m.w_c.element_size()
         elif isinstance(m, MoE):
@@ -1380,33 +1472,44 @@ def print_profile(prof, n, top=12):
         print(f"    {t:8.3f} ms/step  {name[:90]}")
 
 
+def random_prompts(cfg, n, prompt_len=200, seed=3):
+    """n requests of ``prompt_len`` random prompt tokens, seeded."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(3, cfg.vocab, prompt_len)
+                    .astype(np.int32), gen_len=GEN_LEN) for i in range(n)]
+
+
 def profile_admission(torch, core, label="qwen2.5-3b",
                       kernels=(("K4", "flash"),),
-                      annotate=contextlib.nullcontext, ranges=()):
-    """One admission: the unchunked prefill of a 200-token prompt into a
-    free slot (``ServingEngine.admit``), after one warm-up admission; its
-    host time unprofiled, then another's profiled: device time per kernel,
-    each named kernel's share (by a pattern of its CUDA names) and each
-    range's beside the rest.  Both run inside an ``annotate()`` of their
-    own.  Returns the unprofiled host ms."""
-    import numpy as np
+                      annotate=contextlib.nullcontext, ranges=(),
+                      requests=None):
+    """One admission: the unchunked prefill of a prompt (200 random tokens,
+    or each of three ``requests``' prompt and frames) into a free slot
+    (``ServingEngine.admit``), after one warm-up admission; its host time
+    unprofiled, then another's profiled: device time per kernel, each named
+    kernel's share (by a pattern of its CUDA names) and each range's beside
+    the rest.  Both run inside an ``annotate()`` of their own.  Returns the
+    unprofiled host ms."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import ServingEngine
-    eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=MAX_SEQ, core=core)
-    rng = np.random.default_rng(3)
-    prompts = [rng.integers(3, core.cfg.vocab, 200).astype(np.int32)
-               for _ in range(3)]
-    eng.admit(0, prompts[0], GEN_LEN)
+    eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=core.max_seq,
+                        core=core)
+    reqs = requests or random_prompts(core.cfg, 3)
+    admit = lambda slot, r: eng.admit(slot, r.prompt, GEN_LEN,
+                                      frames=r.frames)
+    admit(0, reqs[0])
     torch.cuda.synchronize()
     with annotate():
         t0 = time.perf_counter()
-        eng.admit(2, prompts[2], GEN_LEN)
+        admit(2, reqs[2])
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
     with annotate(), profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.admit(1, prompts[1], GEN_LEN)
+        admit(1, reqs[1])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device_ms, summed_ms = report_profile(prof, 1)
@@ -1416,7 +1519,10 @@ def profile_admission(torch, core, label="qwen2.5-3b",
                    if re.search(pattern, key))
         shares.append(f"{name} {k_ms:.3f} ms ({k_ms / device_ms:.1%} of the "
                       f"device time)")
-    print(f"  {label} admission (200-token prefill): {plain_ms:.2f} ms host "
+    enc = ("" if reqs[1].frames is None else
+           f", {len(reqs[1].frames)} encoder frames")
+    print(f"  {label} admission ({len(reqs[1].prompt)}-token prefill{enc}): "
+          f"{plain_ms:.2f} ms host "
           f"clock unprofiled, {wall_ms:.2f} ms profiled, device busy "
           f"{device_ms:.2f} ms ({summed_ms:.2f} ms summed over ops and "
           f"kernels)" + "".join("; " + x for x in shares)
@@ -1427,23 +1533,28 @@ def profile_admission(torch, core, label="qwen2.5-3b",
     return plain_ms
 
 
-def profile_dense_tick(torch, core, label, **kw):
-    """Dense plain: 8 slots, prompts streaming through the tick, as with
-    --prefill-chunk 64; the weights' byte floor of a tick beside it."""
+def profile_dense_tick(torch, core, label, requests=None, **kw):
+    """Dense plain: 8 slots, prompts (8 of 200 random tokens, or
+    ``requests``) streaming through the tick, as with --prefill-chunk 64;
+    the byte floor of a tick beside it."""
     import numpy as np
     from repro_torch.serving import ServingEngine, synthetic_requests
     from repro_torch.sim.serving import WorkloadSpec
 
     cfg = core.cfg
-    eng = ServingEngine(cfg, slots=SLOTS, max_seq=MAX_SEQ, prefill_chunk=64,
-                        core=core)
-    for r in synthetic_requests(WorkloadSpec(prompt_len=200, gen_len=16), 8,
-                                cfg.vocab, rng=np.random.default_rng(0)):
+    eng = ServingEngine(cfg, slots=SLOTS, max_seq=core.max_seq,
+                        prefill_chunk=64, core=core)
+    if requests is None:
+        requests = synthetic_requests(
+            WorkloadSpec(prompt_len=200, gen_len=16), 8, cfg.vocab,
+            rng=np.random.default_rng(0))
+    for r in requests:
         eng.submit(r)
     for _ in range(4):                  # admit every request, warm up
         eng.step(now=0.0)
-    gb, floor_ms = weight_floor(core.params)
-    print(f"  {label}: a tick reads at least {gb:.2f} GB of weights, a byte "
+    gb, floor_ms = tick_floor(torch, eng)
+    what = "weights and cross K/V" if cfg.enc_dec else "weights"
+    print(f"  {label}: a tick reads at least {gb:.2f} GB of {what}, a byte "
           f"floor of {floor_ms:.3f} ms at 3.35 TB/s")
     profile_ticks(torch, eng, label, n=20, n_prof=10, **kw)
 
@@ -1578,6 +1689,159 @@ def falcon_phases(torch, ops, serve, EngineCore, cfg, add):
     print(f"  falcon-mamba-7b: {time.perf_counter() - t0:.1f} s")
 
 
+def vlm_phases(torch, ops, serve, EngineCore, cfg, add):
+    """qwen2-vl-7b at full width: the CLI (1224-token prompts: 1024 patch
+    positions and 200 text tokens), the paged + speculative run on the
+    shared-prefix prompts behind 1024 shared patch positions, its streams
+    against the dense plain engine's, and phase 5.  With random weights
+    this model's greedy streams repeat no token (as qwen2.5-3b's and
+    olmoe-1b-7b's do), so the prompt-lookup drafts it proposes are not
+    accepted: proposed drafts and verify windows are held, accepted ones
+    printed."""
+    print("[3] serve qwen2-vl-7b at full width")
+    t0 = time.perf_counter()
+    add(serve_phase(torch, ops, serve, VSERVE,
+                    decoder_launches(cfg.n_layers)))
+    torch.cuda.reset_peak_memory_stats()
+    core = EngineCore(cfg, VL_MAX_SEQ, seed=0, device="cuda")
+    prompts = shared_prompts(core)
+    launches, streams = paged_serve_phase(torch, ops, core, prompts,
+                                          hold_accepted=False)
+    add(launches)
+    print("[4] greedy streams on the card: qwen2-vl-7b")
+    full_width_streams_phase(torch, core, prompts, streams)
+    streams_phase(torch, ops, "qwen2-vl-7b")
+    print("[5] where a full-width qwen2-vl-7b tick's and admission's time "
+          "goes")
+    profile_dense_tick(torch, core, "qwen2-vl dense decode",
+                       requests=random_prompts(cfg, SLOTS, VL_PROMPT, 0))
+    profile_admission(torch, core, "qwen2-vl-7b",
+                      requests=random_prompts(cfg, 3, VL_PROMPT))
+    print(f"  peak device memory {peak_gib(torch):.2f} GiB")
+    del core
+    free(torch)
+    print(f"  qwen2-vl-7b: {time.perf_counter() - t0:.1f} s")
+
+
+def encdec_requests(cfg):
+    """8 requests of a 200-token decoder prompt and 16 generated, over
+    frames of distinct encoder lengths in 128..MAX_SEQ, drawn from
+    ENC_SEED."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(ENC_SEED)
+    lens = rng.choice(np.arange(128, MAX_SEQ + 1), SLOTS, replace=False)
+    return [Request(rid=i, prompt=rng.integers(3, cfg.vocab, 200)
+                    .astype(np.int32), gen_len=GEN_LEN,
+                    frames=rng.standard_normal((int(n), cfg.d_model))
+                    .astype(np.float32)) for i, n in enumerate(lens)]
+
+
+def encdec_serve_phase(torch, ops, core):
+    """ServingEngine at full width on encdec_requests: the dense pool
+    unchunked and chunked by 64, and the paged pool with spec_k=3 (it
+    serves plain: nothing is speculated or shared).  Every slot holds its
+    own encoder length, so cross_len differs across the slots on every
+    tick.  Launch counts: 12 K4 per admission (none from the encoder or
+    the cross attention, which are plain, as in the reference), 12 K1 (or
+    K5) write instances a tick, one K3 a tick.  Returns the launches and
+    the streams by run."""
+    from repro_torch.serving import ServingEngine
+    L = core.cfg.n_layers
+    launches, streams = {name: 0 for name in ops.KERNELS}, {}
+    lens = sorted(len(r.frames) for r in encdec_requests(core.cfg))
+    for label, chunk, kw in (
+            ("dense", None, {}), ("dense, prefill chunk 64", 64, {}),
+            (f"paged + spec_k={SPEC_K}", None,
+             dict(pool="paged", spec_k=SPEC_K))):
+        eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=MAX_SEQ,
+                            core=core, prefill_chunk=chunk, **kw)
+        paged = bool(kw)
+        check(eng._paged == paged and not getattr(eng.pool, "can_share",
+                                                  False),
+              f"seamless {label}: the pool must page the self K/V only "
+              f"when asked and share nothing")
+        with counted_steps(core) as calls:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            streams[label] = run_all(eng, encdec_requests(core.cfg))
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            wall = time.perf_counter() - t0
+        life = eng.lifetime()
+        admitted, ticks = eng.stats.total_admitted, calls["fused"]
+        cross_len = sorted(eng.pool.cache["cross_len"].tolist())
+        print(f"  seamless {label}: {life['total_tokens']} tokens in "
+              f"{wall:.2f} s ({life['total_tokens'] / wall:.1f} tok/s, host "
+              f"clock), {ticks} fused + {calls['verify']} verify ticks, "
+              f"admissions {admitted}, cross_len over the slots {cross_len}, "
+              f"spec_proposed={life['spec_proposed']} "
+              f"logits_pulls={life['logits_pulls']}")
+        check(life["total_completed"] == SLOTS,
+              f"{life['total_completed']}/{SLOTS} requests finished")
+        check(cross_len == lens, f"cross_len {cross_len} != the encoder "
+                                 f"lengths {lens}")
+        check(life["spec_proposed"] == 0 and calls["verify"] == 0,
+              "an encoder-decoder speculated: it serves plain")
+        check(life.get("prefix_hits", 0) == 0, "seamless shared a prefix")
+        check(life["logits_pulls"] == 0,
+              f"greedy serving pulled logits {life['logits_pulls']} times")
+        want = (decoder_launches(L)(0, admitted, lanes=ticks, fused=ticks)
+                if paged else decoder_launches(L)(ticks, admitted))
+        check_launches(counts, want, f"seamless {label}")
+        for name in launches:
+            launches[name] += counts[name]
+        del eng
+        free(torch)
+    return launches, streams
+
+
+def encdec_phases(torch, ops, EngineCore, cfg, add):
+    """seamless-m4t-medium at full width through ServingEngine (the CLI
+    makes no frames, as in the reference), its paged streams against the
+    dense ones, and phase 5 with the encoder's and the cross attention's
+    device time as ranges."""
+    print("[3] serve seamless-m4t-medium at full width (ServingEngine, "
+          "frames of encoder lengths 128..1024)")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    core = EngineCore(cfg, MAX_SEQ, seed=0, device="cuda")
+    launches, streams = encdec_serve_phase(torch, ops, core)
+    add(launches)
+    print("[4] greedy streams on the card: seamless-m4t-medium")
+    dense, paged = streams["dense"], streams[f"paged + spec_k={SPEC_K}"]
+    check(paged == dense, f"seamless paged streams {paged} != dense {dense}")
+    chunked = streams["dense, prefill chunk 64"]
+    print(f"  {len(dense)} full-width seamless greedy streams equal (paged + "
+          f"spec_k={SPEC_K} vs dense), e.g. rid 0: {dense[0]}; chunked by "
+          f"64 {'equal' if chunked == dense else 'not equal'} (not held: "
+          f"the one-shot part runs at other shapes)")
+    streams_phase(torch, ops, "seamless-m4t-medium")
+    print("[5] where a full-width seamless-m4t-medium tick's and admission's "
+          "time goes")
+    model = core.params
+    cross = [blk.cross_attn for blk in model.dec_blocks]
+
+    def annotate():
+        stack = contextlib.ExitStack()
+        stack.enter_context(annotated(torch, "encoder", [model], "_encode"))
+        stack.enter_context(annotated(torch, "cross_attn", cross))
+        stack.enter_context(annotated(torch, "cross_attn", cross,
+                                      "_decode_cross"))
+        return stack
+
+    profile_dense_tick(torch, core, "seamless dense decode",
+                       requests=encdec_requests(cfg), annotate=annotate,
+                       ranges=("cross_attn",))
+    profile_admission(torch, core, "seamless-m4t-medium", annotate=annotate,
+                      ranges=("encoder", "cross_attn"),
+                      requests=encdec_requests(cfg)[:3])
+    print(f"  peak device memory {peak_gib(torch):.2f} GiB")
+    del core, model, cross, annotate
+    free(torch)
+    print(f"  seamless-m4t-medium: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside the script; run "
@@ -1615,6 +1879,10 @@ def main() -> int:
                                seed=13)
         attention_shapes_phase(torch, ops, ref, "olmoe-1b-7b", 16, 16, 128,
                                seed=17)
+        attention_shapes_phase(torch, ops, ref, "qwen2-vl-7b", 28, 4, 128,
+                               seed=19, Smax=VL_MAX_SEQ, S=VL_PROMPT)
+        attention_shapes_phase(torch, ops, ref, "seamless-m4t-medium", 16,
+                               16, 64, seed=23)
         launches = {name: 0 for name in ops.KERNELS}
 
         def add(counts):
@@ -1659,6 +1927,10 @@ def main() -> int:
                      get_config("olmoe-1b-7b"), add)
         falcon_phases(torch, ops, serve, EngineCore,
                       get_config("falcon-mamba-7b"), add)
+        vlm_phases(torch, ops, serve, EngineCore, get_config("qwen2-vl-7b"),
+                   add)
+        encdec_phases(torch, ops, EngineCore,
+                      get_config("seamless-m4t-medium"), add)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

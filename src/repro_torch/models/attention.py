@@ -1,17 +1,19 @@
-"""GQA attention with RoPE: causal / sliding-window self-attention over a
-sequence, and one-token decode over a preallocated ring KV cache or a
-shared block pool.
+"""GQA attention with RoPE: causal / sliding-window / bidirectional
+self-attention over a sequence, cross attention over precomputed K/V, and
+one-token decode over a preallocated ring KV cache, a shared block pool or
+a cross K/V pool.
 
-The dense part of ``repro.models.attention``.  Causal self-attention goes
-through ``kops.flash_attention``.  Decode writes the token's K/V and
-attends in one call, ``kops.decode_attention_write`` over the ring or
-``kops.decode_attention_paged_write`` through the block table, where the
-reference calls ``cache_ring_update`` (``cache_paged_update``) twice and
-then ``decode_attention`` (``decode_attention_paged``): one kernel launch a
-layer on the card, bitwise equal to the three, and the same three plain
-versions in turn on the CPU.  The kernel finds the written slot or block
-from the index and the table itself.  Split-K over a mesh, padded heads
-and cross-attention are not ported yet.
+The serving part of ``repro.models.attention``.  Causal self-attention goes
+through ``kops.flash_attention``; bidirectional and cross attention run the
+plain ``sdpa_ref``, as the reference routes them.  Decode writes the
+token's K/V and attends in one call, ``kops.decode_attention_write`` over
+the ring or ``kops.decode_attention_paged_write`` through the block table,
+where the reference calls ``cache_ring_update`` (``cache_paged_update``)
+twice and then ``decode_attention`` (``decode_attention_paged``): one
+kernel launch a layer on the card, bitwise equal to the three, and the
+same three plain versions in turn on the CPU.  The kernel finds the written slot or block
+from the index and the table itself.  Split-K over a mesh and padded
+heads wait for the multi-device slice.
 """
 from __future__ import annotations
 
@@ -86,9 +88,20 @@ class Attention(nn.Module):
     # ---------------- full-sequence (prefill / train) ----------------
 
     def forward(self, x, *, angles=None, causal=True, window=None,
-                return_kv=False):
-        """x: (B, S, d_in) → (B, S, d_out) [, (k, v) for the cache]."""
+                cross_kv=None, return_kv=False):
+        """x: (B, S, d_in) → (B, S, d_out) [, (k, v) for the cache].
+        ``cross_kv``: precomputed (k, v) (B, S_enc, KV, hd) to attend over,
+        not causally and with no RoPE on them (q takes ``angles`` if
+        given); then only y is returned."""
         B, S = x.shape[:2]
+        if cross_kv is not None:
+            q = self.wq(x).reshape(B, S, self.cfg.n_heads, self.cfg.hd)
+            if angles is not None:
+                q = apply_rope(q, angles)
+            # plain, as the reference's cross attention is
+            # (src/repro/models/attention.py:128-134): its flash kernel is
+            # causal self-attention only
+            return self.wo(sdpa_ref(q, *cross_kv).reshape(B, S, -1))
         q, k, v = self.qkv(x, x)
         if angles is not None:
             q = apply_rope(q, angles)
@@ -96,6 +109,8 @@ class Attention(nn.Module):
         if causal:
             out = kops.flash_attention(q, k, v, causal=True, window=window)
         else:
+            # bidirectional (the encoder): plain, as the reference routes
+            # it (src/repro/models/attention.py:147-151)
             bias = None
             if window is not None:
                 pos = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -113,14 +128,20 @@ class Attention(nn.Module):
     # the only mask is slot validity (slot <= index, every slot once the
     # ring has wrapped).
 
-    def decode(self, x, cache, index, *, angles=None, block_tbl=None):
+    def decode(self, x, cache, index, *, angles=None, cross_kv=None,
+               cross_len=None, block_tbl=None):
         """x: (B, 1, d_in); cache: {"k", "v"}: (B, Smax, KV, hd) rings, or
         (NB, bk, KV, hd) block pools when ``block_tbl`` (B, nk) is given;
         updated in place.  index: the absolute position being written — an
         int or a (B,) tensor (every row at its own position).  An int
-        broadcasts to every row and takes the same kernels.  Returns
-        (y, cache)."""
+        broadcasts to every row and takes the same kernels.  ``cross_kv``
+        (k, v) (B, S_enc, KV, hd) attends over them instead and leaves the
+        cache untouched; keys at positions >= ``cross_len`` (an int or a
+        (B,) tensor) are masked, so a max_seq-long cross pool holds each
+        row's own encoder length.  Returns (y, cache)."""
         B = x.shape[0]
+        if cross_kv is not None:
+            return self._decode_cross(x, cross_kv, cross_len, angles), cache
         q, k, v = self.qkv(x, x)
         if angles is not None:
             q = apply_rope(q, angles)
@@ -133,6 +154,27 @@ class Attention(nn.Module):
             out = kops.decode_attention_write(q, k[:, 0], v[:, 0], cache["k"],
                                               cache["v"], index)
         return self.wo(out.reshape(B, 1, -1)), cache
+
+    def _decode_cross(self, x, cross_kv, cross_len, angles):
+        """One query token over cross K/V, masked past ``cross_len``.  Plain,
+        as the reference's (src/repro/models/attention.py:280-296); q takes
+        RoPE only if ``angles`` are given, and the decoder block gives
+        none."""
+        cfg = self.cfg
+        B = x.shape[0]
+        q = self.wq(x).reshape(B, 1, cfg.n_heads, cfg.hd)
+        if angles is not None:
+            q = apply_rope(q, angles)
+        bias = None
+        if cross_len is not None:
+            Se = cross_kv[0].shape[1]
+            cl = torch.as_tensor(cross_len, dtype=torch.int32,
+                                 device=x.device).reshape(-1, 1, 1)
+            k_pos = torch.arange(Se, dtype=torch.int32, device=x.device)
+            bias = torch.where(k_pos < cl, 0.0, NEG_INF).to(
+                torch.float32).expand(B, 1, Se)
+        out = sdpa_ref(q, cross_kv[0], cross_kv[1], bias)
+        return self.wo(out.reshape(B, 1, -1))
 
     # ---------------- paged decode (block-table KV pool) ------------------
     #

@@ -1,7 +1,7 @@
 """Layer blocks: the decoder block (pre-norm attention + SwiGLU or MoE),
-the pre-norm Mamba block (Mamba1 or Mamba2) and zamba2's shared attention
-block.  The encoder-decoder blocks of ``repro.models.blocks`` are not
-ported yet."""
+the pre-norm Mamba block (Mamba1 or Mamba2), zamba2's shared attention
+block, and seamless's encoder block and cross-attending decoder block
+(``repro.models.blocks``)."""
 from __future__ import annotations
 
 from torch import nn
@@ -121,3 +121,75 @@ class SharedAttnBlock(nn.Module):
                                     block_tbl=block_tbl)
         x2 = x2 + h
         return x2 + self.mlp(self.ln2(x2)), cache
+
+
+class EncoderBlock(nn.Module):
+    """Bidirectional attention + SwiGLU, LayerNorm (the seamless encoder)."""
+
+    def __init__(self, cfg, *, generator=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        nkw = dict(eps=cfg.norm_eps, param_dtype=cfg.pdtype, device=device)
+        self.ln1 = LayerNorm(cfg.d_model, **nkw)
+        self.attn = Attention(cfg, generator=generator, device=device)
+        self.ln2 = LayerNorm(cfg.d_model, **nkw)
+        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dtype=cfg.cdtype,
+                          param_dtype=cfg.pdtype, generator=generator,
+                          device=device)
+
+    def forward(self, x, *, angles=None):
+        x = x + self.attn(self.ln1(x), angles=angles, causal=False)
+        return x + self.mlp(self.ln2(x))
+
+
+class CrossDecoderBlock(nn.Module):
+    """Causal self-attention + cross attention + SwiGLU, LayerNorm (the
+    seamless decoder)."""
+
+    def __init__(self, cfg, *, generator=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        nkw = dict(eps=cfg.norm_eps, param_dtype=cfg.pdtype, device=device)
+        self.ln1 = LayerNorm(cfg.d_model, **nkw)
+        self.self_attn = Attention(cfg, generator=generator, device=device)
+        self.ln2 = LayerNorm(cfg.d_model, **nkw)
+        self.cross_attn = Attention(cfg, generator=generator, device=device)
+        self.ln3 = LayerNorm(cfg.d_model, **nkw)
+        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dtype=cfg.cdtype,
+                          param_dtype=cfg.pdtype, generator=generator,
+                          device=device)
+
+    def cross_kv(self, enc_out):
+        """Cross K/V of the encoder output: (B, S_enc, KV, hd) each."""
+        cfg = self.cfg
+        B, Se = enc_out.shape[:2]
+        k = self.cross_attn.wk(enc_out).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+        v = self.cross_attn.wv(enc_out).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+        return k, v
+
+    def forward(self, x, *, enc_out, angles=None, return_kv=False):
+        """x: (B, S, d) over the encoder output → x [, the self-attention's
+        (k, v) and the cross (k, v), for the cache]."""
+        h, kv = self.self_attn(self.ln1(x), angles=angles, causal=True,
+                               return_kv=True)
+        x = x + h
+        ckv = self.cross_kv(enc_out)
+        x = x + self.cross_attn(self.ln2(x), cross_kv=ckv, causal=False)
+        x = x + self.mlp(self.ln3(x))
+        return (x, kv, ckv) if return_kv else x
+
+    def decode(self, x, state, index, *, angles=None, cross_len=None,
+               block_tbl=None):
+        """state = {"self": the self-attention's cache, "cross": {"k", "v"}
+        written at admission}.  ``cross_len``: an int or a (B,) tensor;
+        cross keys at positions >= it are masked.  ``block_tbl`` pages the
+        self cache only: the cross K/V stay dense."""
+        h, _ = self.self_attn.decode(self.ln1(x), state["self"], index,
+                                     angles=angles, block_tbl=block_tbl)
+        x = x + h
+        cross = state["cross"]
+        h, _ = self.cross_attn.decode(self.ln2(x), None, index,
+                                      cross_kv=(cross["k"], cross["v"]),
+                                      cross_len=cross_len)
+        x = x + h
+        return x + self.mlp(self.ln3(x)), state

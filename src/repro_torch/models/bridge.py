@@ -7,8 +7,11 @@ modules on leading axes; here each is its own module in a ``ModuleList``,
 and the list indices of a port name index those axes: ``blocks.<i>.<path>``
 loads ``blocks/<path>[i]``, a hybrid's ``blocks.<g>.<i>.<path>`` loads
 ``blocks/<path>[g, i]`` of the ``(G, A, …)`` stack, ``shared.<s>.<path>``
-loads ``shared/<path>[s]`` and ``down.<g>.w`` loads ``down/w[g]``.  Every
-other parameter keeps its path.  This module imports no JAX.
+loads ``shared/<path>[s]``, ``down.<g>.w`` loads ``down/w[g]``, and an
+encoder-decoder's ``enc_blocks.<i>.<path>`` and ``dec_blocks.<i>.<path>``
+load ``enc_blocks/<path>[i]`` and ``dec_blocks/<path>[i]``.  Every other
+parameter keeps its path.  Every leaf of the reference's tree must be
+consumed.  This module imports no JAX.
 """
 from __future__ import annotations
 

@@ -70,12 +70,21 @@ def make_chunked_prefill_step(cfg: ModelConfig, max_seq: int, chunk: int):
     """Prefill with bounded per-step work: a one-shot prefill of the first
     ``chunk`` tokens builds the cache, then the rest of the prompt streams
     through the decode path one token per step.  Produces the same
-    (last-position logits, cache) as ``make_prefill_step``."""
+    (last-position logits, cache) as ``make_prefill_step``.
+
+    An encoder-decoder prefills in one shot (the encoder needs every
+    frame); a VLM needs ``chunk > n_vision_patches``, so that the patch
+    prefix lands in the one-shot part."""
+    if cfg.family == "vlm" and chunk <= cfg.n_vision_patches:
+        raise ValueError(
+            f"vlm chunked prefill needs chunk > n_vision_patches "
+            f"({chunk} <= {cfg.n_vision_patches})")
+
     @torch.no_grad()
     def chunked_prefill(params: LM, inputs):
         tokens = inputs["tokens"]
         S = tokens.shape[1]
-        if S <= chunk:
+        if S <= chunk or cfg.enc_dec:
             return params.prefill(inputs, max_seq)
         logits, cache = params.prefill({**inputs, "tokens": tokens[:, :chunk]},
                                        max_seq)

@@ -1,15 +1,18 @@
-"""The language model of the dense, MoE, SSM (Mamba1 and Mamba2) and hybrid
-(zamba2) families (``repro.models.transformer.LM``).
+"""The language model of every family (``repro.models.transformer.LM``):
+dense, MoE, VLM (M-RoPE and a patch prefix), SSM (Mamba1 and Mamba2),
+hybrid (zamba2) and encoder-decoder (seamless).
 
 The reference stacks the layers' parameters on a leading axis and runs them
 under ``lax.scan``; here every layer is its own module in an
 ``nn.ModuleList`` and a Python loop walks them.  A hybrid model holds its
 Mamba2 layers as G groups of A (``blocks[g][i]``), the shared attention
-blocks (``shared[s]``) and one down projection per group (``down[g]``).
+blocks (``shared[s]``) and one down projection per group (``down[g]``); an
+encoder-decoder model its ``enc_blocks`` and ``dec_blocks``.
 The decode cache keeps the reference's tree — ``{"index", "layers": {"k",
-"v"}}`` (dense, MoE), ``{"index", "layers": {"h", "conv"}}`` (SSM),
+"v"}}`` (dense, MoE, VLM), ``{"index", "layers": {"h", "conv"}}`` (SSM),
 ``{"index", "mamba": {"h", "conv"}, "attn": {"k", "v"}}`` (hybrid, mamba
-leaves ``(G, A, B, …)``) — and decode writes it in place through
+leaves ``(G, A, B, …)``), ``{"index", "self": {"k", "v"}, "cross": {"k",
+"v"}, "cross_len"}`` (enc-dec) — and decode writes it in place through
 per-layer views, where the reference donates the buffers to ``jit``.
 
 Entry points:
@@ -22,6 +25,10 @@ Entry points:
   model.prefill(inputs, max_seq)           -> (last-position logits, cache)
   model.decode(tokens, cache)              -> (logits, cache)
   LM.cache_spec(cfg, batch, max_seq)       -> tree of (shape, dtype, axes)
+
+``inputs`` is ``{"tokens": (B, S)}``, plus ``"patches"`` (B, P, d_model) for
+the VLM (they replace the first P embeddings) and ``"frames"`` (B, S_enc,
+d_model) for the encoder-decoder.
 """
 from __future__ import annotations
 
@@ -32,24 +39,26 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.blocks import (
-    DecoderBlock, SharedAttnBlock, SSMBlock, norm_cls,
+    CrossDecoderBlock, DecoderBlock, EncoderBlock, SharedAttnBlock, SSMBlock,
+    norm_cls,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import MoE
-from repro_torch.models.rotary import rope_angles, text_positions
-from repro_torch.nn import Embedding, Linear
-
-
-def _check_family(cfg: ModelConfig):
-    if cfg.enc_dec:
-        raise NotImplementedError("enc-dec models wait for slice C5")
-    if cfg.m_rope or cfg.family == "vlm":
-        raise NotImplementedError("VLM models wait for slice C2")
+from repro_torch.models.rotary import (
+    mrope_positions, rope_angles, text_positions,
+)
+from repro_torch.nn import Embedding, LayerNorm, Linear
 
 
 def _angles(cfg: ModelConfig, batch: int, seq: int, start=0, device=None):
     if cfg.ssm is not None and cfg.hybrid is None:
         return None
+    if cfg.m_rope:
+        # a one-token step (decode tick, verify lane) is text: t = h = w
+        pos = mrope_positions(batch, seq,
+                              cfg.n_vision_patches if seq > 1 else 0, start,
+                              device=device)
+        return rope_angles(pos, cfg.hd, cfg.rope_theta, cfg.m_rope_sections)
     pos = text_positions(batch, seq, start, device=device)
     return rope_angles(pos, cfg.hd, cfg.rope_theta)
 
@@ -86,14 +95,20 @@ def add_aux(total: dict, aux) -> dict:
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0):
         super().__init__()
-        _check_family(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         gen = torch.Generator(device=device).manual_seed(seed)
         kw = dict(generator=gen, device=device)
         self.embed = Embedding(cfg.vocab, cfg.d_model, param_dtype=cfg.pdtype,
                                **kw)
-        if cfg.hybrid is not None:
+        if cfg.enc_dec:
+            self.enc_blocks = nn.ModuleList(EncoderBlock(cfg, **kw)
+                                            for _ in range(cfg.n_enc_layers))
+            self.dec_blocks = nn.ModuleList(CrossDecoderBlock(cfg, **kw)
+                                            for _ in range(cfg.n_layers))
+            self.ln_enc = LayerNorm(cfg.d_model, eps=cfg.norm_eps,
+                                    param_dtype=cfg.pdtype, device=device)
+        elif cfg.hybrid is not None:
             G, A = _hybrid_groups(cfg), cfg.hybrid.attn_every
             self.blocks = nn.ModuleList(
                 nn.ModuleList(SSMBlock(cfg, **kw) for _ in range(A))
@@ -132,8 +147,15 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------- shared
 
-    def _embed(self, tokens):
-        return self.embed(tokens, dtype=self.cfg.cdtype)
+    def _embed(self, tokens, inputs=None):
+        """Token embeddings; a VLM's patches replace the first P rows."""
+        h = self.embed(tokens, dtype=self.cfg.cdtype)
+        if (self.cfg.family == "vlm" and inputs is not None
+                and "patches" in inputs):
+            patches = inputs["patches"]
+            h = torch.cat([patches.to(h.dtype), h[:, patches.shape[1]:]],
+                          dim=1)
+        return h
 
     def _logits(self, h):
         if self.lm_head is None:
@@ -144,13 +166,18 @@ class LM(nn.Module):
 
     def forward(self, inputs):
         """Full-sequence forward (the reference's ``LM.apply``).  inputs:
-        {"tokens": (B, S)} → (logits (B, S, V) float32, aux)."""
+        {"tokens": (B, S)} plus the family's "patches" or "frames" →
+        (logits (B, S, V) float32, aux)."""
         tokens = inputs["tokens"]
         B, S = tokens.shape
-        h = self._embed(tokens)
+        h = self._embed(tokens, inputs)
         angles = _angles(self.cfg, B, S, device=h.device)
         aux = zero_aux(h.device)
-        if self.cfg.hybrid is not None:
+        if self.cfg.enc_dec:
+            enc_out = self._encode(inputs["frames"])
+            for blk in self.dec_blocks:
+                h = blk(h, enc_out=enc_out, angles=angles)
+        elif self.cfg.hybrid is not None:
             h = self._apply_hybrid(h, angles)
         elif self.cfg.ssm is not None:
             for blk in self.blocks:
@@ -160,6 +187,16 @@ class LM(nn.Module):
                 h, a = blk(h, angles=angles, return_aux=True)
                 aux = add_aux(aux, a)
         return self._logits(self.ln_f(h)), aux
+
+    def _encode(self, frames):
+        """The encoder over every frame: (B, S_enc, d) → the normed encoder
+        output (the reference's ``_apply_encdec`` first half)."""
+        B, Se = frames.shape[:2]
+        angles = _angles(self.cfg, B, Se, device=frames.device)
+        x = frames.to(self.cfg.cdtype)
+        for blk in self.enc_blocks:
+            x = blk(x, angles=angles)
+        return self.ln_enc(x)
 
     def _groups(self):
         """(g, the group's SSM blocks, its shared block, its down
@@ -184,11 +221,19 @@ class LM(nn.Module):
     @staticmethod
     def cache_spec(cfg: ModelConfig, batch: int, max_seq: int):
         """Tree of (shape, dtype, logical_axes) describing the decode state."""
-        _check_family(cfg)
         L = cfg.n_layers
         spec = {"index": ((), torch.int32, ())}
         kv = Attention.cache_shape(cfg, batch, max_seq)
-        if cfg.hybrid is not None:
+        if cfg.enc_dec:
+            spec["self"] = {n: ((L,) + s, cfg.cdtype, ("layers",) + ax)
+                            for n, (s, ax) in kv.items()}
+            # cross K/V sized max_seq on the "enc_seq" axis (they never
+            # page); each row's encoder length masks the rest at decode
+            ce = ((L, batch, max_seq, cfg.n_kv_heads, cfg.hd), cfg.cdtype,
+                  ("layers", "batch", "enc_seq", "kv_heads", None))
+            spec["cross"] = {"k": ce, "v": ce}
+            spec["cross_len"] = ((batch,), torch.int32, ("batch",))
+        elif cfg.hybrid is not None:
             G, A = _hybrid_groups(cfg), cfg.hybrid.attn_every
             ss = SSMBlock.state_shape(cfg, batch)
             spec["mamba"] = {n: ((G, A) + s, dt, ("layers", "layers") + ax)
@@ -220,10 +265,14 @@ class LM(nn.Module):
         cfg = self.cfg
         tokens = inputs["tokens"]
         B, S = tokens.shape
-        h = self._embed(tokens)
+        h = self._embed(tokens, inputs)
         angles = _angles(cfg, B, S, device=h.device)
         cache = {"index": torch.tensor(S, dtype=torch.int32, device=h.device)}
-        if cfg.hybrid is not None:
+        if cfg.enc_dec:
+            h, states = self._prefill_encdec(h, inputs["frames"], angles,
+                                             max_seq)
+            cache.update(states)
+        elif cfg.hybrid is not None:
             h, states = self._prefill_hybrid(h, angles, max_seq)
             cache.update(states)
         elif cfg.ssm is not None:
@@ -257,6 +306,24 @@ class LM(nn.Module):
             attn.append(self._kv_to_ring(k, v, max_seq))
         return h, {"mamba": _stack_states(mamba), "attn": _stack_states(attn)}
 
+    def _prefill_encdec(self, h, frames, angles, max_seq):
+        """The encoder once over every frame, then the decoder over the
+        prompt, keeping each layer's self K/V as its ring and its cross
+        K/V at the encoder's length S_enc (``write_slot`` pads them to the
+        pool's max_seq); cross_len = S_enc for every row."""
+        enc_out = self._encode(frames)
+        selfs, crosses = [], []
+        for blk in self.dec_blocks:
+            h, (k, v), (ck, cv) = blk(h, enc_out=enc_out, angles=angles,
+                                      return_kv=True)
+            selfs.append(self._kv_to_ring(k, v, max_seq))
+            crosses.append({"k": ck, "v": cv})
+        B, Se = frames.shape[:2]
+        return h, {"self": _stack_states(selfs),
+                   "cross": _stack_states(crosses),
+                   "cross_len": torch.full((B,), Se, dtype=torch.int32,
+                                           device=h.device)}
+
     def _decoder_prefill_block(self, blk, x, angles, max_seq):
         x, (k, v) = blk(x, angles=angles, return_kv=True)
         return x, self._kv_to_ring(k, v, max_seq)
@@ -282,7 +349,9 @@ class LM(nn.Module):
         the absolute position of this token: an int32 scalar or a (B,)
         vector.  A "block_tbl" entry ((B, nk) int32, shared by every layer)
         switches the K/V leaves to the paged (L, NB, bk, KV, hd) block
-        pools.  The K/V and SSM state leaves are written in place; the
+        pools (an encoder-decoder's self K/V; its cross K/V stay dense and
+        are only read, masked past each row's "cross_len").  The K/V and
+        SSM state leaves are written in place; the
         returned cache shares them and every other entry, and carries
         index + 1."""
         index = cache["index"]
@@ -290,7 +359,15 @@ class LM(nn.Module):
         B = tokens.shape[0]
         h = self._embed(tokens)
         angles = _angles(self.cfg, B, 1, start=index, device=h.device)
-        if self.cfg.hybrid is not None:
+        if self.cfg.enc_dec:
+            selfs, cross = cache["self"], cache["cross"]
+            for i, blk in enumerate(self.dec_blocks):
+                state = {"self": {n: leaf[i] for n, leaf in selfs.items()},
+                         "cross": {n: leaf[i] for n, leaf in cross.items()}}
+                h, _ = blk.decode(h, state, index, angles=angles,
+                                  cross_len=cache.get("cross_len"),
+                                  block_tbl=tbl)
+        elif self.cfg.hybrid is not None:
             h = self._decode_hybrid(h, cache, index, angles, tbl)
         else:
             layers = cache["layers"]

@@ -31,6 +31,7 @@ place.
 """
 from __future__ import annotations
 
+import hashlib
 import time
 from collections import deque
 
@@ -212,15 +213,27 @@ class ServingEngine:
         self.phase = np.zeros(slots, np.int8)
         self.slot_owner: dict[int, Request] = {}    # cleared on release
         chunk = prefill_chunk if prefill_chunk is not None else max_seq
+        if cfg.family == "vlm":
+            # the patch prefix must land in the one-shot prefill
+            chunk = max(chunk, cfg.n_vision_patches + 1)
         self.prefill_chunk = max(chunk, 1)
         self._prompt: list[np.ndarray | None] = [None] * slots
         self._fed = np.zeros(slots, np.int64)       # prompt tokens staged
+        # a VLM's prefix K/V depends on its patches as well as its token
+        # ids, so their digest goes into every prefix key: prompts with the
+        # same ids and other patches never alias.  Every request gets the
+        # same zero patches today, so this is one constant an engine.
+        self._patch_key = (hashlib.sha1(np.zeros(
+            (cfg.n_vision_patches, cfg.d_model), np.float32).tobytes()
+        ).digest() if cfg.family == "vlm" else b"")
         self.spec_k = max(int(spec_k), 0)
         self.spec_ngram = max(int(spec_ngram), 1)
-        # speculation needs a rewindable cache: a sliding-window ring
-        # shorter than max_seq wraps, and speculative writes would clobber
-        # live context that rewinding the index cannot restore.  Such
-        # configs serve the plain path; the knob is never an error.
+        # speculation needs a rewindable cache: recurrent state cannot roll
+        # back, an encoder-decoder serves plain as in the reference, and a
+        # sliding-window ring shorter than max_seq wraps, so speculative
+        # writes would clobber live context that rewinding the index cannot
+        # restore.  Such configs serve the plain path; the knob is never an
+        # error.
         self._spec_ok = (
             self.spec_k > 0
             and cfg.ssm is None and getattr(cfg, "hybrid", None) is None
@@ -270,7 +283,7 @@ class ServingEngine:
                     head = self.scheduler.peek()
                     if not self.pool.can_admit(
                             free[0], np.asarray(head.prompt).reshape(-1),
-                            head.gen_len):
+                            head.gen_len, extra=self._patch_key):
                         break
                 req = self.scheduler.pop()
                 slot = free.pop(0)
@@ -295,7 +308,9 @@ class ServingEngine:
     def admit(self, slot: int, prompt: np.ndarray, gen_len: int,
               request: Request | None = None, frames=None):
         """Prefill one slot: one shot over the first chunk; the rest of the
-        prompt streams through tick() (PREFILL phase)."""
+        prompt streams through tick() (PREFILL phase).  An encoder-decoder
+        takes ``frames`` (or the request's): the encoder runs whole in the
+        one-shot part, and the decoder prompt's tail can still stream."""
         if self.active[slot]:
             raise ValueError(f"slot {slot} is still active")
         if frames is None and request is not None:
@@ -309,7 +324,8 @@ class ServingEngine:
         self.prompt_tokens += P
         self.stats.total_admitted += 1
         if self._paged:
-            h_tok = self.pool.admit_slot(slot, prompt, gen_len)
+            h_tok = self.pool.admit_slot(slot, prompt, gen_len,
+                                         extra=self._patch_key)
             if h_tok > 0:
                 # resident prefix: the shared blocks hold positions
                 # 0..h_tok-1, so no prefill runs; the rest of the prompt
@@ -330,13 +346,22 @@ class ServingEngine:
         c = P if self.prefill_chunk >= P else self.prefill_chunk
         self.prefill_tokens += P
         inputs = {"tokens": torch.tensor(prompt[None, :c], device=self.device)}
+        if self.cfg.family == "vlm":
+            inputs["patches"] = torch.zeros(
+                (1, self.cfg.n_vision_patches, self.cfg.d_model),
+                dtype=self.cfg.cdtype, device=self.device)
+        if self.cfg.enc_dec:
+            inputs["frames"] = torch.tensor(
+                np.asarray(frames)[None], dtype=self.cfg.cdtype,
+                device=self.device)
         logits, cache1 = self.prefill(self.params, inputs)
         self.pool.write(cache1, slot, index=c)
         if self._paged:
             # blocks the one-shot prefill covered are complete prompt
             # prefixes: publish them for later admissions to share
             for j in range(c // self.pool.block_size):
-                self.pool.register_block(slot, j, prompt)
+                self.pool.register_block(slot, j, prompt,
+                                         extra=self._patch_key)
         self.pos[slot] = c
         self._prompt[slot] = prompt
         self.remaining[slot] = gen_len
@@ -419,7 +444,8 @@ class ServingEngine:
                     # a streamed block just filled with prompt tokens:
                     # publish it (positions pos-bk..pos-1 are prompt[:pos])
                     self.pool.register_block(
-                        slot, pos // self.pool.block_size - 1, prompt)
+                        slot, pos // self.pool.block_size - 1, prompt,
+                        extra=self._patch_key)
                 if self._fed[slot] < len(prompt):
                     self._tokens_host[slot] = int(prompt[self._fed[slot]])
                     self._fed[slot] += 1
@@ -574,7 +600,8 @@ class ServingEngine:
             bs = self.pool.block_size
             q = (pos_old // bs + 1) * bs
             while q <= min(pos_new, len(prompt)):
-                self.pool.register_block(slot, q // bs - 1, prompt)
+                self.pool.register_block(slot, q // bs - 1, prompt,
+                                         extra=self._patch_key)
                 q += bs
         if self._fed[slot] < len(prompt):
             self._tokens_host[slot] = int(prompt[self._fed[slot]])

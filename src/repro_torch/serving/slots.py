@@ -33,7 +33,10 @@ from repro_torch.models import LM
 
 def _pad_to_pool(pool, one):
     """Zero-pad ``one`` up to the pool's size on every non-batch axis (the
-    batch axis is the one where one == 1 and the pool differs)."""
+    batch axis is the one where one == 1 and the pool differs).  An
+    enc-dec prefill's cross K/V, (L, 1, S_enc, KV, hd), meet a max_seq-long
+    pool: the pad rows lie past the row's cross_len, which decode masks, so
+    zeros are exact."""
     if pool.dim() != one.dim():
         return one
     batch_ax = next((ax for ax in range(pool.dim())
@@ -189,11 +192,15 @@ def pool_geometry(slots: int, max_seq: int, *, block_size: int | None = None,
     return bk, num_blocks
 
 
-def _prefix_key(prompt: np.ndarray, n: int) -> bytes:
+def _prefix_key(prompt: np.ndarray, n: int, extra: bytes = b"") -> bytes:
     """Content hash of the first ``n`` prompt tokens — the prefix registry
-    key (O(1) in size however long the shared prompt)."""
+    key (O(1) in size however long the shared prompt).  ``extra`` is mixed
+    in for families whose prefix K/V depends on more than the token ids (a
+    VLM's patches): two prompts with the same ids and different extra
+    bytes never alias."""
     return hashlib.sha1(
-        np.ascontiguousarray(prompt[:n], dtype=np.int64).tobytes()).digest()
+        extra + np.ascontiguousarray(prompt[:n], dtype=np.int64).tobytes()
+    ).digest()
 
 
 class PagedSlotPool(SlotPool):
@@ -296,7 +303,8 @@ class PagedSlotPool(SlotPool):
     def blocks_needed(self, total_len: int) -> int:
         return -(-min(total_len, self.max_seq) // self.block_size)
 
-    def lookup_prefix(self, slot: int, prompt: np.ndarray):
+    def lookup_prefix(self, slot: int, prompt: np.ndarray, *,
+                      extra: bytes = b""):
         """→ (n_hit_blocks, [block ids]) for the longest registered
         block-aligned prefix of ``prompt`` on this slot's partition, capped
         at (P-1)//bk blocks so at least one prompt token streams through
@@ -306,7 +314,7 @@ class PagedSlotPool(SlotPool):
         reg = self.registry[self._partition(slot)]
         hit: list[int] = []
         for j in range((len(prompt) - 1) // self.block_size):
-            key = _prefix_key(prompt, (j + 1) * self.block_size)
+            key = _prefix_key(prompt, (j + 1) * self.block_size, extra)
             blk = reg.get(key)
             if blk is None:
                 break
@@ -327,9 +335,10 @@ class PagedSlotPool(SlotPool):
             self.refcount[blk] -= 1
             self.free[part].append(blk)
 
-    def can_admit(self, slot: int, prompt: np.ndarray, gen_len: int) -> bool:
+    def can_admit(self, slot: int, prompt: np.ndarray, gen_len: int, *,
+                  extra: bytes = b"") -> bool:
         part = self._partition(slot)
-        h, hit = self.lookup_prefix(slot, prompt)
+        h, hit = self.lookup_prefix(slot, prompt, extra=extra)
         need = self.blocks_needed(len(prompt) + gen_len) - h
         # the hit blocks are NOT evictable for this admission: admit_slot
         # pins them before reclaiming
@@ -338,7 +347,8 @@ class PagedSlotPool(SlotPool):
                         if self.refcount[b] == 1 and b not in hit_set)
         return len(self.free[part]) + evictable >= need
 
-    def admit_slot(self, slot: int, prompt: np.ndarray, gen_len: int) -> int:
+    def admit_slot(self, slot: int, prompt: np.ndarray, gen_len: int, *,
+                   extra: bytes = b"") -> int:
         """Build the slot's table row: shared prefix blocks mapped read-only
         (refcount++), private blocks allocated for the rest, remaining table
         entries parked on the trash block.  Returns the number of prompt
@@ -346,7 +356,7 @@ class PagedSlotPool(SlotPool):
         part = self._partition(slot)
         if self.slot_blocks[slot]:
             raise ValueError(f"slot {slot} not released")
-        h, shared = self.lookup_prefix(slot, prompt)
+        h, shared = self.lookup_prefix(slot, prompt, extra=extra)
         n_priv = self.blocks_needed(len(prompt) + gen_len) - h
         # pin the hit blocks BEFORE reclaiming: a registry-only hit block
         # (refcount 1) would otherwise be evictable, and the private pops
@@ -374,7 +384,8 @@ class PagedSlotPool(SlotPool):
             self.tokens_shared += h * self.block_size
         return h * self.block_size
 
-    def register_block(self, slot: int, j: int, prompt: np.ndarray):
+    def register_block(self, slot: int, j: int, prompt: np.ndarray, *,
+                       extra: bytes = b""):
         """Publish the slot's j-th block (fully written with
         prompt[:(j+1)·bk]) into the prefix registry, which holds its own
         reference, so the block survives the slot's release."""
@@ -384,7 +395,7 @@ class PagedSlotPool(SlotPool):
         blk = int(self.tables[slot, j])
         if blk == self.trash[part]:
             return
-        key = _prefix_key(prompt, (j + 1) * self.block_size)
+        key = _prefix_key(prompt, (j + 1) * self.block_size, extra)
         reg = self.registry[part]
         if key in reg:
             return

@@ -79,12 +79,15 @@ def cuda():
                                             (2, 1000, 4, 5, 64),
                                             (2, 300, 1, 16, 128),
                                             (3, 50, 2, 2, 10),
-                                            (8, 1024, 16, 1, 128)])
+                                            (8, 1024, 16, 1, 128),
+                                            (8, 2048, 4, 7, 128),
+                                            (8, 1024, 16, 1, 64)])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, tol, B, Smax, KV,
                                                G, hd, regime):
     """Smax 100, 1000, 300 and 50 are not multiples of the 64-key tile; G 5
-    and 16 leave a block's register heads part-empty or take two blocks; hd
-    10 is read element by element."""
+    and 16 leave a block's register heads part-empty or take two blocks, and
+    so does qwen2-vl-7b's G 7 (28 heads over 4 KV heads); hd 10 is read
+    element by element; seamless-m4t-medium's hd 64 at G 1."""
     q, kc, vc = (torch.from_numpy(a).to(cuda, dtype)
                  for a in _qkv(B + hd, B, 1, Smax, KV * G, KV, hd))
     index = torch.as_tensor(_index(regime, B, Smax, seed=B), device=cuda)
@@ -96,14 +99,17 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, tol, B, Smax, KV,
 # K4 cases (Sq, H, KV, hd, window): the sweep over Sq, hd, G and the window
 # (KV 2; Sq 15/16/17 straddle a warp's 16 rows, 200 and 1000 ragged block
 # tiles), then shapes of the configs (h2o-danube's G 4, zamba2's 32 heads,
-# olmoe-1b-7b's 16 heads of 128 with G 1).
+# olmoe-1b-7b's 16 heads of 128 with G 1, qwen2-vl-7b's and seamless's).
 FLASH_CASES = [(Sq, 2 * G, 2, hd, window)
                for Sq in (1, 15, 16, 17, 64, 200, 1000)
                for hd in (8, 16, 64, 80, 128)
                for G in (1, 2, 8)
                for window in (None, 64)] + [
     (200, 32, 8, 80, 64), (37, 4, 2, 8, None), (200, 32, 32, 80, None),
-    (200, 16, 16, 128, None), (64, 16, 16, 128, None)]
+    (200, 16, 16, 128, None), (64, 16, 16, 128, None),
+    # qwen2-vl-7b's prefill: 1024 patch positions + 200 text tokens, G 7
+    # (1224 is no multiple of the 64-key tile); seamless's decoder, hd 64
+    (1224, 28, 4, 128, None), (200, 16, 16, 64, None)]
 
 
 @pytest.mark.cuda
@@ -212,6 +218,22 @@ def test_decode_attention_paged_kernel_at_zamba2_heads(cuda, dtype, tol):
     B, KV, G, hd, bk, nk = 8, 32, 1, 80, 8, 128
     q, kp, vp, tbl, index = _paged_inputs(cuda, dtype, B, nk, bk, KV, G, hd,
                                           seed=80)
+    out = ops.decode_attention_paged(q, kp, vp, tbl, index)
+    want = ref.decode_attention_paged_ref(q, kp, vp, tbl, index)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("KV,G,hd,nk", [(4, 7, 128, 256), (16, 1, 64, 128)])
+def test_decode_attention_paged_kernel_at_new_heads(cuda, dtype, tol, KV, G,
+                                                    hd, nk):
+    """qwen2-vl-7b's 28 heads over 4 KV heads (G 7) through a 2048-key
+    table, and seamless-m4t-medium's 16 heads of 64 (G 1)."""
+    B, bk = 8, 8
+    q, kp, vp, tbl, index = _paged_inputs(cuda, dtype, B, nk, bk, KV, G, hd,
+                                          seed=G + hd)
     out = ops.decode_attention_paged(q, kp, vp, tbl, index)
     want = ref.decode_attention_paged_ref(q, kp, vp, tbl, index)
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
@@ -372,12 +394,15 @@ def _split_plan_forced(monkeypatch, split_len):
                                             (8, 1024, 32, 1, 80),
                                             (4, 300, 2, 16, 128),
                                             (3, 100, 4, 1, 80),
-                                            (8, 1024, 16, 1, 128)])
+                                            (8, 1024, 16, 1, 128),
+                                            (8, 2048, 4, 7, 128),
+                                            (8, 1024, 16, 1, 64)])
 def test_decode_attention_write_equals_unfused_bitwise(
         cuda, monkeypatch, dtype, new_dtype, split_len, B, Smax, KV, G, hd):
     """The write instance of K1 against K2, K2, K1: output and both caches
-    bitwise, G 1, 8 and 16 (two blocks a KV head cover the written key),
-    one split and many."""
+    bitwise, G 1, 7 (a block's eighth register head empty: a load or store
+    past the mask would touch the next KV head), 8 and 16 (two blocks a KV
+    head cover the written key), hd 64, 80 and 128, one split and many."""
     _split_plan_forced(monkeypatch, split_len)
     q, kc, vc = (torch.from_numpy(a).to(cuda, dtype)
                  for a in _qkv(Smax + G, B, 1, Smax, KV * G, KV, hd))
@@ -439,7 +464,7 @@ def _paged_write_unfused(q, kn, vn, kp, vp, tbl, index):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bk", [1, 8])
 @pytest.mark.parametrize("KV,G,hd", [(2, 8, 128), (32, 1, 80), (2, 16, 128),
-                                     (16, 1, 128)])
+                                     (16, 1, 128), (4, 7, 128), (16, 1, 64)])
 def test_decode_attention_paged_write_equals_unfused_bitwise(
         cuda, monkeypatch, dtype, new_dtype, split_len, bk, KV, G, hd):
     """The write instance of K5 against K6, K6, K5 through a shuffled
@@ -504,7 +529,7 @@ def _split_lens(V):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("V", [1, 3, 4, 1000, 32000, 50304, 65024, 151936,
-                               151937])
+                               151937, 152064, 256206])
 def test_fused_sample_greedy_equals_argmax_for_every_split(cuda, monkeypatch, V):
     """Greedy tokens bitwise equal to torch.argmax and to the plain version
     whatever the split plan (the pair order is total)."""
@@ -607,7 +632,8 @@ def test_fused_sample_reads_unaligned_rows(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("V", [32000, 50304, 65024, 151936])
+@pytest.mark.parametrize("V", [32000, 50304, 65024, 151936, 152064,
+                               256206])
 def test_fused_sample_is_deterministic(cuda, monkeypatch, V):
     """Two identical calls give the same tokens, greedy and sampled, and
     the sampled token is the Gumbel max at every split plan."""
@@ -827,3 +853,46 @@ def test_mamba1_on_the_card_matches_the_cpu(cuda):
         gd, _ = gm.decode(x1.to(cuda), gst)
     torch.testing.assert_close(gd.cpu(), d, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(gst["h"].cpu(), st["h"], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cross_decoder_block_on_the_card_matches_the_cpu(cuda):
+    """One seamless-m4t-medium decoder layer at full width in float32: one
+    decode step of 8 rows at their own positions over a 1024-long self
+    ring (K1's write instance) and a cross pool whose rows hold encoder
+    lengths 128 to 1024 (plain masked attention): output, self cache and
+    the untouched cross pool within 1e-4 of the CPU's."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import CrossDecoderBlock
+    from repro_torch.models.rotary import rope_angles, text_positions
+    cfg = get_config("seamless-m4t-medium", n_layers=1, dtype="float32")
+    blk = CrossDecoderBlock(cfg, generator=torch.Generator().manual_seed(0))
+    gblk = copy.deepcopy(blk).to(cuda)
+    B, Smax, KV, hd = 8, 1024, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator().manual_seed(3)
+    state = {"self": {n: torch.randn(B, Smax, KV, hd, generator=gen)
+                      for n in ("k", "v")},
+             "cross": {n: torch.randn(B, Smax, KV, hd, generator=gen)
+                       for n in ("k", "v")}}
+    x = torch.randn(B, 1, cfg.d_model, generator=gen)
+    index = torch.tensor([0, 5, 200, 511, 1023, 77, 640, 300],
+                         dtype=torch.int32)
+    cross_len = torch.tensor([128, 1024, 333, 700, 129, 512, 1000, 256],
+                             dtype=torch.int32)
+    gstate = {k: {n: v.to(cuda) for n, v in t.items()}
+              for k, t in state.items()}
+    angles = rope_angles(text_positions(B, 1, index), hd, cfg.rope_theta)
+    with torch.no_grad():
+        y, _ = blk.decode(x, state, index, angles=angles,
+                          cross_len=cross_len)
+        before = ops.launch_counts()["decode_attention_write"]
+        gy, _ = gblk.decode(x.to(cuda), gstate, index.to(cuda),
+                            angles=angles.to(cuda),
+                            cross_len=cross_len.to(cuda))
+    assert ops.launch_counts()["decode_attention_write"] == before + 1
+    torch.testing.assert_close(gy.cpu(), y, atol=1e-4, rtol=1e-4)
+    for k in ("self", "cross"):
+        for n in ("k", "v"):
+            torch.testing.assert_close(gstate[k][n].cpu(), state[k][n],
+                                       atol=1e-4, rtol=1e-4)

@@ -33,6 +33,9 @@ def test_import_leaves_jax_and_reference_out():
         "import repro_torch.kernels.ops, repro_torch.models.steps\n"
         "import repro_torch.serving.draft, repro_torch.serving.slots\n"
         "import repro_torch.models.mamba, repro_torch.kernels.ssm_scan\n"
+        "import repro_torch.models.rotary, repro_torch.models.attention\n"
+        "import repro_torch.models.blocks, repro_torch.models.transformer\n"
+        "import repro_torch.serving.engine\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")

@@ -25,7 +25,6 @@ from repro.nn import RMSNorm as RefRMSNorm
 from repro.serving.transport import decode_config, encode_config
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.models import LM
 from repro_torch.models.bridge import from_reference
 from repro_torch.models.rotary import apply_rope, rope_angles
 from repro_torch.models.steps import (
@@ -177,12 +176,3 @@ def test_chunked_prefill_matches_one_shot():
     for n in ("k", "v"):
         close(c2["layers"][n], c1["layers"][n])
 
-
-def test_unported_families_raise():
-    # the dense, MoE, SSM (Mamba1 and Mamba2) and hybrid families are
-    # ported; VLM and enc-dec are not
-    cfgs = [get_smoke_config(arch) for arch in (
-        "qwen2-vl-7b", "seamless-m4t-medium")]
-    for cfg in cfgs:
-        with pytest.raises(NotImplementedError):
-            LM(cfg, device="cpu")
