@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 Phases 3 to 5 run for each served model in turn (qwen2.5-3b, zamba2-2.7b,
 olmoe-1b-7b, falcon-mamba-7b, qwen2-vl-7b, seamless-m4t-medium), each
-model freed before the next is built.  Any failure exits non-zero and
-prints no result line.
+model freed before the next is built; phase 6 then runs the paper's closed
+control loop over full-width qwen2.5-3b replicas.  Any failure exits
+non-zero and prints no result line.
 
 1. build    — compile the Hopper kernels from ``src/repro_torch/kernels/csrc``.
 2. kernels  — hold each kernel against its plain PyTorch version on the
@@ -38,7 +39,12 @@ prints no result line.
               caches bitwise equal to K2, K2, K1 (K6, K6, K5), caches equal
               to the plain composition and the output within 2e-2 of it;
               timed beside K1 (K5) alone and the unfused three, at all
-              five attention shapes.
+              five attention shapes.  Then the closed loop's shapes
+              (``LoopConfig()``: 4 slots, max_seq 48, a first prefill
+              chunk of 8): K4 at (1,8,16,128) over 2 KV heads, the write
+              instances of K1 and K5 over a max_seq-48 cache with 4 rows
+              (bitwise against K2, K2, K1 and K6, K6, K5), K3 at
+              (4, 151936).
 3. serve    — each model at full width and depth, random weights from a
               seed, on paths that each have the launch counts set to 0 just
               before and read just after: ``repro_torch.launch.serve.main``
@@ -91,6 +97,32 @@ prints no result line.
               cross attention are timed as ranges of their own; falcon's
               scan loops also by the host clock in an unprofiled
               admission.
+6. loop     — ``run_closed_loop`` (``LoopConfig()``, 14 ticks, ``--seed``,
+              autoscale, planner mode: router, collector, anomaly
+              detector, eviction policy, predictive allocator with its DQN)
+              over full-width qwen2.5-3b replicas sharing one EngineCore,
+              every tick printed as ``examples/serve_autoscale.py`` prints
+              it; the replica trajectory must change.  Again with
+              ``pool="paged", spec_k=3``: every request the dense run
+              finished is finished by the paged run too (or still in
+              flight when it ends), and one both finished has one greedy
+              stream.  Each run's launch counts must equal,
+              summed over every engine the router built (parked and retired
+              ones too), 36 K4 an admission that prefilled, 36 K1 (K5)
+              write instances a fused tick (a fused tick or verify lane),
+              one K3 a fused tick, and 0 standalone K1, K2, K5, K6.  The
+              host clock per router step and per control tick (the loop's
+              work outside the router steps), device busy over the router
+              steps of one profiled tick, peak memory.  The card's TickLogs
+              (every field but ``learn_loss``) must equal the same loop's
+              on the CPU at smoke width with qwen's vocabulary: no decision
+              reads a token's value.  Last, the allocator's DQN on the card
+              against the CPU at one set of bridged weights: q-values on the
+              loop's recorded states, 10 ``train_offline`` steps over 256
+              transitions from ``--seed``: losses, parameters and
+              BatchNorm state within 1e-4 (two pre-BatchNorm biases, whose
+              gradient is rounding noise, within AdamW's step bound); the
+              times of ``q_values`` and a train step on each.
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -98,6 +130,7 @@ card's name and power limit; the last line is
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import gc
@@ -307,15 +340,28 @@ def ssd_inputs(torch, g, Bsz, L, H=80, hd=64, N=64):
     return x, dt, A, Bm, C
 
 
+# the closed control loop, LoopConfig(): 4 slots, max_seq 48, a first
+# prefill chunk of 8 tokens (16-token prompts, 8 generated), 14 ticks of 10
+# router steps; its write-instance checks write key 0 and key 47 in each
+# regime; torch.profiler records the router steps of tick 5 (the spike)
+LOOP_TICKS, LOOP_SLOTS, LOOP_MAX_SEQ, LOOP_CHUNK = 14, 4, 48, 8
+LOOP_WRITE_INDICES = {"fresh": [0, 17, 47, 9],
+                      "wrapped": [48, 95, 101, 68],
+                      "mixed": [0, 53, 47, 143]}
+LOOP_PROFILED = (5, 5)
+# the allocator's DQN, card against CPU
+DQN_TOL, DQN_STEPS, DQN_TRANSITIONS = 1e-4, 10, 256
 SAMPLE_SHAPES = {"qwen2.5-3b": (8, 151936), "zamba2-2.7b": (8, 32000),
                  "olmoe-1b-7b": (8, 50304), "falcon-mamba-7b": (8, 65024),
                  "qwen2-vl-7b": (8, 152064),
-                 "seamless-m4t-medium": (8, 256206)}
+                 "seamless-m4t-medium": (8, 256206),
+                 "qwen2.5-3b loop": (LOOP_SLOTS, 151936)}
 SSD_LENGTHS = (64, 200, 2048)
 
 
 def sample_rows(torch, ops, ref, sample_noise, g):
-    """K3 at every served model's vocabulary (SAMPLE_SHAPES), 8 rows:
+    """K3 at every served model's vocabulary (SAMPLE_SHAPES: 8 rows, and
+    the closed loop's 4 at qwen2.5-3b's):
     greedy tokens bitwise equal to the plain version and to torch.argmax (a
     tie across a split boundary goes to the first index), hash bits
     bitwise, noise within 1e-6, the sampled token the Gumbel max; timed
@@ -435,10 +481,11 @@ def write_indices(Smax):
 
 
 def write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged,
-                       Smax=1024):
+                       Smax=1024, B=8, indices=None):
     """K1's write instance (``decode_attention_write``), or K5's through a
-    shuffled table over a pool of 8 · Smax / 8 + 1 blocks of 8 (``paged``),
-    at (8, H, KV, hd), bf16 caches: in each index regime with bf16
+    shuffled table over a pool of B · Smax / 8 + 1 blocks of 8 (``paged``),
+    at (B, H, KV, hd), bf16 caches, index rows ``indices`` (default
+    ``write_indices(Smax)``): in each index regime with bf16
     new rows, and mixed with float32 new rows, the output and both caches
     bitwise equal to the unfused kernels K2, K2, K1 (K6, K6, K5), the
     caches equal to the plain composition and the output within ATTN_TOL
@@ -447,8 +494,9 @@ def write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged,
     operations plus the new rows read and written into both caches.  No
     single PyTorch call writes and attends: library_ms is None."""
     dev, bf16 = torch.device("cuda"), torch.bfloat16
-    B, bk = 8, 8
+    bk = 8
     nk = Smax // bk
+    indices = indices or write_indices(Smax)
     randn = lambda *shape, dtype=bf16: torch.randn(
         *shape, generator=g, device=dev).to(dtype)
     q = randn(B, 1, H, hd)
@@ -494,8 +542,7 @@ def write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged,
     cases = [(r, bf16) for r in ("fresh", "wrapped", "mixed")] + [
         ("mixed", torch.float32)]
     for regime, new_dt in cases:
-        idx = torch.tensor(write_indices(Smax)[regime], dtype=torch.int32,
-                           device=dev)
+        idx = torch.tensor(indices[regime], dtype=torch.int32, device=dev)
         kn, vn = randn(B, KV, hd, dtype=new_dt), randn(B, KV, hd,
                                                        dtype=new_dt)
         what = f"{name} [{label}, {regime}, new {new_dt}]"
@@ -511,8 +558,7 @@ def write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged,
         check(torch.equal(kf, kp_) and torch.equal(vf, vp_),
               f"{what}: caches != the plain composition's")
         errs.append(max_err(torch, out, want, ATTN_TOL, what))
-    idx = torch.tensor(write_indices(Smax)["mixed"], dtype=torch.int32,
-                       device=dev)
+    idx = torch.tensor(indices["mixed"], dtype=torch.int32, device=dev)
     kn, vn = randn(B, KV, hd), randn(B, KV, hd)
     kc, vc = k0.clone(), v0.clone()
     live_b = torch.clamp(idx + 1, max=Smax)
@@ -527,10 +573,10 @@ def write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged,
         unfused_ms=timed_ms(torch, lambda: unfused(kn, vn, kc, vc, idx)),
         plain_ms=timed_ms(torch, lambda: plain(kn, vn, kc, vc, idx)),
         library_ms=None,
-        shape=f"{label}: q (8,1,{H},{hd}), "
-              + (f"pool ({B * nk + 1},8,{KV},{hd}), shuffled table (8,{nk})"
-                 if paged else f"caches (8,{Smax},{KV},{hd})")
-              + f" bf16, new (8,{KV},{hd}), index mixed and wrapped")
+        shape=f"{label}: q ({B},1,{H},{hd}), "
+              + (f"pool ({B * nk + 1},8,{KV},{hd}), shuffled table "
+                 f"({B},{nk})" if paged else f"caches ({B},{Smax},{KV},{hd})")
+              + f" bf16, new ({B},{KV},{hd}), index mixed and wrapped")
     row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * live * H * hd,
                                              PEAK_BF16_S)
     print(f"  {name} {row['shape']}: write instance {row['ms']:.4f} ms, "
@@ -1842,7 +1888,392 @@ def encdec_phases(torch, ops, EngineCore, cfg, add):
     print(f"  seamless-m4t-medium: {time.perf_counter() - t0:.1f} s")
 
 
-def main() -> int:
+# --------------------------------------------------------------------- phase 6
+
+
+def loop_shapes_phase(torch, ops, ref):
+    """The attention kernels at the shapes the closed loop gives them
+    (``LoopConfig()``: 4 slots, max_seq 48, a first chunk of 8 tokens):
+    K4 at (1,8,16,128) over 2 KV heads in bf16, held to ATTN_TOL and timed
+    beside its plain version and SDPA; the write instances of K1 and K5
+    over a max_seq-48 cache, 4 rows, bitwise against K2, K2, K1 (K6, K6,
+    K5).  K3 at (4, 151936) runs in ``sample_rows``.  Printed; the kernels
+    line keeps its shapes."""
+    F = torch.nn.functional
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(29)
+    S, H, KV, hd = LOOP_CHUNK, 16, 2, 128
+    randn = lambda *shape: torch.randn(*shape, generator=g,
+                                       device=dev).to(bf16)
+    q, k, v = randn(1, S, H, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
+    kernel = lambda: ops.flash_attention(q, k, v, causal=True)
+    plain = lambda: ref.flash_attention_ref(q, k, v, causal=True)
+    err = max_err(torch, kernel(), plain(), ATTN_TOL,
+                  f"flash_attention [loop, (1,{S},{H},{hd})]")
+    library = lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True)
+    b_ms, b_by = bound((2 * S * H * hd + 2 * S * KV * hd) * 2,
+                       4 * (S * (S + 1) // 2) * H * hd, PEAK_BF16_S)
+    print(f"  qwen2.5-3b loop flash_attention (1,{S},{H},{hd}) KV {KV}: "
+          f"kernel {timed_ms(torch, kernel):.4f} ms, plain "
+          f"{timed_ms(torch, plain):.4f} ms, library "
+          f"{timed_ms(torch, library):.4f} ms, bound {b_ms:.5f} ms "
+          f"({b_by}), max|err| {err}")
+    for paged in (False, True):
+        write_instance_row(torch, ops, ref, g, "qwen2.5-3b loop", H, KV, hd,
+                           paged, Smax=LOOP_MAX_SEQ, B=LOOP_SLOTS,
+                           indices=LOOP_WRITE_INDICES)
+
+
+def tick_line(t) -> str:
+    """One TickLog as ``examples/serve_autoscale.py`` prints it."""
+    util = " ".join(f"r{rid}={u:.2f}" for rid, u in t.replica_util)
+    flag = " [ANOMALY]" if t.anomaly else ""
+    if t.evicted:
+        flag += f" [EVICTED r{','.join(map(str, t.evicted))}]"
+    return (f"tick {t.tick:2d}: rps={t.rps_target:4.1f} "
+            f"arrivals={t.arrivals:2d} served={t.served:2d} "
+            f"p50={t.latency_p50_ms:6.0f}ms p95={t.latency_p95_ms:6.0f}ms "
+            f"queue={t.queue_depth:4.1f} slot_util[{util}] "
+            f"-> {t.replicas} replicas ({t.reason}){flag}")
+
+
+def trajectory(logs) -> list[dict]:
+    """Every TickLog field but ``learn_loss`` (the DQN's, held apart)."""
+    import dataclasses
+    return [{k: v for k, v in dataclasses.asdict(t).items()
+             if k != "learn_loss"} for t in logs]
+
+
+@contextlib.contextmanager
+def timed_router_steps(torch, steps):
+    """The host time of every ``ReplicaRouter.step``, synchronised at its
+    end, appended to ``steps``."""
+    from repro_torch.serving.router import ReplicaRouter
+    step = ReplicaRouter.step
+
+    def timed(self, now=0.0):
+        t0 = time.perf_counter()
+        out = step(self, now)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        return out
+
+    ReplicaRouter.step = timed
+    try:
+        yield steps
+    finally:
+        ReplicaRouter.step = step
+
+
+def loop_launches(cfg, router, paged):
+    """The launch counts a loop run must show, from every engine the router
+    built (parked and retired ones too): 36 K4 an admission that ran a
+    prefill, 36 K1 write instances a fused dense tick (K5's a fused paged
+    tick or verify lane), one K3 a fused tick."""
+    engines = [rep.engine for rep in router.all_replicas]
+    fused = sum(e.fused_ticks for e in engines)
+    lanes = sum(e.verify_lanes for e in engines)
+    prefilled = sum(e.stats.total_admitted
+                    - e.lifetime().get("prefix_hits", 0) for e in engines)
+    launches = decoder_launches(cfg.n_layers)
+    if paged:
+        want = launches(0, prefilled, lanes=fused + lanes, fused=fused)
+    else:
+        want = launches(fused, prefilled)
+    return want, dict(engines=len(engines), fused=fused, lanes=lanes,
+                      prefilled=prefilled)
+
+
+def loop_run(torch, ops, cfg, lc, label, seed, profiled=None):
+    """``run_closed_loop`` on the card, the launch counts set to 0 just
+    before and read just after; every tick printed, the fleet totals, the
+    host clock per router step and per control tick (the loop's work
+    outside ``router.step``), the peak memory.  ``profiled`` = (first,
+    last) tick whose router steps torch.profiler records (device busy);
+    those ticks stay out of the host-clock means."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.closed_loop import run_closed_loop
+    sink, allocs, marks, steps = [], {}, [], []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def hook(tick, router, collector):
+        # the profiler's start and stop fall in the profiled ticks' spans
+        if profiled and tick == profiled[1]:
+            torch.cuda.synchronize()
+            window["stop"] = (time.perf_counter(), len(steps))
+            prof.stop()
+        marks.append((time.perf_counter(), len(steps)))
+        if profiled and tick == profiled[0] - 1:
+            prof.start()
+            window["start"] = (time.perf_counter(), len(steps))
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with timed_router_steps(torch, steps):
+        router, logs = run_closed_loop(
+            cfg, autoscale=True, ticks=LOOP_TICKS, seed=seed, lc=lc,
+            sink=sink, chaos_hook=hook, device="cuda",
+            prime_allocator=lambda a: allocs.setdefault("alloc", a))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    wall = time.perf_counter() - t0
+    print(f"  {label}: {len(logs)} ticks of {lc.steps_per_tick} router "
+          f"steps, {wall:.1f} s with weight init")
+    for t in logs:
+        print("    " + tick_line(t))
+    m = router.metrics()
+    print(f"    fleet totals: {m['completed']} requests, "
+          f"{m['completed_tokens']} tokens, p50={m['latency_p50_ms']:.0f}ms "
+          f"p95={m['latency_p95_ms']:.0f}ms (virtual clock), slot "
+          f"utilization {m['slot_utilization']:.3f}, spec "
+          f"{m['spec_accepted']}/{m['spec_proposed']} accepted, prefix hits "
+          f"{m['prefix_hits']}")
+    check(m["completed"] == len(sink) > 0, f"{label}: {m['completed']} "
+          f"completed, {len(sink)} in the sink")
+    want, seen = loop_launches(cfg, router, lc.pool == "paged")
+    print(f"    engines built {seen['engines']}: {seen['fused']} fused "
+          f"ticks, {seen['lanes']} verify lanes, {seen['prefilled']} "
+          f"admissions prefilled")
+    check_launches(counts, want, f"loop {label}")
+    # host clock: tick i spans hook i-1 .. hook i; its router steps are
+    # steps[n_{i-1}:n_i], the rest of the tick is the control loop's.
+    # Tick 0 (weight init before it) and the profiled ticks stay out
+    skip = {0} | (set(range(profiled[0], profiled[1] + 1)) if profiled
+                  else set())
+    prev, step_s, ctrl_s = (t0, 0), [], []
+    for tick, (t, n) in enumerate(marks):
+        if tick not in skip:
+            in_steps = sum(steps[prev[1]:n])
+            step_s.extend(steps[prev[1]:n])
+            ctrl_s.append(t - prev[0] - in_steps)
+        prev = (t, n)
+    print(f"    host clock: router step {statistics.mean(step_s) * 1e3:.2f} "
+          f"ms mean ({statistics.median(step_s) * 1e3:.2f} median, "
+          f"{len(step_s)} steps), control tick outside the router steps "
+          f"{statistics.mean(ctrl_s) * 1e3:.2f} ms mean over {len(ctrl_s)} "
+          f"ticks; peak device memory {peak_gib(torch):.2f} GiB")
+    if profiled:
+        (ta, na), (tb, nb) = window["start"], window["stop"]
+        # the report reads the trace three times; summing a tick of four
+        # replicas' events takes tens of seconds, so sum it once
+        averages = prof.key_averages()
+        prof.key_averages = lambda: averages
+        device_ms, summed_ms = report_profile(prof, nb - na)
+        step_ms = (tb - ta) / (nb - na) * 1e3
+        print(f"    profiled tick{'s' if profiled[1] > profiled[0] else ''} "
+              f"{'-'.join(map(str, sorted(set(profiled))))} "
+              f"({nb - na} router steps): {step_ms:.2f} ms host clock a "
+              f"router step with its share of the control loop, device "
+              f"busy {device_ms:.2f} ms a step ({device_ms / step_ms:.0%}; "
+              f"{summed_ms:.2f} ms summed over ops and kernels)")
+        print_profile(prof, nb - na, top=8)
+    streams = {r.rid: list(r.tokens_out) for r in sink}
+    recorded = {k: v[:allocs["alloc"].agent.buffer.n].copy()
+                for k, v in allocs["alloc"].agent.buffer.data.items()}
+    router.close()
+    print(f"    {label}: {time.perf_counter() - t0:.1f} s with the reports")
+    return dict(logs=logs, streams=streams, counts=counts,
+                recorded=recorded)
+
+
+def dnn_tree(net):
+    """The port DNN's parameters as the reference's tree of numpy arrays
+    (a digit in a name indexes a list): what the weight bridge reads."""
+    tree = {}
+    for name, p in net.named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = p.detach().cpu().numpy()
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+    return lists(tree)
+
+
+def dqn_phase(torch, recorded, seed):
+    """The allocator's DQN on the card against the CPU: one set of weights
+    bridged into an agent on each; q-values on the loop's recorded states
+    within DQN_TOL; both buffers filled with the same DQN_TRANSITIONS
+    transitions drawn from ``seed``, then DQN_STEPS ``train_offline``
+    steps: losses within DQN_TOL, replay draws equal, parameters within
+    DQN_TOL but ``dep1.b`` and ``dep2.b``, which feed a training-mode
+    BatchNorm and so have no gradient but rounding noise (AdamW turns that
+    into steps of up to 1.2·lr, in a direction each device's rounding
+    picks), held to that bound, as the running means that absorb them.
+    Times ``q_values`` and one train step on each device."""
+    import numpy as np
+    from repro_torch.core.allocation.rl import DQNAgent
+    from repro_torch.core.dnn.model import DNNConfig, MultiStreamDNN
+    cfg = DNNConfig()
+    src = MultiStreamDNN(cfg, seed=seed, device="cpu")
+    tree = dnn_tree(src)
+    state = {bn: {k: v.numpy() for k, v in d.items()}
+             for bn, d in src.init_state().items()}
+    agents = {dev: DQNAgent(cfg, seed=seed, device=dev)
+              for dev in ("cuda", "cpu")}
+    for a in agents.values():
+        a.load_reference(tree, state)
+    n = recorded["deploy"].shape[0]
+    check(n > 0, "the loop recorded no allocator state")
+    q = {dev: np.stack([a.q_values({k: v[i:i + 1]
+                                    for k, v in recorded.items()})
+                        for i in range(n)]) for dev, a in agents.items()}
+    q_err = float(np.abs(q["cuda"] - q["cpu"]).max())
+    check(q_err <= DQN_TOL, f"DQN q-values, card vs CPU: max |err| {q_err}")
+    rng = np.random.default_rng(seed)
+    shapes = {"resource": (cfg.window, cfg.n_resource_features),
+              "perf": (cfg.window, cfg.n_perf_features),
+              "deploy": (cfg.n_deploy_features,)}
+    draw = lambda: {k: rng.normal(size=(1,) + s).astype(np.float32)
+                    for k, s in shapes.items()}
+    for _ in range(DQN_TRANSITIONS):
+        tr = (draw(), int(rng.integers(7)), float(rng.normal()), draw(),
+              bool(rng.random() < 0.1))
+        for a in agents.values():
+            a.buffer.push(*tr)
+    losses = {dev: a.train_offline(DQN_STEPS) for dev, a in agents.items()}
+    loss_err = float(np.abs(np.subtract(losses["cuda"], losses["cpu"])).max())
+    check(loss_err <= DQN_TOL, f"DQN losses, card vs CPU: max |err| "
+                               f"{loss_err}")
+    check(agents["cuda"].rng.bit_generator.state
+          == agents["cpu"].rng.bit_generator.state,
+          "the two agents' replay draws differ")
+    drift = 2 * 1.2 * agents["cpu"].cfg.lr * DQN_STEPS
+    p_err, zero_err = 0.0, 0.0
+    cpu = agents["cpu"].params
+    for name, p in agents["cuda"].params.items():
+        e = float((p.detach().cpu() - cpu[name].detach()).abs().max())
+        if name in ("dep1.b", "dep2.b"):
+            zero_err = max(zero_err, e)
+        else:
+            p_err = max(p_err, e)
+    check(p_err <= DQN_TOL, f"DQN params, card vs CPU: max |err| {p_err}")
+    check(zero_err <= DQN_TOL + drift, f"DQN pre-BatchNorm biases drifted "
+                                       f"{zero_err}, past Adam's bound")
+    bn_err = 0.0
+    for bn, d in agents["cuda"].bn_state.items():
+        for k, v in d.items():
+            e = float((v.cpu() - agents["cpu"].bn_state[bn][k]).abs().max())
+            check(e <= DQN_TOL + (drift if k == "mean" else 0.0),
+                  f"DQN {bn} {k}, card vs CPU: max |err| {e}")
+            bn_err = max(bn_err, e)
+    state1 = {k: v[:1] for k, v in recorded.items()}
+    times = {}
+    for dev, a in agents.items():
+        t_q = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            a.q_values(state1)
+            t_q.append(time.perf_counter() - t0)
+        t_train = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            a.train_offline(1)
+            t_train.append(time.perf_counter() - t0)
+        times[dev] = (statistics.median(t_q) * 1e3,
+                      statistics.median(t_train) * 1e3)
+    print(f"  DQN card vs CPU, one set of bridged weights: q-values on the "
+          f"loop's {n} recorded states max |err| {q_err:.3g}; "
+          f"{DQN_STEPS} train_offline steps over {DQN_TRANSITIONS} "
+          f"transitions: losses max |err| {loss_err:.3g}, params "
+          f"{p_err:.3g} (dep1.b, dep2.b {zero_err:.3g}, bound "
+          f"{DQN_TOL + drift:.3g}), BatchNorm state {bn_err:.3g}")
+    for dev, (t_q, t_train) in times.items():
+        print(f"    {dev}: q_values {t_q:.2f} ms, one train step "
+              f"{t_train:.2f} ms (host clock, median)")
+
+
+def loop_phase(torch, ops, seed, add):
+    """The paper's closed control loop through the port on the card:
+    ``run_closed_loop`` with ``LoopConfig()`` on full-width qwen2.5-3b, as
+    ``examples/serve_autoscale.py`` drives the reference's; then with the
+    paged pool and speculation (streams equal the dense run's, request for
+    request); the card's trajectory against the same loop on the CPU at
+    smoke width and qwen's vocabulary; the DQN card against CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.serving.closed_loop import LoopConfig, run_closed_loop
+    cfg = get_config("qwen2.5-3b")
+    lc = LoopConfig()
+    check((lc.slots, lc.max_seq, lc.prefill_chunk)
+          == (LOOP_SLOTS, LOOP_MAX_SEQ, LOOP_CHUNK),
+          "LoopConfig() is not the shape phase 2 checked")
+    print(f"[6] the closed control loop on full-width qwen2.5-3b: "
+          f"run_closed_loop({LOOP_TICKS} ticks, seed {seed}, autoscale, "
+          f"{lc.slots} slots, max_seq {lc.max_seq}, prefill chunk "
+          f"{lc.prefill_chunk}, up to {lc.max_replicas} in-process replicas "
+          f"sharing one EngineCore, planner mode)")
+    t0 = time.perf_counter()
+    dense = loop_run(torch, ops, cfg, lc, "dense pool", seed,
+                     profiled=LOOP_PROFILED)
+    add(dense["counts"])
+    traj = [1] + [t.replicas for t in dense["logs"]]
+    check(len(set(traj)) > 1, "the scaler never changed the replica count")
+    print(f"  replica trajectory: {traj}")
+    free(torch)
+    paged = loop_run(torch, ops, cfg,
+                     dataclasses.replace(lc, pool="paged", spec_k=SPEC_K),
+                     f"paged pool + spec_k={SPEC_K}", seed)
+    add(paged["counts"])
+    # speculation finishes requests sooner, so the two runs' trajectories
+    # may differ: every request the dense run finished must have finished
+    # in the paged run too, or still be in flight when it ended (rids run
+    # 0.. in arrival order), and a request both finished has one stream
+    in_flight = (set(range(sum(t.arrivals for t in paged["logs"])))
+                 - set(paged["streams"]))
+    lost = sorted(set(dense["streams"]) - set(paged["streams"]) - in_flight)
+    check(not lost, f"the paged + speculative loop lost requests {lost} "
+                    f"that the dense loop finished")
+    both = sorted(set(paged["streams"]) & set(dense["streams"]))
+    differ = [rid for rid in both
+              if paged["streams"][rid] != dense["streams"][rid]]
+    check(not differ, f"the paged + speculative loop's streams differ from "
+                      f"the dense loop's for requests {differ}")
+    print(f"  paged + speculative streams equal the dense loop's for all "
+          f"{len(both)} requests both finished (dense "
+          f"{len(dense['streams'])}, paged {len(paged['streams'])}; "
+          f"{len(dense['streams']) - len(both)} dense-finished requests "
+          f"still in flight when the paged run ended)")
+    free(torch)
+    smoke = get_smoke_config("qwen2.5-3b", vocab=cfg.vocab)
+    t1 = time.perf_counter()
+    router, cpu_logs = run_closed_loop(smoke, autoscale=True,
+                                       ticks=LOOP_TICKS, seed=seed, lc=lc,
+                                       device="cpu")
+    router.close()
+    want, got = trajectory(cpu_logs), trajectory(dense["logs"])
+    diff = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                None)
+    check(len(got) == len(want) and diff is None,
+          f"the card's trajectory differs from the CPU smoke run's at tick "
+          f"{diff}: {got[diff] if diff is not None else ''} vs "
+          f"{want[diff] if diff is not None else ''}")
+    print(f"  the card's {len(got)} TickLogs (every field but learn_loss) "
+          f"equal the CPU's at smoke width, vocab {cfg.vocab} "
+          f"({time.perf_counter() - t1:.1f} s on the CPU)")
+    t1 = time.perf_counter()
+    dqn_phase(torch, dense["recorded"], seed)
+    print(f"  closed loop: {time.perf_counter() - t0:.1f} s (the DQN check "
+          f"{time.perf_counter() - t1:.1f} s)")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the closed loop's arrivals and of the "
+                         "DQN check's transitions and weights")
+    args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside the script; run "
               "it from a checkout of the repository", file=sys.stderr)
@@ -1883,6 +2314,7 @@ def main() -> int:
                                seed=19, Smax=VL_MAX_SEQ, S=VL_PROMPT)
         attention_shapes_phase(torch, ops, ref, "seamless-m4t-medium", 16,
                                16, 64, seed=23)
+        loop_shapes_phase(torch, ops, ref)
         launches = {name: 0 for name in ops.KERNELS}
 
         def add(counts):
@@ -1931,6 +2363,7 @@ def main() -> int:
                    add)
         encdec_phases(torch, ops, EngineCore,
                       get_config("seamless-m4t-medium"), add)
+        loop_phase(torch, ops, args.seed, add)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -129,3 +129,56 @@ class ModelConfig:
         """Can this arch decode at 500k context with bounded state?"""
         return (self.family in ("ssm", "hybrid")
                 or self.sliding_window is not None)
+
+    def n_params(self) -> int:
+        """Analytic parameter count (embedding + blocks + head), the
+        reference's formula; the control loop's deploy vector reads it."""
+        d, L = self.d_model, self.n_layers
+        n = self.vocab * d                       # embedding
+        if not self.tie_embeddings:
+            n += self.vocab * d                  # lm head
+        per_layer = 0
+        if self.ssm is not None:
+            di, N = self.d_inner, self.ssm.d_state
+            if self.ssm.version == 1:
+                per_layer += d * 2 * di                       # in_proj
+                per_layer += self.ssm.d_conv * di             # conv
+                per_layer += di * (self.dt_rank + 2 * N)      # x_proj
+                per_layer += self.dt_rank * di + di           # dt_proj
+                per_layer += di * N + 2 * di                  # A, D, etc
+                per_layer += di * d                           # out_proj
+            else:
+                H, G = self.ssm_heads, self.ssm.n_groups
+                per_layer += d * (2 * di + 2 * G * N + H)     # in_proj
+                per_layer += self.ssm.d_conv * (di + 2 * G * N)
+                per_layer += 2 * H + di                       # A_log, dt_bias, D
+                per_layer += di * d                           # out_proj
+            per_layer += d                                    # norm
+        attn_params = 0
+        if self.n_heads and self.family != "ssm":
+            hd = self.hd
+            attn_params = d * (self.n_heads * hd) * 2         # q, o
+            attn_params += d * (self.n_kv_heads * hd) * 2     # k, v
+        if self.family in ("dense", "vlm", "moe", "audio"):
+            per_layer += attn_params + 2 * d                  # + norms
+            if self.moe is not None:
+                per_layer += d * self.moe.n_experts           # router
+                per_layer += self.moe.n_experts * 3 * d * self.moe.d_ff_expert
+            else:
+                per_layer += 3 * d * self.d_ff
+        n += L * per_layer
+        if self.hybrid is not None:
+            n_apps = self.hybrid.n_shared_blocks
+            d2 = 2 * d
+            shared = d2 * (self.n_heads * self.hd) * 2
+            shared += d2 * (self.n_kv_heads * self.hd) * 2
+            shared += 3 * d2 * self.d_ff + self.d_ff * 0
+            shared += d2 * d                                  # down proj to d
+            n += n_apps * shared
+        if self.enc_dec:
+            # encoder layers: self-attn + mlp
+            enc = (attn_params + 3 * 0 + 2 * d * self.d_ff + d * self.d_ff
+                   + 2 * d)
+            # decoder adds cross-attn per layer
+            n += self.n_enc_layers * enc + L * attn_params
+        return int(n)

@@ -2,8 +2,9 @@
 ``repro.nn.layers`` (a Linear weight is ``(in_dim, out_dim)``), so the weight
 bridge maps the reference's parameter tree one to one.
 
-Parameters stay in the config's ``param_dtype`` and never take gradients:
-this package serves.
+Parameters stay in the config's ``param_dtype`` and take no gradients by
+default: the models serve.  The control plane's DNN (``core/dnn/model.py``)
+turns them on for its own training step.
 """
 from __future__ import annotations
 
@@ -25,9 +26,13 @@ class Linear(nn.Module):
     every call; in eager PyTorch that would re-read every float32 weight each
     tick.  The cast is done once (``recast``, run at construction and after
     the weights are loaded) and the compute-dtype copy ``w_c`` is kept — the
-    same arithmetic.  When the two dtypes agree, ``w_c`` is ``w`` itself."""
+    same arithmetic.  When the two dtypes agree, ``w_c`` is ``w`` itself.
+    ``dtype=None`` casts nothing and reads ``w`` on every call, as the
+    reference's ``Linear.apply`` without a dtype does; the control plane's
+    DNN trains through it."""
 
-    def __init__(self, in_dim: int, out_dim: int, *, dtype: torch.dtype,
+    def __init__(self, in_dim: int, out_dim: int, *,
+                 dtype: torch.dtype | None,
                  use_bias: bool = True, param_dtype=torch.float32,
                  w_init=None, generator=None, device=None):
         super().__init__()
@@ -41,10 +46,14 @@ class Linear(nn.Module):
         self.recast()
 
     def recast(self):
-        self.w_c = self.w.detach().to(self.dtype)
+        if self.dtype is not None:
+            self.w_c = self.w.detach().to(self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x.to(self.dtype) @ self.w_c
+        if self.dtype is None:
+            y = x @ self.w
+        else:
+            y = x.to(self.dtype) @ self.w_c
         if self.b is not None:
             y = y + self.b.to(y.dtype)
         return y
@@ -137,3 +146,70 @@ class LayerNorm(nn.Module):
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         y = y * self.scale.float() + self.bias.float()
         return y.to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Batch norm with its running statistics threaded through the caller
+    (``repro.nn.layers.BatchNorm``; the MLOps DNN's deployment stream).
+
+    Not ``nn.BatchNorm1d``: training normalises with the *biased* batch
+    variance and keeps that same biased variance in the running state as
+    ``momentum·old + (1 − momentum)·batch``, beside a ``count``.  The state
+    is a dict ``{"mean", "var", "count"}`` of float32 tensors; ``forward``
+    returns the new one and never changes the one it was given."""
+
+    def __init__(self, dim: int, *, param_dtype=torch.float32, device=None):
+        super().__init__()
+        self.dim = dim
+        self.scale = _param(torch.ones(dim, device=device, dtype=param_dtype))
+        self.bias = _param(torch.zeros(dim, device=device, dtype=param_dtype))
+
+    def init_state(self) -> dict:
+        dev = self.scale.device
+        return {"mean": torch.zeros(self.dim, device=dev),
+                "var": torch.ones(self.dim, device=dev),
+                "count": torch.zeros((), device=dev)}
+
+    def forward(self, state: dict, x: torch.Tensor, *, training: bool,
+                momentum: float = 0.9, eps: float = 1e-5):
+        if training:
+            dims = tuple(range(x.ndim - 1))
+            mean = x.mean(dim=dims)
+            var = x.var(dim=dims, correction=0)
+            new_state = {
+                "mean": (momentum * state["mean"]
+                         + (1 - momentum) * mean).detach(),
+                "var": (momentum * state["var"]
+                        + (1 - momentum) * var).detach(),
+                "count": state["count"] + 1.0,
+            }
+        else:
+            mean, var = state["mean"], state["var"]
+            new_state = state
+        y = (x - mean) * torch.rsqrt(var + eps)
+        return y * self.scale + self.bias, new_state
+
+
+class MLP(nn.Module):
+    """Plain dense stack with an activation between layers
+    (``repro.nn.layers.MLP``): its Linears are ``layers.<i>``, uncast."""
+
+    def __init__(self, dims, *, use_bias: bool = True,
+                 param_dtype=torch.float32, generator=None, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            Linear(dims[i], dims[i + 1], dtype=None, use_bias=use_bias,
+                   param_dtype=param_dtype, generator=generator,
+                   device=device)
+            for i in range(len(dims) - 1))
+
+    def forward(self, x: torch.Tensor, *, act=F.relu,
+                final_act=None) -> torch.Tensor:
+        n = len(self.layers)
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < n - 1:
+                x = act(x)
+            elif final_act is not None:
+                x = final_act(x)
+        return x

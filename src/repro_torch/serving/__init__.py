@@ -1,20 +1,53 @@
-"""Continuous-batching serving data plane (the in-process replica of
-``repro.serving``): sampling, scheduler, dense and paged slot pools, the
-prompt-lookup draft, engine and the synthetic workload.  The replica
-fabric, router and control-plane hooks are not ported yet."""
+"""Multi-replica continuous-batching serving (``repro.serving``), its
+in-process half:
+
+  sampling.py    — per-request sampling params + host-side token sampler
+  scheduler.py   — Request lifecycle + FCFS admission with priority lanes
+  slots.py       — dense and paged slot pools over any family's cache tree
+  draft.py       — prompt-lookup drafts for speculative decoding
+  engine.py      — single-replica engine: chunked prefill streamed through
+                   the batched decode tick, per-slot ring positions
+  replica.py     — the Replica protocol and its in-process backend
+  transport.py   — length-prefixed JSON framing and the wire codecs (the
+                   router imports TransportError from it)
+  chaos.py       — DelayedReplica: virtual-clock transport RTT in front of
+                   a replica (the inter-region latency shim)
+  profiles.py    — ReplicaProfile / FleetPlan / SpotMarket: heterogeneous
+                   capacity and the profile-aware planner's cost model
+  router.py      — N replicas behind least-loaded routing, scale up/down
+                   mid-run, straggler eviction, the ReplicaReport stream
+  workload.py    — synthetic request generation
+  closed_loop.py — the paper's closed control loop: router + collector +
+                   eviction policy + predictive allocator
+
+The socket replicas (worker, fleet, observe, the rest of chaos.py) and the
+multi-device replica are not ported yet: the router refuses their
+topologies by name.
+"""
+from repro_torch.serving.chaos import DelayedReplica
+from repro_torch.serving.closed_loop import (
+    LoopConfig, TickLog, default_profile, run_closed_loop,
+)
 from repro_torch.serving.engine import EngineCore, ServingEngine
+from repro_torch.serving.profiles import FleetPlan, ReplicaProfile, SpotMarket
+from repro_torch.serving.replica import InProcessReplica, Replica
+from repro_torch.serving.router import ReplicaRouter, TOPOLOGIES
 from repro_torch.serving.sampling import SamplingParams, sample_token
 from repro_torch.serving.scheduler import FCFSScheduler, Request, TIERS
 from repro_torch.serving.slots import (
     PagedSlotPool, SlotPool, make_pool, paged_cache_spec, write_slot,
 )
+from repro_torch.serving.transport import TransportError
 from repro_torch.serving.workload import (
     poisson_arrival_times, synthetic_requests,
 )
 
 __all__ = [
-    "EngineCore", "ServingEngine", "SamplingParams", "sample_token",
-    "FCFSScheduler", "Request", "TIERS", "PagedSlotPool", "SlotPool",
-    "make_pool", "paged_cache_spec", "write_slot", "poisson_arrival_times",
-    "synthetic_requests",
+    "EngineCore", "ServingEngine", "ReplicaRouter", "TOPOLOGIES",
+    "Replica", "InProcessReplica", "DelayedReplica", "TransportError",
+    "FleetPlan", "ReplicaProfile", "SpotMarket",
+    "LoopConfig", "TickLog", "default_profile", "run_closed_loop",
+    "SamplingParams", "sample_token", "FCFSScheduler", "Request", "TIERS",
+    "PagedSlotPool", "SlotPool", "make_pool", "paged_cache_spec",
+    "write_slot", "poisson_arrival_times", "synthetic_requests",
 ]

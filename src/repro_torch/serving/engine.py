@@ -240,6 +240,10 @@ class ServingEngine:
             and not cfg.enc_dec and not cfg.attn_free
             and Attention.cache_len(cfg, max_seq) == max_seq)
         self.logits_pulls = 0        # host (·, V) logits materializations
+        # device steps by kind, kept beside lifetime() (whose keys stay the
+        # reference's): the launch-count checks read them
+        self.fused_ticks = 0         # single-position fused decode steps
+        self.verify_lanes = 0        # positions decoded by verify steps
         self.scheduler = FCFSScheduler()
         self.draining = False
         self.stats = EngineStats()
@@ -485,6 +489,7 @@ class ServingEngine:
         if self._tokens_dirty:
             self._stage_tokens()
         dev = lambda a: torch.tensor(a, device=self.device)
+        self.fused_ticks += 1
         toks, logits, cache = self.core.fused_decode(
             self.params, self.tokens, self.pool.cache, dev(seed), dev(rid),
             dev(pos), dev(temp))
@@ -557,6 +562,7 @@ class ServingEngine:
                 d = drafts[slot][:W - 1]
                 window[slot, 1:1 + len(d)] = d
                 n_draft[slot] = len(d)
+        self.verify_lanes += W
         toks, logits, cache = self.core.verify(
             self.params, torch.tensor(window, device=self.device),
             self.pool.cache)

@@ -36,6 +36,12 @@ def test_import_leaves_jax_and_reference_out():
         "import repro_torch.models.rotary, repro_torch.models.attention\n"
         "import repro_torch.models.blocks, repro_torch.models.transformer\n"
         "import repro_torch.serving.engine\n"
+        "import repro_torch.serving.closed_loop, repro_torch.serving.router\n"
+        "import repro_torch.serving.replica, repro_torch.serving.transport\n"
+        "import repro_torch.serving.chaos, repro_torch.serving.profiles\n"
+        "import repro_torch.core.monitoring, repro_torch.core.scaling\n"
+        "import repro_torch.core.allocation, repro_torch.core.dnn\n"
+        "import repro_torch.optim, repro_torch.nn\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
@@ -56,3 +62,73 @@ def test_port_sources_stay_clean(pattern, what):
             if re.search(pattern, code):
                 hits.append(f"{path.relative_to(ROOT)}:{n}")
     assert not hits, f"{what}: {hits}"
+
+
+@pytest.mark.parametrize("topology", ["sharded", "proc", "tcp", "pod"])
+def test_unported_topologies_raise_by_name(topology):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving.closed_loop import LoopConfig, run_closed_loop
+    from repro_torch.serving.router import ReplicaRouter
+    cfg = get_smoke_config("qwen2.5-3b")
+    with pytest.raises(NotImplementedError, match=topology):
+        ReplicaRouter.from_topology(cfg, topology, slots=2, max_seq=16,
+                                    device="cpu")
+    with pytest.raises(NotImplementedError, match=topology):
+        run_closed_loop(cfg, ticks=1, lc=LoopConfig(topology=topology),
+                        device="cpu")
+    with pytest.raises(ValueError, match="unknown topology"):
+        ReplicaRouter.from_topology(cfg, "mesh", slots=2, max_seq=16,
+                                    device="cpu")
+
+
+def test_observe_addrs_raise_by_name():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving.closed_loop import LoopConfig, run_closed_loop
+    with pytest.raises(NotImplementedError, match="observe_addrs"):
+        run_closed_loop(get_smoke_config("qwen2.5-3b"), ticks=1,
+                        lc=LoopConfig(observe_addrs=("127.0.0.1:1",)),
+                        device="cpu")
+
+
+@pytest.mark.parametrize("option,value", [
+    ("mesh", object()), ("addrs", ["127.0.0.1:1"]), ("pod_size", 4),
+    ("batch_submits", False)])
+def test_other_topologies_options_raise_with_inproc(option, value):
+    """The options of the unported topologies have no effect on inproc, so
+    setting one raises by name instead of being ignored; so does a
+    LoopConfig that carries one."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving.closed_loop import LoopConfig, run_closed_loop
+    from repro_torch.serving.router import ReplicaRouter
+    cfg = get_smoke_config("qwen2.5-3b")
+    with pytest.raises(NotImplementedError, match=option):
+        ReplicaRouter.from_topology(cfg, "inproc", slots=2, max_seq=16,
+                                    device="cpu", **{option: value})
+    if option != "mesh":
+        lc = LoopConfig(**{option: tuple(value) if option == "addrs"
+                           else value})
+        with pytest.raises(NotImplementedError, match=option):
+            run_closed_loop(cfg, ticks=1, lc=lc, device="cpu")
+
+
+def test_loop_entry_points_default_to_cuda():
+    """Without a card, the loop, the router, the agent and its network
+    raise rather than carry on on the CPU."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.allocation.rl import DQNAgent
+    from repro_torch.core.dnn.model import (
+        DNNConfig, MultiStreamDNN, dnn_from_reference,
+    )
+    from repro_torch.serving.closed_loop import run_closed_loop
+    from repro_torch.serving.router import ReplicaRouter
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = get_smoke_config("qwen2.5-3b")
+    for call in (lambda: run_closed_loop(cfg, ticks=1),
+                 lambda: ReplicaRouter.shared_core(cfg, slots=2, max_seq=16),
+                 lambda: DQNAgent(DNNConfig()),
+                 lambda: MultiStreamDNN(DNNConfig()),
+                 lambda: dnn_from_reference({}, {}, DNNConfig())):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
