@@ -6,8 +6,9 @@
 Phases 3 to 5 run for each served model in turn (qwen2.5-3b, zamba2-2.7b,
 olmoe-1b-7b, falcon-mamba-7b, qwen2-vl-7b, seamless-m4t-medium), each
 model freed before the next is built; phase 6 then runs the paper's closed
-control loop over full-width qwen2.5-3b replicas.  Any failure exits
-non-zero and prints no result line.
+control loop over full-width qwen2.5-3b replicas, and phase 7 its offline
+learning and deployment orchestration on the trace phase 6 recorded.  Any
+failure exits non-zero and prints no result line.
 
 1. build    — compile the Hopper kernels from ``src/repro_torch/kernels/csrc``.
 2. kernels  — hold each kernel against its plain PyTorch version on the
@@ -123,6 +124,49 @@ non-zero and prints no result line.
               BatchNorm state within 1e-4 (two pre-BatchNorm biases, whose
               gradient is rounding noise, within AdamW's step bound); the
               times of ``q_values`` and a train step on each.
+7. learning — phase 6's dense planner run and its CPU smoke run record
+              their traces (``TraceRecorder``): equal, field for field (no
+              field reads the host clock).  One set of DNN weights from
+              ``--seed`` goes into the allocator of a hybrid loop on each
+              device (``LoopConfig()`` with ``alloc_mode="hybrid"``, 14
+              ticks: full-width qwen2.5-3b replicas on the card, its launch
+              counts checked and added to the kernels line as phase 6's
+              are; the smoke config at qwen's vocabulary on the CPU, given
+              the full-width deployment vector), whose ``prime_allocator``
+              runs ``pretrain_on_trace`` at the reference's defaults (20
+              epochs, 60 DQN steps, 30 imitation epochs), each phase
+              timed.  A trace carries one deployment vector, so the
+              deployment stream's BatchNorms see identical rows and its
+              leaves get rounding noise for gradient, which AdamW turns
+              into steps of up to 1.2 lr and bn2's ReLU carries into the
+              trunk: card and CPU part there.  So the pair is run twice:
+              as the path runs (the schedule and draws equal, the first
+              loss within 1e-4, the noise-driven elements within AdamW's
+              bound, the other gaps printed) and with
+              ``exact_deploy_stream`` from ``tests/test_torch_checks.py``
+              (identical rows computed exactly), again full width on the
+              card against smoke width on the CPU: every loss, parameter
+              and BatchNorm statistic within 1e-4.  The exact pair's
+              TickLogs must be equal up to the first tick whose decision
+              margin (the top two Q-values among the actions the SLO
+              envelope admits) is under 10x the card/CPU Q gap on the
+              trace's states at the pretrained weights, that tick must
+              come after tick 0, and learn_loss must stay within 1e-4 of
+              its size (at least 1) while equal.  As the path runs the
+              gap is the noise's (Q-values apart by tens), the rule holds
+              no tick, and the comparison is only printed.  The
+              DQN-decided ticks are counted.  Then, on the card-pretrained
+              weights, on both devices: each feature group's raw increase
+              of the evaluation loss, permuted as
+              ``permutation_importance`` permutes it, on the trace's
+              dataset (within 1e-4) and ``DNNSelector`` (``min_trained=
+              1``) over each recorded tick's operating point (logits
+              within 1e-4 of their size, at least 1; choices equal);
+              last, ``RolloutManager`` for the
+              chosen strategy, its ``DeployEnv`` carrying qwen2.5-3b's bf16
+              bytes and a measured host -> card copy rate, fed the hybrid
+              run's latencies against the planner run's: the phases and
+              ``elapsed_s`` equal the CPU choice's.
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -1986,18 +2030,26 @@ def loop_launches(cfg, router, paged):
                       prefilled=prefilled)
 
 
-def loop_run(torch, ops, cfg, lc, label, seed, profiled=None):
+def loop_run(torch, ops, cfg, lc, label, seed, profiled=None, recorder=None,
+             prime=None):
     """``run_closed_loop`` on the card, the launch counts set to 0 just
     before and read just after; every tick printed, the fleet totals, the
     host clock per router step and per control tick (the loop's work
     outside ``router.step``), the peak memory.  ``profiled`` = (first,
     last) tick whose router steps torch.profiler records (device busy);
-    those ticks stay out of the host-clock means."""
+    those ticks stay out of the host-clock means.  ``recorder`` takes the
+    loop's per-tick training records; ``prime(alloc)`` runs before the
+    first tick, after the allocator is kept."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.closed_loop import run_closed_loop
     sink, allocs, marks, steps = [], {}, [], []
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = {}
+
+    def keep(alloc):
+        allocs["alloc"] = alloc
+        if prime is not None:
+            prime(alloc)
 
     def hook(tick, router, collector):
         # the profiler's start and stop fall in the profiled ticks' spans
@@ -2016,8 +2068,8 @@ def loop_run(torch, ops, cfg, lc, label, seed, profiled=None):
     with timed_router_steps(torch, steps):
         router, logs = run_closed_loop(
             cfg, autoscale=True, ticks=LOOP_TICKS, seed=seed, lc=lc,
-            sink=sink, chaos_hook=hook, device="cuda",
-            prime_allocator=lambda a: allocs.setdefault("alloc", a))
+            sink=sink, chaos_hook=hook, device="cuda", recorder=recorder,
+            prime_allocator=keep)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     wall = time.perf_counter() - t0
@@ -2077,7 +2129,7 @@ def loop_run(torch, ops, cfg, lc, label, seed, profiled=None):
     router.close()
     print(f"    {label}: {time.perf_counter() - t0:.1f} s with the reports")
     return dict(logs=logs, streams=streams, counts=counts,
-                recorded=recorded)
+                recorded=recorded, alloc=allocs["alloc"])
 
 
 def dnn_tree(net):
@@ -2203,9 +2255,11 @@ def loop_phase(torch, ops, seed, add):
     smoke width and qwen's vocabulary; the DQN card against CPU."""
     import dataclasses
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.dnn.traces import TraceRecorder
     from repro_torch.serving.closed_loop import LoopConfig, run_closed_loop
     cfg = get_config("qwen2.5-3b")
     lc = LoopConfig()
+    card_rec, cpu_rec = TraceRecorder(), TraceRecorder()
     check((lc.slots, lc.max_seq, lc.prefill_chunk)
           == (LOOP_SLOTS, LOOP_MAX_SEQ, LOOP_CHUNK),
           "LoopConfig() is not the shape phase 2 checked")
@@ -2216,7 +2270,7 @@ def loop_phase(torch, ops, seed, add):
           f"sharing one EngineCore, planner mode)")
     t0 = time.perf_counter()
     dense = loop_run(torch, ops, cfg, lc, "dense pool", seed,
-                     profiled=LOOP_PROFILED)
+                     profiled=LOOP_PROFILED, recorder=card_rec)
     add(dense["counts"])
     traj = [1] + [t.replicas for t in dense["logs"]]
     check(len(set(traj)) > 1, "the scaler never changed the replica count")
@@ -2250,7 +2304,7 @@ def loop_phase(torch, ops, seed, add):
     t1 = time.perf_counter()
     router, cpu_logs = run_closed_loop(smoke, autoscale=True,
                                        ticks=LOOP_TICKS, seed=seed, lc=lc,
-                                       device="cpu")
+                                       device="cpu", recorder=cpu_rec)
     router.close()
     want, got = trajectory(cpu_logs), trajectory(dense["logs"])
     diff = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
@@ -2266,6 +2320,502 @@ def loop_phase(torch, ops, seed, add):
     dqn_phase(torch, dense["recorded"], seed)
     print(f"  closed loop: {time.perf_counter() - t0:.1f} s (the DQN check "
           f"{time.perf_counter() - t1:.1f} s)")
+    return dict(cfg=cfg, smoke=smoke, lc=lc, planner=dense,
+                card_trace=card_rec.records, cpu_trace=cpu_rec.records)
+
+
+# --------------------------------------------------------------------- phase 7
+# the offline learning path on the planner trace phase 6 recorded:
+# pretrain_on_trace at the reference's defaults, the hybrid loop it primes,
+# permutation importance, the strategy head and a canary rollout
+PRETRAIN_TOL, ROLLOUT_TICKS = 1e-4, 20
+# the elements whose gradient is rounding noise when every row of a batch
+# carries one deployment vector, as a recorded trace does: the deployment
+# stream before its last normalisation, bn2's bias behind its ReLU at 0,
+# and the trunk's first-layer rows that read that ReLU (the deployment
+# features come last, after 2 x 32 conv and 32 GRU features)
+NOISE_LEAVES = ("dep1.w", "dep1.b", "bn1.scale", "bn1.bias", "dep2.w",
+                "dep2.b", "bn2.scale", "bn2.bias")
+NOISE_ROWS = ("trunk.layers.0.w", 96)
+# lr x steps summed over pretrain_on_trace's defaults: 20 supervised and 30
+# imitation steps at 1e-3, 60 DQN steps at 5e-4
+PRETRAIN_LR_STEPS = 20 * 1e-3 + 30 * 1e-3 + 60 * 5e-4
+
+
+@contextlib.contextmanager
+def timed_pretrain(torch, clocks):
+    """The host clock of ``pretrain_on_trace``'s three phases (supervised
+    ``fit``, DQN replay, Q-head imitation), synchronised at each end, and
+    the network's parameters after each (``clocks["after"][phase]``, a
+    flat dict of numpy arrays)."""
+    from repro_torch.core.allocation.rl import DQNAgent
+    from repro_torch.core.dnn import traces
+    saved = traces.fit, DQNAgent.train_offline, DQNAgent.imitate
+
+    def timed(name, fn):
+        def run(first, *args, **kw):
+            t0 = time.perf_counter()
+            out = fn(first, *args, **kw)
+            torch.cuda.synchronize()
+            clocks[name] = time.perf_counter() - t0
+            net = getattr(first, "net", first)     # fit takes the network
+            clocks.setdefault("after", {})[name] = flat_tree(
+                copy.deepcopy(dnn_tree(net)))
+            return out
+        return run
+
+    traces.fit = timed("supervised", saved[0])
+    DQNAgent.train_offline = timed("dqn", saved[1])
+    DQNAgent.imitate = timed("imitation", saved[2])
+    try:
+        yield clocks
+    finally:
+        traces.fit, DQNAgent.train_offline, DQNAgent.imitate = saved
+
+
+def pretraining_prime(torch, records, tree, state, deploy_vec, out):
+    """``prime_allocator`` of a hybrid run: the allocator takes the
+    full-width deployment vector and the one set of DNN weights, then
+    ``pretrain_on_trace(alloc, records)`` at the reference's defaults, each
+    phase timed; its pretrained state goes into ``out`` (losses, clocks,
+    weights and target as numpy trees, BatchNorm state, generator state,
+    Q-values on the trace's states), and every decision is logged."""
+    import numpy as np
+    from repro_torch.core.dnn.traces import pretrain_on_trace, replay_streams
+    from test_torch_checks import decision_log
+
+    def prime(alloc):
+        alloc.deploy_vec = np.array(deploy_vec, copy=True)
+        alloc.agent.load_reference(tree, state)
+        with timed_pretrain(torch, {}) as clocks:
+            losses = pretrain_on_trace(alloc, records)
+        agent = alloc.agent
+        snaps = replay_streams(records, alloc.deploy_vec,
+                               window=alloc.dnn_cfg.window)
+        # copies: on the CPU a parameter's numpy view would follow the
+        # live loop's training
+        out.update(
+            losses=losses, clocks=clocks,
+            tree=copy.deepcopy(dnn_tree(agent.net)),
+            target=copy.deepcopy(dnn_tree(agent.target)),
+            bn={bn: {k: v.cpu().numpy().copy() for k, v in d.items()}
+                for bn, d in agent.bn_state.items()},
+            rng=agent.rng.bit_generator.state, warmup=agent.cfg.warmup,
+            buffer_n=agent.buffer.n, snaps=snaps,
+            q=np.stack([agent.q_values(s) for s in snaps]), decisions=[])
+        decision_log(alloc, out["decisions"])
+    return prime
+
+
+def flat_tree(tree, prefix=()):
+    """A nested dict/list tree → {"a.0.b": array}."""
+    items = (tree.items() if isinstance(tree, dict)
+             else enumerate(tree) if isinstance(tree, list) else None)
+    if items is None:
+        return {".".join(prefix): tree}
+    out = {}
+    for k, v in items:
+        out.update(flat_tree(v, prefix + (str(k),)))
+    return out
+
+
+def param_gaps(a, b):
+    """Two flat parameter dicts → ({"determined", "noise"}: max |a - b|,
+    the determined leaf with the largest gap)."""
+    import numpy as np
+    gaps, worst = {"determined": 0.0, "noise": 0.0}, ("", 0.0)
+    for name, v in a.items():
+        d = np.abs(v - b[name])
+        noise = np.zeros(d.shape, bool)
+        if name in NOISE_LEAVES:
+            noise[...] = True
+        elif name == NOISE_ROWS[0]:
+            noise[NOISE_ROWS[1]:] = True
+        if noise.any():
+            gaps["noise"] = max(gaps["noise"], float(d[noise].max()))
+        if (~noise).any() and float(d[~noise].max()) > worst[1]:
+            worst = (name, float(d[~noise].max()))
+    gaps["determined"] = worst[1]
+    return gaps, worst[0]
+
+
+def pretrain_agreement(card, cpu, label, exact):
+    """Card against CPU after ``pretrain_on_trace``: the schedule equal
+    (phase lengths, transitions, replay and shuffle draws, warmup, buffer);
+    the first loss (before any step) within PRETRAIN_TOL; the parameters
+    after each phase and the target net compared.  ``exact``: every loss,
+    parameter, target parameter and BatchNorm statistic within
+    PRETRAIN_TOL.  As the path runs: the noise-driven elements within
+    AdamW's step bound summed over the phases, the other gaps printed (the
+    noise reaches the trunk through bn2's ReLU)."""
+    import numpy as np
+    phases = ("supervised", "dqn", "imitation")
+    for phase in phases:
+        check(len(card["losses"][phase]) == len(cpu["losses"][phase]) > 0,
+              f"{label}: {phase} took {len(card['losses'][phase])} steps "
+              f"on the card, {len(cpu['losses'][phase])} on the CPU")
+    check(card["losses"]["transitions"] == cpu["losses"]["transitions"]
+          and card["rng"] == cpu["rng"] and card["warmup"] == cpu["warmup"]
+          and card["buffer_n"] == cpu["buffer_n"],
+          f"{label}: the schedules differ (transitions, draws, warmup)")
+    first = abs(card["losses"]["supervised"][0]
+                - cpu["losses"]["supervised"][0])
+    check(first <= PRETRAIN_TOL, f"{label}: first supervised loss, card vs "
+                                 f"CPU, differs by {first}")
+    loss_err = {phase: float(np.abs(np.subtract(
+        card["losses"][phase], cpu["losses"][phase])).max())
+        for phase in phases}
+    bound = 2 * 1.2 * PRETRAIN_LR_STEPS
+    after = {phase: param_gaps(card["clocks"]["after"][phase],
+                               cpu["clocks"]["after"][phase])
+             for phase in phases}
+    after["target"] = param_gaps(flat_tree(card["target"]),
+                                 flat_tree(cpu["target"]))
+    noise = max(g["noise"] for g, _ in after.values())
+    determined = max(g["determined"] for g, _ in after.values())
+    bn_err = max(float(np.abs(card["bn"][bn][k] - cpu["bn"][bn][k]).max())
+                 for bn in card["bn"] for k in card["bn"][bn])
+    gaps_text = "; ".join(
+        f"after {k} {g['determined']:.3g} ({leaf or '-'}), noise-driven "
+        f"{g['noise']:.3g}" for k, (g, leaf) in after.items())
+    if exact:
+        check(max(loss_err.values()) <= PRETRAIN_TOL,
+              f"{label}: losses, card vs CPU, max |err| {loss_err}")
+        check(max(determined, noise, bn_err) <= PRETRAIN_TOL,
+              f"{label}: parameters, card vs CPU: {gaps_text}; BatchNorm "
+              f"state {bn_err}")
+    check(noise <= PRETRAIN_TOL + bound,
+          f"{label}: the noise-driven elements moved apart by {noise}, "
+          f"past AdamW's bound {bound}")
+    print(f"  {label}: pretrain_on_trace (20 epochs, 60 DQN steps, 30 "
+          f"imitation epochs; {card['losses']['transitions']} transitions) "
+          f"card vs CPU: loss curves max |err| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in loss_err.items())
+          + f"; parameters (max |err|, worst leaf) {gaps_text} (bound "
+          f"{PRETRAIN_TOL + bound:.3g}); BatchNorm state {bn_err:.3g}; "
+          f"first loss {first:.3g}; schedule and draws equal")
+    for dev, run in (("card", card), ("CPU", cpu)):
+        c, ls = run["clocks"], run["losses"]
+        print(f"    {dev}: " + ", ".join(
+            f"{k} {c[k] * 1e3:.1f} ms ({len(ls[k])} steps, loss "
+            f"{ls[k][0]:.4f} -> {ls[k][-1]:.4f})" for k in phases)
+            + " (host clock)")
+
+
+def hybrid_agreement(card, cpu, card_logs, cpu_logs, label, held):
+    """The card's hybrid TickLogs against the CPU's: equal up to the first
+    tick whose decision margin, on either device, is under MARGIN_FACTOR x
+    the largest card/CPU Q gap on the trace's states at the pretrained
+    weights; a divergence before it fails.  ``held``: that cutoff must
+    come after tick 0 (else the rule holds nothing), and learn_loss must
+    stay within PRETRAIN_TOL of its size (at least 1) while the
+    trajectories are equal: the live TD losses after pretraining reach
+    tens, and evaluation-mode BatchNorm amplifies rounding there
+    (``test_torch_orchestration`` holds the reference against the port at
+    one set of pretrained weights to the same rule).  Not ``held``, the
+    comparison is only printed."""
+    import numpy as np
+    from test_torch_checks import MARGIN_FACTOR, decision_margin
+    gap = float(np.abs(card["q"] - cpu["q"]).max())
+    margins = [(decision_margin(*a), decision_margin(*b))
+               for a, b in zip(card["decisions"], cpu["decisions"])]
+    check(len(margins) == len(card_logs) == len(cpu_logs),
+          f"{label}: {len(margins)} decisions logged for "
+          f"{len(card_logs)} ticks")
+    cutoff = next((i for i, m in enumerate(margins)
+                   if min(m) < MARGIN_FACTOR * gap), len(margins))
+    got, want = trajectory(card_logs), trajectory(cpu_logs)
+    diff = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                None)
+    at = (f"tick {cutoff} (margins card {margins[cutoff][0]:.3g}, CPU "
+          f"{margins[cutoff][1]:.3g})" if cutoff < len(margins)
+          else "no tick")
+    if held:
+        check(cutoff > 0, f"{label}: the margin rule holds no tick: the "
+                          f"card/CPU Q gap {gap} puts its cutoff at {at}")
+    if diff is not None and diff < cutoff:
+        raise SmokeFailure(f"{label}: the card's TickLogs differ from the "
+                           f"CPU's at tick {diff}, before the margin cutoff "
+                           f"at {at}: {got[diff]} vs {want[diff]}")
+    equal = len(got) if diff is None else diff
+    loss_err, loss_rel, loss_max = 0.0, 0.0, 0.0
+    for a, b in zip(card_logs[:equal], cpu_logs[:equal]):
+        check((a.learn_loss is None) == (b.learn_loss is None),
+              f"{label}: tick {a.tick} trained on one device only")
+        if a.learn_loss is not None:
+            err = abs(a.learn_loss - b.learn_loss)
+            loss_err = max(loss_err, err)
+            loss_rel = max(loss_rel, err / max(1.0, abs(b.learn_loss)))
+            loss_max = max(loss_max, abs(b.learn_loss))
+    if held:
+        check(loss_rel <= PRETRAIN_TOL, f"{label}: learn_loss, card vs CPU, "
+                                        f"max |err| {loss_err} (relative "
+                                        f"{loss_rel}) at losses up to "
+                                        f"{loss_max}")
+    n_dqn = [sum(t.reason.startswith("dqn:") for t in logs)
+             for logs in (card_logs, cpu_logs)]
+    print(f"  {label}{'' if held else ' (printed, not held)'}: Q gap on "
+          f"the trace's {len(card['q'])} states {gap:.3g}; the margin falls "
+          f"under {MARGIN_FACTOR:g} x the gap at {at}; TickLogs equal "
+          + (f"through all {len(got)} ticks" if diff is None
+             else f"through tick {diff - 1}, first difference tick {diff}")
+          + f"; learn_loss max |err| {loss_err:.3g} (relative "
+          f"{loss_rel:.3g}, losses up to {loss_max:.3g}) while equal; Q "
+          f"up to {float(np.abs(card['q']).max()):.3g}; DQN decided "
+          f"{n_dqn[0]} ticks on the card, {n_dqn[1]} on the CPU")
+    return dict(gap=gap, cutoff=cutoff, diff=diff, n_dqn=n_dqn,
+                loss_err=loss_err)
+
+
+def importance_phase(torch, tree, state, records, deploy_vec, lc, seed):
+    """``permutation_importance`` on the trace's ``supervised_dataset``
+    with the card-pretrained weights, on the card and on the CPU: each
+    group's raw increase within PRETRAIN_TOL."""
+    from repro_torch.core.dnn import train
+    from repro_torch.core.dnn.model import DNNConfig, dnn_from_reference
+    from repro_torch.core.dnn.traces import supervised_dataset
+    from test_torch_checks import raw_importance
+    cfg = DNNConfig()
+    ds = supervised_dataset(
+        records, deploy_vec, window=cfg.window, slo_ms=lc.slo_ms,
+        model_params_b=float(10.0 ** (2.0 * deploy_vec[0])))
+    raw, clocks = {}, {}
+    for dev in ("cuda", "cpu"):
+        net, st = dnn_from_reference(tree, state, cfg, device=dev)
+        t0 = time.perf_counter()
+        raw[dev] = raw_importance(train._eval_loss, train.FEATURE_GROUPS,
+                                  net, st, ds, seed=seed)
+        clocks[dev] = time.perf_counter() - t0
+    err = max(abs(raw["cuda"][k] - raw["cpu"][k]) for k in raw["cpu"])
+    check(err <= PRETRAIN_TOL, f"permutation importance, card vs CPU: max "
+                               f"|err| {err}: {raw}")
+    total = sum(raw["cuda"].values()) or 1.0
+    print(f"  permutation importance ({len(ds['alloc_target'])} rows, "
+          f"card-pretrained weights), raw increase of the evaluation loss "
+          f"on the card: "
+          + ", ".join(f"{k} {v:.4g} ({v / total:.0%})"
+                      for k, v in raw["cuda"].items())
+          + f"; card vs CPU max |err| {err:.3g}; host clock card "
+          f"{clocks['cuda'] * 1e3:.1f} ms, CPU {clocks['cpu'] * 1e3:.1f} ms")
+
+
+def selector_phase(tree, state, records, snaps, cfg, lc):
+    """``DNNSelector`` over the card-pretrained agent, on the card and on
+    the CPU (the same weights bridged), over each recorded tick's operating
+    point as ``traces._strategy_label`` reads it: the strategy head decides
+    from the first context (``min_trained=1``; the default gate, 64, is
+    longer than the trace).  Logits within PRETRAIN_TOL of their size (at
+    least 1), choices equal: one-deployment training drives the deployment
+    stream's running variance toward 0, so evaluation mode multiplies each
+    device's rounding of x - running mean by up to 1/sqrt(eps) = 316
+    (``test_torch_orchestration`` holds the reference against the port at
+    one set of such weights to the same rule).
+    → (the card's choice at the last tick, the CPU's)."""
+    import numpy as np
+    from repro_torch.core.allocation.rl import DQNAgent
+    from repro_torch.core.dnn.model import DNNConfig
+    from repro_torch.core.orchestration import (
+        STRATEGY_NAMES, DeploymentContext, DNNSelector,
+    )
+    choices, logits, labels = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        agent = DQNAgent(DNNConfig(), device=dev)
+        agent.load_reference(tree, state)
+        sel = DNNSelector(agent, None, min_trained=1)
+        choices[dev], logits[dev] = [], []
+        for rec, s in zip(records, snaps):
+            ctx = DeploymentContext(
+                model_params_b=cfg.n_params() / 1e9,
+                traffic_rps=float(rec.get("rps", 0.0)), slo_ms=lc.slo_ms,
+                error_budget=0.01,
+                spare_capacity_frac=max(1.0 - float(rec.get("flop_util",
+                                                            0.0)), 0.0),
+                cost_sensitivity=0.5, is_critical=True,
+                transport_ms=float(rec.get("transport_ms", 0.0)))
+            choices[dev].append(sel.select(ctx, s))
+            logits[dev].append(sel.strategy_logits(s))
+        labels[dev] = [STRATEGY_NAMES[i] for _, i in sel.labels]
+    want = np.stack(logits["cpu"])
+    diff = np.abs(np.stack(logits["cuda"]) - want)
+    err = float(diff.max())
+    rel = float((diff / np.maximum(1.0, np.abs(want))).max())
+    check(rel <= PRETRAIN_TOL, f"strategy logits, card vs CPU: max |err| "
+                               f"{err} (relative {rel})")
+    check(choices["cuda"] == choices["cpu"],
+          f"strategy choices differ: card {choices['cuda']}, CPU "
+          f"{choices['cpu']}")
+    print(f"  DNNSelector (card-pretrained head, min_trained=1) over the "
+          f"{len(records)} recorded ticks: logits up to "
+          f"{float(np.abs(want).max()):.3g}, card vs CPU max |err| "
+          f"{err:.3g} (relative {rel:.3g}), choices equal: {choices['cuda']}; "
+          f"the tree's: {labels['cuda']}")
+    return choices["cuda"][-1], choices["cpu"][-1]
+
+
+def canary_sample(logs):
+    """A CanarySample of a loop run: its ticks' p50 and p95 latencies on
+    the virtual clock (ticks that finished requests), every finished
+    request, no errors (the in-process replicas drop nothing), and the
+    mean slot utilization of its replica reports."""
+    import numpy as np
+    from repro_torch.core.orchestration import CanarySample
+    served = [t for t in logs if t.served]
+    utils = [u for t in logs for _, u in t.replica_util]
+    return CanarySample(
+        latencies_ms=np.asarray([x for t in served
+                                 for x in (t.latency_p50_ms,
+                                           t.latency_p95_ms)]),
+        n_requests=sum(t.served for t in logs), n_errors=0,
+        utilization=float(np.mean(utils)) if utils else 0.0)
+
+
+def host_to_card(torch, nbytes, reps=3):
+    """(GB/s, ms) of copying ``nbytes`` from pinned host memory to the
+    card, median of ``reps`` copies timed by CUDA events."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        dev.copy_(host, non_blocking=True)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    del host, dev
+    ms = statistics.median(times)
+    return nbytes / (ms * 1e-3) / 1e9, ms
+
+
+def rollout_phase(torch, cfg, lc, strategies, hybrid_logs, planner_logs,
+                  card):
+    """``RolloutManager`` for the chosen strategy: ``DeployEnv`` with
+    qwen2.5-3b's bf16 weights, one device a replica, ``lc.max_replicas``
+    replicas, ``hbm_fill_gbps`` measured; each soak tick fed the hybrid
+    run's sample (canary) against the planner run's (control).  The
+    phase sequence and ``elapsed_s`` of the card's choice must equal the
+    CPU choice's on the same samples."""
+    from repro_torch.core.orchestration import (
+        DeployEnv, Phase, RolloutManager, total_deploy_seconds, CATALOG,
+    )
+    nbytes = cfg.n_params() * 2
+    gbps, ms = host_to_card(torch, nbytes)
+    print(f"  host -> card copy of qwen2.5-3b's bf16 weights "
+          f"({nbytes / 1e9:.3f} GB, pinned): {ms:.2f} ms, {gbps:.2f} GB/s "
+          f"({card})")
+    env = DeployEnv(params_bytes=nbytes, chips_per_replica=1,
+                    n_replicas=lc.max_replicas, hbm_fill_gbps=gbps)
+    canary, control = canary_sample(hybrid_logs), canary_sample(planner_logs)
+    runs = []
+    for strategy in strategies:
+        mgr = RolloutManager(strategy, env)
+        seq = [(mgr.start().phase.value, mgr.state.traffic_frac,
+                mgr.state.elapsed_s)]
+        for _ in range(ROLLOUT_TICKS):
+            if mgr.state.phase in (Phase.COMPLETED, Phase.ROLLED_BACK):
+                break
+            s = mgr.tick(canary, control)
+            seq.append((s.phase.value, s.traffic_frac, s.elapsed_s))
+        runs.append((seq, mgr.state.health_log))
+    check(runs[0][0] == runs[1][0], f"rollout differs: card {runs[0][0]}, "
+                                    f"CPU {runs[1][0]}")
+    seq, health = runs[0]
+    check(seq[-1][0] in ("completed", "rolled_back"),
+          f"the rollout did not end in {ROLLOUT_TICKS} ticks: {seq}")
+    verdicts = [(round(v["latency_p"], 4), v["healthy"]) for v in health]
+    print(f"  rollout {strategies[0]} (healthy model time "
+          f"{total_deploy_seconds(CATALOG[strategies[0]], env):.1f} s): "
+          f"canary p50/p95 mean {canary.latencies_ms.mean():.0f} ms over "
+          f"{canary.n_requests} requests, control "
+          f"{control.latencies_ms.mean():.0f} ms over {control.n_requests}; "
+          f"phases " + " -> ".join(f"{p}@{f:g}" for p, f, _ in seq)
+          + f", elapsed_s {seq[-1][2]:.3f}; verdicts (latency p, healthy) "
+          f"{verdicts}; equal to the CPU's")
+
+
+def learning_phase(torch, ops, seed, add, loop):
+    """Phase 7: the paper's offline learning and deployment orchestration
+    through the port, card against CPU, on the planner trace phase 6
+    recorded (see the module docstring)."""
+    import dataclasses
+    from repro_torch.core.dnn.model import DNNConfig, MultiStreamDNN
+    from repro_torch.serving.closed_loop import run_closed_loop
+    from test_torch_checks import exact_deploy_stream
+    cfg, smoke, lc = loop["cfg"], loop["smoke"], loop["lc"]
+    card = gpu_line()
+    t0 = time.perf_counter()
+    print(f"[7] offline learning and orchestration on the planner trace: "
+          f"pretrain_on_trace, the hybrid loop, importance, strategy "
+          f"selection and a canary rollout ({card})")
+    card_trace, cpu_trace = loop["card_trace"], loop["cpu_trace"]
+    first = next((i for i, (a, b) in enumerate(zip(card_trace, cpu_trace))
+                  if a != b), None)
+    check(len(card_trace) == len(cpu_trace) == LOOP_TICKS and first is None,
+          f"the card's planner trace ({len(card_trace)} records) differs "
+          f"from the CPU smoke run's at tick {first}")
+    print(f"  the card's planner trace equals the CPU smoke run's: "
+          f"{len(card_trace)} records of {len(card_trace[0])} fields, every "
+          f"field equal (none reads the host clock: the loop runs on its "
+          f"virtual clock)")
+    src = MultiStreamDNN(DNNConfig(), seed=seed, device="cpu")
+    tree = dnn_tree(src)
+    state = {bn: {k: v.numpy() for k, v in d.items()}
+             for bn, d in src.init_state().items()}
+    deploy = loop["planner"]["alloc"].deploy_vec
+    hybrid_lc = dataclasses.replace(lc, alloc_mode="hybrid")
+    runs = {name: {} for name in ("card", "cpu", "card_exact", "cpu_exact")}
+    # the main path: the hybrid loop over full-width replicas, primed by
+    # pretrain_on_trace on the card
+    hybrid = loop_run(torch, ops, cfg, hybrid_lc, "hybrid, pretrained on "
+                      "the planner trace", seed,
+                      prime=pretraining_prime(torch, card_trace, tree, state,
+                                              deploy, runs["card"]))
+    add(hybrid["counts"])
+    traj = [1] + [t.replicas for t in hybrid["logs"]]
+    print(f"  replica trajectory: {traj} (planner: "
+          f"{[1] + [t.replicas for t in loop['planner']['logs']]})")
+    free(torch)
+    # the pair again with identical rows computed exactly: the same
+    # full-width loop on the card, its launches checked but not added
+    with exact_deploy_stream():
+        exact_run = loop_run(torch, ops, cfg, hybrid_lc, "hybrid, exact "
+                             "deployment stream", seed,
+                             prime=pretraining_prime(torch, card_trace, tree,
+                                                     state, deploy,
+                                                     runs["card_exact"]))
+    free(torch)
+    logs = {"card": hybrid["logs"], "card_exact": exact_run["logs"]}
+    t1 = time.perf_counter()
+    for name, exact in (("cpu", False), ("cpu_exact", True)):
+        with exact_deploy_stream() if exact else contextlib.nullcontext():
+            router, logs[name] = run_closed_loop(
+                smoke, autoscale=True, ticks=LOOP_TICKS, seed=seed,
+                lc=hybrid_lc, device="cpu",
+                prime_allocator=pretraining_prime(
+                    torch, cpu_trace, tree, state, deploy, runs[name]))
+            router.close()
+    print(f"  the CPU's hybrid runs, as the path runs and with the exact "
+          f"deployment stream, at smoke width (vocab {smoke.vocab}): "
+          f"{time.perf_counter() - t1:.1f} s")
+    pretrain_agreement(runs["card"], runs["cpu"], "as the path runs", False)
+    pretrain_agreement(runs["card_exact"], runs["cpu_exact"],
+                       "exact deployment stream", True)
+    hybrid_agreement(runs["card"], runs["cpu"], logs["card"], logs["cpu"],
+                     "hybrid loop as the path runs, card full width vs CPU "
+                     "smoke", False)
+    hybrid_agreement(runs["card_exact"], runs["cpu_exact"],
+                     logs["card_exact"], logs["cpu_exact"],
+                     "hybrid loop, exact deployment stream, card full width "
+                     "vs CPU smoke", True)
+    importance_phase(torch, runs["card"]["tree"], runs["card"]["bn"],
+                     card_trace, deploy, lc, seed)
+    choice = selector_phase(runs["card"]["tree"], runs["card"]["bn"],
+                            card_trace, runs["card"]["snaps"], cfg, lc)
+    rollout_phase(torch, cfg, lc, choice, logs["card"],
+                  loop["planner"]["logs"], card)
+    print(f"  offline learning and orchestration: "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -2279,6 +2829,8 @@ def main(argv=None) -> int:
               "it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # the check instrumentation phase 7 shares with the tests (no JAX)
+    sys.path.insert(0, str(ROOT / "tests"))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2363,7 +2915,8 @@ def main(argv=None) -> int:
                    add)
         encdec_phases(torch, ops, EngineCore,
                       get_config("seamless-m4t-medium"), add)
-        loop_phase(torch, ops, args.seed, add)
+        loop = loop_phase(torch, ops, args.seed, add)
+        learning_phase(torch, ops, args.seed, add, loop)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

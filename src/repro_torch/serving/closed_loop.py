@@ -154,7 +154,7 @@ def run_closed_loop(cfg, *, autoscale: bool = True, ticks: int = 14,
     the proc/tcp/pod topologies should ``router.close()`` when done (worker
     teardown).
 
-    ``recorder`` (any object with ``record(dict)``, such as the reference's
+    ``recorder`` (any object with ``record(dict)``, such as
     ``core/dnn/traces.TraceRecorder``) captures one training record per
     tick: the collector aggregate plus the actuated decision,
     realized cost, anomaly/eviction counters, and the fleet's paged-pool
