@@ -6,8 +6,9 @@
 Phases 3 to 5 run for each served model in turn (qwen2.5-3b, zamba2-2.7b,
 olmoe-1b-7b, falcon-mamba-7b, qwen2-vl-7b, seamless-m4t-medium), each
 model freed before the next is built; phase 6 then runs the paper's closed
-control loop over full-width qwen2.5-3b replicas, and phase 7 its offline
-learning and deployment orchestration on the trace phase 6 recorded.  Any
+control loop over full-width qwen2.5-3b replicas, phase 7 its offline
+learning and deployment orchestration on the trace phase 6 recorded, and
+phase 8 the same loop over worker processes (the remote fleet).  Any
 failure exits non-zero and prints no result line.
 
 1. build    — compile the Hopper kernels from ``src/repro_torch/kernels/csrc``.
@@ -45,7 +46,10 @@ failure exits non-zero and prints no result line.
               chunk of 8): K4 at (1,8,16,128) over 2 KV heads, the write
               instances of K1 and K5 over a max_seq-48 cache with 4 rows
               (bitwise against K2, K2, K1 and K6, K6, K5), K3 at
-              (4, 151936).
+              (4, 151936).  Last, K4 and K7 have no backward: with grad
+              enabled and an input that requires it each raises
+              ``NoBackwardError`` and launches nothing, and under
+              ``torch.no_grad`` the same call launches.
 3. serve    — each model at full width and depth, random weights from a
               seed, on paths that each have the launch counts set to 0 just
               before and read just after: ``repro_torch.launch.serve.main``
@@ -167,6 +171,28 @@ failure exits non-zero and prints no result line.
               bytes and a measured host -> card copy rate, fed the hybrid
               run's latencies against the planner run's: the phases and
               ``elapsed_s`` equal the CPU choice's.
+8. fleet    — phase 6's dense loop (``LoopConfig()``, 14 ticks, ``--seed``,
+              planner mode, 1 → 3 → 4 → 1 replicas) over worker
+              processes, each serving full-width qwen2.5-3b on the card
+              through the kernels: at ``topology="proc"`` (each replica a
+              ``python -m repro_torch.serving.worker <fd> --device cuda``
+              child) and at ``topology="tcp"`` over ``launch_fleet(4,
+              device="cuda")`` with a read-only ``MetricsObserver`` on
+              worker 0 (``observe_addrs``).  Each run's TickLogs'
+              (replicas, reason, served) and every finished stream equal
+              phase 6's in-process run of this chip run, bitwise; the
+              workers' kernel launch counts (each writes its own, through
+              ``REPRO_TORCH_WORKER_LAUNCHES``), summed, equal phase 6's,
+              and the router's process launches none; at the first tick of
+              4 replicas nvidia-smi lists 4 distinct worker PIDs, none this
+              process's, each with its device memory; the observer's
+              lifetime counters equal replica 0's through the router;
+              ``off_list_spawns`` is 0; no worker outlives its run (all are
+              killed in a ``finally``), and the workers load the kernel
+              library phase 1 built.  Printed: the host clock per router
+              step beside phase 6's, ``transport_ms``, each worker's start
+              and ``init`` time; on a failure the workers' exit codes and
+              stderr tail.
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -180,6 +206,7 @@ import copy
 import gc
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -1970,6 +1997,44 @@ def loop_shapes_phase(torch, ops, ref):
                            indices=LOOP_WRITE_INDICES)
 
 
+def no_backward_phase(torch, ops):
+    """The prefill kernels (K4, K7) fill their outputs through ctypes, which
+    autograd cannot see: with grad enabled and an input that requires it
+    they raise ``NoBackwardError`` and launch nothing; under
+    ``torch.no_grad`` (as serving runs) the same call launches."""
+    from repro_torch.kernels._lib import NoBackwardError
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    randn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    calls = {
+        "flash_attention": (lambda *a: ops.flash_attention(*a, causal=True),
+                            [randn(1, 16, 4, 64).bfloat16(),
+                             randn(1, 16, 2, 64).bfloat16(),
+                             randn(1, 16, 2, 64).bfloat16()]),
+        "ssm_scan": (ops.ssm_scan,
+                     [randn(1, 64, 4, 64), randn(1, 64, 4).abs(),
+                      -randn(4).abs(), randn(1, 64, 4, 64),
+                      randn(1, 64, 4, 64)]),
+    }
+    for name, (call, args) in calls.items():
+        args[0].requires_grad_(True)
+        before = ops.launch_counts()[name]
+        try:
+            call(*args)
+        except NoBackwardError:
+            pass
+        else:
+            raise SmokeFailure(f"{name}: a grad-requiring input did not raise")
+        check(ops.launch_counts()[name] == before,
+              f"{name}: launched although it raised")
+        with torch.no_grad():
+            call(*args)
+        check(ops.launch_counts()[name] == before + 1,
+              f"{name}: did not launch under torch.no_grad")
+    print("  flash_attention and ssm_scan raise NoBackwardError on an input "
+          "that requires grad (no launch) and launch under torch.no_grad")
+
+
 def tick_line(t) -> str:
     """One TickLog as ``examples/serve_autoscale.py`` prints it."""
     util = " ".join(f"r{rid}={u:.2f}" for rid, u in t.replica_util)
@@ -2091,18 +2156,9 @@ def loop_run(torch, ops, cfg, lc, label, seed, profiled=None, recorder=None,
           f"ticks, {seen['lanes']} verify lanes, {seen['prefilled']} "
           f"admissions prefilled")
     check_launches(counts, want, f"loop {label}")
-    # host clock: tick i spans hook i-1 .. hook i; its router steps are
-    # steps[n_{i-1}:n_i], the rest of the tick is the control loop's.
-    # Tick 0 (weight init before it) and the profiled ticks stay out
     skip = {0} | (set(range(profiled[0], profiled[1] + 1)) if profiled
                   else set())
-    prev, step_s, ctrl_s = (t0, 0), [], []
-    for tick, (t, n) in enumerate(marks):
-        if tick not in skip:
-            in_steps = sum(steps[prev[1]:n])
-            step_s.extend(steps[prev[1]:n])
-            ctrl_s.append(t - prev[0] - in_steps)
-        prev = (t, n)
+    step_s, ctrl_s = tick_clocks(t0, marks, steps, skip)
     print(f"    host clock: router step {statistics.mean(step_s) * 1e3:.2f} "
           f"ms mean ({statistics.median(step_s) * 1e3:.2f} median, "
           f"{len(step_s)} steps), control tick outside the router steps "
@@ -2129,7 +2185,26 @@ def loop_run(torch, ops, cfg, lc, label, seed, profiled=None, recorder=None,
     router.close()
     print(f"    {label}: {time.perf_counter() - t0:.1f} s with the reports")
     return dict(logs=logs, streams=streams, counts=counts,
-                recorded=recorded, alloc=allocs["alloc"])
+                recorded=recorded, alloc=allocs["alloc"],
+                step_ms=(statistics.mean(step_s) * 1e3,
+                         statistics.median(step_s) * 1e3))
+
+
+def tick_clocks(t0, marks, steps, skip):
+    """Host clock per router step and per control tick outside the router
+    steps: tick i spans mark i-1 .. mark i (``marks`` = (time, steps so
+    far) taken at each tick's hook), its router steps are
+    steps[n_{i-1}:n_i], the rest of the tick is the control loop's.  The
+    ticks in ``skip`` stay out (tick 0: weight init before it; profiled
+    ticks)."""
+    prev, step_s, ctrl_s = (t0, 0), [], []
+    for tick, (t, n) in enumerate(marks):
+        if tick not in skip:
+            in_steps = sum(steps[prev[1]:n])
+            step_s.extend(steps[prev[1]:n])
+            ctrl_s.append(t - prev[0] - in_steps)
+        prev = (t, n)
+    return step_s, ctrl_s
 
 
 def dnn_tree(net):
@@ -2818,6 +2893,324 @@ def learning_phase(torch, ops, seed, add, loop):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# --------------------------------------------------------------------- phase 8
+# the remote fleet: phase 6's dense loop over worker processes, each serving
+# full-width qwen2.5-3b on the card; the memory of the fleet at its peak of
+# LoopConfig().max_replicas workers
+FLEET_WORKERS = 4              # LoopConfig().max_replicas
+FLEET_STDERR_TAIL = 40
+
+
+def compute_apps() -> list[tuple[int | None, str]]:
+    """(pid, used memory) of every process nvidia-smi sees on the card."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,"
+                          "used_memory", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    apps = []
+    for line in out.stdout.strip().splitlines():
+        pid, _, mem = (x.strip() for x in line.partition(","))
+        apps.append((int(pid) if pid.isdigit() else None, mem))
+    return apps
+
+
+@contextlib.contextmanager
+def worker_processes(out_dir: Path):
+    """Track every worker process the port spawns in the block (their
+    ``Popen`` handles, in spawn order), send the workers' stderr (and this
+    process's) to ``out_dir/stderr.txt``, and have each worker write its
+    kernel launch counts and peak device memory into ``out_dir``.  Every
+    worker still alive at the end is killed, whatever happened."""
+    from repro_torch.serving.worker import STATS_ENV
+    spawned = []
+    popen = subprocess.Popen
+
+    class Tracked(popen):
+        def __init__(self, args, *a, **k):
+            super().__init__(args, *a, **k)
+            if "repro_torch.serving.worker" in args:
+                spawned.append(self)
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    sys.stderr.flush()
+    saved = os.dup(2)
+    err = open(out_dir / "stderr.txt", "w")
+    os.dup2(err.fileno(), 2)
+    os.environ[STATS_ENV] = str(out_dir)
+    subprocess.Popen = Tracked
+    try:
+        yield spawned
+    finally:
+        subprocess.Popen = popen
+        del os.environ[STATS_ENV]
+        for proc in spawned:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        sys.stderr.flush()
+        os.dup2(saved, 2)
+        os.close(saved)
+        err.close()
+
+
+def worker_stats(out_dir: Path, pids, timeout_s=60.0):
+    """→ (the kernel launch counts the workers ``pids`` wrote when their
+    sessions ended, summed; {pid: peak allocated device bytes}); waits for
+    each worker's file."""
+    deadline = time.monotonic() + timeout_s
+    total, peaks = {}, {}
+    for pid in pids:
+        path = out_dir / f"stats-{pid}.json"
+        while not path.exists():
+            check(time.monotonic() < deadline,
+                  f"worker {pid} wrote no launch counts")
+            time.sleep(0.1)
+        stats = json.loads(path.read_text())
+        for name, n in stats["launches"].items():
+            total[name] = total.get(name, 0) + n
+        peaks[pid] = stats["device_peak_bytes"]
+    return total, peaks
+
+
+def fleet_memory(torch, spawned, label) -> dict:
+    """The fleet at its peak: 4 distinct live worker PIDs, none this
+    process's, and nvidia-smi's compute apps — the 4 workers and this
+    process, each worker by its PID where nvidia-smi sees this process's
+    PID namespace (in a container it may list every process as pid 1 with
+    the card's total) — beside the card's used memory from this process's
+    view."""
+    live = [p.pid for p in spawned if p.poll() is None]
+    apps = compute_apps()
+    free_b, total_b = torch.cuda.mem_get_info()
+    listed = [pid for pid, _ in apps]
+    print(f"    {label} at {len(live)} live workers: nvidia-smi compute "
+          f"apps (pid, used memory) {apps}; this process pid "
+          f"{os.getpid()}; workers {live}; card used "
+          f"{(total_b - free_b) / 2**30:.2f} GiB of {total_b / 2**30:.2f}")
+    check(len(set(live)) == FLEET_WORKERS and os.getpid() not in live,
+          f"{label}: {len(live)} live workers at the peak, expected "
+          f"{FLEET_WORKERS} distinct from this process")
+    check(len(apps) == FLEET_WORKERS + 1,
+          f"{label}: nvidia-smi lists {len(apps)} processes on the card, "
+          f"expected the {FLEET_WORKERS} workers and this process")
+    if set(live) & set(listed):
+        check(set(live) <= set(listed), f"{label}: workers "
+              f"{sorted(set(live) - set(listed))} are not on the card")
+    else:
+        print(f"      nvidia-smi lists PIDs of another namespace "
+              f"({sorted(set(listed))}): the workers are told apart by "
+              f"count; their peaks follow from their own stats")
+    return {"apps": apps, "used_bytes": total_b - free_b}
+
+
+def fleet_run(torch, ops, cfg, lc, label, seed, spawned, phase6,
+              setup_s=0.0):
+    """One closed loop over worker processes: run_closed_loop as phase 6
+    runs it, the router's steps timed; the TickLogs' decisions and served
+    counts and every finished stream held to phase 6's dense in-process
+    run, the workers' launch counts summed and held to phase 6's, the
+    fleet's memory at its peak read, and no worker left afterwards."""
+    from repro_torch.serving.closed_loop import run_closed_loop
+    from repro_torch.serving.replica import SocketReplica
+    sink, marks, steps, handshakes, peak = [], [], [], [], {}
+    rpc = SocketReplica._rpc
+
+    def timed_rpc(self, msg, *, timeout=None):
+        t = time.perf_counter()
+        out = rpc(self, msg, timeout=timeout)
+        if msg["op"] in ("attach", "init"):
+            handshakes.append((self.replica_id, msg["op"],
+                               time.perf_counter() - t))
+        return out
+
+    def hook(tick, router, collector):
+        marks.append((time.perf_counter(), len(steps)))
+        if not peak and router.replica_count == FLEET_WORKERS:
+            peak.update(fleet_memory(torch, spawned, label))
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    SocketReplica._rpc = timed_rpc
+    try:
+        with timed_router_steps(torch, steps):
+            router, logs = run_closed_loop(
+                cfg, autoscale=True, ticks=LOOP_TICKS, seed=seed, lc=lc,
+                sink=sink, chaos_hook=hook, device="cuda")
+    finally:
+        SocketReplica._rpc = rpc
+    wall = time.perf_counter() - t0
+    try:
+        for t in logs:
+            print("      " + tick_line(t))
+        m = router.metrics()
+        check(m["completed"] == len(sink) > 0,
+              f"{label}: {m['completed']} completed, {len(sink)} in the sink")
+        check(peak, f"{label}: the loop never reached {FLEET_WORKERS} "
+                    f"replicas")
+        want = [(t.replicas, t.reason, t.served) for t in phase6["logs"]]
+        got = [(t.replicas, t.reason, t.served) for t in logs]
+        diff = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                    None)
+        check(len(got) == len(want) and diff is None,
+              f"{label}: tick {diff} (replicas, reason, served) "
+              f"{got[diff] if diff is not None else ''} vs phase 6's "
+              f"{want[diff] if diff is not None else ''}")
+        streams = {r.rid: list(r.tokens_out) for r in sink}
+        differ = sorted(rid for rid in set(streams) | set(phase6["streams"])
+                        if streams.get(rid) != phase6["streams"].get(rid))
+        check(not differ, f"{label}: streams differ from phase 6's for "
+                          f"requests {differ[:10]}")
+        observed = logs[-1].observed
+        if lc.observe_addrs:
+            rep0 = next(r for r in router.all_replicas if r.replica_id == 0)
+            mine, theirs = rep0.lifetime(), observed[0]["lifetime"]
+            for key in ("total_completed", "total_tokens"):
+                check(theirs[key] == mine[key],
+                      f"{label}: the observer's {key} {theirs[key]} != "
+                      f"the router's {mine[key]}")
+            print(f"    observer on {observed[0]['addr']}: "
+                  f"total_completed {theirs['total_completed']}, "
+                  f"total_tokens {theirs['total_tokens']}, equal to "
+                  f"replica 0's lifetime() through the router")
+        check(m["off_list_spawns"] == 0,
+              f"{label}: {m['off_list_spawns']} off-list spawns")
+        per_rep = {r.replica_id: r.transport_ms for r in router.all_replicas}
+        parent = ops.launch_counts()
+    finally:
+        router.close()
+    step_s, ctrl_s = tick_clocks(
+        t0, marks, steps,
+        {0} | set(range(LOOP_PROFILED[0], LOOP_PROFILED[1] + 1)))
+    print(f"    {label}: {len(logs)} ticks, {wall:.1f} s with worker "
+          f"start and init{f' (fleet start {setup_s:.1f} s before)' if setup_s else ''}; "
+          f"{m['completed']} requests, {m['completed_tokens']} tokens; "
+          f"TickLogs' (replicas, reason, served) and all {len(streams)} "
+          f"streams equal phase 6's in-process run")
+    print(f"    host clock: router step {statistics.mean(step_s) * 1e3:.2f} "
+          f"ms mean ({statistics.median(step_s) * 1e3:.2f} median, "
+          f"{len(step_s)} steps; phase 6 in process: "
+          f"{phase6['step_ms'][0]:.2f} mean, {phase6['step_ms'][1]:.2f} "
+          f"median), control tick outside the router steps "
+          f"{statistics.mean(ctrl_s) * 1e3:.2f} ms mean (worker starts "
+          f"and inits included)")
+    print(f"    transport_ms (EWMA of report/lifetime/resume round trips): "
+          f"fleet {m['transport_ms']:.3f} ms; per replica "
+          f"{ {rid: round(v, 3) for rid, v in per_rep.items()} }; "
+          f"rpc_count {m['rpc_count']}")
+    for rid in sorted({r for r, _, _ in handshakes}):
+        times = {op: dt for r, op, dt in handshakes if r == rid}
+        print(f"    replica {rid}: attach {times.get('attach', 0):.2f} s"
+              f"{'' if setup_s else ' (the worker process starting)'}, "
+              f"init {times.get('init', 0):.2f} s (the engine built on the "
+              f"card)")
+    check(not any(parent.values()),
+          f"{label}: kernels launched in the router's process: {parent}")
+
+
+def fleet_phase(torch, ops, seed, loop):
+    """Phase 8: phase 6's dense closed loop (planner mode, 14 ticks, 1 → 3
+    → 4 → 1) over worker processes on the card, at ``topology="proc"``
+    (each replica a ``python -m repro_torch.serving.worker <fd> --device
+    cuda`` child) and at ``topology="tcp"`` over ``launch_fleet(4,
+    device="cuda")`` with a read-only observer on worker 0.  Each run's
+    decisions, served counts and streams equal phase 6's in-process run of
+    this chip run; its workers' launch counts, summed, equal phase 6's; 4
+    distinct worker PIDs hold memory on the card at the peak; no worker
+    survives the run; the workers load the kernel library phase 1 built."""
+    import dataclasses
+    import tempfile
+    from repro_torch.kernels import _lib
+    from repro_torch.serving.fleet import launch_fleet
+    cfg, lc, phase6 = loop["cfg"], loop["lc"], loop["planner"]
+    check(lc.max_replicas == FLEET_WORKERS, "LoopConfig() is not 4 replicas")
+    print(f"[8] the remote fleet: phase 6's loop over worker processes, "
+          f"full-width qwen2.5-3b each, at topology proc and tcp "
+          f"({gpu_line()})")
+    libs = sorted((p.name, p.stat().st_mtime_ns)
+                  for p in _lib.BUILD_DIR.glob("*.so"))
+    check(libs, "phase 1 built no kernel library")
+    print(f"  this process before the fleet: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    t0 = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="fleet-", dir=_lib.BUILD_DIR))
+    for topology in ("proc", "tcp"):
+        run_dir = out_dir / topology
+        with worker_processes(run_dir) as spawned:
+            try:
+                label = f"topology {topology}"
+                if topology == "proc":
+                    fleet_run(torch, ops, cfg,
+                              dataclasses.replace(lc, topology="proc"),
+                              label, seed, spawned, phase6)
+                    # each worker wrote its counts before answering the
+                    # router's shutdown
+                    for proc in spawned:
+                        proc.wait(timeout=60)
+                    counts, peaks = worker_stats(run_dir,
+                                                 [p.pid for p in spawned])
+                else:
+                    t1 = time.perf_counter()
+                    fleet = launch_fleet(FLEET_WORKERS, device="cuda")
+                    setup = time.perf_counter() - t1
+                    try:
+                        fleet_run(torch, ops, cfg, dataclasses.replace(
+                            lc, topology="tcp", addrs=tuple(fleet.addrs),
+                            observe_addrs=(fleet.addrs[0],)), label, seed,
+                            spawned, phase6, setup_s=setup)
+                        # the sessions ended with the router: each worker
+                        # writes its counts before the stand-in scheduler
+                        # stops it
+                        counts, peaks = worker_stats(
+                            run_dir, [p.pid for p in spawned])
+                    finally:
+                        fleet.close()
+                check(counts == phase6["counts"],
+                      f"{label}: the workers' launch counts {counts} != "
+                      f"phase 6's {phase6['counts']}")
+                check(all(peaks.values()),
+                      f"{label}: a worker never used the card: {peaks}")
+                print(f"    {label}: the workers' launch counts, summed over "
+                      f"{len(spawned)} workers, equal phase 6's: "
+                      f"{ {k: v for k, v in counts.items() if v} }; each "
+                      f"worker's peak device memory (its own "
+                      f"max_memory_allocated): "
+                      f"{ {pid: round(b / 2**30, 2) for pid, b in peaks.items()} } GiB")
+                alive = [p.pid for p in spawned if p.poll() is None]
+                check(not alive, f"{label}: workers {alive} outlived the "
+                                 f"router")
+                # nvidia-smi's list back to this process alone (it may name
+                # every process pid 1: count them)
+                deadline = time.monotonic() + 30
+                while len(apps := compute_apps()) > 1 \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.5)
+                check(len(apps) == 1, f"{label}: nvidia-smi still lists "
+                                      f"{apps} after the run")
+            except Exception as e:
+                codes = [(p.pid, p.poll()) for p in spawned]
+                sys.stderr.flush()
+                tail = (run_dir / "stderr.txt").read_text().splitlines()
+                print(f"  {label} FAILED: {e!r}; workers (pid, exit code): "
+                      f"{codes}; stderr tail:")
+                for line in tail[-FLEET_STDERR_TAIL:]:
+                    print(f"    | {line}")
+                if isinstance(e, SmokeFailure):
+                    raise
+                raise SmokeFailure(f"{label}: {e!r}") from e
+        tail = (run_dir / "stderr.txt").read_text().splitlines()
+        print(f"    {label}: no worker left ({len(spawned)} spawned; "
+              f"nvidia-smi lists this process alone); "
+              f"worker stderr {len(tail)} lines"
+              + "".join(f"\n    | {line}" for line in tail[-10:]))
+    check(libs == sorted((p.name, p.stat().st_mtime_ns)
+                         for p in _lib.BUILD_DIR.glob("*.so")),
+          "the workers rebuilt the kernel library")
+    print(f"  the workers loaded the library phase 1 built ({libs[0][0]}), "
+          f"rebuilding nothing; remote fleet: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2867,6 +3260,7 @@ def main(argv=None) -> int:
         attention_shapes_phase(torch, ops, ref, "seamless-m4t-medium", 16,
                                16, 64, seed=23)
         loop_shapes_phase(torch, ops, ref)
+        no_backward_phase(torch, ops)
         launches = {name: 0 for name in ops.KERNELS}
 
         def add(counts):
@@ -2917,6 +3311,8 @@ def main(argv=None) -> int:
                       get_config("seamless-m4t-medium"), add)
         loop = loop_phase(torch, ops, args.seed, add)
         learning_phase(torch, ops, args.seed, add, loop)
+        free(torch)
+        fleet_phase(torch, ops, args.seed, loop)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

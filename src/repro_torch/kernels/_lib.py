@@ -143,6 +143,23 @@ def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+class NoBackwardError(RuntimeError):
+    """A hand kernel was asked for an output autograd must differentiate.
+    The kernels fill their outputs through ``ctypes``, which autograd cannot
+    see, so such a call would drop the gradient without an error."""
+
+
+def forward_only(name: str, *tensors):
+    """Raise ``NoBackwardError`` when grad is enabled and any of ``tensors``
+    requires it: the CUDA kernels have no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NoBackwardError(
+            f"{name}: the hand-written CUDA kernels have no backward yet, so "
+            f"their output would carry no gradient; run under torch.no_grad "
+            f"(as serving does), or train through the plain PyTorch path "
+            f"(ROADMAP F1)")
+
+
 def check(err: int, name: str):
     """Raise on a non-zero cudaError_t returned by a launch."""
     if err != 0:

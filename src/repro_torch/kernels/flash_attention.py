@@ -8,7 +8,8 @@ padded to a multiple of 16 in shared memory), otherwise exact float32 FMA.
 
 The wrapper runs the kernel on CUDA tensors and its plain PyTorch version
 (``repro_torch.kernels.ref``) on CPU tensors; ``launches`` counts kernel
-launches.
+launches.  The kernel has no backward: a CUDA call with grad enabled and an
+input that requires it raises ``_lib.NoBackwardError``.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     ``j <= i`` (causal) and ``j > i - window`` (window given)."""
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    _lib.forward_only("flash_attention", q, k, v)
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
     if (k.shape != (B, Sk, KV, hd) or v.shape != k.shape or H % KV):

@@ -11,7 +11,9 @@ The wrapper runs the kernels on CUDA tensors and its plain PyTorch version
 (``repro_torch.kernels.ref.ssm_scan_ref``, the sequential recurrence) on
 CPU tensors; ``launches`` counts calls that launched the kernels.  Unlike
 the reference wrapper, a ragged L (not a multiple of the chunk) runs the
-kernels too: they mask the tail.
+kernels too: they mask the tail.  The kernels have no backward: a CUDA call
+with grad enabled and an input that requires it raises
+``_lib.NoBackwardError``.
 """
 from __future__ import annotations
 
@@ -106,6 +108,7 @@ def ssm_scan(x, dt, A, B, C, *, chunk: int = 128, return_state: bool = False):
     stride of 0 (one group serving every head)."""
     if not x.is_cuda:
         return ref.ssm_scan_ref(x, dt, A, B, C, return_state=return_state)
+    _lib.forward_only("ssm_scan", x, dt, A, B, C)
     x, dt, A, B, C = (t.float() for t in (x, dt, A, B, C))
     Bsz, L, H, hd = x.shape
     N = B.shape[-1]

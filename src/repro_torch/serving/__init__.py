@@ -1,5 +1,5 @@
-"""Multi-replica continuous-batching serving (``repro.serving``), its
-in-process half:
+"""Multi-replica continuous-batching serving (``repro.serving`` without
+its multi-device replicas):
 
   sampling.py    — per-request sampling params + host-side token sampler
   scheduler.py   — Request lifecycle + FCFS admission with priority lanes
@@ -7,11 +7,20 @@ in-process half:
   draft.py       — prompt-lookup drafts for speculative decoding
   engine.py      — single-replica engine: chunked prefill streamed through
                    the batched decode tick, per-slot ring positions
-  replica.py     — the Replica protocol and its in-process backend
-  transport.py   — length-prefixed JSON framing and the wire codecs (the
-                   router imports TransportError from it)
-  chaos.py       — DelayedReplica: virtual-clock transport RTT in front of
-                   a replica (the inter-region latency shim)
+  replica.py     — the Replica protocol and its backends: InProcessReplica,
+                   ProcessReplica (engine in a forked worker over a
+                   socketpair), TcpReplica (engine in a listening worker
+                   the router dials)
+  transport.py   — length-prefixed JSON framing, TCP Listener/dial
+                   endpoints and the wire codecs (the wire contract)
+  worker.py      — the far side of the remote backends (inherited fd or
+                   --listen host:port, on its own --device); one mutating
+                   session + concurrent read-only observers
+  observe.py     — MetricsObserver: read-only attach to a live worker
+  fleet.py       — launch_fleet / spawn_worker: local listening workers
+  chaos.py       — fault injection (FaultPlan, ChaosProxy,
+                   FaultyConnection) and DelayedReplica: virtual-clock
+                   transport RTT in front of a replica
   profiles.py    — ReplicaProfile / FleetPlan / SpotMarket: heterogeneous
                    capacity and the profile-aware planner's cost model
   router.py      — N replicas behind least-loaded routing, scale up/down
@@ -20,31 +29,39 @@ in-process half:
   closed_loop.py — the paper's closed control loop: router + collector +
                    eviction policy + predictive allocator
 
-The socket replicas (worker, fleet, observe, the rest of chaos.py) and the
-multi-device replica are not ported yet: the router refuses their
-topologies by name.
+The multi-device replica and multi-process pods are not ported yet (D3):
+the router refuses their topologies by name.
 """
 from repro_torch.serving.chaos import DelayedReplica
 from repro_torch.serving.closed_loop import (
     LoopConfig, TickLog, default_profile, run_closed_loop,
 )
 from repro_torch.serving.engine import EngineCore, ServingEngine
+from repro_torch.serving.fleet import Fleet, launch_fleet, spawn_worker
+from repro_torch.serving.observe import MetricsObserver
 from repro_torch.serving.profiles import FleetPlan, ReplicaProfile, SpotMarket
-from repro_torch.serving.replica import InProcessReplica, Replica
+from repro_torch.serving.replica import (
+    InProcessReplica, ProcessReplica, Replica, SocketReplica, TcpReplica,
+)
 from repro_torch.serving.router import ReplicaRouter, TOPOLOGIES
 from repro_torch.serving.sampling import SamplingParams, sample_token
 from repro_torch.serving.scheduler import FCFSScheduler, Request, TIERS
 from repro_torch.serving.slots import (
     PagedSlotPool, SlotPool, make_pool, paged_cache_spec, write_slot,
 )
-from repro_torch.serving.transport import TransportError
+from repro_torch.serving.transport import (
+    Connection, Listener, TransportError, WorkerBusyError, dial, parse_addr,
+)
 from repro_torch.serving.workload import (
     poisson_arrival_times, synthetic_requests,
 )
 
 __all__ = [
     "EngineCore", "ServingEngine", "ReplicaRouter", "TOPOLOGIES",
-    "Replica", "InProcessReplica", "DelayedReplica", "TransportError",
+    "Replica", "InProcessReplica", "ProcessReplica", "SocketReplica",
+    "TcpReplica", "Fleet", "launch_fleet", "spawn_worker", "MetricsObserver",
+    "Connection", "Listener", "TransportError", "WorkerBusyError", "dial",
+    "parse_addr", "DelayedReplica",
     "FleetPlan", "ReplicaProfile", "SpotMarket",
     "LoopConfig", "TickLog", "default_profile", "run_closed_loop",
     "SamplingParams", "sample_token", "FCFSScheduler", "Request", "TIERS",

@@ -18,10 +18,12 @@ loop doesn't just *compute* the straggler feed, it closes it); and — when
 router.scale_to.
 
 Every engine and the allocator's DQN run on ``device`` (cuda unless the
-caller asks for cpu).  Only the in-process topology is ported: the others,
-``observe_addrs`` (read-only attaches to remote workers), and ``addrs``,
-``pod_size`` or ``batch_submits`` set away from their defaults raise
-``NotImplementedError`` by name.
+caller asks for cpu); at ``proc`` and ``tcp`` the router spawns its workers
+there (an attached ``addrs`` worker runs on its own ``--device``).  The
+``sharded`` and ``pod`` topologies are not ported (D3) and raise
+``NotImplementedError`` by name, as does ``pod_size`` set away from its
+default; ``addrs`` and ``batch_submits`` raise with ``inproc``, which has
+no use for them.
 """
 from __future__ import annotations
 
@@ -57,12 +59,10 @@ class LoopConfig:
     addrs: tuple = ()            # tcp/pod: pre-started pods to attach to
     pod_size: int = 2            # pod: worker ranks per replica
     batch_submits: bool = True   # proc/tcp/pod: submits ride the step RPC
-    #                              (these three: not ported yet, must keep
-    #                              their defaults)
     evict_after: int = 3         # consecutive straggler windows → evict
     #                              (0 disables loop-actuated eviction)
     observe_addrs: tuple = ()    # read-only MetricsObserver attaches polled
-    #                              each tick (not ported yet: must be empty)
+    #                              each tick (never the router's session)
     pool: str = "dense"          # replica KV layout: dense | paged
     block_size: int | None = None   # paged: tokens per physical block
     num_blocks: int | None = None   # paged: physical blocks per replica
@@ -120,8 +120,7 @@ class TickLog:
     evicted: list = dataclasses.field(default_factory=list)  # replica ids
     #                             the eviction policy actuated this tick
     observed: list = dataclasses.field(default_factory=list)  # one status()
-    #                             per observe_addrs attach (empty here: the
-    #                             attaches are not ported; out-of-band
+    #                             per observe_addrs attach (out-of-band
     #                             lifetime counters, pod rank/mode)
     learn_loss: float | None = None   # DQN train-step loss, when the live
     #                             learning loop took one this tick
@@ -168,10 +167,6 @@ def run_closed_loop(cfg, *, autoscale: bool = True, ticks: int = 14,
     ``params`` (a prepared ``LM``, for example the reference's weights
     through ``models.bridge``) goes to the replicas' shared EngineCore;
     ``device`` places the engines and the allocator's DQN."""
-    if lc.observe_addrs:
-        raise NotImplementedError(
-            "observe_addrs is not ported yet: read-only attaches to remote "
-            "workers wait for D2 (the socket replicas)")
     plan = None
     if lc.reserved_replicas > 0:
         from repro_torch.serving.profiles import FleetPlan, SpotMarket
@@ -196,6 +191,7 @@ def run_closed_loop(cfg, *, autoscale: bool = True, ticks: int = 14,
     rng = np.random.default_rng(seed)
     evictor = (EvictionPolicy(k_windows=lc.evict_after)
                if lc.evict_after > 0 else None)
+    observers = []
 
     # virtual-clock service time: streamed prompt tail + generation.  The
     # tail clamps at 0 — a prefill chunk >= the prompt swallows the whole
@@ -240,6 +236,14 @@ def run_closed_loop(cfg, *, autoscale: bool = True, ticks: int = 14,
     rps_hist: deque[float] = deque(maxlen=max(int(lc.rps_window), 1))
     tick_span = lc.steps_per_tick * lc.tick_s
     try:
+        if lc.observe_addrs:
+            # read-only attaches: the loop's out-of-band view of the same
+            # workers its router is mutating — lifetime counters come back
+            # on a SEPARATE connection, so an external monitor's picture
+            # and the control plane's can be compared tick by tick
+            from repro_torch.serving.observe import MetricsObserver
+            for a in lc.observe_addrs:
+                observers.append(MetricsObserver(a))
         for tick in range(ticks):
             rps = profile(tick, ticks, lc)
             n = int(rng.poisson(rps * tick_span))
@@ -374,6 +378,16 @@ def run_closed_loop(cfg, *, autoscale: bool = True, ticks: int = 14,
                     "prefill_tokens": float(fleet["prefill_tokens"]),
                     "prompt_tokens": float(fleet["prompt_tokens"]),
                 })
+            observed = []
+            for obs in list(observers):
+                try:
+                    observed.append({"addr": obs.addr, **obs.status()})
+                except (ConnectionError, OSError, RuntimeError):
+                    # the observed worker retired (evicted / scaled away)
+                    # or bounced the poll with an error reply — out-of-band
+                    # monitoring must never take the loop down
+                    obs.close()
+                    observers.remove(obs)
             logs.append(TickLog(
                 tick=tick, rps_target=rps, arrivals=n, served=served,
                 latency_p50_ms=rec["latency_p50"],
@@ -381,14 +395,19 @@ def run_closed_loop(cfg, *, autoscale: bool = True, ticks: int = 14,
                 queue_depth=rec["queue_depth"],
                 replica_util=[(rep.replica_id, rep.flop_util) for rep in reports],
                 replicas=router.replica_count, reason=reason, anomaly=bool(
-                    anomalies), evicted=evicted,
+                    anomalies), evicted=evicted, observed=observed,
                 learn_loss=learn_loss, batch_gated=gated,
                 cost_per_tick=float(cost_per_tick),
                 preemptions=router.preemptions,
                 region_spills=router.region_spills))
     except BaseException:
         # the caller never receives the router handle it is documented to
-        # close — release the fleet here
+        # close — reap the fleet (spawned workers included) here
         router.close()
         raise
+    finally:
+        # out-of-band attaches must not leak when a tick raises (worker
+        # crash mid-run, an observer dial failing after the fleet is up)
+        for obs in observers:
+            obs.close()
     return router, logs

@@ -1,19 +1,52 @@
 """The Replica protocol: the router's only view of a serving engine
-(``repro.serving.replica``, its in-process half).
+(``repro.serving.replica`` without its multi-device backends).
 
 The router is written purely against this surface (submit / step / report
 / scale hooks), so the replica boundary is a message protocol, never an
-engine reference.  This module ports the protocol, the report shaping and
-``InProcessReplica`` (the port's ``ServingEngine`` wrapped 1:1, zero
-transport).  The reference's other backends (``ShardedReplica`` over a
-device mesh, ``ProcessReplica``/``TcpReplica`` over the JSON transport and
-``DistributedPodReplica``) are not ported yet; ``ReplicaRouter`` refuses
-their topologies by name.
+engine reference.  Backends:
+
+  InProcessReplica — the port's ServingEngine wrapped 1:1 (zero transport).
+  ProcessReplica   — the engine lives in a worker subprocess
+                     (``python -m repro_torch.serving.worker <fd>``) and is
+                     driven over the length-prefixed JSON transport
+                     (serving/transport.py + serving/worker.py).  Reports
+                     stream back as wire messages and are materialized into
+                     the same ReplicaReport the collector already consumes;
+                     the parent-side stub measures per-call transport
+                     latency (EWMA) and stamps it on every report.
+  TcpReplica       — the same stub over a TCP connection: the worker is a
+                     pod (``--listen host:port``) the router ATTACHES to
+                     rather than forks, with connect/handshake deadlines and
+                     keepalive.  When no address is given the stub spawns a
+                     local TCP worker (demos/CI) and owns its lifetime.
+
+Each worker process owns its device (``--device``, cuda unless the caller
+asks for cpu) and draws its weights from the init message's seed, so a
+worker on the device an in-process ``EngineCore`` uses serves the same
+weights.  ``ShardedReplica`` (one engine over a device mesh) and
+``DistributedPodReplica`` (a multi-process pod) wait for the port's
+multi-device work (D3); ``ReplicaRouter`` refuses their topologies by name.
+
+Attach handshake: a listening worker serves ONE mutating session plus any
+number of read-only observers (serving/observe.py) concurrently, so an
+external monitor can poll lifetime()/status() without stealing the
+router's connection.  SocketReplica claims the mutating session with an
+explicit ``attach`` before init; losing the race surfaces as a typed
+WorkerBusyError, never a protocol desync.
+
+Remote stubs share SocketReplica: a strict request/reply RPC stream where
+every message carries a sequence number the reply must echo — a duplicated,
+dropped, or reordered frame (fault injection, a broken proxy) surfaces as a
+typed TransportError desync instead of silently mismatched replies.  Per-
+tick submits are BATCHED into the step message (``batch_submits``, default
+on): one step RPC per round per replica replaces 1 + len(submits)
+messages.
 
 Protocol semantics the router relies on:
 
-* ``step(now)`` returns the *caller's* completed Request objects and never
-  hangs.
+* ``step(now)`` returns the *caller's* completed Request objects (a remote
+  backend merges wire results back into the originals), and never hangs —
+  a dead peer flips ``failed`` and returns [].
 * ``evacuate()`` empties the replica NOW: queued requests plus in-flight
   ones preempted and rewound (Request.reset_generation) — the router
   requeues them through surviving replicas' schedulers, so a downscale
@@ -26,11 +59,30 @@ Protocol semantics the router relies on:
 """
 from __future__ import annotations
 
+import socket
+import subprocess
+import sys
+import time
 from typing import Protocol, runtime_checkable
 
+import numpy as np
+
 from repro_torch.core.monitoring.collector import ReplicaReport
-from repro_torch.serving.engine import EngineCore, ServingEngine
-from repro_torch.serving.scheduler import Request
+from repro_torch.serving.engine import (
+    EngineCore, ServingEngine, validate_request,
+)
+from repro_torch.serving.fleet import spawn_worker, worker_env
+from repro_torch.serving.scheduler import Request, validate_tier
+from repro_torch.serving.transport import (
+    Connection,
+    TransportError,
+    WorkerBusyError,
+    apply_request,
+    dial,
+    encode_config,
+    encode_request,
+    parse_addr,
+)
 
 
 @runtime_checkable
@@ -209,3 +261,521 @@ class InProcessReplica:
     @property
     def transport_ms(self) -> float:
         return 0.0
+
+
+# ---------------------------------------------------------------------------
+# remote backends: the engine behind a socket (subprocess pipe or TCP)
+# ---------------------------------------------------------------------------
+
+
+class SocketReplica:
+    """Parent-side stub driving a remote engine over the framed JSON
+    transport.  The stub tracks every in-system request so (a) routing
+    load is computed locally without an RPC per submit, and (b) a worker
+    crash loses no submitter state — ``lost_requests()`` rewinds and
+    returns the originals for requeue.
+
+    The RPC stream is strict request/reply with per-message sequence
+    numbers: the reply must echo the request's ``seq``, so a duplicated or
+    dropped frame anywhere on the path surfaces as a TransportError desync
+    (→ the router reaps the replica) instead of every later reply landing
+    on the wrong call.  With ``batch_submits`` (default), submits buffer
+    parent-side and ride the next step message — one RPC per decode round
+    per replica; a malformed request still bounces at submit because the
+    stub runs the engine's own ``validate_request`` locally.
+
+    Subclasses own transport establishment: ProcessReplica forks a worker
+    over a socketpair, TcpReplica dials a listening worker (and optionally
+    owns a locally-spawned one).  ``proc`` is the owned worker process, if
+    any — its exit is probed at submit so a silently-dead local worker
+    fails over immediately rather than a round later."""
+
+    kind = "socket"
+
+    def __init__(self, cfg, conn: Connection, *, slots: int, max_seq: int,
+                 seed: int = 0, prefill_chunk: int | None = None,
+                 replica_id: int = 0, proc: subprocess.Popen | None = None,
+                 rpc_timeout_s: float = 120.0,
+                 init_timeout_s: float = 600.0,
+                 batch_submits: bool = True, pool: str = "dense",
+                 block_size: int | None = None,
+                 num_blocks: int | None = None, spec_k: int = 0,
+                 spec_ngram: int = 3):
+        self.cfg = cfg
+        self.slots = slots
+        self.max_seq = max_seq
+        self.replica_id = replica_id
+        self.failed = False
+        self._closed = False
+        self.batch_submits = batch_submits
+        self._draining = False
+        self.transport_ms = 0.0
+        self.rpc_count = 0                # frames sent (the batching metric)
+        self._seq = 0
+        self._requests: dict[int, Request] = {}   # rid → submitter's object
+        self._outbox: list[dict] = []     # encoded submits awaiting a step
+        self._queue_depth = 0
+        self._active = 0
+        self._step_pending = False
+        self._step_seq = -1
+        self._stepped_once = False
+        self._late: list[Request] = []    # completions drained out-of-band
+        self._rpc_timeout_s = rpc_timeout_s
+        self._init_timeout_s = init_timeout_s
+        self._batch_gated = False
+        self._gate_dirty = False          # gate change awaiting a step msg
+        self._lifetime_cache = {
+            "latencies_ms": [], "total_tokens": 0, "total_completed": 0,
+            "completed_interactive": 0, "completed_batch": 0,
+            "total_ticks": 0, "slot_utilization": 0.0, "queue_depth": 0}
+        self._conn = conn
+        self._proc = proc
+        # two-step handshake: claim the worker's single mutating session
+        # (a second router racing us bounces typed as WorkerBusyError —
+        # observers attach read-only and are never in contention), then
+        # have the worker build the identical engine from the wire (it
+        # draws the weights from the seed — give it a generous deadline)
+        self._rpc({"op": "attach", "mode": "mutate"})
+        self._rpc({"op": "init", "cfg": encode_config(cfg), "slots": slots,
+                   "max_seq": max_seq, "seed": seed,
+                   "prefill_chunk": prefill_chunk,
+                   "replica_id": replica_id, "pool": pool,
+                   "block_size": block_size, "num_blocks": num_blocks,
+                   "spec_k": spec_k, "spec_ngram": spec_ngram},
+                  timeout=init_timeout_s)
+
+    # ------------------------------------------------------------- plumbing
+
+    # ops whose worker-side cost is negligible: their round trip IS the
+    # transport.  step/init RPCs contain real compute (weights, decode) —
+    # folding those in would report model time as fabric overhead.
+    _TRANSPORT_OPS = frozenset({"ping", "report", "lifetime", "resume"})
+
+    def _send(self, msg: dict) -> int:
+        """Stamp the next sequence number and put one frame on the wire."""
+        seq, self._seq = self._seq, self._seq + 1
+        msg["seq"] = seq
+        self.rpc_count += 1
+        self._conn.send(msg)
+        return seq
+
+    def _recv_reply(self, seq: int) -> dict:
+        reply = self._conn.recv()
+        if reply.get("seq") != seq:
+            raise TransportError(
+                f"replica {self.replica_id} protocol desync: expected reply "
+                f"seq {seq}, got {reply.get('seq')!r} (duplicated, dropped, "
+                f"or reordered frame)")
+        return reply
+
+    def _rpc(self, msg: dict, *, timeout: float | None = None) -> dict:
+        if self._closed:
+            # a retired replica still answers lifetime() from its mirror —
+            # the raise must be typed, not an EBADF from the dead socket
+            raise TransportError(f"replica {self.replica_id} is closed")
+        if self.failed:
+            raise TransportError(f"replica {self.replica_id} is lost")
+        if self._step_pending:
+            # an unread step reply from an abandoned round: drain it first —
+            # otherwise THIS op's recv would read the stale step reply and
+            # every later RPC on the connection would be off by one
+            self._late.extend(self.finish_step())
+            if self.failed:
+                raise TransportError(f"replica {self.replica_id} is lost")
+        self._conn.sock.settimeout(timeout if timeout is not None
+                                   else self._rpc_timeout_s)
+        t0 = time.perf_counter()
+        try:
+            seq = self._send(msg)
+            reply = self._recv_reply(seq)
+        except TransportError:
+            self._mark_failed()
+            raise
+        if msg["op"] in self._TRANSPORT_OPS:
+            dt_ms = (time.perf_counter() - t0) * 1e3
+            self.transport_ms = (dt_ms if self.transport_ms == 0.0
+                                 else 0.8 * self.transport_ms + 0.2 * dt_ms)
+        if "error" in reply:
+            if reply.get("etype") == "ValueError":
+                raise ValueError(reply["error"])
+            if reply.get("etype") == "WorkerBusyError":
+                # the worker's mutating session belongs to someone else —
+                # this stub never owned the peer, so fail typed and final
+                self._mark_failed()
+                raise WorkerBusyError(
+                    f"replica {self.replica_id}: {reply['error']}")
+            if reply.get("etype") == "PodDesyncError":
+                # a pod whose ranks diverged retires as a unit — same
+                # router-side surface as a lost rank (reap + requeue),
+                # NEVER a loop-crashing engine error
+                self._mark_failed()
+                raise TransportError(
+                    f"replica {self.replica_id} pod desync: "
+                    f"{reply['error']}")
+            raise RuntimeError(
+                f"worker {self.replica_id}: {reply['error']}\n"
+                f"{reply.get('trace', '')}")
+        return reply
+
+    def _mark_failed(self):
+        self.failed = True
+        self._step_pending = False
+        self._conn.close()
+        if self._proc is not None:
+            if self._proc.poll() is None:
+                self._proc.kill()
+            try:
+                self._proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                # un-reaped zombie; do not let the reap race replace the
+                # TransportError the caller's failover path is matching on
+                pass
+
+    # ------------------------------------------------------------- protocol
+
+    def submit(self, request: Request, now: float = 0.0):
+        if self.failed:
+            raise TransportError(f"replica {self.replica_id} is lost")
+        if self._proc is not None and self._proc.poll() is not None:
+            # owned worker died between steps: one cheap probe turns a
+            # doomed buffered submit into an immediate router failover
+            self._mark_failed()
+            raise TransportError(
+                f"replica {self.replica_id} worker exited "
+                f"(rc={self._proc.returncode})")
+        if self.batch_submits:
+            # the submit rides the NEXT step message (one RPC per round,
+            # not per request); the engine's own validation runs locally so
+            # a malformed request still bounces at the submit call
+            validate_tier(request.tier)
+            validate_request(self.cfg, self.max_seq,
+                             np.asarray(request.prompt).reshape(-1),
+                             frames=request.frames)
+            self._outbox.append({"request": encode_request(request),
+                                 "now": now})
+        else:
+            self._rpc({"op": "submit", "request": encode_request(request),
+                       "now": now})
+        if request.t_submit is None:      # mirror the worker-side stamp
+            request.t_submit = now
+        self._requests[request.rid] = request
+
+    def step(self, now: float | None = None) -> list[Request]:
+        self.begin_step(now)
+        return self.finish_step()
+
+    def begin_step(self, now: float | None = None):
+        """Fire the step message without waiting for the reply — the router
+        begins the round on every replica first, so N workers decode
+        concurrently and the fleet's round costs max(worker time), not the
+        sum.  Buffered submits flush inside this one message."""
+        if self._step_pending:
+            # an unread reply from an abandoned round (the caller caught an
+            # error mid-collection): drain it — dropping it would desync the
+            # strict request/reply stream, and its completions are real
+            self._late.extend(self.finish_step())
+        if self.failed:
+            return
+        msg: dict = {"op": "step", "now": now}
+        if self._gate_dirty:
+            # the gate rides the step message like batched submits do: one
+            # RPC per round, applied worker-side before this round admits
+            msg["batch_gate"] = self._batch_gated
+            self._gate_dirty = False
+        if self._outbox:
+            msg["submits"], self._outbox = self._outbox, []
+        # the worker's first step runs its first prefill (on the card it
+        # may load the kernel library) — the first round gets the init
+        # deadline, every later round the (much tighter) RPC one
+        self._conn.sock.settimeout(self._rpc_timeout_s if self._stepped_once
+                                   else self._init_timeout_s)
+        try:
+            self._step_seq = self._send(msg)
+            self._step_pending = True
+        except TransportError:
+            self._mark_failed()
+
+    def finish_step(self) -> list[Request]:
+        out, self._late = self._late, []
+        if not self._step_pending:
+            return out
+        self._step_pending = False
+        try:
+            reply = self._recv_reply(self._step_seq)
+        except TransportError:
+            self._mark_failed()
+            return out
+        if reply.get("etype") == "PodDesyncError":
+            # the pod's ranks split mid-step: it is dead as a unit — flip
+            # failed so the router's normal reap path (evict + requeue via
+            # lost_requests) handles it like any other lost replica
+            self._mark_failed()
+            return out
+        if "error" in reply:           # engine bug, not a transport failure
+            raise RuntimeError(
+                f"worker {self.replica_id}: {reply['error']}\n"
+                f"{reply.get('trace', '')}")
+        self._stepped_once = True
+        self._queue_depth = int(reply["queue_depth"])
+        self._active = int(reply["active"])
+        fresh = []
+        for d in reply["completed"]:
+            orig = self._requests.pop(int(d["rid"]), None)
+            if orig is not None:
+                fresh.append(apply_request(orig, d))
+            # an untracked rid cannot reach a submitter anyway (nothing was
+            # recorded parent-side) — completions are slim records, so there
+            # is no request to reconstruct; drop it
+        self._mirror_lifetime(fresh, reply)   # ONLY this reply's — drained
+        errs = reply.get("submit_errors")     # _late ones were mirrored then
+        if errs:
+            # defense in depth: the stub validated these locally, so a
+            # worker-side rejection means the two sides disagree — drop the
+            # rejected requests from tracking (they are not on the worker)
+            # and surface the bug; completions already in hand are parked
+            # for redelivery, not lost
+            for e in errs:
+                orig = self._requests.pop(int(e["rid"]), None)
+                if orig is not None:
+                    orig.reset_generation()
+            self._late = out + fresh
+            raise RuntimeError(
+                f"worker {self.replica_id} rejected {len(errs)} batched "
+                f"submit(s): {errs}")
+        return out + fresh
+
+    def _mirror_lifetime(self, completed: list[Request], reply: dict):
+        """Keep a parent-side running copy of the worker's lifetime stats —
+        every completion flows through this stub, so the mirror equals the
+        worker's own accumulators.  A crash must not erase served work from
+        fleet metrics; the authoritative 'lifetime' RPC simply replaces the
+        mirror when the worker is reachable."""
+        lc = self._lifetime_cache
+        lc["total_ticks"] = lc.get("total_ticks", 0) + 1
+        for r in completed:
+            lc["total_completed"] += 1
+            key = f"completed_{getattr(r, 'tier', 'interactive')}"
+            lc[key] = lc.get(key, 0) + 1
+            lc["total_tokens"] += len(r.tokens_out)
+            if r.latency_s is not None:
+                lc["latencies_ms"].append(r.latency_s * 1e3)
+        if "slot_utilization" in reply:
+            lc["slot_utilization"] = float(reply["slot_utilization"])
+        lc["queue_depth"] = self._queue_depth
+
+    def report(self, tick: int) -> ReplicaReport:
+        if not self.failed:
+            try:
+                w = self._rpc({"op": "report"})["window"]
+                return _report_from_window(self.replica_id, tick, w,
+                                           transport_ms=self.transport_ms)
+            except TransportError:
+                pass
+        # the crash report: no samples, one error — the collector marks the
+        # replica a straggler off this instead of replaying its last window
+        return _report_from_window(
+            self.replica_id, tick, dict(_EMPTY_WINDOW,
+                                        queue_depth=len(self._requests)),
+            n_errors=1, transport_ms=self.transport_ms)
+
+    def lifetime(self) -> dict:
+        if not self.failed:
+            try:
+                self._lifetime_cache = self._rpc({"op": "lifetime"})["lifetime"]
+            except TransportError:
+                pass
+        out = dict(self._lifetime_cache)
+        # snapshot the nested list too: _mirror_lifetime appends to the
+        # cache in place, and a shallow copy would retroactively mutate
+        # every lifetime() result already handed to a caller
+        out["latencies_ms"] = list(out.get("latencies_ms", ()))
+        return out
+
+    def evacuate(self) -> list[Request]:
+        self._draining = True
+        # buffered submits never reached the worker — recover them locally
+        # (the evacuate RPC can only return what the worker has)
+        local: list[Request] = []
+        outbox, self._outbox = self._outbox, []
+        for d in outbox:
+            orig = self._requests.pop(int(d["request"]["rid"]), None)
+            if orig is not None:
+                orig.reset_generation()
+                local.append(orig)
+        if self.failed:
+            return local + self.lost_requests()
+        try:
+            reply = self._rpc({"op": "evacuate"})
+        except TransportError:
+            return local + self.lost_requests()
+        for rid in reply["rids"]:
+            orig = self._requests.pop(int(rid), None)
+            if orig is None:
+                continue
+            orig.reset_generation()
+            local.append(orig)
+        return local
+
+    def resume(self):
+        self._draining = False
+        if not self.failed:
+            try:
+                self._rpc({"op": "resume"})
+            except TransportError:
+                pass
+
+    def gate_batch(self, on: bool):
+        on = bool(on)
+        if on != self._batch_gated:
+            self._batch_gated = on
+            self._gate_dirty = True
+
+    def lost_requests(self) -> list[Request]:
+        self._outbox.clear()           # their originals are in _requests too
+        out = []
+        for req in self._requests.values():
+            req.reset_generation()
+            out.append(req)
+        self._requests.clear()
+        return out
+
+    def close(self):
+        if self._closed:
+            return
+        self._closed = True
+        if not self.failed and self._proc is not None:
+            # the stub owns the worker's lifetime → ask it to exit.  An
+            # ATTACHED worker (proc is None) is somebody else's pod: just
+            # drop the connection — it returns to accept for the next
+            # router (a detach must not shut the pod down).
+            try:
+                self._conn.sock.settimeout(5.0)
+                self._send({"op": "shutdown"})
+                self._conn.recv()
+            except (TransportError, OSError):
+                pass
+        self._conn.close()
+        if self._proc is not None and self._proc.poll() is None:
+            self._proc.terminate()
+            try:
+                self._proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                self._proc.kill()
+                self._proc.wait(timeout=10)
+
+    def __del__(self):
+        try:
+            proc = getattr(self, "_proc", None)
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+        except Exception:
+            pass
+
+    # ---------------------------------------------------------- properties
+
+    @property
+    def load(self) -> float:
+        """In-system work over slot capacity.  len(_requests) is exactly the
+        engine's (active + queued + about-to-be-queued) at every quiescent
+        point — submissions and completions both pass through this stub —
+        so routing behaves bit-identically to the in-process backend."""
+        return len(self._requests) / max(self.slots, 1)
+
+    @property
+    def idle(self) -> bool:
+        return not self._requests
+
+    @property
+    def queue_depth(self) -> int:
+        return max(len(self._requests) - self._active, 0)
+
+    @property
+    def pending(self) -> int:
+        return len(self._requests)
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @draining.setter
+    def draining(self, value: bool):
+        self._draining = bool(value)
+
+
+class ProcessReplica(SocketReplica):
+    """SocketReplica over a forked worker subprocess (single-host): the
+    transport is an inherited socketpair, so there is no listen/dial step
+    and the worker's lifetime is owned by the stub.  The worker builds its
+    engine on ``device`` (its ``--device`` flag)."""
+
+    kind = "proc"
+
+    def __init__(self, cfg, *, slots: int, max_seq: int, seed: int = 0,
+                 prefill_chunk: int | None = None, replica_id: int = 0,
+                 rpc_timeout_s: float = 120.0,
+                 init_timeout_s: float = 600.0,
+                 batch_submits: bool = True, pool: str = "dense",
+                 block_size: int | None = None,
+                 num_blocks: int | None = None, spec_k: int = 0,
+                 spec_ngram: int = 3, device: str = "cuda"):
+        parent_sock, child_sock = socket.socketpair()
+        child_sock.set_inheritable(True)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.serving.worker",
+             str(child_sock.fileno()), "--device", str(device)],
+            pass_fds=(child_sock.fileno(),), env=worker_env(), close_fds=True)
+        child_sock.close()
+        super().__init__(cfg, Connection(parent_sock, timeout=rpc_timeout_s),
+                         slots=slots, max_seq=max_seq, seed=seed,
+                         prefill_chunk=prefill_chunk, replica_id=replica_id,
+                         proc=proc, rpc_timeout_s=rpc_timeout_s,
+                         init_timeout_s=init_timeout_s,
+                         batch_submits=batch_submits, pool=pool,
+                         block_size=block_size, num_blocks=num_blocks,
+                         spec_k=spec_k, spec_ngram=spec_ngram)
+
+
+class TcpReplica(SocketReplica):
+    """SocketReplica over TCP: the worker is a listening pod the router
+    ATTACHES to (``addr``), possibly on another host — or, when no address
+    is given, a local worker spawned on a kernel-picked port (demos/CI;
+    the stub then owns the worker process, spawned on ``device``).
+    Connect and init handshake each get their own deadline; the socket
+    carries keepalive so a vanished peer surfaces as an error, never a
+    wedged fleet.  An attached worker's device is its own ``--device``."""
+
+    kind = "tcp"
+
+    def __init__(self, cfg, *, slots: int, max_seq: int,
+                 addr: str | tuple[str, int] | None = None, seed: int = 0,
+                 prefill_chunk: int | None = None, replica_id: int = 0,
+                 rpc_timeout_s: float = 120.0,
+                 init_timeout_s: float = 600.0,
+                 connect_timeout_s: float = 10.0,
+                 batch_submits: bool = True, pool: str = "dense",
+                 block_size: int | None = None,
+                 num_blocks: int | None = None, spec_k: int = 0,
+                 spec_ngram: int = 3, device: str = "cuda"):
+        proc = None
+        if addr is None:
+            addr, proc = spawn_worker(device=device)
+        if isinstance(addr, str):
+            addr = parse_addr(addr)
+        self.addr = (addr[0], int(addr[1]))
+        try:
+            conn = dial(*self.addr, connect_timeout=connect_timeout_s,
+                        timeout=rpc_timeout_s)
+            super().__init__(cfg, conn, slots=slots, max_seq=max_seq,
+                             seed=seed, prefill_chunk=prefill_chunk,
+                             replica_id=replica_id, proc=proc,
+                             rpc_timeout_s=rpc_timeout_s,
+                             init_timeout_s=init_timeout_s,
+                             batch_submits=batch_submits, pool=pool,
+                             block_size=block_size, num_blocks=num_blocks,
+                             spec_k=spec_k, spec_ngram=spec_ngram)
+        except TransportError:
+            # dial or handshake died before the stub owned the worker's
+            # lifetime — do not leak a locally-spawned process
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+            raise

@@ -59,13 +59,14 @@ a profiled fleet whose profiles carry no regions routes bit-identically to
 the pre-region profiled key (no delay shims, no spill counting).
 
 The ``repro.serving.router`` logic line for line.  ``from_topology`` builds
-the ``inproc`` topology only; the sharded, process, TCP and pod topologies
-wait for the port's multi-device (D3) and remote (D2) replicas, and asking
-for one raises ``NotImplementedError`` by name.
+the ``inproc``, ``proc`` and ``tcp`` topologies; the sharded and pod
+topologies wait for the port's multi-device replicas (D3), and asking for
+one raises ``NotImplementedError`` by name.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.monitoring.collector import ReplicaReport
 from repro_torch.serving.chaos import DelayedReplica
@@ -86,10 +87,44 @@ TOPOLOGIES = ("inproc", "sharded", "proc", "tcp", "pod")
 # item each waits for
 UNPORTED_TOPOLOGIES = {
     "sharded": "D3 (a replica spanning a device mesh)",
-    "proc": "D2 (worker subprocesses over the JSON transport)",
-    "tcp": "D2 (TCP worker pods)",
     "pod": "D3 (multi-process pods behind one head)",
 }
+
+
+def _attach_factory(klass, cfg, addr_list, topology, **fixed):
+    """Factory for attach-style replicas (tcp workers, pod heads): ids
+    inside ``addr_list`` dial the operator's pre-scheduled endpoints; ids
+    past it spawn LOCAL stand-ins so scale-up keeps working in a demo
+    without a pod scheduler — but past an EXPLICIT list that substitution
+    is capacity drift, so it is both warned (stderr readers) and counted
+    (``factory.counters["off_list_spawns"]`` → router.metrics(), where the
+    closed loop can see the topology drifting)."""
+    import warnings
+
+    counters = {"off_list_spawns": 0}
+
+    def factory(replica_id: int):
+        addr = addr_list[replica_id] if replica_id < len(addr_list) else None
+        if addr is None and addr_list:
+            counters["off_list_spawns"] += 1
+            warnings.warn(
+                f"{topology} replica {replica_id} exceeds the "
+                f"{len(addr_list)}-pod attach list; spawning a LOCAL "
+                f"worker on the router host", RuntimeWarning, stacklevel=2)
+        return klass(cfg, addr=addr, replica_id=replica_id, **fixed)
+
+    factory.counters = counters
+    return factory
+
+
+def _worker_device(device) -> str:
+    """A spawned worker's ``--device``: the process runs on its first
+    card, so only cuda:0 (or plain cuda) and cpu name a worker's device."""
+    dev = torch.device(device)
+    if dev.index not in (None, 0):
+        raise ValueError(f"worker processes run on their first card; "
+                         f"got device {dev}")
+    return dev.type
 
 
 def _coerce(obj) -> Replica:
@@ -180,11 +215,29 @@ class ReplicaRouter:
                   ``models.bridge``), otherwise the weights are drawn from
                   ``seed``.  Every engine runs on ``device`` (cuda unless
                   the caller asks for cpu).
-        sharded, proc, tcp, pod — not ported yet: the multi-device replica
-                  (D3) and the socket replicas (D2).  ``mesh``, ``addrs``,
-                  ``pod_size`` and ``batch_submits`` belong to them: they
-                  keep the reference's signature and defaults, and setting
-                  one raises, since inproc has no use for it.
+        proc    — each replica is a worker subprocess on ``device``;
+                  workers draw the weights from the shared seed on that
+                  device, so token streams match the in-process topology's
+                  on the same device bit for bit.  ``params`` cannot cross
+                  the process boundary and raises.
+        tcp     — each replica dials a listening TCP worker: ``addrs``
+                  lists pre-started pods to attach to (cross-host; each
+                  runs on its own ``--device``); replica ids past the list
+                  spawn local workers on ``device`` and kernel-picked
+                  ports, so scale-up keeps working in a demo without a pod
+                  scheduler.  ``params`` raises, as for proc.
+        sharded, pod — not ported yet: the multi-device replica and the
+                  multi-process pod (D3).  ``mesh`` and ``pod_size`` belong
+                  to them: they keep the reference's signature and
+                  defaults, and setting one raises, since no ported
+                  topology uses it.
+
+        ``batch_submits`` (proc/tcp) folds per-tick submits into the step
+        RPC — one message per round per replica instead of one per
+        request.  For tcp, off-list local spawns are counted in
+        ``metrics()["off_list_spawns"]``.  ``addrs`` and ``batch_submits``
+        set away from their defaults raise for inproc, which has no use
+        for them.
 
         ``pool`` ∈ {"dense", "paged"} selects each replica's KV layout
         (serving/slots.py); ``block_size``/``num_blocks`` tune the paged
@@ -210,27 +263,49 @@ class ReplicaRouter:
             raise NotImplementedError(
                 f"topology {topology!r} is not ported yet: it waits for "
                 f"{UNPORTED_TOPOLOGIES[topology]}; the port builds "
-                f"'inproc' only")
-        for name, value, default in (("mesh", mesh, None),
-                                     ("addrs", addrs or None, None),
-                                     ("pod_size", pod_size, 2),
-                                     ("batch_submits", batch_submits, True)):
+                f"'inproc', 'proc' and 'tcp'")
+        unused = [("mesh", mesh, None), ("pod_size", pod_size, 2)]
+        if topology == "inproc":
+            unused += [("addrs", addrs or None, None),
+                       ("batch_submits", batch_submits, True)]
+        for name, value, default in unused:
             if value != default:
                 raise NotImplementedError(
-                    f"{name}={value!r} belongs to the topologies that are "
-                    f"not ported yet (D2: proc, tcp, pod; D3: sharded); "
-                    f"'inproc' has no use for it")
+                    f"{name}={value!r} has no use in topology {topology!r} "
+                    f"(mesh and pod_size belong to sharded and pod, which "
+                    f"wait for D3)")
         pool_kw = dict(pool=pool, block_size=block_size,
                        num_blocks=num_blocks, spec_k=spec_k,
                        spec_ngram=spec_ngram)
-        core = EngineCore(cfg, max_seq, seed=seed, params=params,
-                          device=device)
+        if topology != "inproc" and params is not None:
+            raise ValueError(
+                f"params cannot cross the process boundary of topology "
+                f"{topology!r}: its workers draw their weights from seed "
+                f"on their own device")
+        if topology == "proc":
+            from repro_torch.serving.replica import ProcessReplica
 
-        def factory(replica_id: int):
-            return InProcessReplica.build(
-                cfg, slots=slots, max_seq=max_seq,
-                prefill_chunk=prefill_chunk, core=core,
-                replica_id=replica_id, **pool_kw)
+            def factory(replica_id: int):
+                return ProcessReplica(cfg, slots=slots, max_seq=max_seq,
+                                      seed=seed, prefill_chunk=prefill_chunk,
+                                      replica_id=replica_id,
+                                      batch_submits=batch_submits,
+                                      device=_worker_device(device), **pool_kw)
+        elif topology == "tcp":
+            from repro_torch.serving.replica import TcpReplica
+            factory = _attach_factory(
+                TcpReplica, cfg, list(addrs or []), topology, slots=slots,
+                max_seq=max_seq, seed=seed, prefill_chunk=prefill_chunk,
+                batch_submits=batch_submits, device=_worker_device(device), **pool_kw)
+        else:
+            core = EngineCore(cfg, max_seq, seed=seed, params=params,
+                              device=device)
+
+            def factory(replica_id: int):
+                return InProcessReplica.build(
+                    cfg, slots=slots, max_seq=max_seq,
+                    prefill_chunk=prefill_chunk, core=core,
+                    replica_id=replica_id, **pool_kw)
 
         return cls(factory, n_replicas=n_replicas, max_replicas=max_replicas,
                    profile_fn=profile_fn, region_aware=region_aware,

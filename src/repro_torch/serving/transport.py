@@ -6,11 +6,23 @@ here, so an engine driven over a socket is observationally identical to one
 held in-process.  Design points:
 
 * **Framing.**  Each message is a 4-byte big-endian length followed by a
-  UTF-8 JSON payload.  ``pack_frame`` refuses to emit a frame over
-  ``MAX_FRAME`` (the peer would drop the connection over it), and
-  ``unpack_payload`` raises ``TransportError`` on a payload that is not
-  JSON, so garbage on the wire is the same catchable failure as a dead
-  peer.
+  UTF-8 JSON payload.  ``Connection.recv`` loops on the socket until the
+  whole frame arrives (kernel buffers split frames arbitrarily — a partial
+  read is the common case under load, not an error), and raises
+  ``TransportError`` on EOF so a dead peer surfaces as a catchable failure,
+  never a hang.  ``MAX_FRAME`` is enforced on BOTH ends: the receiver
+  rejects an oversized declared length before allocating for it, and the
+  sender refuses to emit a frame the peer is guaranteed to drop the
+  connection over.
+
+* **Transport-agnostic frames, TCP endpoints.**  ``Connection`` works over
+  any stream socket (ProcessReplica rides a socketpair).  For cross-host
+  replicas, ``Listener``/``dial`` provide the TCP endpoints: a worker binds
+  and accepts (``worker.py --listen host:port``), the router dials with a
+  connect deadline.  Both ends get TCP keepalive (a silently-vanished peer
+  eventually surfaces as an error instead of a permanently-stuck fleet)
+  and TCP_NODELAY (frames are small RPCs; Nagle would add 40 ms stalls to
+  every decode round).
 
 * **JSON, not pickle.**  The worker executes nothing it receives; a replica
   peer is a *service*, not a code-injection channel.  Python's JSON codec
@@ -23,17 +35,15 @@ held in-process.  Design points:
   ModelConfig (with its nested MoE/SSM/Hybrid sub-configs) so a worker can
   construct the identical engine from the handshake message alone.
 
-The framing and codecs of ``repro.serving.transport``, copied over the
-port's config, request and report types.  The in-process router imports
-``TransportError``; the socket replicas that use the rest are not ported
-yet, and neither is the socket side of the reference's module: its
-``Connection`` and ``read_exact``, its TCP endpoints (``Listener``,
-``dial``, ``parse_addr``) and its attach error (``WorkerBusyError``).
+``repro.serving.transport`` whole, over the port's config, request and
+report types: the same objects pack to the reference's frames byte for
+byte.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import socket
 import struct
 
 import numpy as np
@@ -49,6 +59,17 @@ MAX_FRAME = 1 << 30           # 1 GiB sanity bound on a single frame
 
 class TransportError(ConnectionError):
     """The peer is gone (EOF / reset / timeout) or sent a malformed frame."""
+
+
+class WorkerBusyError(TransportError):
+    """The worker already has a mutating session.  A listening worker
+    serves ONE mutator (a router's SocketReplica) plus any number of
+    read-only observers concurrently; a second ``attach(mode="mutate")``
+    is rejected with this type — the wire carries it as
+    ``etype: "WorkerBusyError"`` and the dialing stub re-raises it, so a
+    router racing another router for a pod fails typed, not desynced."""
+
+
 
 
 # --------------------------------------------------------------------- frames
@@ -73,6 +94,127 @@ def unpack_payload(payload: bytes):
         # garbage on the wire is a peer we can no longer trust to frame
         # correctly — surface it as the same typed failure as EOF/reset
         raise TransportError(f"malformed frame payload: {e}") from e
+
+
+def read_exact(sock: socket.socket, n: int) -> bytes:
+    """Read exactly n bytes, looping over partial reads."""
+    chunks = []
+    got = 0
+    while got < n:
+        try:
+            chunk = sock.recv(n - got)
+        except (socket.timeout, TimeoutError) as e:
+            raise TransportError(f"timed out waiting for peer: {e}") from e
+        except OSError as e:
+            raise TransportError(f"socket error: {e}") from e
+        if not chunk:
+            raise TransportError("peer closed the connection")
+        chunks.append(chunk)
+        got += len(chunk)
+    return b"".join(chunks)
+
+
+class Connection:
+    """One framed duplex channel over a connected socket."""
+
+    def __init__(self, sock: socket.socket, *, timeout: float | None = None):
+        self.sock = sock
+        if timeout is not None:
+            sock.settimeout(timeout)
+
+    def send(self, obj):
+        try:
+            self.sock.sendall(pack_frame(obj))
+        except OSError as e:
+            raise TransportError(f"send failed: {e}") from e
+
+    def recv(self):
+        (n,) = _LEN.unpack(read_exact(self.sock, _LEN.size))
+        if n > MAX_FRAME:
+            raise TransportError(f"oversized frame ({n} bytes)")
+        return unpack_payload(read_exact(self.sock, n))
+
+    def close(self):
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+
+
+# ------------------------------------------------------------ TCP endpoints
+
+DEFAULT_CONNECT_TIMEOUT_S = 10.0
+
+
+def parse_addr(addr: str) -> tuple[str, int]:
+    """"host:port" → (host, port).  Port 0 means "kernel picks"."""
+    host, sep, port = addr.rpartition(":")
+    if not sep or not port.isdigit():
+        raise ValueError(f"expected host:port, got {addr!r}")
+    return host or "127.0.0.1", int(port)
+
+
+def _tune_tcp(sock: socket.socket):
+    """Frames are small RPCs on a strict request/reply stream: Nagle's 40 ms
+    coalescing stall would dominate a decode round, and a silently-vanished
+    peer must eventually error out instead of wedging the fleet."""
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_KEEPALIVE, 1)
+
+
+class Listener:
+    """One bound TCP accept socket; ``accept()`` yields framed Connections.
+
+    Binding to port 0 lets the kernel pick — ``self.port`` reports the
+    realized port (workers print it so a parent/script can attach)."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0, *,
+                 backlog: int = 16):
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self.sock.bind((host, port))
+        self.sock.listen(backlog)
+        self.host, self.port = self.sock.getsockname()[:2]
+
+    @property
+    def addr(self) -> tuple[str, int]:
+        return (self.host, self.port)
+
+    def accept(self, timeout: float | None = None, *,
+               conn_timeout: float | None = None) -> Connection:
+        """Wait for one peer; raises TransportError on deadline/closure."""
+        try:
+            self.sock.settimeout(timeout)   # EBADF once close() ran — typed
+            peer, _ = self.sock.accept()
+        except (socket.timeout, TimeoutError) as e:
+            raise TransportError(f"accept timed out: {e}") from e
+        except OSError as e:
+            raise TransportError(f"accept failed: {e}") from e
+        _tune_tcp(peer)
+        return Connection(peer, timeout=conn_timeout)
+
+    def close(self):
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+
+
+def dial(host: str, port: int, *,
+         connect_timeout: float = DEFAULT_CONNECT_TIMEOUT_S,
+         timeout: float | None = None) -> Connection:
+    """Connect to a listening worker; refused / unreachable / slow connects
+    all surface as TransportError within the connect deadline."""
+    try:
+        sock = socket.create_connection((host, port), timeout=connect_timeout)
+    except (socket.timeout, TimeoutError) as e:
+        raise TransportError(
+            f"connect to {host}:{port} timed out after "
+            f"{connect_timeout}s") from e
+    except OSError as e:
+        raise TransportError(f"connect to {host}:{port} failed: {e}") from e
+    _tune_tcp(sock)
+    return Connection(sock, timeout=timeout)
 
 
 # --------------------------------------------------------------------- codecs

@@ -757,6 +757,35 @@ def test_ssm_scan_kernel_is_deterministic(cuda, L):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssm_scan"])
+def test_prefill_kernels_refuse_inputs_that_need_a_gradient(cuda, kernel):
+    """The kernels fill their outputs through ctypes, which autograd cannot
+    see: with grad enabled and an input that requires it the call raises,
+    under ``torch.no_grad`` (as serving runs) it launches, and the same
+    call on the CPU runs the differentiable plain version."""
+    from repro_torch.kernels._lib import NoBackwardError
+    if kernel == "flash_attention":
+        args = [torch.from_numpy(a).to(cuda)
+                for a in _qkv(1, 1, 16, 16, 4, 2, 64)]
+        call = lambda *a: ops.flash_attention(*a, causal=True)
+    else:
+        args = [torch.from_numpy(a).to(cuda)
+                for a in _scan_inputs(1, 64, 4, 64, 64, seed=1)]
+        call = ops.ssm_scan
+    args[0].requires_grad_(True)
+    before = ops.launch_counts()[kernel]
+    with pytest.raises(NoBackwardError, match="no backward"):
+        call(*args)
+    assert ops.launch_counts()[kernel] == before
+    with torch.no_grad():
+        call(*args)
+    assert ops.launch_counts()[kernel] == before + 1
+    cpu = [a.detach().cpu().requires_grad_(a.requires_grad) for a in args]
+    call(*cpu).sum().backward()
+    assert cpu[0].grad is not None
+
+
+@pytest.mark.cuda
 def test_ssm_scan_smem_reckoning_matches_the_source(cuda):
     """The wrapper's shared-memory reckoning is the CUDA source's own."""
     from repro_torch.kernels import _lib

@@ -39,6 +39,8 @@ def test_import_leaves_jax_and_reference_out():
         "import repro_torch.serving.closed_loop, repro_torch.serving.router\n"
         "import repro_torch.serving.replica, repro_torch.serving.transport\n"
         "import repro_torch.serving.chaos, repro_torch.serving.profiles\n"
+        "import repro_torch.serving.worker, repro_torch.serving.fleet\n"
+        "import repro_torch.serving.observe\n"
         "import repro_torch.core.monitoring, repro_torch.core.scaling\n"
         "import repro_torch.core.allocation, repro_torch.core.dnn\n"
         "import repro_torch.optim, repro_torch.nn\n"
@@ -66,15 +68,20 @@ def test_port_sources_stay_clean(pattern, what):
 
 @pytest.mark.parametrize("topology", ["sharded", "proc", "tcp", "pod"])
 def test_unported_topologies_raise_by_name(topology):
+    """sharded and pod wait for D3 and raise by name.  proc and tcp are
+    built; what they lack of the reference, the pod options, raises by
+    name, before any worker spawns."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.serving.closed_loop import LoopConfig, run_closed_loop
     from repro_torch.serving.router import ReplicaRouter
     cfg = get_smoke_config("qwen2.5-3b")
+    unported = {} if topology in ("sharded", "pod") else {"pod_size": 4}
     with pytest.raises(NotImplementedError, match=topology):
         ReplicaRouter.from_topology(cfg, topology, slots=2, max_seq=16,
-                                    device="cpu")
+                                    device="cpu", **unported)
     with pytest.raises(NotImplementedError, match=topology):
-        run_closed_loop(cfg, ticks=1, lc=LoopConfig(topology=topology),
+        run_closed_loop(cfg, ticks=1,
+                        lc=LoopConfig(topology=topology, **unported),
                         device="cpu")
     with pytest.raises(ValueError, match="unknown topology"):
         ReplicaRouter.from_topology(cfg, "mesh", slots=2, max_seq=16,
@@ -82,12 +89,61 @@ def test_unported_topologies_raise_by_name(topology):
 
 
 def test_observe_addrs_raise_by_name():
+    """observe_addrs attach read-only observers (``MetricsObserver``): an
+    address nobody listens on fails the loop typed, naming the address."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.serving.closed_loop import LoopConfig, run_closed_loop
-    with pytest.raises(NotImplementedError, match="observe_addrs"):
+    from repro_torch.serving.transport import Listener, TransportError
+    lst = Listener("127.0.0.1", 0)
+    addr = f"{lst.host}:{lst.port}"
+    lst.close()
+    with pytest.raises(TransportError, match=addr):
         run_closed_loop(get_smoke_config("qwen2.5-3b"), ticks=1,
-                        lc=LoopConfig(observe_addrs=("127.0.0.1:1",)),
-                        device="cpu")
+                        lc=LoopConfig(observe_addrs=(addr,)), device="cpu")
+
+
+def test_spawned_worker_never_loads_jax(tmp_path):
+    """A port worker process (``--listen``, ``--once``, ``--device cpu``),
+    driven through attach, init, submit and steps by a TcpReplica, reports
+    at exit that neither JAX nor the JAX package was ever imported."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving import Request, TcpReplica
+    from repro_torch.serving.fleet import BANNER, worker_env
+    report = tmp_path / "modules.txt"
+    code = (
+        "import atexit, runpy, sys\n"
+        "def report():\n"
+        "    bad = [m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n"
+        f"    open({str(report)!r}, 'w').write(repr(bad))\n"
+        "atexit.register(report)\n"
+        "sys.argv = ['worker', '--listen', '127.0.0.1:0', '--device', "
+        "'cpu', '--once']\n"
+        "runpy.run_module('repro_torch.serving.worker', "
+        "run_name='__main__')\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], env=worker_env(),
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith(BANNER), line
+        host, _, port = line.split()[1].rpartition(":")
+        rep = TcpReplica(get_smoke_config("qwen2.5-3b"), slots=2, max_seq=16,
+                         addr=(host, int(port)), device="cpu")
+        rep.submit(Request(rid=0, prompt=np.arange(3, 8, dtype=np.int32),
+                           gen_len=3), now=0.0)
+        done, now = [], 0.0
+        while not done and now < 50:
+            now += 1.0
+            done = rep.step(now)
+        assert len(done[0].tokens_out) == 3
+        rep.close()                     # --once: the worker exits
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+    assert report.read_text() == "[]"
 
 
 @pytest.mark.parametrize("option,value", [
