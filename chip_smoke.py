@@ -7,9 +7,10 @@ Phases 3 to 5 run for each served model in turn (qwen2.5-3b, zamba2-2.7b,
 olmoe-1b-7b, falcon-mamba-7b, qwen2-vl-7b, seamless-m4t-medium), each
 model freed before the next is built; phase 6 then runs the paper's closed
 control loop over full-width qwen2.5-3b replicas, phase 7 its offline
-learning and deployment orchestration on the trace phase 6 recorded, and
-phase 8 the same loop over worker processes (the remote fleet).  Any
-failure exits non-zero and prints no result line.
+learning and deployment orchestration on the trace phase 6 recorded,
+phase 8 the same loop over worker processes (the remote fleet), and phase
+9 trains (the train route, full-width qwen2.5-3b steps) and serves the
+trained weights.  Any failure exits non-zero and prints no result line.
 
 1. build    — compile the Hopper kernels from ``src/repro_torch/kernels/csrc``.
 2. kernels  — hold each kernel against its plain PyTorch version on the
@@ -193,6 +194,41 @@ failure exits non-zero and prints no result line.
               step beside phase 6's, ``transport_ms``, each worker's start
               and ``init`` time; on a failure the workers' exit codes and
               stderr tail.
+9. train    — the train route (``LM.forward(..., train=True)``, through
+              ``models.steps``): no kernel runs on it, since the kernels have
+              no backward and the reference trains with ``use_pallas`` off.
+              (1) Every tiny family of ``tests/conftest.py`` (dense, swa,
+              vlm, moe dropless, ssm1, ssm2, hybrid, audio; rebuilt here
+              without JAX), float32, TF32 off: one seeded CPU model and its
+              copy on the card, the counted pipeline's batches: one step's
+              loss and every gradient leaf within 1e-4 (of the leaf's
+              largest magnitude), 4 AdamW steps' losses within 1e-4
+              relative; ``_sdpa_chunked`` and chunked CE at chunk 16 over
+              64 tokens against the unchunked forms, values and gradients
+              within 1e-5 (CE 1e-6); ``ops.launch_counts()`` unchanged and
+              no ``NoBackwardError``.  (2) ``launch.train.main`` at smoke
+              width on the card: 6 steps with ``--ckpt-every 3``, then
+              ``--resume`` to 9, against an uninterrupted 9-step run: step
+              9's metrics and every leaf of step 9's checkpoint within 1e-6
+              relative, printed whether bitwise.  (3) Full width: the
+              launcher trains qwen2.5-3b (36 layers, 3.09 B float32 masters,
+              bf16 compute) 8 steps of 2 x 256 tokens, no checkpoint: every
+              logged metric finite, no kernel launched; printed: the peak
+              device memory, the host clock per step after the first and
+              training tokens per second.  It runs twice: at the launcher's default
+              lr 3e-4, whose records are printed (constant and without
+              warmup, it overshoots at this depth: the loss swings by
+              nats from step to step), and at lr 3e-5, whose last loss
+              must be below its first.  One more step of the latter is
+              profiled: device busy of the forward and backward alone and
+              of the whole step, and the top device ops.  (4) The
+              optimizer state freed, the model
+              recast and served: 4 requests of 16 tokens through
+              ``ServingEngine``, launch counts as phase 3's rules say (36 K4
+              an admission, 36 K1 write instances and one K3 a fused tick),
+              added to the kernels line; the streams equal those of a fresh
+              model loaded with the trained parameters.  The phase prints
+              its wall time.
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -206,6 +242,7 @@ import copy
 import gc
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -3211,6 +3248,358 @@ def fleet_phase(torch, ops, seed, loop):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# --------------------------------------------------------------------- phase 9
+
+# the tiny families of tests/conftest.py, rebuilt without JAX (float32)
+TINY_BASE = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
+                 vocab=64, param_dtype="float32", dtype="float32")
+TRAIN_TOL = 1e-4
+# full width: qwen2.5-3b, 8 steps of 2 x 256 tokens, at the launcher's
+# default lr (printed) and then at 3e-5 (held: the loss falls).  At 3e-4,
+# constant and without warmup, the 36-layer model overshoots: its loss
+# swings by nats from step to step, in bf16 and in float32 compute alike,
+# and need not end below its start (PERF.md §6)
+FULL_TRAIN = ["--arch", "qwen2.5-3b", "--steps", "8", "--batch", "2",
+              "--seq", "256", "--seed", "0", "--device", "cuda"]
+FULL_TRAIN_LRS = (3e-4, 3e-5)
+SMOKE_TRAIN = ["--arch", "qwen2.5-3b", "--smoke", "--seq", "32", "--batch",
+               "2", "--device", "cuda"]
+
+
+def tiny_configs():
+    from repro_torch.models.config import (
+        HybridCfg, ModelConfig, MoECfg, SSMCfg,
+    )
+
+    def tiny(family, **kw):
+        return ModelConfig(**{"name": f"tiny-{family}", "family": family,
+                              **TINY_BASE, **kw})
+
+    return {
+        "dense": tiny("dense", qkv_bias=True),
+        "swa": tiny("dense", sliding_window=8),
+        "vlm": tiny("vlm", m_rope=True, m_rope_sections=(2, 1, 1),
+                    n_vision_patches=4),
+        "moe": tiny("moe", moe=MoECfg(n_experts=4, top_k=2, d_ff_expert=32,
+                                      capacity_factor=4.0)),
+        "ssm1": tiny("ssm", n_heads=0, n_kv_heads=0, d_ff=0,
+                     ssm=SSMCfg(d_state=4, version=1)),
+        "ssm2": tiny("ssm", n_heads=0, n_kv_heads=0, d_ff=0,
+                     ssm=SSMCfg(d_state=4, version=2, headdim=8)),
+        "hybrid": tiny("hybrid", n_heads=4, n_kv_heads=4, d_ff=64,
+                       ssm=SSMCfg(d_state=4, version=2, headdim=8),
+                       hybrid=HybridCfg(attn_every=2, n_shared_blocks=2)),
+        "audio": tiny("audio", enc_dec=True, n_enc_layers=2),
+    }
+
+
+def train_batches(torch, cfg, n, seq=16, seed=3, device="cpu"):
+    """n batches of the counted token pipeline, with the family's extras."""
+    from repro_torch.data import DataConfig, TokenPipeline, extra_inputs
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=2, seed=seed))
+    return [{k: torch.from_numpy(v).to(device) for k, v in
+             extra_inputs(cfg, data.batch(i)).items()} for i in range(n)]
+
+
+def leaf_gap(torch, got, want) -> float:
+    """max |got - want| over max |want| (want all zero: the absolute gap)."""
+    top = float(want.abs().max())
+    return float((got.cpu() - want).abs().max()) / (top if top > 0 else 1.0)
+
+
+def rel_gap(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def smoke_train_phase(torch, ops):
+    """Phase 9.1: each tiny family, one seeded CPU model and its copy on
+    the card, the same batches: one step's loss and gradients, 4 AdamW
+    steps' losses; then the chunked attention and chunked CE against their
+    unchunked forms.  No kernel launches on the train route."""
+    from repro_torch.kernels._lib import NoBackwardError
+    from repro_torch.models import steps
+    from repro_torch.models.attention import Attention
+    from repro_torch.models.transformer import LM
+    before = ops.launch_counts()
+    try:
+        for name, cfg in tiny_configs().items():
+            cpu = LM(cfg, device="cpu", seed=0)
+            card = copy.deepcopy(cpu).to("cuda")
+            bs = train_batches(torch, cfg, 4)
+            (loss, _), grads = steps.loss_and_grads(cpu, bs[0])
+            (gloss, _), ggrads = steps.loss_and_grads(
+                card, {k: v.cuda() for k, v in bs[0].items()})
+            gaps = {k: leaf_gap(torch, ggrads[k], g) for k, g in grads.items()}
+            worst = max(gaps, key=gaps.get)
+            step, (opt_init, _) = steps.make_train_step(cfg)
+            losses = {}
+            for dev, model in (("cpu", cpu), ("cuda", card)):
+                state = steps.TrainState(model, opt_init(dict(
+                    model.named_parameters())), 0)
+                losses[dev] = []
+                for b in bs:
+                    state, m = step(state, {k: v.to(dev) for k, v in
+                                            b.items()})
+                    losses[dev].append(float(m["loss"]))
+            step_gap = max(rel_gap(a, b) for a, b in
+                           zip(losses["cuda"], losses["cpu"]))
+            print(f"  {name:6s} loss card {float(gloss):.6f} cpu "
+                  f"{float(loss):.6f}; worst gradient leaf {worst} "
+                  f"{gaps[worst]:.2e} of its size; 4 AdamW steps' losses "
+                  f"within {step_gap:.2e} ({losses['cuda'][-1]:.6f})")
+            check(rel_gap(float(gloss), float(loss)) <= TRAIN_TOL,
+                  f"{name}: loss card {float(gloss)} vs cpu {float(loss)}")
+            check(gaps[worst] <= TRAIN_TOL,
+                  f"{name}: gradient {worst} off by {gaps[worst]:.2e}")
+            check(step_gap <= TRAIN_TOL,
+                  f"{name}: step losses {losses['cuda']} vs {losses['cpu']}")
+        # the chunked paths at chunk 16 over 64 tokens, on the card
+        g = torch.Generator().manual_seed(5)
+        q, k, v = (torch.randn(2, 64, n, 16, generator=g).cuda()
+                   .requires_grad_() for n in (4, 2, 2))
+        outs = {}
+        for chunk in (16, 10**9):
+            Attention.CHUNK_Q = chunk
+            out = Attention._sdpa_masked(q, k, v, causal=True, window=None)
+            outs[chunk] = (out.detach(),) + torch.autograd.grad(
+                out.square().sum(), (q, k, v))
+        Attention.CHUNK_Q = 1024
+        att_gap = max(leaf_gap(torch, a, b.cpu()) for a, b in
+                      zip(outs[16], outs[10**9]))
+        cfg = tiny_configs()["dense"]
+        model = LM(cfg, device="cuda", seed=1)
+        b = train_batches(torch, cfg, 1, seq=64, device="cuda")[0]
+        params = list(model.parameters())
+        for p in params:
+            p.requires_grad_()
+        h, _ = model(b, train=True, return_hidden=True)
+        ce_c = steps.chunked_cross_entropy(model, h, b["labels"], cfg,
+                                           chunk=16)
+        gc_ = torch.autograd.grad(ce_c, params)
+        ce_f = steps.cross_entropy(model(b, train=True)[0], b["labels"])
+        gf = torch.autograd.grad(ce_f, params)
+        for p in params:
+            p.requires_grad_(False)
+        ce_gap = max(leaf_gap(torch, a, c.cpu()) for a, c in zip(gc_, gf))
+        ce_c, ce_f = float(ce_c.detach()), float(ce_f.detach())
+        print(f"  chunked attention (16 of 64 queries) vs unchunked: output "
+              f"and gradients within {att_gap:.2e}; chunked CE {ce_c:.7f} "
+              f"vs {ce_f:.7f}, gradients within {ce_gap:.2e}")
+        check(att_gap <= 1e-5, f"chunked attention off by {att_gap:.2e}")
+        check(rel_gap(ce_c, ce_f) <= 1e-6, f"chunked CE {ce_c} vs {ce_f}")
+        check(ce_gap <= 1e-5, f"chunked CE gradients off by {ce_gap:.2e}")
+    except NoBackwardError as e:
+        raise SmokeFailure(f"a kernel ran on the train route: {e}") from e
+    finally:
+        Attention.CHUNK_Q = 1024
+    check(ops.launch_counts() == before,
+          f"kernels launched on the train route: {ops.launch_counts()}")
+
+
+def resume_phase(torch, out_dir: Path):
+    """Phase 9.2: the launcher at smoke width on the card, 6 steps with a
+    checkpoint every 3, then --resume to 9, against an uninterrupted 9-step
+    run: step 9's record and every leaf of step 9's checkpoint."""
+    import numpy as np
+    from repro_torch.launch import train as train_cli
+
+    def run(tag, argv):
+        buf = io.StringIO()
+        log = out_dir / f"{tag}.jsonl"
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main(SMOKE_TRAIN + argv + ["--log", str(log)])
+        check(rc == 0, f"train {tag} exited {rc}")
+        return [json.loads(line) for line in log.read_text().splitlines()]
+
+    ck, whole = out_dir / "ck", out_dir / "whole"
+    run("first", ["--steps", "6", "--ckpt-dir", str(ck), "--ckpt-every",
+                  "3"])
+    steps_saved = sorted(int(p.name[5:]) for p in ck.glob("step_*"))
+    check(steps_saved == [3, 6], f"checkpoints at {steps_saved}")
+    resumed = run("resumed", ["--steps", "9", "--ckpt-dir", str(ck),
+                              "--resume"])
+    straight = run("straight", ["--steps", "9", "--ckpt-dir", str(whole)])
+    a, b = resumed[-1], straight[-1]
+    check(a["step"] == b["step"] == 9, f"last records {a} {b}")
+    rec_gap = max(rel_gap(a[k], b[k]) for k in a if k not in ("step", "sec"))
+    leaves = sorted(p.name for p in (whole / "step_9").glob("*.npy"))
+    bitwise, worst = True, 0.0
+    for name in leaves:
+        x = np.load(ck / "step_9" / name)
+        y = np.load(whole / "step_9" / name)
+        bitwise &= x.tobytes() == y.tobytes()
+        top = float(np.abs(y).max()) or 1.0
+        worst = max(worst, float(np.abs(x - y).max()) / top)
+    print(f"  resume at smoke width: checkpoints at 3 and 6, resumed to 9: "
+          f"step 9's metrics within {rec_gap:.2e} of an uninterrupted run's, "
+          f"{len(leaves)} checkpoint leaves within {worst:.2e}; bitwise "
+          f"{'equal' if bitwise and rec_gap == 0 else 'not equal'}")
+    check(rec_gap <= 1e-6, f"resumed step 9 {a} vs {b}")
+    check(worst <= 1e-6, f"resumed checkpoint off by {worst:.2e}")
+
+
+def full_train_phase(torch, ops, out_dir: Path):
+    """Phase 9.3: qwen2.5-3b at full width through the launcher, 8 steps of
+    2 x 256 tokens, no kernel launched, every metric finite: first at the
+    launcher's default lr 3e-4, printed, then at 3e-5, whose loss must
+    fall; the peak memory, the host clock per step and tokens per second
+    of each; then one step profiled (forward + backward alone, and the
+    whole step)."""
+    from repro_torch.launch import train as train_cli
+    for lr in FULL_TRAIN_LRS:
+        log = out_dir / f"full-{lr}.jsonl"
+        args = train_cli.parse_args(FULL_TRAIN + ["--lr", str(lr), "--log",
+                                                  str(log)])
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            model = train_cli.train(args).params   # the optimizer state goes
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        recs = [json.loads(line) for line in log.read_text().splitlines()]
+        n_params = sum(p.numel() for p in model.parameters())
+        per_step = recs[-1]["sec"] / (recs[-1]["step"] - recs[0]["step"])
+        print(f"  full width qwen2.5-3b, lr {lr}: {model.cfg.n_layers} "
+              f"layers, {n_params / 1e9:.3f} B parameters "
+              f"({model.embed.table.dtype} masters, {model.cfg.cdtype} "
+              f"compute): "
+              + "; ".join(f"step {r['step']} loss {r['loss']:.4f} "
+                          f"grad_norm {r['grad_norm']:.3f}" for r in recs))
+        print(f"    peak {peak_gib(torch):.2f} GiB of "
+              f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}"
+              f"; host clock per step after the first {per_step * 1e3:.1f} "
+              f"ms, {args.batch * args.seq / per_step:.0f} training tokens/s;"
+              f" the launcher {wall:.1f} s with weight init ({gpu_line()})")
+        check(recs[0]["step"] == 1 and recs[-1]["step"] == 8,
+              f"records at steps {[r['step'] for r in recs]}")
+        check(all(math.isfinite(v) for r in recs for v in r.values()),
+              f"a metric is not finite: {recs}")
+        check(ops.launch_counts() == before,
+              f"kernels launched while training: {ops.launch_counts()}")
+        if lr != FULL_TRAIN_LRS[-1]:
+            del model
+    check(recs[-1]["loss"] < recs[0]["loss"],
+          f"loss did not fall: {recs[0]['loss']} -> {recs[-1]['loss']}")
+    profile_train_step(torch, model, args)
+    return model
+
+
+def profile_train_step(torch, model, args):
+    """Device time of one full-width step: ``loss_and_grads`` alone, then
+    the whole step (clipping, AdamW leaf by leaf and the recast besides),
+    each after a warm call; then the optimizer state is dropped."""
+    from repro_torch.models import steps
+    from torch.profiler import ProfilerActivity, profile
+    step, (opt_init, _) = steps.make_train_step(model.cfg, lr=args.lr)
+    state = steps.TrainState(model, opt_init(dict(model.named_parameters())),
+                             0)
+    b = train_batches(torch, model.cfg, 1, seq=args.seq, seed=args.seed,
+                      device="cuda")[0]
+    out = {}
+    for label in ("forward + backward", "whole step"):
+        run = ((lambda: steps.loss_and_grads(model, b))
+               if label == "forward + backward" else
+               (lambda: step(state, b)))
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        device_ms, _ = report_profile(prof, 1)
+        launches = sum(e.count for e in prof.key_averages()
+                       if e.key == "cudaLaunchKernel")
+        out[label] = device_ms
+        print(f"    profiled {label}: device busy {device_ms:.1f} ms, "
+              f"{launches} kernel launches")
+        print_profile(prof, 1, top=6)
+    print(f"    clipping, AdamW and the recast: "
+          f"{out['whole step'] - out['forward + backward']:.1f} ms of the "
+          f"step's {out['whole step']:.1f} ms of device time")
+    # the step's floor: the update reads the gradients for their norm, then
+    # reads gradients, masters and both moments and writes the masters and
+    # moments, all float32 (8 passes); the products are 6 N tokens bf16 ops
+    n = sum(p.numel() for p in model.parameters())
+    ms, by = bound(8 * 4 * n, 6 * n * args.batch * args.seq, PEAK_BF16_S)
+    print(f"    the step's floor {ms:.2f} ms (by {by}: 8 float32 passes over "
+          f"{4 * n / 1e9:.2f} GB; {6 * n * args.batch * args.seq / 1e12:.2f}"
+          f" TFLOP at the bf16 rate {PEAK_BF16_S / 1e12:.0f} TFLOP/s would "
+          f"take {6 * n * args.batch * args.seq / PEAK_BF16_S * 1e3:.2f} ms)")
+    del state
+
+
+def trained_serve_phase(torch, ops, model):
+    """Phase 9.4: with the optimizer state freed, recast and serve 4
+    requests of 16 tokens through ServingEngine on the trained weights;
+    the streams equal a fresh model's loaded with the same parameters."""
+    import numpy as np
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving.engine import EngineCore
+    free(torch)
+    model.recast()
+    cfg = model.cfg
+    g = np.random.default_rng(9)
+    prompts = [g.integers(0, cfg.vocab, 64 + 8 * i) for i in range(4)]
+
+    def serve(params, counted):
+        core = EngineCore(cfg, 256, params=params, device="cuda")
+        eng = ServingEngine(cfg, slots=4, max_seq=256, core=core,
+                            device="cuda")
+        with counted_steps(core) as calls:
+            ops.reset_launch_counts()
+            streams = run_all(eng, [Request(rid=i, prompt=p, gen_len=16)
+                                    for i, p in enumerate(prompts)])
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+        if counted:
+            check(len(streams) == 4 and all(len(s) == 16 for s in
+                                            streams.values()),
+                  f"trained model's requests: {streams}")
+            check_launches(counts, decoder_launches(cfg.n_layers)(
+                calls["fused"], eng.stats.total_admitted), "trained serve")
+        return streams, counts
+
+    streams, counts = serve(model, True)
+    fresh = LM(cfg, device="cuda", seed=1)
+    with torch.no_grad():
+        for p, q in zip(fresh.parameters(), model.parameters()):
+            p.copy_(q)
+    fresh.recast()
+    fresh_streams, _ = serve(fresh, False)
+    print(f"  served the trained weights: 4 requests of 16 tokens, streams "
+          f"{'equal' if streams == fresh_streams else 'NOT equal'} to a "
+          f"fresh model's loaded with them")
+    check(streams == fresh_streams, "the trained model's streams differ "
+          "from a fresh model loaded with its parameters")
+    return counts
+
+
+def train_phase(torch, ops, add):
+    """Phase 9: training on the card (see the module docstring)."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels import _lib
+    print(f"[9] train: the train route on the card ({gpu_line()})")
+    t0 = time.perf_counter()
+    _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = Path(tempfile.mkdtemp(prefix="train-", dir=_lib.BUILD_DIR))
+    try:
+        smoke_train_phase(torch, ops)
+        resume_phase(torch, out_dir)
+        model = full_train_phase(torch, ops, out_dir)
+        add(trained_serve_phase(torch, ops, model))
+        del model
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    free(torch)
+    print(f"  phase 9: {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3313,6 +3702,9 @@ def main(argv=None) -> int:
         learning_phase(torch, ops, args.seed, add, loop)
         free(torch)
         fleet_phase(torch, ops, args.seed, loop)
+        del loop
+        free(torch)
+        train_phase(torch, ops, add)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -23,3 +23,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one: an index-less "cuda" is the current
+    card, so a model built on "cuda" (which lands on cuda:0) matches it."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    index = lambda d: torch.cuda.current_device() if d.index is None \
+        else d.index
+    return index(a) == index(b)

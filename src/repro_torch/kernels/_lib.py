@@ -154,10 +154,11 @@ def forward_only(name: str, *tensors):
     requires it: the CUDA kernels have no backward."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NoBackwardError(
-            f"{name}: the hand-written CUDA kernels have no backward yet, so "
+            f"{name}: the hand-written CUDA kernels have no backward, so "
             f"their output would carry no gradient; run under torch.no_grad "
-            f"(as serving does), or train through the plain PyTorch path "
-            f"(ROADMAP F1)")
+            f"(as serving does), or train through the train route, which "
+            f"runs no kernel: LM.forward(inputs, train=True), as "
+            f"models.steps.make_train_step does")
 
 
 def check(err: int, name: str):

@@ -3,9 +3,13 @@ self-attention over a sequence, cross attention over precomputed K/V, and
 one-token decode over a preallocated ring KV cache, a shared block pool or
 a cross K/V pool.
 
-The serving part of ``repro.models.attention``.  Causal self-attention goes
-through ``kops.flash_attention``; bidirectional and cross attention run the
-plain ``sdpa_ref``, as the reference routes them.  Decode writes the
+``repro.models.attention`` without its mesh paths.  Serving, causal
+self-attention goes through ``kops.flash_attention``; bidirectional and
+cross attention run the plain ``sdpa_ref``, as the reference routes them.
+The train route (``train=True``) runs every attention through the
+reference's plain ``_sdpa_masked``, which chunks the queries of a long
+sequence (``_sdpa_chunked``) on either device: the kernels have no
+backward, and the reference trains with ``use_pallas`` off.  Decode writes the
 token's K/V and attends in one call, ``kops.decode_attention_write`` over
 the ring or ``kops.decode_attention_paged_write`` through the block table,
 where the reference calls ``cache_ring_update`` (``cache_paged_update``)
@@ -76,37 +80,44 @@ class Attention(nn.Module):
         self.wv = Linear(d_in, KV * hd, use_bias=cfg.qkv_bias, **kw)
         self.wo = Linear(H * hd, d_out, use_bias=False, **kw)
 
-    def qkv(self, x, x_kv):
+    def qkv(self, x, x_kv, *, train: bool = False):
         cfg = self.cfg
         B, S = x.shape[:2]
         Skv = x_kv.shape[1]
-        q = self.wq(x).reshape(B, S, cfg.n_heads, cfg.hd)
-        k = self.wk(x_kv).reshape(B, Skv, cfg.n_kv_heads, cfg.hd)
-        v = self.wv(x_kv).reshape(B, Skv, cfg.n_kv_heads, cfg.hd)
+        q = self.wq(x, train=train).reshape(B, S, cfg.n_heads, cfg.hd)
+        k = self.wk(x_kv, train=train).reshape(B, Skv, cfg.n_kv_heads, cfg.hd)
+        v = self.wv(x_kv, train=train).reshape(B, Skv, cfg.n_kv_heads, cfg.hd)
         return q, k, v
 
     # ---------------- full-sequence (prefill / train) ----------------
 
     def forward(self, x, *, angles=None, causal=True, window=None,
-                cross_kv=None, return_kv=False):
+                cross_kv=None, return_kv=False, train: bool = False):
         """x: (B, S, d_in) → (B, S, d_out) [, (k, v) for the cache].
         ``cross_kv``: precomputed (k, v) (B, S_enc, KV, hd) to attend over,
         not causally and with no RoPE on them (q takes ``angles`` if
-        given); then only y is returned."""
+        given); then only y is returned.  ``train`` takes the train route:
+        ``_sdpa_masked`` for every attention, the weights cast in the
+        graph."""
         B, S = x.shape[:2]
         if cross_kv is not None:
-            q = self.wq(x).reshape(B, S, self.cfg.n_heads, self.cfg.hd)
+            q = self.wq(x, train=train).reshape(B, S, self.cfg.n_heads,
+                                                self.cfg.hd)
             if angles is not None:
                 q = apply_rope(q, angles)
             # plain, as the reference's cross attention is
             # (src/repro/models/attention.py:128-134): its flash kernel is
             # causal self-attention only
-            return self.wo(sdpa_ref(q, *cross_kv).reshape(B, S, -1))
-        q, k, v = self.qkv(x, x)
+            out = (self._sdpa_masked(q, *cross_kv, causal=False, window=None)
+                   if train else sdpa_ref(q, *cross_kv))
+            return self.wo(out.reshape(B, S, -1), train=train)
+        q, k, v = self.qkv(x, x, train=train)
         if angles is not None:
             q = apply_rope(q, angles)
             k = apply_rope(k, angles)
-        if causal:
+        if train:
+            out = self._sdpa_masked(q, k, v, causal=causal, window=window)
+        elif causal:
             out = kops.flash_attention(q, k, v, causal=True, window=window)
         else:
             # bidirectional (the encoder): plain, as the reference routes
@@ -117,8 +128,52 @@ class Attention(nn.Module):
                 bias = _mask_bias(pos[None].expand(B, S), pos, causal=False,
                                   window=window)
             out = sdpa_ref(q, k, v, bias)
-        y = self.wo(out.reshape(B, S, -1))
+        y = self.wo(out.reshape(B, S, -1), train=train)
         return (y, (k, v)) if return_kv else y
+
+    # ---------------- chunked masked attention (the train route) ----------
+    #
+    # The plain path materialises the (B, H, S, S) scores.  Chunking the
+    # queries keeps a (B, H, chunk, S_k) working set live; each chunk takes
+    # its full softmax, so the numerics equal the unchunked path's.
+
+    CHUNK_Q = 1024
+
+    @staticmethod
+    def _sdpa_masked(q, k, v, *, causal, window):
+        """The reference's plain attention: chunked queries when S is a
+        multiple of ``CHUNK_Q`` above it, else one masked ``sdpa_ref``."""
+        B, S = q.shape[:2]
+        chunk = Attention.CHUNK_Q
+        if S > chunk and S % chunk == 0:
+            return Attention._sdpa_chunked(q, k, v, causal=causal,
+                                           window=window, chunk=chunk)
+        bias = None
+        if causal or window is not None:
+            q_pos = torch.arange(S, dtype=torch.int32,
+                                 device=q.device)[None].expand(B, S)
+            k_pos = torch.arange(k.shape[1], dtype=torch.int32,
+                                 device=q.device)
+            bias = _mask_bias(q_pos, k_pos, causal=causal, window=window)
+        return sdpa_ref(q, k, v, bias)
+
+    @staticmethod
+    def _sdpa_chunked(q, k, v, *, causal, window, chunk):
+        """``sdpa_ref`` over query chunks of ``chunk`` rows, each masked at
+        its own positions, concatenated along the sequence."""
+        B, S = q.shape[:2]
+        k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
+        outs = []
+        for i in range(S // chunk):
+            bias = None
+            if causal or window is not None:
+                q_pos = i * chunk + torch.arange(chunk, dtype=torch.int32,
+                                                 device=q.device)
+                bias = _mask_bias(q_pos[None].expand(B, chunk), k_pos,
+                                  causal=causal, window=window)
+            outs.append(sdpa_ref(q[:, i * chunk:(i + 1) * chunk], k, v,
+                                 bias))
+        return torch.cat(outs, dim=1)
 
     # ---------------- single-token decode over a ring KV cache ---------------
     #

@@ -1,7 +1,8 @@
 """Layer blocks: the decoder block (pre-norm attention + SwiGLU or MoE),
 the pre-norm Mamba block (Mamba1 or Mamba2), zamba2's shared attention
 block, and seamless's encoder block and cross-attending decoder block
-(``repro.models.blocks``)."""
+(``repro.models.blocks``).  ``train=True`` on a forward takes the train
+route down to every layer (``Attention.forward``)."""
 from __future__ import annotations
 
 from torch import nn
@@ -35,20 +36,21 @@ class DecoderBlock(nn.Module):
         else:
             self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, **fkw)
 
-    def _ffn(self, x):
+    def _ffn(self, x, train: bool = False):
         """→ (y, the MoE aux or None), as the reference's ``_ffn``."""
         if self.cfg.moe is not None:
-            return self.moe(x)
-        return self.mlp(x), None
+            return self.moe(x, train=train)
+        return self.mlp(x, train=train), None
 
     def forward(self, x, *, angles=None, causal=True, return_kv=False,
-                return_aux=False):
+                return_aux=False, train: bool = False):
         """x → x, or (x[, (k, v)][, aux]) as ``return_kv`` and
         ``return_aux`` ask."""
         h, kv = self.attn(self.ln1(x), angles=angles, causal=causal,
-                          window=self.cfg.sliding_window, return_kv=True)
+                          window=self.cfg.sliding_window, return_kv=True,
+                          train=train)
         x = x + h
-        h, aux = self._ffn(self.ln2(x))
+        h, aux = self._ffn(self.ln2(x), train)
         x = x + h
         out = (x,) + ((kv,) if return_kv else ()) + (
             (aux,) if return_aux else ())
@@ -79,12 +81,12 @@ class SSMBlock(nn.Module):
     def state_shape(cfg, batch: int):
         return SSMBlock.impl(cfg).state_shape(cfg, batch)
 
-    def forward(self, x, *, return_state: bool = False):
+    def forward(self, x, *, return_state: bool = False, train: bool = False):
         """x: (B, L, d) → x + mamba(ln(x)) [, the decode state]."""
         if return_state:
             y, state = self.mamba(self.ln(x), return_state=True)
             return x + y, state
-        return x + self.mamba(self.ln(x))
+        return x + self.mamba(self.ln(x), train=train)
 
     def decode(self, x, state):
         y, state = self.mamba.decode(self.ln(x), state)
@@ -108,12 +110,13 @@ class SharedAttnBlock(nn.Module):
                           param_dtype=cfg.pdtype, d_out=d2,
                           generator=generator, device=device)
 
-    def forward(self, x2, *, angles=None, return_kv=False):
+    def forward(self, x2, *, angles=None, return_kv=False,
+                train: bool = False):
         """x2: (B, S, 2d) → (B, S, 2d) [, (k, v) for the cache]."""
         h, kv = self.attn(self.ln1(x2), angles=angles, causal=True,
-                          return_kv=True)
+                          return_kv=True, train=train)
         x2 = x2 + h
-        x2 = x2 + self.mlp(self.ln2(x2))
+        x2 = x2 + self.mlp(self.ln2(x2), train=train)
         return (x2, kv) if return_kv else x2
 
     def decode(self, x2, cache, index, *, angles=None, block_tbl=None):
@@ -137,9 +140,10 @@ class EncoderBlock(nn.Module):
                           param_dtype=cfg.pdtype, generator=generator,
                           device=device)
 
-    def forward(self, x, *, angles=None):
-        x = x + self.attn(self.ln1(x), angles=angles, causal=False)
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x, *, angles=None, train: bool = False):
+        x = x + self.attn(self.ln1(x), angles=angles, causal=False,
+                          train=train)
+        return x + self.mlp(self.ln2(x), train=train)
 
 
 class CrossDecoderBlock(nn.Module):
@@ -159,23 +163,27 @@ class CrossDecoderBlock(nn.Module):
                           param_dtype=cfg.pdtype, generator=generator,
                           device=device)
 
-    def cross_kv(self, enc_out):
+    def cross_kv(self, enc_out, *, train: bool = False):
         """Cross K/V of the encoder output: (B, S_enc, KV, hd) each."""
         cfg = self.cfg
         B, Se = enc_out.shape[:2]
-        k = self.cross_attn.wk(enc_out).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
-        v = self.cross_attn.wv(enc_out).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+        k = self.cross_attn.wk(enc_out, train=train).reshape(
+            B, Se, cfg.n_kv_heads, cfg.hd)
+        v = self.cross_attn.wv(enc_out, train=train).reshape(
+            B, Se, cfg.n_kv_heads, cfg.hd)
         return k, v
 
-    def forward(self, x, *, enc_out, angles=None, return_kv=False):
+    def forward(self, x, *, enc_out, angles=None, return_kv=False,
+                train: bool = False):
         """x: (B, S, d) over the encoder output → x [, the self-attention's
         (k, v) and the cross (k, v), for the cache]."""
         h, kv = self.self_attn(self.ln1(x), angles=angles, causal=True,
-                               return_kv=True)
+                               return_kv=True, train=train)
         x = x + h
-        ckv = self.cross_kv(enc_out)
-        x = x + self.cross_attn(self.ln2(x), cross_kv=ckv, causal=False)
-        x = x + self.mlp(self.ln3(x))
+        ckv = self.cross_kv(enc_out, train=train)
+        x = x + self.cross_attn(self.ln2(x), cross_kv=ckv, causal=False,
+                                train=train)
+        x = x + self.mlp(self.ln3(x), train=train)
         return (x, kv, ckv) if return_kv else x
 
     def decode(self, x, state, index, *, angles=None, cross_len=None,

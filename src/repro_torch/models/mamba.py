@@ -15,6 +15,12 @@ and the final state from one pass where the reference scans twice
 
 ``decode`` is the one-token recurrence of either and writes the new state
 into the cache leaves it is given, in place.
+
+``forward(..., train=True)`` is the train route, which autograd can
+differentiate: Mamba2 takes the plain sequential scan
+(``kernels.ref.ssm_scan_ref``) on either device, Mamba1 the out-of-place
+recurrence ``selective_scan_train`` (the serve scan writes its states in
+place), and the projections cast their weights inside the graph.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.nn import Conv1D, Linear, RMSNorm
 from repro_torch.nn.layers import _param
 
@@ -53,6 +60,21 @@ def selective_scan(x, dt, A, Bm, C):
     return y, hs[:, -1].clone()
 
 
+def selective_scan_train(x, dt, A, Bm, C):
+    """``selective_scan``'s recurrence out of place, step by step as the
+    reference's ``lax.scan`` body writes it, so that autograd can
+    differentiate it → (y (B, L, di), h_L (B, di, N))."""
+    Bsz, L, di = x.shape
+    h = torch.zeros(Bsz, di, A.shape[-1], dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(L):
+        decay = torch.exp(dt[:, t, :, None] * A[None])
+        h = decay * h + (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
 class Mamba1(nn.Module):
     def __init__(self, cfg, *, generator=None, device=None):
         super().__init__()
@@ -73,29 +95,30 @@ class Mamba1(nn.Module):
         self.out_proj = Linear(di, cfg.d_model, dtype=cd, use_bias=False,
                                **kw)
 
-    def _dbc(self, x_conv):
+    def _dbc(self, x_conv, train: bool = False):
         """x_conv (..., di) → dt (..., di), B, C (..., N), all float32."""
         N, R = self.cfg.ssm.d_state, self.cfg.dt_rank
-        dt_r, Bc, Cc = torch.split(self.x_proj(x_conv).float(), [R, N, N],
-                                   dim=-1)
-        return softplus(self.dt_proj(dt_r)), Bc, Cc
+        dt_r, Bc, Cc = torch.split(self.x_proj(x_conv, train=train).float(),
+                                   [R, N, N], dim=-1)
+        return softplus(self.dt_proj(dt_r, train=train)), Bc, Cc
 
-    def _out(self, y, xf, z):
+    def _out(self, y, xf, z, train: bool = False):
         """y (..., di) float32 → out_proj((y + x·D) * silu(z))."""
         y = y + xf * self.D.float()
-        return self.out_proj(y.to(self.cfg.cdtype) * F.silu(z))
+        return self.out_proj(y.to(self.cfg.cdtype) * F.silu(z), train=train)
 
-    def forward(self, x, *, return_state: bool = False):
+    def forward(self, x, *, return_state: bool = False, train: bool = False):
         """x: (B, L, d) → (B, L, d) [, {"h": (B, di, N) float32, "conv":
         (B, min(L, k-1), di)}]."""
         cfg = self.cfg
-        x_in, z = self.in_proj(x).chunk(2, dim=-1)
+        x_in, z = self.in_proj(x, train=train).chunk(2, dim=-1)
         x_conv = F.silu(self.conv(x_in, causal=True, dtype=cfg.cdtype))
-        dt, Bc, Cc = self._dbc(x_conv)
+        dt, Bc, Cc = self._dbc(x_conv, train)
         A = -torch.exp(self.A_log.float())                       # (di, N)
         xf = x_conv.float()
-        y, h_last = selective_scan(xf, dt, A, Bc, Cc)
-        out = self._out(y, xf, z)
+        scan = selective_scan_train if train else selective_scan
+        y, h_last = scan(xf, dt, A, Bc, Cc)
+        out = self._out(y, xf, z, train)
         if return_state:
             # the conv inputs' tail as the reference slices it: shorter
             # than k-1 rows after a shorter prompt (ROADMAP §3)
@@ -175,31 +198,35 @@ class Mamba2(nn.Module):
             return g.expand(*g.shape[:n_lead], cfg.ssm_heads, N)
         return g.repeat_interleave(cfg.ssm_heads // G, dim=n_lead)
 
-    def _gate_out(self, y, z):
+    def _gate_out(self, y, z, train: bool = False):
         """y (..., di) float32 → out_proj(norm(y * silu(z)))."""
         y = y.to(self.cfg.cdtype)
-        return self.out_proj(self.norm(y * F.silu(z)))
+        return self.out_proj(self.norm(y * F.silu(z)), train=train)
 
-    def forward(self, x, *, return_state: bool = False):
+    def forward(self, x, *, return_state: bool = False, train: bool = False):
         """x: (B, L, d) → (B, L, d) [, {"h": (B, H, hd, N) float32,
         "conv": (B, min(L, k-1), conv_ch)}]."""
         cfg = self.cfg
         Bsz, L, _ = x.shape
         di, GN = cfg.d_inner, cfg.ssm.n_groups * cfg.ssm.d_state
         H, hd, k = cfg.ssm_heads, cfg.ssm.headdim, cfg.ssm.d_conv
-        z, xs, Bc, Cc, dt = self._split(self.in_proj(x))
+        z, xs, Bc, Cc, dt = self._split(self.in_proj(x, train=train))
         conv_in = torch.cat([xs, Bc, Cc], dim=-1)
         conv_out = F.silu(self.conv(conv_in, causal=True, dtype=cfg.cdtype))
         xs, Bc, Cc = torch.split(conv_out, [di, GN, GN], dim=-1)
         dt = softplus(dt.float() + self.dt_bias.float())        # (B, L, H)
         A = -torch.exp(self.A_log.float())                       # (H,)
         xh = xs.reshape(Bsz, L, H, hd).float()
-        out = kops.ssm_scan(xh, dt, A, self._heads(Bc, 2),
-                            self._heads(Cc, 2), chunk=cfg.ssm.chunk,
-                            return_state=return_state)
+        Bh, Ch = self._heads(Bc, 2), self._heads(Cc, 2)
+        if train:
+            out = kref.ssm_scan_ref(xh, dt, A, Bh, Ch,
+                                    return_state=return_state)
+        else:
+            out = kops.ssm_scan(xh, dt, A, Bh, Ch, chunk=cfg.ssm.chunk,
+                                return_state=return_state)
         y, h_last = out if return_state else (out, None)
         y = y + xh * self.D.float()[None, None, :, None]
-        y = self._gate_out(y.reshape(Bsz, L, di), z)
+        y = self._gate_out(y.reshape(Bsz, L, di), z, train)
         if return_state:
             return y, {"h": h_last, "conv": conv_in[:, -(k - 1):]}
         return y

@@ -20,5 +20,6 @@ class SwiGLU(nn.Module):
         self.up = Linear(d_model, d_ff, **kw)
         self.down = Linear(d_ff, d_out, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        return self.down(F.silu(self.gate(x, train=train))
+                         * self.up(x, train=train), train=train)

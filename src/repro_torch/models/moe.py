@@ -19,7 +19,8 @@ Two departures:
   every add.
 - The expert stacks are float32 parameters; their compute-dtype copies are
   kept (``recast``), as ``Linear`` keeps ``w_c``, so a tick does not re-read
-  and re-cast every expert's weights.
+  and re-cast every expert's weights.  The train route (``train=True``)
+  casts the stacks on the call instead, inside the autograd graph.
 
 The expert-parallel path (``MoE._apply_ep``) needs a device mesh, which the
 port does not have yet; this module is the single-device path.
@@ -89,11 +90,11 @@ class MoE(nn.Module):
         self.up_c = self.up.detach().to(self.dtype)
         self.down_c = self.down.detach().to(self.dtype)
 
-    def route(self, xf: torch.Tensor):
+    def route(self, xf: torch.Tensor, *, train: bool = False):
         """xf: (N, d) → (top_p (N, K), top_e (N, K) int64, lb_loss,
         z_loss), the reference's ``_router``."""
         E, K = self.mcfg.n_experts, self.mcfg.top_k
-        logits = self.router(xf.float())                           # (N, E)
+        logits = self.router(xf.float(), train=train)              # (N, E)
         probs = torch.softmax(logits, dim=-1)
         top_p, top_e = top_k_first(probs, K)
         if self.mcfg.norm_topk:
@@ -105,7 +106,16 @@ class MoE(nn.Module):
         z_loss = torch.logsumexp(logits, dim=-1).square().mean()
         return top_p, top_e, lb_loss, z_loss
 
-    def dispatch_compute_combine(self, xf, top_e, top_p, C: int):
+    def experts(self, train: bool = False):
+        """The (gate, up, down) stacks in the compute dtype: the kept copies
+        to serve, cast on the call (inside the graph) to train."""
+        if train:
+            return tuple(w.to(self.dtype) for w in
+                         (self.gate, self.up, self.down))
+        return self.gate_c, self.up_c, self.down_c
+
+    def dispatch_compute_combine(self, xf, top_e, top_p, C: int, *,
+                                 train: bool = False):
         """xf (N, d); top_e/top_p (N, K) → (y (N, d) in the compute dtype,
         dropped (N·K,) bool in assignment order, counts (E,))."""
         N, d = xf.shape
@@ -123,8 +133,9 @@ class MoE(nn.Module):
         slab_tok = order[slab_idx] // K
         x_e = xf[slab_tok.reshape(-1)].reshape(E, C, d).to(self.dtype)
         x_e = x_e * slab_valid[..., None].to(x_e.dtype)
-        h = F.silu(torch.bmm(x_e, self.gate_c)) * torch.bmm(x_e, self.up_c)
-        y_e = torch.bmm(h, self.down_c).reshape(E * C, d)
+        gate, up, down = self.experts(train)
+        h = F.silu(torch.bmm(x_e, gate)) * torch.bmm(x_e, up)
+        y_e = torch.bmm(h, down).reshape(E * C, d)
         # each assignment's rank within its expert: its sorted position less
         # the expert's offset (the sort is undone by the inverse permutation)
         pos = torch.empty_like(order).scatter_(0, order, ar)
@@ -137,15 +148,15 @@ class MoE(nn.Module):
         y = y.reshape(N, K, d).float().sum(dim=1).to(y.dtype)
         return y, dropped, counts
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, *, train: bool = False):
         """x: (B, S, d) → (y (B, S, d) in x's dtype, aux) with aux =
         {"lb_loss", "z_loss", "expert_load" (E,), "drop_frac"}."""
         B, S, d = x.shape
         N, K = B * S, self.mcfg.top_k
         xf = x.reshape(N, d)
-        top_p, top_e, lb_loss, z_loss = self.route(xf)
+        top_p, top_e, lb_loss, z_loss = self.route(xf, train=train)
         y, dropped, counts = self.dispatch_compute_combine(
-            xf, top_e, top_p, capacity(N, self.mcfg))
+            xf, top_e, top_p, capacity(N, self.mcfg), train=train)
         nk = max(N * K, 1)
         aux = {"lb_loss": lb_loss, "z_loss": z_loss,
                "expert_load": counts.float() / nk,

@@ -1,17 +1,199 @@
-"""Serve step functions (the serve half of ``repro.models.steps``).
+"""Step functions: train, prefill and decode (``repro.models.steps``).
 
-Each ``make_*`` returns a plain function of ``(params, ...)`` where
-``params`` is the ``LM`` module.  Nothing is jitted: the functions run
-eagerly under ``torch.no_grad`` and update the cache in place.
+Each ``make_*`` returns a plain function whose ``params`` is the ``LM``
+module.  Nothing is jitted.  The serve steps run eagerly under
+``torch.no_grad`` and update the cache in place.
+
+The train step differentiates the model's train route (``LM.forward(...,
+train=True)``: no kernel runs, and every weight is cast inside the
+autograd graph), as the reference's jitted step differentiates its plain
+path.  Its state holds the model, whose parameters are the float32
+masters, and AdamW's moments keyed by parameter name; the step updates
+them in place, where the reference's jit donates the old state, and
+leaves the model's compute-dtype copies fresh (``LM.recast``) for serving.
+The axes helpers (``input_sharding_axes``, ``params_axes_and_structs``,
+``train_state_axes``) are sharding and wait for the multi-device slice.
 """
 from __future__ import annotations
 
-import torch
+from typing import NamedTuple
 
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models.bridge import stack_depth
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import LM, map_spec
+from repro_torch.optim import AdamWState, adamw, global_norm
 
+
+class TrainState(NamedTuple):
+    params: LM          # the model: its parameters are the masters
+    opt_state: object   # AdamWState, moments keyed by parameter name
+    step: int
+
+
+def _ce_terms(logits, labels, ignore_id: int):
+    """(sum of -log p(label), count) over the labels that are not
+    ``ignore_id``, in float32."""
+    logits = logits.float()
+    keep = labels != ignore_id
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      torch.where(keep, labels, 0).long()[..., None])[..., 0]
+    mask = keep.float()
+    return ((logz - ll) * mask).sum(), mask.sum()
+
+
+def cross_entropy(logits, labels, ignore_id: int = -1):
+    """logits: (B, S, V); labels: (B, S) → the mean CE over labels that
+    are not ``ignore_id``, in float32."""
+    num, den = _ce_terms(logits, labels, ignore_id)
+    return num / torch.clamp(den, min=1.0)
+
+
+CE_CHUNK = 1024
+
+
+def chunked_cross_entropy(params: LM, h, labels, cfg: ModelConfig, *,
+                          ignore_id: int = -1, chunk: int = CE_CHUNK):
+    """CE from the final-norm hidden states with the logits made one
+    sequence chunk at a time, so the (B, S, V) float32 logits never exist
+    whole; the same value as ``cross_entropy(params._logits(h))``.  S must
+    be a multiple of ``chunk``."""
+    terms = [_ce_terms(params._logits(h[:, i:i + chunk], train=True),
+                       labels[:, i:i + chunk], ignore_id)
+             for i in range(0, h.shape[1], chunk)]
+    num, den = (torch.stack(t).sum() for t in zip(*terms))
+    return num / torch.clamp(den, min=1.0)
+
+
+def model_inputs(cfg: ModelConfig, batch: int, seq: int, *,
+                 with_labels: bool):
+    """The inputs of one step as {name: (shape, dtype)}, family-aware."""
+    specs = {"tokens": ((batch, seq), torch.int32)}
+    if cfg.family == "vlm" and seq > 1:
+        specs["patches"] = ((batch, cfg.n_vision_patches, cfg.d_model),
+                            cfg.cdtype)
+    if cfg.enc_dec:
+        specs["frames"] = ((batch, seq, cfg.d_model), cfg.cdtype)
+    if with_labels:
+        specs["labels"] = ((batch, seq), torch.int32)
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+def decay_mask(name: str, p: torch.Tensor) -> bool:
+    """The reference's AdamW mask, ``ndim >= 2`` on its stacked leaves: a
+    layer's norm scale or bias, ``(L, d)`` there, is decayed; the final
+    norm's ``(d,)`` is not."""
+    return p.ndim + stack_depth(name) >= 2
+
+
+class _TrainLoss(nn.Module):
+    """The reference's ``loss_fn`` as a module over the LM, so that one
+    ``functional_call`` puts the cast parameters under the forward and the
+    chunked readout alike."""
+
+    def __init__(self, model: LM):
+        super().__init__()
+        self.lm = model
+
+    def forward(self, batch):
+        cfg = self.lm.cfg
+        labels = batch["labels"]
+        S = labels.shape[1]
+        if S > CE_CHUNK and S % CE_CHUNK == 0:
+            h, aux = self.lm(batch, train=True, return_hidden=True)
+            ce = chunked_cross_entropy(self.lm, h, labels, cfg,
+                                       chunk=CE_CHUNK)
+        else:
+            logits, aux = self.lm(batch, train=True)
+            ce = cross_entropy(logits, labels)
+        loss = ce
+        if cfg.moe is not None:
+            loss = (loss + cfg.moe.router_aux_coef * aux["lb_loss"]
+                    + cfg.moe.router_z_coef * aux["z_loss"])
+        return loss, (ce, aux)
+
+
+def loss_and_grads(model: LM, batch):
+    """((loss, (ce, aux)), {name: gradient}) at the model's parameters, as
+    ``jax.value_and_grad(loss_fn, has_aux=True)`` gives them in the
+    reference's step.  When the compute dtype differs from float32, every
+    float32 master is cast to it inside the graph first (the reference's
+    ``cast_params_sharded``): the embedding table, norm scales and SSM
+    leaves too, not only the matrices."""
+    cdtype = model.cfg.cdtype
+    leaves = {k: p.detach().requires_grad_()
+              for k, p in model.named_parameters()}
+    cast = {"lm." + k: (p.to(cdtype) if p.dtype == torch.float32 else p)
+            for k, p in leaves.items()}
+    with torch.enable_grad():
+        loss, (ce, aux) = torch.func.functional_call(
+            _TrainLoss(model), cast, (batch,))
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+    grads = {k: torch.zeros_like(p) if g is None else g
+             for (k, p), g in zip(leaves.items(), grads)}
+    return (loss.detach(), (ce.detach(), {k: v.detach() for k, v in
+                                          aux.items()})), grads
+
+
+def make_train_step(cfg: ModelConfig, *, lr=3e-4, weight_decay: float = 0.1,
+                    grad_clip: float = 1.0):
+    """→ (train_step, (opt_init, opt_update)).  ``train_step(state, batch)
+    → (state, metrics)``: the loss and its gradients, clipped by their
+    global norm, then AdamW with the reference's decay mask, one leaf at a
+    time so that no second copy of the gradients or moments is held.
+    ``batch`` is {"tokens", "labels"} plus the family's extras, on the
+    model's device; metrics are 0-d tensors ``loss``, ``ce``,
+    ``grad_norm``, ``lb_loss``, ``drop_frac``."""
+    opt_init, opt_update = adamw(lr, weight_decay=weight_decay,
+                                 mask=decay_mask)
+
+    def train_step(state: TrainState, batch):
+        model = state.params
+        (loss, (ce, aux)), grads = loss_and_grads(model, batch)
+        gnorm = global_norm(grads)
+        scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
+        opt = state.opt_state
+        mu, nu = dict(opt.mu), dict(opt.nu)
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                g = grads.pop(k)
+                g = (g.float() * scale).to(g.dtype)
+                upd, new = opt_update({k: g}, AdamWState(
+                    opt.step, {k: mu[k]}, {k: nu[k]}), {k: p})
+                mu[k], nu[k] = new.mu[k], new.nu[k]
+                p.add_(upd[k].to(p.dtype))
+        model.recast()
+        metrics = {"loss": loss, "ce": ce, "grad_norm": gnorm,
+                   "lb_loss": aux["lb_loss"], "drop_frac": aux["drop_frac"]}
+        return TrainState(model, AdamWState(opt.step + 1, mu, nu),
+                          state.step + 1), metrics
+
+    return train_step, (opt_init, opt_update)
+
+
+def init_train_state(seed: int, cfg: ModelConfig, opt_init,
+                     device="cuda") -> TrainState:
+    """A seeded model (on cuda unless ``device="cpu"``), its optimizer
+    state and step 0."""
+    model = LM(cfg, device=resolve_device(device), seed=seed)
+    return TrainState(params=model,
+                      opt_state=opt_init(dict(model.named_parameters())),
+                      step=0)
+
+
+# ---------------------------------------------------------------------------
+# serve (prefill + decode)
+# ---------------------------------------------------------------------------
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int):
     @torch.no_grad()

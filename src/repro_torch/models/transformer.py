@@ -22,6 +22,9 @@ Entry points:
   model(inputs)                            -> (logits, aux)   # LM.apply;
                                            aux sums the MoE layers'
                                            lb_loss, z_loss, drop_frac
+  model(inputs, train=True)                the train route (kernels off,
+                                           weights cast in the graph)
+  model(inputs, return_hidden=True)        -> (final-norm hidden, aux)
   model.prefill(inputs, max_seq)           -> (last-position logits, cache)
   model.decode(tokens, cache)              -> (logits, cache)
   LM.cache_spec(cfg, batch, max_seq)       -> tree of (shape, dtype, axes)
@@ -157,45 +160,57 @@ class LM(nn.Module):
                           dim=1)
         return h
 
-    def _logits(self, h):
+    def _logits(self, h, train: bool = False):
         if self.lm_head is None:
             return self.embed.attend(h)
-        return self.lm_head(h.float())
+        return self.lm_head(h.float(), train=train)
 
     # ------------------------------------------------------------- forward
 
-    def forward(self, inputs):
+    def forward(self, inputs, *, train: bool = False,
+                return_hidden: bool = False):
         """Full-sequence forward (the reference's ``LM.apply``).  inputs:
         {"tokens": (B, S)} plus the family's "patches" or "frames" →
-        (logits (B, S, V) float32, aux)."""
+        (logits (B, S, V) float32, aux), or with ``return_hidden`` the
+        final-norm hidden states (B, S, d) in their place (chunked CE
+        makes the logits itself).
+
+        ``train=True`` is the train route, which the caller picks: no
+        kernel runs (attention takes ``Attention._sdpa_masked``, Mamba2 the
+        plain scan, Mamba1 an out-of-place recurrence), and every Linear
+        and expert stack casts its weight inside the autograd graph.  The
+        serve route (the default) runs the kernels and the kept casts."""
         tokens = inputs["tokens"]
         B, S = tokens.shape
         h = self._embed(tokens, inputs)
         angles = _angles(self.cfg, B, S, device=h.device)
         aux = zero_aux(h.device)
         if self.cfg.enc_dec:
-            enc_out = self._encode(inputs["frames"])
+            enc_out = self._encode(inputs["frames"], train)
             for blk in self.dec_blocks:
-                h = blk(h, enc_out=enc_out, angles=angles)
+                h = blk(h, enc_out=enc_out, angles=angles, train=train)
         elif self.cfg.hybrid is not None:
-            h = self._apply_hybrid(h, angles)
+            h = self._apply_hybrid(h, angles, train)
         elif self.cfg.ssm is not None:
             for blk in self.blocks:
-                h = blk(h)
+                h = blk(h, train=train)
         else:
             for blk in self.blocks:
-                h, a = blk(h, angles=angles, return_aux=True)
+                h, a = blk(h, angles=angles, return_aux=True, train=train)
                 aux = add_aux(aux, a)
-        return self._logits(self.ln_f(h)), aux
+        h = self.ln_f(h)
+        if return_hidden:
+            return h, aux
+        return self._logits(h, train), aux
 
-    def _encode(self, frames):
+    def _encode(self, frames, train: bool = False):
         """The encoder over every frame: (B, S_enc, d) → the normed encoder
         output (the reference's ``_apply_encdec`` first half)."""
         B, Se = frames.shape[:2]
         angles = _angles(self.cfg, B, Se, device=frames.device)
         x = frames.to(self.cfg.cdtype)
         for blk in self.enc_blocks:
-            x = blk(x, angles=angles)
+            x = blk(x, angles=angles, train=train)
         return self.ln_enc(x)
 
     def _groups(self):
@@ -205,15 +220,16 @@ class LM(nn.Module):
         return ((g, group, self.shared[g % n], down) for g, (group, down)
                 in enumerate(zip(self.blocks, self.down)))
 
-    def _apply_hybrid(self, h, angles):
+    def _apply_hybrid(self, h, angles, train: bool = False):
         """Zamba2: groups of attn_every SSM layers, each followed by a
         shared attention block over concat(h, emb0) and the group's down
         projection."""
         emb0 = h
         for _, group, shared, down in self._groups():
             for blk in group:
-                h = blk(h)
-            h = h + down(shared(torch.cat([h, emb0], dim=-1), angles=angles))
+                h = blk(h, train=train)
+            h = h + down(shared(torch.cat([h, emb0], dim=-1), angles=angles,
+                                train=train), train=train)
         return h
 
     # ------------------------------------------------------------- cache

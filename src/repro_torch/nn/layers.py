@@ -4,7 +4,8 @@ bridge maps the reference's parameter tree one to one.
 
 Parameters stay in the config's ``param_dtype`` and take no gradients by
 default: the models serve.  The control plane's DNN (``core/dnn/model.py``)
-turns them on for its own training step.
+turns them on for its own training step; the language model's train step
+(``models/steps.py``) differentiates through the train route instead.
 """
 from __future__ import annotations
 
@@ -29,7 +30,11 @@ class Linear(nn.Module):
     same arithmetic.  When the two dtypes agree, ``w_c`` is ``w`` itself.
     ``dtype=None`` casts nothing and reads ``w`` on every call, as the
     reference's ``Linear.apply`` without a dtype does; the control plane's
-    DNN trains through it."""
+    DNN trains through it.
+
+    ``train=True`` is the train route: ``w`` is cast on the call, inside
+    the autograd graph, so its gradient reaches the parameter; ``w_c`` is
+    a detached copy and would carry none."""
 
     def __init__(self, in_dim: int, out_dim: int, *,
                  dtype: torch.dtype | None,
@@ -49,11 +54,12 @@ class Linear(nn.Module):
         if self.dtype is not None:
             self.w_c = self.w.detach().to(self.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         if self.dtype is None:
             y = x @ self.w
         else:
-            y = x.to(self.dtype) @ self.w_c
+            w = self.w.to(self.dtype) if train else self.w_c
+            y = x.to(self.dtype) @ w
         if self.b is not None:
             y = y + self.b.to(y.dtype)
         return y

@@ -1,4 +1,4 @@
-"""AdamW (decoupled weight decay) as an init/update pair over dicts of
+"""AdamW (decoupled weight decay) and SGD as init/update pairs over dicts of
 tensors (``repro.optim.adamw``).
 
 The reference's defaults, not ``torch.optim.AdamW``'s: ``b2 = 0.95``,
@@ -32,8 +32,14 @@ def clip_by_global_norm(tree: dict, max_norm: float):
 
 def adamw(lr, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1, mask: dict | None = None):
-    """lr: float or callable(step) -> float.  mask: {name: bool}, True where
-    weight decay applies (default: leaves with ndim >= 2)."""
+    """lr: float or callable(step) -> float.  mask: {name: bool}, or a
+    callable (name, param) -> bool, True where weight decay applies
+    (default: leaves with ndim >= 2)."""
+
+    def decays(k, p) -> bool:
+        if mask is None:
+            return p.ndim >= 2
+        return mask(k, p) if callable(mask) else mask[k]
 
     def init(params: dict) -> AdamWState:
         zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
@@ -51,11 +57,38 @@ def adamw(lr, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             m = b1 * state.mu[k] + (1 - b1) * g
             v = b2 * state.nu[k] + (1 - b2) * g.square()
             u = (m / c1) / (torch.sqrt(v / c2) + eps)
-            if (mask[k] if mask is not None else p.ndim >= 2):
+            if decays(k, p):
                 u = u + weight_decay * p.float()
             updates[k] = (-lr_t * u).to(p.dtype)
             mu[k], nu[k] = m, v
         return updates, AdamWState(step=step, mu=mu, nu=nu)
+
+    return init, update
+
+
+def sgd(lr, *, momentum: float = 0.0):
+    """Plain SGD, with a float32 momentum buffer when ``momentum`` is set.
+    State: {"step": int[, "mom": like params]}."""
+
+    def init(params: dict) -> dict:
+        if momentum:
+            return {"step": 0, "mom": {k: torch.zeros_like(
+                p, dtype=torch.float32) for k, p in params.items()}}
+        return {"step": 0}
+
+    @torch.no_grad()
+    def update(grads: dict, state: dict, params: dict):
+        lr_t = lr(state["step"] + 1) if callable(lr) else lr
+        step = state["step"] + 1
+        if momentum:
+            mom = {k: momentum * state["mom"][k] + grads[k].float()
+                   for k in params}
+            updates = {k: (-lr_t * mom[k]).to(p.dtype)
+                       for k, p in params.items()}
+            return updates, {"step": step, "mom": mom}
+        updates = {k: (-lr_t * grads[k]).to(p.dtype)
+                   for k, p in params.items()}
+        return updates, {"step": step}
 
     return init, update
 

@@ -38,7 +38,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, same_device
 from repro_torch.models import LM
 from repro_torch.models.attention import Attention
 from repro_torch.models.steps import (
@@ -65,7 +65,7 @@ class EngineCore:
         self.device = resolve_device(device)
         if params is None:
             params = LM(cfg, device=self.device, seed=seed)
-        elif params.device != self.device:
+        elif not same_device(params.device, self.device):
             raise ValueError(f"params on {params.device}, engine on "
                              f"{self.device}")
         self.params = params

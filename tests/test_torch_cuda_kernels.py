@@ -925,3 +925,56 @@ def test_cross_decoder_block_on_the_card_matches_the_cpu(cuda):
         for n in ("k", "v"):
             torch.testing.assert_close(gstate[k][n].cpu(), state[k][n],
                                        atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "zamba2-2.7b", "olmoe-1b-7b",
+                                  "falcon-mamba-7b", "qwen2-vl-7b",
+                                  "seamless-m4t-medium"])
+def test_train_route_gradients_on_the_card_match_the_cpu(cuda, arch):
+    """One train-route forward and backward (``steps.loss_and_grads``: the
+    loss of ``LM.forward(..., train=True)``) at smoke width in float32, 64
+    tokens: the loss within 1e-4 relative and every gradient leaf within
+    1e-4 of its largest magnitude of the CPU's, and no kernel launched (K4
+    and K7 stay on the serve route)."""
+    import copy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import steps
+    from repro_torch.models.transformer import LM
+    cfg = get_smoke_config(arch)
+    model = LM(cfg, device="cpu")
+    gmodel = copy.deepcopy(model).to(cuda)
+    gen = torch.Generator().manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 64), generator=gen),
+             "labels": torch.randint(0, cfg.vocab, (2, 64), generator=gen)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(2, cfg.n_vision_patches, cfg.d_model,
+                                       generator=gen)
+    if cfg.enc_dec:
+        batch["frames"] = torch.randn(2, 64, cfg.d_model, generator=gen)
+    (loss, _), grads = steps.loss_and_grads(model, batch)
+    before = ops.launch_counts()
+    (gloss, _), ggrads = steps.loss_and_grads(
+        gmodel, {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == before
+    assert abs(float(gloss) - float(loss)) <= 1e-4 * abs(float(loss))
+    for k, g in grads.items():
+        top = float(g.abs().max())
+        err = float((ggrads[k].cpu() - g).abs().max())
+        assert err <= 1e-4 * max(top, 1e-30), (k, err, top)
+
+
+@pytest.mark.cuda
+def test_engine_takes_a_model_built_on_the_card(cuda):
+    """A model built with device="cuda" lies on cuda:0; an engine asked for
+    "cuda" takes it (a trained model serves at once)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving.engine import EngineCore
+    cfg = get_smoke_config("qwen2.5-3b")
+    model = LM(cfg, device="cuda")
+    assert model.device == torch.device("cuda", 0)
+    assert EngineCore(cfg, 16, params=model, device="cuda").params is model
+    with pytest.raises(ValueError, match="params on"):
+        EngineCore(cfg, 16, params=LM(cfg, device="cpu"), device="cuda")
