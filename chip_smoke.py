@@ -8,9 +8,12 @@ olmoe-1b-7b, falcon-mamba-7b, qwen2-vl-7b, seamless-m4t-medium), each
 model freed before the next is built; phase 6 then runs the paper's closed
 control loop over full-width qwen2.5-3b replicas, phase 7 its offline
 learning and deployment orchestration on the trace phase 6 recorded,
-phase 8 the same loop over worker processes (the remote fleet), and phase
-9 trains (the train route, full-width qwen2.5-3b steps) and serves the
-trained weights.  Any failure exits non-zero and prints no result line.
+phase 8 the same loop over worker processes (the remote fleet), phase 9
+trains (the train route, full-width qwen2.5-3b steps) and serves the
+trained weights, and phase 10 runs the cost model: the one-card dry-run
+of six full-width cells and the queueing model the planner sizes against.
+Each phase's wall time is printed.  Any failure exits non-zero and prints
+no result line.
 
 1. build    — compile the Hopper kernels from ``src/repro_torch/kernels/csrc``.
 2. kernels  — hold each kernel against its plain PyTorch version on the
@@ -50,8 +53,17 @@ trained weights.  Any failure exits non-zero and prints no result line.
               (4, 151936).  Last, K4 and K7 have no backward: with grad
               enabled and an input that requires it each raises
               ``NoBackwardError`` and launches nothing, and under
-              ``torch.no_grad`` the same call launches.
-3. serve    — each model at full width and depth, random weights from a
+              ``torch.no_grad`` the same call launches.  Then phase 10's
+              lengths: K4 at qwen2.5-3b's and h2o-danube-1.8b's shapes
+              (window 4096) and K7 at zamba2's, held against their plain
+              versions at 8192 tokens (atol = rtol as above) and timed
+              there and at 2 x 32768 tokens (where the plain versions do
+              not fit: not measured); K1's write instance over a
+              32768-slot ring at qwen's and zamba2's shapes, every index
+              regime and every row at 32767, bitwise against K2, K2, K1.
+3. serve    — each model at full width and depth (olmoe-1b-7b at 4 of its
+              16 layers and falcon-mamba-7b at 16 of its 64, ``DEPTH_CUT``,
+              to pay for phase 10), random weights from a
               seed, on paths that each have the launch counts set to 0 just
               before and read just after: ``repro_torch.launch.serve.main``
               on the dense pool, prefill unchunked and chunked by 64; and
@@ -229,6 +241,26 @@ trained weights.  Any failure exits non-zero and prints no result line.
               added to the kernels line; the streams equal those of a fresh
               model loaded with the trained parameters.  The phase prints
               its wall time.
+10. cost    — ``repro_torch.launch.dryrun.analyze_cell`` at full width
+              and depth, weights in bf16, on one card's share of the
+              reference's cells (8 rows over a 32768-token ring for
+              decode_32k, every row's index at 32767, danube's ring its
+              4096 window; 2 prompts of 32768 for prefill_32k) for
+              h2o-danube-1.8b, qwen2.5-3b and zamba2-2.7b: each cell's
+              counted FLOPs, bytes and transcendentals, its step timed
+              twice by CUDA events, launches a step and in all held to
+              phase 3's rules (36 K1 write instances a qwen decode step,
+              54 K7 and 9 K4 a zamba2 prefill) and added to the kernels
+              line, and every kernel region equal to the kernel's
+              ``cost(...)`` at the cell's shapes.  At smoke width the
+              card's counts equal the CPU's exactly for the same program.
+              Then ``RooflineDB`` over the six cells (each read as
+              measured), the roofline and measured step times side by
+              side, ``ServiceProfile.from_db``, ``examples/quickstart.py``'s
+              part 3 on danube's profile (a planner-mode
+              ``PredictiveAllocator`` at 20, 40, 80 and 160 rps), 10
+              ``ServingModel.tick``s and ``ReplicaProfile.from_service``
+              for zamba2 against qwen.
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -284,6 +316,9 @@ ZAMBA2_KERNELS = (("K7", "ssd|ssm"), ("K4", "flash"))
 # hd 128) and a 64-expert top-8 MoE; falcon-mamba-7b: 64 Mamba1 layers, no
 # attention.  The CLI serves both as it serves qwen2.5-3b.
 OSERVE = ["--arch", "olmoe-1b-7b"] + SERVE[2:]
+# phases 3-5 run these two at a quarter of their depth (full width) to pay
+# for phase 10; their full-depth numbers stand in PERF.md as history
+DEPTH_CUT = {"olmoe-1b-7b": 4, "falcon-mamba-7b": 16}
 FSERVE = ["--arch", "falcon-mamba-7b"] + SERVE[2:]
 # qwen2-vl-7b at full width: 28 layers of 28 heads over 4 KV heads (G 7),
 # hd 128, vocab 152064.  Every prompt opens with the 1024 patch positions
@@ -415,25 +450,6 @@ def max_err(torch, got, want, tol, what) -> float:
     return err
 
 
-def ssd_cost(Bsz, L, H, hd, N, *, groups=1, T=64, state=True):
-    """(bytes, float32 operations) of the SSD scan on these shapes: each
-    input read once (B and C as ``groups`` groups, one on zamba2's layout,
-    where every head reads the same rows) and y (and the final state)
-    written once; the chunked
-    form at the kernel's tile of T tokens, causal and unpadded: per chunk
-    of n tokens C B^T and M X over the n(n+1)/2 causal pairs, C . state and
-    the state update over n x N x hd."""
-    ops = 0
-    for c0 in range(0, L, T):
-        n = min(T, L - c0)
-        tri = n * (n + 1) // 2
-        ops += 2 * tri * N + 2 * tri * hd + 2 * 2 * n * N * hd
-    elems = (2 * Bsz * L * H * hd + Bsz * L * H + H
-             + 2 * Bsz * L * groups * N
-             + (Bsz * H * hd * N if state else 0))
-    return 4 * elems, ops * Bsz * H
-
-
 def ssd_inputs(torch, g, Bsz, L, H=80, hd=64, N=64):
     """K7's inputs as zamba2-2.7b's Mamba2 hands them over: float32, dt a
     softplus, A = -linspace(1, 16, H) (the init), one B/C group expanded
@@ -465,6 +481,9 @@ SAMPLE_SHAPES = {"qwen2.5-3b": (8, 151936), "zamba2-2.7b": (8, 32000),
                  "seamless-m4t-medium": (8, 256206),
                  "qwen2.5-3b loop": (LOOP_SLOTS, 151936)}
 SSD_LENGTHS = (64, 200, 2048)
+# phase 10's lengths: the prefill_32k and decode_32k cells; and the longest
+# at which phase 2 holds K4 and K7 against their plain versions
+DRY_LEN, LONG_LEN = 32768, 8192
 
 
 def sample_rows(torch, ops, ref, sample_noise, g):
@@ -475,6 +494,7 @@ def sample_rows(torch, ops, ref, sample_noise, g):
     bitwise, noise within 1e-6, the sampled token the Gumbel max; timed
     greedy beside the plain version and torch.argmax.  Returns qwen's row
     with the others under "others"."""
+    from repro_torch.kernels import sample
     from repro_torch.kernels.sample import split_plan
     from repro_torch.kernels._lib import sm_count
     dev = torch.device("cuda")
@@ -522,7 +542,8 @@ def sample_rows(torch, ops, ref, sample_noise, g):
             library_ms=timed_ms(torch, lambda: torch.argmax(logits, dim=1)),
             shape=f"logits ({B},{V}) f32, greedy, {n_splits} splits of "
                   f"{split_len}")
-        row["bound_ms"], row["bound_by"] = bound(B * V * 4 + B * 20, B * V,
+        c = sample.cost(B, V)
+        row["bound_ms"], row["bound_by"] = bound(c.bytes, c.flops,
                                                  PEAK_F32_S)
         out[arch] = row
     qwen = out.pop("qwen2.5-3b")
@@ -536,6 +557,7 @@ def ssd_rows(torch, ops, ref, g):
     the final state at (1, L) for L in SSD_LENGTHS.  Returns the (1, 200)
     row with the others under "others".  The bound: the larger of the
     bytes and the 3xTF32 products at the tensor cores' TF32 rate."""
+    from repro_torch.kernels import ssm_scan
     errs = []
     for Bsz, L in ((1, 200), (2, 256)):
         args = ssd_inputs(torch, g, Bsz, L)
@@ -558,7 +580,7 @@ def ssd_rows(torch, ops, ref, g):
         err = max(max_err(torch, y, want_y, SSM_TOL, f"ssm_scan y (1, {L})"),
                   max_err(torch, h, want_h, SSM_TOL,
                           f"ssm_scan final state (1, {L})"))
-        nbytes, flops = ssd_cost(1, L, 80, 64, 64)
+        c = ssm_scan.cost(1, L, 80, 64, 64)
         row = dict(
             max_abs_err=max(errs + [err]),
             ms=timed_ms(torch, lambda: ops.ssm_scan(*args,
@@ -568,7 +590,7 @@ def ssd_rows(torch, ops, ref, g):
             library_ms=None,      # no PyTorch call computes an SSD scan
             shape=f"x (1,{L},80,64), dt (1,{L},80), B/C (1,{L},1,64) "
                   f"expanded to 80 heads, f32, with the final state")
-        row["bound_ms"], row["bound_by"] = bound(nbytes, 3 * flops,
+        row["bound_ms"], row["bound_by"] = bound(c.bytes, 3 * c.flops,
                                                  PEAK_TF32_S)
         rows[L] = row
     main = rows.pop(200)
@@ -589,7 +611,7 @@ def write_indices(Smax):
 
 
 def write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged,
-                       Smax=1024, B=8, indices=None):
+                       Smax=1024, B=8, indices=None, timed="mixed"):
     """K1's write instance (``decode_attention_write``), or K5's through a
     shuffled table over a pool of B · Smax / 8 + 1 blocks of 8 (``paged``),
     at (B, H, KV, hd), bf16 caches, index rows ``indices`` (default
@@ -597,10 +619,11 @@ def write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged,
     new rows, and mixed with float32 new rows, the output and both caches
     bitwise equal to the unfused kernels K2, K2, K1 (K6, K6, K5), the
     caches equal to the plain composition and the output within ATTN_TOL
-    of it.  Timed, mixed regime: the write instance, K1 (K5) alone, the
-    unfused three and the plain composition.  Bound: K1's (K5's) bytes and
+    of it.  Timed in the ``timed`` regime: the write instance, K1 (K5)
+    alone, the unfused three and the plain composition.  Bound: K1's (K5's) bytes and
     operations plus the new rows read and written into both caches.  No
     single PyTorch call writes and attends: library_ms is None."""
+    from repro_torch.kernels import decode_attention
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     bk = 8
     nk = Smax // bk
@@ -647,8 +670,7 @@ def write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged,
     name = "decode_attention_paged_write" if paged else \
         "decode_attention_write"
     errs = []
-    cases = [(r, bf16) for r in ("fresh", "wrapped", "mixed")] + [
-        ("mixed", torch.float32)]
+    cases = [(r, bf16) for r in indices] + [("mixed", torch.float32)]
     for regime, new_dt in cases:
         idx = torch.tensor(indices[regime], dtype=torch.int32, device=dev)
         kn, vn = randn(B, KV, hd, dtype=new_dt), randn(B, KV, hd,
@@ -666,14 +688,13 @@ def write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged,
         check(torch.equal(kf, kp_) and torch.equal(vf, vp_),
               f"{what}: caches != the plain composition's")
         errs.append(max_err(torch, out, want, ATTN_TOL, what))
-    idx = torch.tensor(indices["mixed"], dtype=torch.int32, device=dev)
+    idx = torch.tensor(indices[timed], dtype=torch.int32, device=dev)
     kn, vn = randn(B, KV, hd), randn(B, KV, hd)
     kc, vc = k0.clone(), v0.clone()
     live_b = torch.clamp(idx + 1, max=Smax)
-    live = live_b.sum().item()
     blocks = ((live_b + bk - 1) // bk).sum().item() if paged else 0
-    nbytes = (2 * B * H * hd * 2 + 2 * live * KV * hd * 2 + blocks * 4 + B * 4
-              + 2 * B * KV * hd * (2 + 2))
+    c = decode_attention.cost(B, H, KV, hd, live_b.sum().item(),
+                              blocks=blocks, new_itemsize=2)
     row = dict(
         max_abs_err=max(errs),
         ms=timed_ms(torch, lambda: fused(kn, vn, kc, vc, idx)),
@@ -684,9 +705,8 @@ def write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged,
         shape=f"{label}: q ({B},1,{H},{hd}), "
               + (f"pool ({B * nk + 1},8,{KV},{hd}), shuffled table "
                  f"({B},{nk})" if paged else f"caches ({B},{Smax},{KV},{hd})")
-              + f" bf16, new ({B},{KV},{hd}), index mixed and wrapped")
-    row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * live * H * hd,
-                                             PEAK_BF16_S)
+              + f" bf16, new ({B},{KV},{hd}), index {timed}")
+    row["bound_ms"], row["bound_by"] = bound(c.bytes, c.flops, PEAK_BF16_S)
     print(f"  {name} {row['shape']}: write instance {row['ms']:.4f} ms, "
           f"{'K5' if paged else 'K1'} alone {row['alone_ms']:.4f} ms, "
           f"unfused ({'K6, K6, K5' if paged else 'K2, K2, K1'}) "
@@ -701,6 +721,7 @@ def write_instance_row(torch, ops, ref, g, label, H, KV, hd, paged,
 
 
 def kernel_phase(torch, ops, ref, sample_noise):
+    from repro_torch.kernels import decode_attention, flash_attention
     F = torch.nn.functional
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
@@ -737,7 +758,6 @@ def kernel_phase(torch, ops, ref, sample_noise):
     def lib_k2():
         cache[rows_idx, slot_l] = new
 
-    nbytes = B * KV * hd * 2 * 2 + B * 4
     rows["cache_ring_update"] = dict(
         max_abs_err=0.0,
         ms=timed_ms(torch, lambda: ops.cache_ring_update(cache, new, slot)),
@@ -745,8 +765,9 @@ def kernel_phase(torch, ops, ref, sample_noise):
             cache, new, slot)),
         library_ms=timed_ms(torch, lib_k2),
         shape="cache (8,1024,2,128) bf16, new (8,2,128)")
+    c = decode_attention.row_write_cost(B, KV, hd)
     rows["cache_ring_update"]["bound_ms"], rows["cache_ring_update"][
-        "bound_by"] = bound(nbytes, 0, PEAK_BF16_S)
+        "bound_by"] = bound(c.bytes, c.flops, PEAK_BF16_S)
 
     # K1: decode attention; qwen2.5-3b (H 16, KV 2, hd 128, Smax 1024) and
     # h2o-danube (H 32, KV 8, hd 80, Smax = window 4096), mixed + wrapped
@@ -761,9 +782,8 @@ def kernel_phase(torch, ops, ref, sample_noise):
         want = ref.decode_attention_ref(q, kc, vc, index)
         errs.append(attn_err(got, want, f"decode_attention[{name}]"))
         if name == "qwen":
-            live = torch.clamp(index + 1, max=Smax).sum().item()
-            nbytes = 2 * B * H * hd * 2 + 2 * live * KV * hd * 2 + B * 4
-            flops = 4 * live * H * hd
+            c = decode_attention.cost(
+                B, H, KV, hd, torch.clamp(index + 1, max=Smax).sum().item())
             mask = (torch.arange(Smax, device=dev)[None, :]
                     <= index[:, None])[:, None, None, :]
             k1 = dict(
@@ -774,7 +794,7 @@ def kernel_phase(torch, ops, ref, sample_noise):
                 library_ms=sdpa_ms(q, kc, vc, mask=mask),
                 shape="q (8,1,16,128), caches (8,1024,2,128) bf16, index "
                       "mixed and wrapped")
-            k1["bound_ms"], k1["bound_by"] = bound(nbytes, flops,
+            k1["bound_ms"], k1["bound_by"] = bound(c.bytes, c.flops,
                                                    PEAK_BF16_S)
     rows["decode_attention"] = dict(max_abs_err=max(errs), **k1)
 
@@ -809,10 +829,9 @@ def kernel_phase(torch, ops, ref, sample_noise):
                       ops.decode_attention_paged(q, kp, vp, tbl, index)),
           "decode_attention_paged: two identical calls differ")
     live_b = torch.clamp(index + 1, max=Smax)
-    live = live_b.sum().item()
-    blocks = ((live_b + bk - 1) // bk).sum().item()
     # q in, out, the live K/V rows, the table entries they need, the index
-    nbytes = 2 * B * H * hd * 2 + 2 * live * KV * hd * 2 + blocks * 4 + B * 4
+    c = decode_attention.cost(B, H, KV, hd, live_b.sum().item(),
+                              blocks=((live_b + bk - 1) // bk).sum().item())
     # yardstick: one library attention over a view gathered beforehand
     # (no single PyTorch call attends through a block table)
     kg = kp[tbl.long()].reshape(B, Smax, KV, hd)
@@ -830,8 +849,8 @@ def kernel_phase(torch, ops, ref, sample_noise):
               "(8,128), index mixed and wrapped; library = SDPA over a "
               "pre-gathered view")
     rows["decode_attention_paged"]["bound_ms"], rows[
-        "decode_attention_paged"]["bound_by"] = bound(
-        nbytes, 4 * live * H * hd, PEAK_BF16_S)
+        "decode_attention_paged"]["bound_by"] = bound(c.bytes, c.flops,
+                                                      PEAK_BF16_S)
 
     # K6: paged write into that pool, distinct (blk, off) targets, exact in
     # f32 and bf16 (new rows in f32 and bf16)
@@ -860,8 +879,9 @@ def kernel_phase(torch, ops, ref, sample_noise):
             kp, new, blk, off)),
         library_ms=timed_ms(torch, lib_k6),
         shape="pool (1025,8,2,128) bf16, new (8,2,128)")
+    c = decode_attention.row_write_cost(B, KV, hd, paged=True)
     rows["cache_paged_update"]["bound_ms"], rows["cache_paged_update"][
-        "bound_by"] = bound(B * KV * hd * 2 * 2 + B * 8, 0, PEAK_BF16_S)
+        "bound_by"] = bound(c.bytes, c.flops, PEAK_BF16_S)
 
     # K4: flash attention (prefill); qwen2.5-3b at Sq 64 and a ragged 200,
     # h2o-danube (hd 80) with its 4096 window and with a short window 64,
@@ -878,8 +898,7 @@ def kernel_phase(torch, ops, ref, sample_noise):
         want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
         errs.append(attn_err(got, want, f"flash_attention[{name}]"))
         if name == "qwen200":
-            pairs = S * (S + 1) // 2
-            nbytes = (2 * S * H * hd + 2 * S * KV * hd) * 2
+            c = flash_attention.cost(1, S, S, H, KV, hd)
             k4 = dict(
                 ms=timed_ms(torch, lambda: ops.flash_attention(
                     q, k, v, causal=True)),
@@ -887,7 +906,7 @@ def kernel_phase(torch, ops, ref, sample_noise):
                     q, k, v, causal=True)),
                 library_ms=sdpa_ms(q, k, v, causal=True),
                 shape="q (1,200,16,128), k/v (1,200,2,128) bf16, causal")
-            k4["bound_ms"], k4["bound_by"] = bound(nbytes, 4 * pairs * H * hd,
+            k4["bound_ms"], k4["bound_by"] = bound(c.bytes, c.flops,
                                                    PEAK_BF16_S)
     rows["flash_attention"] = dict(max_abs_err=max(errs), **k4)
 
@@ -917,6 +936,98 @@ def kernel_phase(torch, ops, ref, sample_noise):
     return rows
 
 
+def long_rows(torch, ops, ref, seed=29):
+    """The kernels at phase 10's lengths.  K4 (qwen2.5-3b's 16 heads over
+    2, hd 128, causal; h2o-danube-1.8b's 32 over 8, hd 80, window 4096) and
+    K7 (zamba2-2.7b's) held against their plain versions at LONG_LEN
+    tokens and timed there beside them; timed again at the prefill_32k
+    cell's call, 2 prompts of DRY_LEN, where the plain versions do not fit
+    (K4's scores alone, S²·H·4 bytes, would be 137 GB for qwen) and are not
+    measured.  K1's write instance over a DRY_LEN-slot ring at qwen2.5-3b's
+    and zamba2-2.7b's shapes, every index regime of ``write_indices`` and
+    the decode_32k cell's (every row at DRY_LEN - 1, the whole ring live),
+    timed in the latter.  Library: SDPA (causal rows only)."""
+    from repro_torch.kernels import flash_attention, ssm_scan
+    F = torch.nn.functional
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed)
+    randn = lambda *shape: torch.randn(*shape, generator=g,
+                                       device=dev).to(bf16)
+    rows = {}
+
+    def show(name, r):
+        fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+        print(f"  {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+              f"{fmt(r['plain_ms'])}, library {fmt(r['library_ms'])}, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), max|err| "
+              f"{r['max_abs_err']}")
+        rows[name] = r
+
+    for label, (H, KV, hd, window) in {
+            "qwen2.5-3b": (16, 2, 128, None),
+            "h2o-danube-1.8b": (32, 8, 80, 4096)}.items():
+        for Bq, S in ((1, LONG_LEN), (2, DRY_LEN)):
+            q, k, v = randn(Bq, S, H, hd), randn(Bq, S, KV, hd), randn(
+                Bq, S, KV, hd)
+            kernel = lambda: ops.flash_attention(q, k, v, causal=True,
+                                                 window=window)
+            r = dict(max_abs_err=None, plain_ms=None, library_ms=None,
+                     ms=timed_ms(torch, kernel, reps=5, warmup=1),
+                     shape=f"q ({Bq},{S},{H},{hd}), k/v ({Bq},{S},{KV},"
+                           f"{hd}) bf16, causal"
+                           + (f", window {window}" if window else ""))
+            if S == LONG_LEN:
+                plain = lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                                        window=window)
+                r["max_abs_err"] = max_err(torch, kernel(), plain(), ATTN_TOL,
+                                           f"flash_attention [{label}, {S}]")
+                r["plain_ms"] = timed_ms(torch, plain, reps=3, warmup=1)
+            if window is None:
+                r["library_ms"] = timed_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), is_causal=True, enable_gqa=True),
+                    reps=5, warmup=1)
+            c = flash_attention.cost(Bq, S, S, H, KV, hd, window=window)
+            r["bound_ms"], r["bound_by"] = bound(c.bytes, c.flops,
+                                                 PEAK_BF16_S)
+            show(f"flash_attention {label} S={S}", r)
+            del q, k, v
+    for Bsz, L in ((1, LONG_LEN), (2, DRY_LEN)):
+        args = ssd_inputs(torch, g, Bsz, L)
+        kernel = lambda: ops.ssm_scan(*args, return_state=True)
+        r = dict(max_abs_err=None, plain_ms=None, library_ms=None,
+                 ms=timed_ms(torch, kernel, reps=5, warmup=1),
+                 shape=f"x ({Bsz},{L},80,64), dt ({Bsz},{L},80), B/C "
+                       f"({Bsz},{L},1,64) expanded to 80 heads, f32, with "
+                       f"the final state")
+        if L == LONG_LEN:
+            y, h = kernel()
+            t0 = time.perf_counter()
+            want_y, want_h = ref.ssm_scan_ref(*args, return_state=True)
+            torch.cuda.synchronize()
+            r["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            r["max_abs_err"] = max(
+                max_err(torch, y, want_y, SSM_TOL, f"ssm_scan y (1, {L})"),
+                max_err(torch, h, want_h, SSM_TOL,
+                        f"ssm_scan final state (1, {L})"))
+            del y, h, want_y, want_h
+        c = ssm_scan.cost(Bsz, L, 80, 64, 64)
+        r["bound_ms"], r["bound_by"] = bound(c.bytes, 3 * c.flops,
+                                             PEAK_TF32_S)
+        show(f"ssm_scan L={L}", r)
+        del args
+    for label, (H, KV, hd) in {"qwen2.5-3b": (16, 2, 128),
+                               "zamba2-2.7b": (32, 32, 80)}.items():
+        indices = {**write_indices(DRY_LEN), "full": [DRY_LEN - 1] * 8}
+        rows[f"decode_attention_write {label} Smax={DRY_LEN}"] = \
+            write_instance_row(torch, ops, ref, g, f"{label}, decode_32k",
+                               H, KV, hd, False, Smax=DRY_LEN,
+                               indices=indices, timed="full")
+    free(torch)
+    return rows
+
+
 def attention_shapes_phase(torch, ops, ref, label, H, KV, hd, seed,
                            Smax=1024, S=200):
     """K1, K2, K4, K5 and K6 at another model's attention shapes, 8 slots:
@@ -928,6 +1039,7 @@ def attention_shapes_phase(torch, ops, ref, label, H, KV, hd, seed,
     one S-token prompt.  In bf16: held against their plain versions and
     timed as in kernel_phase; then the write instances of K1 and K5 there.
     Printed; the kernels line keeps the qwen2.5-3b shapes."""
+    from repro_torch.kernels import decode_attention, flash_attention
     F = torch.nn.functional
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -968,30 +1080,27 @@ def attention_shapes_phase(torch, ops, ref, label, H, KV, hd, seed,
             lambda: ops.decode_attention(q, kc, vc, index),
             lambda: ref.decode_attention_ref(q, kc, vc, index),
             lambda: sdpa(q, kc, vc, attn_mask=mask),
-            2 * B * H * hd * 2 + 2 * live * KV * hd * 2 + B * 4,
-            4 * live * H * hd, False),
+            decode_attention.cost(B, H, KV, hd, live), False),
         "cache_ring_update": (
             lambda: ops.cache_ring_update(kc, new, index),
             lambda: ref.cache_ring_update_ref(kc, new, index), lib_k2,
-            B * KV * hd * 2 * 2 + B * 4, 0, True),
+            decode_attention.row_write_cost(B, KV, hd), True),
         "flash_attention": (
             lambda: ops.flash_attention(qs, ks, vs, causal=True),
             lambda: ref.flash_attention_ref(qs, ks, vs, causal=True),
             lambda: sdpa(qs, ks, vs, is_causal=True),
-            (2 * S * H * hd + 2 * S * KV * hd) * 2,
-            4 * (S * (S + 1) // 2) * H * hd, False),
+            flash_attention.cost(1, S, S, H, KV, hd), False),
         "decode_attention_paged": (
             lambda: ops.decode_attention_paged(q, kp, vp, tbl, index),
             lambda: ref.decode_attention_paged_ref(q, kp, vp, tbl, index),
             lambda: sdpa(q, kg, vg, attn_mask=mask),
-            2 * B * H * hd * 2 + 2 * live * KV * hd * 2 + blocks * 4 + B * 4,
-            4 * live * H * hd, False),
+            decode_attention.cost(B, H, KV, hd, live, blocks=blocks), False),
         "cache_paged_update": (
             lambda: ops.cache_paged_update(kp, new, blk, off),
             lambda: ref.cache_paged_update_ref(kp, new, blk, off), lib_k6,
-            B * KV * hd * 2 * 2 + B * 8, 0, True),
+            decode_attention.row_write_cost(B, KV, hd, paged=True), True),
     }
-    for name, (kernel, plain, library, nbytes, flops, exact) in cases.items():
+    for name, (kernel, plain, library, c, exact) in cases.items():
         if exact:    # the writes land in the caches: compare copies
             cache = kc if name == "cache_ring_update" else kp
             before = cache.clone()
@@ -1005,7 +1114,7 @@ def attention_shapes_phase(torch, ops, ref, label, H, KV, hd, seed,
         else:
             err = max_err(torch, kernel(), plain(), ATTN_TOL,
                           f"{name} [{label}]")
-        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_S)
+        b_ms, b_by = bound(c.bytes, c.flops, PEAK_BF16_S)
         where = f" (1,{S},{H},{hd})" if name == "flash_attention" else ""
         print(f"  {label} {name}{where}: kernel {timed_ms(torch, kernel):.4f} "
               f"ms, plain {timed_ms(torch, plain):.4f} ms, library "
@@ -1747,8 +1856,40 @@ def peak_gib(torch) -> float:
     return torch.cuda.max_memory_allocated() / 2**30
 
 
+def depth_cut(arch):
+    """The full-width config of ``arch`` at DEPTH_CUT[arch] layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=DEPTH_CUT[arch])
+
+
+@contextlib.contextmanager
+def serving_config(serve, cfg):
+    """The serve CLI builds ``cfg`` for ``--arch cfg.name`` (a depth-cut
+    copy) while the block runs."""
+    real = serve.get_config
+    serve.get_config = lambda arch, **kw: (cfg if arch == cfg.name
+                                           else real(arch, **kw))
+    try:
+        yield
+    finally:
+        serve.get_config = real
+
+
+@contextlib.contextmanager
+def phase_clock(times, name):
+    """Time the block as phase ``name`` into ``times`` and print it."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        times[name] = round(time.perf_counter() - t0, 1)
+        print(f"  ({name}: {times[name]} s)", flush=True)
+
+
 def olmoe_phases(torch, ops, serve, EngineCore, cfg, add):
-    """olmoe-1b-7b at full width: the CLI at the published capacity factor
+    """olmoe-1b-7b at full width and a quarter of its depth (``cfg``, cut
+    by ``depth_cut``): the CLI at the published capacity factor
     1.25 (an unchunked 200-token prefill drops tokens); the paged +
     speculative run, the dense plain streams and phase 5 on a dropless
     copy (capacity_factor = E/K: C = N·K, so no expert can overflow and the
@@ -1756,11 +1897,12 @@ def olmoe_phases(torch, ops, serve, EngineCore, cfg, add):
     two runs at 1.25, their streams compared and printed, not held equal,
     beside the drop_frac of one-shot forwards over the prompts."""
     import dataclasses
-    print("[3] serve olmoe-1b-7b at full width (capacity factor "
-          f"{cfg.moe.capacity_factor})")
+    print(f"[3] serve olmoe-1b-7b at full width, {cfg.n_layers} layers "
+          f"(capacity factor {cfg.moe.capacity_factor})")
     t0 = time.perf_counter()
-    add(serve_phase(torch, ops, serve, OSERVE,
-                    decoder_launches(cfg.n_layers)))
+    with serving_config(serve, cfg):
+        add(serve_phase(torch, ops, serve, OSERVE,
+                        decoder_launches(cfg.n_layers)))
     E, K = cfg.moe.n_experts, cfg.moe.top_k
     dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=E / K))
@@ -1806,12 +1948,14 @@ def olmoe_phases(torch, ops, serve, EngineCore, cfg, add):
 
 
 def falcon_phases(torch, ops, serve, EngineCore, cfg, add):
-    """falcon-mamba-7b at full width: the CLI, the paged + speculative
+    """falcon-mamba-7b at full width and a quarter of its depth (``cfg``,
+    cut by ``depth_cut``): the CLI, the paged + speculative
     engine (nothing to page, nothing speculated), its streams against the
     dense engine's, and phase 5 with the selective scan's host time."""
-    print("[3] serve falcon-mamba-7b at full width")
+    print(f"[3] serve falcon-mamba-7b at full width, {cfg.n_layers} layers")
     t0 = time.perf_counter()
-    add(serve_phase(torch, ops, serve, FSERVE, mamba1_launches))
+    with serving_config(serve, cfg):
+        add(serve_phase(torch, ops, serve, FSERVE, mamba1_launches))
     torch.cuda.reset_peak_memory_stats()
     core = EngineCore(cfg, MAX_SEQ, seed=0, device="cuda")
     launches, streams = recurrent_paged_phase(torch, ops, core,
@@ -3600,6 +3744,234 @@ def train_phase(torch, ops, add):
     print(f"  phase 9: {time.perf_counter() - t0:.1f} s")
 
 
+# -------------------------------------------------------------------- phase 10
+# the grounding loop: the dry-run at full width and depth, one card's share
+# of the reference's decode_32k and prefill_32k cells, for the paper's 1B
+# class (h2o-danube-1.8b), qwen2.5-3b and zamba2-2.7b; the roofline DB and
+# the queueing model over those cells; the planner sized against them
+DRY_ARCHS = ("h2o-danube-1.8b", "qwen2.5-3b", "zamba2-2.7b")
+DRY_SHAPES = ("decode_32k", "prefill_32k")
+DRY_REPS = 2
+# smoke width, card against CPU: the small shapes whose counts must agree
+DRY_SMOKE = ((48, 32, "decode"), (40, 32, "prefill"))
+PLANNER_RPS = (20.0, 40.0, 80.0, 160.0)
+
+
+def dry_launches(cfg, kind):
+    """One serve step's launch counts, by phase 3's rules: the plain
+    decode step samples nothing (no K3)."""
+    if cfg.hybrid is not None:
+        want = zamba2_launches(*((1, 0) if kind == "decode" else (0, 1)))
+    else:
+        want = decoder_launches(cfg.n_layers)(
+            *((1, 0) if kind == "decode" else (0, 1)), fused=0)
+    return {k: v for k, v in {**want, "fused_sample": 0}.items() if v}
+
+
+def dry_regions(cfg, shape):
+    """What each kernel region of one step must record, from the config
+    and the cell's shapes alone: a decode step's write instance over the
+    whole live ring (the window's for danube) with new rows in the compute
+    dtype; a
+    prefill's K4 over each prompt (windowed for danube) and, for zamba2,
+    its K7 over each Mamba2 layer with one B/C group."""
+    import torch
+    from repro_torch.kernels import decode_attention, flash_attention, ssm_scan
+    from repro_torch.launch.dryrun import replica_batch
+    B, S = replica_batch(shape), shape.seq_len
+    n_attn = (cfg.n_layers // cfg.hybrid.attn_every if cfg.hybrid is not None
+              else cfg.n_layers)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    size = torch.empty((), dtype=cfg.cdtype).element_size()
+    if shape.kind == "decode":
+        ring = min(S, cfg.sliding_window or S)
+        per = {"decode_attention_write": (n_attn, decode_attention.cost(
+            B, H, KV, hd, B * ring, itemsize=size, new_itemsize=size))}
+    else:
+        per = {"flash_attention": (n_attn, flash_attention.cost(
+            B, S, S, H, KV, hd, window=cfg.sliding_window, itemsize=size))}
+        if cfg.ssm is not None:
+            per["ssm_scan"] = (cfg.n_layers, ssm_scan.cost(
+                B, S, cfg.ssm_heads, cfg.ssm.headdim, cfg.ssm.d_state,
+                T=min(cfg.ssm.chunk, ssm_scan.SSD_TILE)))
+    return {name: {"calls": n, "flops": n * c.flops, "bytes": n * c.bytes,
+                   "transcendentals": n * c.transcendentals}
+            for name, (n, c) in per.items()}
+
+
+def smoke_counts_phase(torch):
+    """At smoke width, card against CPU: the same program's counted FLOPs,
+    transcendentals, bytes and kernel regions, exactly (on a difference,
+    the ops that differ are printed)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.cost import CostCounter
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.models import ShapeCfg
+
+    def count(cfg, shape, dev):
+        _, step, args = build_cell(cfg, shape, dev)
+        with CostCounter() as c:
+            step(*args)
+        return c
+
+    for arch in DRY_ARCHS:
+        cfg = get_smoke_config(arch)
+        for S, gb, kind in DRY_SMOKE:
+            shape = ShapeCfg(f"{kind}_{S}", S, gb, kind)
+            card, cpu = count(cfg, shape, "cuda"), count(cfg, shape, "cpu")
+            got = (card.flops, card.transcendentals, card.bytes, card.kernels)
+            want = (cpu.flops, cpu.transcendentals, cpu.bytes, cpu.kernels)
+            if got != want:
+                diff = {op: (card.by_op.get(op), cpu.by_op.get(op))
+                        for op in set(card.by_op) | set(cpu.by_op)
+                        if card.by_op.get(op) != cpu.by_op.get(op)}
+                print(f"  {arch} smoke {shape.name}: (calls, FLOPs, "
+                      f"transcendentals, bytes) by op, card vs CPU: {diff}")
+            check(got == want, f"{arch} smoke {shape.name}: card counts "
+                               f"{got} != CPU {want}")
+            print(f"  {arch} smoke, {shape.name}: card = CPU, "
+                  f"{card.flops} FLOPs, {card.transcendentals} "
+                  f"transcendentals, {card.bytes} bytes, kernel regions "
+                  f"{sorted(card.kernels)}")
+
+
+def cost_model_phase(torch, ops, add):
+    """Phase 10: the one-card dry-run of six full-width cells into a
+    temporary directory, each cell's launches (one step, and the counted
+    step plus DRY_REPS timed ones in all, added to the kernels line) and
+    kernel regions held to the rules above; the counts at smoke width card
+    against CPU; then ``RooflineDB`` over the cells (each read as
+    measured), ``ServiceProfile.from_db``, ``examples/quickstart.py``'s part
+    3 (a planner-mode ``PredictiveAllocator`` over ``ServingModel
+    .latency_util``) on danube's profile, 10 ``ServingModel.tick``s and
+    ``ReplicaProfile.from_service`` for zamba2 against qwen."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.allocation.allocator import (
+        AllocatorConfig, PredictiveAllocator,
+    )
+    from repro_torch.core.dnn.features import deploy_vector
+    from repro_torch.core.scaling.scaler import ScalingConstraints
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.dryrun import analyze_cell, cell_path, serve_config
+    from repro_torch.models import LM, SHAPES
+    from repro_torch.serving.profiles import ReplicaProfile
+    from repro_torch.sim import (
+        RooflineDB, ServiceProfile, ServingModel, WorkloadSpec,
+    )
+    print(f"[10] the cost model: one card's share of the dry-run cells at "
+          f"full width ({gpu_line()})")
+    t0 = time.perf_counter()
+    smoke_counts_phase(torch)
+    _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = Path(tempfile.mkdtemp(prefix="dryrun-", dir=_lib.BUILD_DIR))
+    try:
+        for arch in DRY_ARCHS:
+            cfg = get_config(arch)
+            params = LM(serve_config(cfg), device="cuda", seed=0)
+            for shape_name in DRY_SHAPES:
+                shape = SHAPES[shape_name]
+                ops.reset_launch_counts()
+                rec = analyze_cell(cfg, shape, "cuda", reps=DRY_REPS,
+                                   params=params)
+                counts = ops.launch_counts()
+                cell_path(out_dir, arch, shape_name).write_text(
+                    json.dumps(rec, indent=1))
+                want = dry_launches(cfg, shape.kind)
+                check(rec["launches"] == want,
+                      f"{arch} {shape_name}: launches a step "
+                      f"{rec['launches']}, expected {want}")
+                total = {k: n for k, n in counts.items() if n}
+                check(total == {k: (1 + DRY_REPS) * n
+                                for k, n in want.items()},
+                      f"{arch} {shape_name}: launches {total} over "
+                      f"{1 + DRY_REPS} steps")
+                add(counts)
+                regions = dry_regions(cfg, shape)
+                check(rec["kernel_regions"] == regions,
+                      f"{arch} {shape_name}: kernel regions "
+                      f"{rec['kernel_regions']} != cost(...) {regions}")
+                mem = rec["memory"]
+                runs = ", ".join(f"{x:.4f}" for x in rec["step_s_runs"])
+                print(f"  {arch} {shape_name} x {rec['replica_batch']}: "
+                      f"{rec['cost']['flops']:.4e} FLOPs, "
+                      f"{rec['cost']['bytes']:.4e} bytes, "
+                      f"{rec['cost']['transcendentals']:.4e} "
+                      f"transcendentals; step_s {rec['step_s']:.4f} "
+                      f"(runs {runs}); "
+                      f"launches a step {rec['launches']}; regions = "
+                      f"cost(...); arguments "
+                      f"{mem['argument_size_in_bytes'] / 2**30:.2f} GiB, "
+                      f"temporaries {mem['temp_size_in_bytes'] / 2**30:.2f} "
+                      f"GiB", flush=True)
+            del params
+            free(torch)
+        db = RooflineDB(out_dir)
+        for arch in DRY_ARCHS:
+            for shape_name in DRY_SHAPES:
+                t = db.terms(arch, shape_name)
+                rec = json.loads(cell_path(out_dir, arch, shape_name)
+                                 .read_text())
+                check(t.measured and t.chips == 1
+                      and t.flops == rec["cost"]["flops"],
+                      f"{arch} {shape_name}: the DB read {t}")
+                print(f"  roofline {arch} {shape_name}: compute "
+                      f"{t.t_compute * 1e3:.3f} ms, memory "
+                      f"{t.t_memory * 1e3:.3f} ms, step_time "
+                      f"{t.step_time * 1e3:.3f} ms ({t.bottleneck}); "
+                      f"measured step_s {rec['step_s'] * 1e3:.3f} ms = "
+                      f"{rec['step_s'] / t.step_time:.2f} x the roofline; "
+                      f"peak {t.mem_per_dev / 2**30:.2f} GiB")
+        profiles = {arch: ServiceProfile.from_db(db, arch)
+                    for arch in DRY_ARCHS}
+        for p in profiles.values():
+            check(p.chips_per_replica == 1 and p.slots == 8
+                  and math.isfinite(p.decode_step_s)
+                  and math.isfinite(p.prefill_32k_s),
+                  f"ServiceProfile {p}")
+            print(f"  profile {p.arch}: {p.slots} slots, decode step "
+                  f"{p.decode_step_s * 1e3:.3f} ms, prefill of 32k "
+                  f"{p.prefill_32k_s * 1e3:.3f} ms, {p.bottleneck}-bound, "
+                  f"{p.tokens_per_s():.0f} tokens/s a replica (roofline)")
+        model = ServingModel(profiles["h2o-danube-1.8b"],
+                             WorkloadSpec(prompt_len=256, gen_len=12),
+                             slo_ms=200.0)
+        alloc = PredictiveAllocator(
+            model.latency_util, ScalingConstraints(slo_ms=200.0),
+            deploy_vector(model_params_b=1.8, family="dense", mesh_model=1,
+                          mesh_data=1, region_idx=0, slo_ms=200,
+                          cost_weight=0.5),
+            cfg=AllocatorConfig(mode="planner"), device="cuda")
+        for rps in PLANNER_RPS:
+            alloc.observe({"rps": rps})
+            d = alloc.decide({"rps": rps, "rps_window": [rps]})
+            alloc.apply(d)
+            check(d.target_replicas >= 1
+                  and math.isfinite(d.predicted_latency_ms),
+                  f"planner at {rps} rps: {d}")
+            print(f"  planner, load {rps:5.0f} rps -> {d.target_replicas:2d} "
+                  f"replicas (pred p95 {d.predicted_latency_ms:.1f} ms, "
+                  f"{d.reason})")
+        for i in range(10):
+            replicas, rps = 1 + i % 3, PLANNER_RPS[i % 4]
+            r = model.tick(replicas, rps)
+            print(f"  tick {i}: {replicas} replicas at {rps:.0f} rps: served "
+                  f"{r.served}, errors {r.errors}, utilization "
+                  f"{r.utilization:.3f}, queue {r.queue_depth:.1f}, p95 "
+                  f"{np.percentile(r.latency_ms_samples, 95):.1f} ms")
+        rp = ReplicaProfile.from_service(profiles["zamba2-2.7b"],
+                                         profiles["qwen2.5-3b"])
+        check(math.isfinite(rp.speed) and rp.speed > 0, f"{rp}")
+        print(f"  ReplicaProfile.from_service(zamba2-2.7b, baseline "
+              f"qwen2.5-3b): {rp}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    free(torch)
+    print(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3629,85 +4001,104 @@ def main(argv=None) -> int:
     try:
         card = gpu_line()
         print(f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
-        t0 = time.perf_counter()
-        _lib.load()
-        print(f"[1] build: {time.perf_counter() - t0:.1f} s "
-              f"(nvcc {_lib.build_seconds} s)")
-        if _lib.build_log is None:
-            print("  (library reused from an earlier build: no ptxas output)")
-        for name, regs, st, ld in ptxas_report(_lib.build_log or ""):
-            print(f"  ptxas {name}: {regs} registers, spill stores {st} B, "
-                  f"spill loads {ld} B")
-        print("[2] kernels against their plain versions")
-        rows = kernel_phase(torch, ops, ref, sample_noise)
-        attention_shapes_phase(torch, ops, ref, "zamba2-2.7b", 32, 32, 80,
-                               seed=13)
-        attention_shapes_phase(torch, ops, ref, "olmoe-1b-7b", 16, 16, 128,
-                               seed=17)
-        attention_shapes_phase(torch, ops, ref, "qwen2-vl-7b", 28, 4, 128,
-                               seed=19, Smax=VL_MAX_SEQ, S=VL_PROMPT)
-        attention_shapes_phase(torch, ops, ref, "seamless-m4t-medium", 16,
-                               16, 64, seed=23)
-        loop_shapes_phase(torch, ops, ref)
-        no_backward_phase(torch, ops)
+        times = {}
+        with phase_clock(times, "1 build"):
+            _lib.load()
+            print(f"[1] build: nvcc {_lib.build_seconds} s")
+            if _lib.build_log is None:
+                print("  (library reused from an earlier build: no ptxas "
+                      "output)")
+            for name, regs, st, ld in ptxas_report(_lib.build_log or ""):
+                print(f"  ptxas {name}: {regs} registers, spill stores "
+                      f"{st} B, spill loads {ld} B")
+        with phase_clock(times, "2 kernels"):
+            print("[2] kernels against their plain versions")
+            rows = kernel_phase(torch, ops, ref, sample_noise)
+            attention_shapes_phase(torch, ops, ref, "zamba2-2.7b", 32, 32,
+                                   80, seed=13)
+            attention_shapes_phase(torch, ops, ref, "olmoe-1b-7b", 16, 16,
+                                   128, seed=17)
+            attention_shapes_phase(torch, ops, ref, "qwen2-vl-7b", 28, 4,
+                                   128, seed=19, Smax=VL_MAX_SEQ,
+                                   S=VL_PROMPT)
+            attention_shapes_phase(torch, ops, ref, "seamless-m4t-medium",
+                                   16, 16, 64, seed=23)
+            loop_shapes_phase(torch, ops, ref)
+            no_backward_phase(torch, ops)
+            print(f"  the kernels at phase 10's lengths ({DRY_LEN} tokens; "
+                  f"held against the plain versions at {LONG_LEN})")
+            long_rows(torch, ops, ref)
         launches = {name: 0 for name in ops.KERNELS}
 
         def add(counts):
             for name, n in counts.items():
                 launches[name] += n
 
-        print("[3] serve qwen2.5-3b at full width")
-        add(serve_phase(torch, ops, serve, SERVE,
-                        decoder_launches(N_LAYERS)))
-        core = EngineCore(get_config("qwen2.5-3b"), MAX_SEQ, seed=0,
-                          device="cuda")
-        prompts = shared_prompts(core)
-        paged_launches, paged_streams = paged_serve_phase(torch, ops, core,
-                                                          prompts)
-        add(paged_launches)
-        print("[4] greedy streams on the card: qwen2.5-3b")
-        full_width_streams_phase(torch, core, prompts, paged_streams)
-        streams_phase(torch, ops, "qwen2.5-3b")
-        print("[5] where a full-width qwen2.5-3b tick's time goes")
-        profile_phase(torch, core, prompts)
-        del core
-        free(torch)
-        print("[3] serve zamba2-2.7b at full width")
-        add(serve_phase(torch, ops, serve, ZSERVE, zamba2_launches))
-        zcore = EngineCore(get_config("zamba2-2.7b"), MAX_SEQ, seed=0,
-                           device="cuda")
-        z_launches, z_streams = recurrent_paged_phase(
-            torch, ops, zcore, "zamba2-2.7b",
-            lambda ticks, prefilled: zamba2_launches(ticks, prefilled,
-                                                     paged=True))
-        add(z_launches)
-        print("[4] greedy streams on the card: zamba2-2.7b")
-        recurrent_streams_phase(zcore, "zamba2-2.7b", z_streams)
-        streams_phase(torch, ops, "zamba2-2.7b")
-        print("[5] where a full-width zamba2-2.7b tick's and admission's "
-              "time goes")
-        profile_dense_tick(torch, zcore, "zamba2 dense decode")
-        profile_admission(torch, zcore, "zamba2-2.7b", ZAMBA2_KERNELS)
-        del zcore
-        free(torch)
-        olmoe_phases(torch, ops, serve, EngineCore,
-                     get_config("olmoe-1b-7b"), add)
-        falcon_phases(torch, ops, serve, EngineCore,
-                      get_config("falcon-mamba-7b"), add)
-        vlm_phases(torch, ops, serve, EngineCore, get_config("qwen2-vl-7b"),
-                   add)
-        encdec_phases(torch, ops, EngineCore,
-                      get_config("seamless-m4t-medium"), add)
-        loop = loop_phase(torch, ops, args.seed, add)
-        learning_phase(torch, ops, args.seed, add, loop)
-        free(torch)
-        fleet_phase(torch, ops, args.seed, loop)
-        del loop
-        free(torch)
-        train_phase(torch, ops, add)
+        with phase_clock(times, "3-5 qwen2.5-3b"):
+            print("[3] serve qwen2.5-3b at full width")
+            add(serve_phase(torch, ops, serve, SERVE,
+                            decoder_launches(N_LAYERS)))
+            core = EngineCore(get_config("qwen2.5-3b"), MAX_SEQ, seed=0,
+                              device="cuda")
+            prompts = shared_prompts(core)
+            paged_launches, paged_streams = paged_serve_phase(
+                torch, ops, core, prompts)
+            add(paged_launches)
+            print("[4] greedy streams on the card: qwen2.5-3b")
+            full_width_streams_phase(torch, core, prompts, paged_streams)
+            streams_phase(torch, ops, "qwen2.5-3b")
+            print("[5] where a full-width qwen2.5-3b tick's time goes")
+            profile_phase(torch, core, prompts)
+            del core
+            free(torch)
+        with phase_clock(times, "3-5 zamba2-2.7b"):
+            print("[3] serve zamba2-2.7b at full width")
+            add(serve_phase(torch, ops, serve, ZSERVE, zamba2_launches))
+            zcore = EngineCore(get_config("zamba2-2.7b"), MAX_SEQ, seed=0,
+                               device="cuda")
+            z_launches, z_streams = recurrent_paged_phase(
+                torch, ops, zcore, "zamba2-2.7b",
+                lambda ticks, prefilled: zamba2_launches(ticks, prefilled,
+                                                         paged=True))
+            add(z_launches)
+            print("[4] greedy streams on the card: zamba2-2.7b")
+            recurrent_streams_phase(zcore, "zamba2-2.7b", z_streams)
+            streams_phase(torch, ops, "zamba2-2.7b")
+            print("[5] where a full-width zamba2-2.7b tick's and admission's "
+                  "time goes")
+            profile_dense_tick(torch, zcore, "zamba2 dense decode")
+            profile_admission(torch, zcore, "zamba2-2.7b", ZAMBA2_KERNELS)
+            del zcore
+            free(torch)
+        with phase_clock(times, "3-5 olmoe-1b-7b"):
+            olmoe_phases(torch, ops, serve, EngineCore,
+                         depth_cut("olmoe-1b-7b"), add)
+        with phase_clock(times, "3-5 falcon-mamba-7b"):
+            falcon_phases(torch, ops, serve, EngineCore,
+                          depth_cut("falcon-mamba-7b"), add)
+        with phase_clock(times, "3-5 qwen2-vl-7b"):
+            vlm_phases(torch, ops, serve, EngineCore,
+                       get_config("qwen2-vl-7b"), add)
+        with phase_clock(times, "3-5 seamless-m4t-medium"):
+            encdec_phases(torch, ops, EngineCore,
+                          get_config("seamless-m4t-medium"), add)
+        with phase_clock(times, "6 loop"):
+            loop = loop_phase(torch, ops, args.seed, add)
+        with phase_clock(times, "7 learning"):
+            learning_phase(torch, ops, args.seed, add, loop)
+            free(torch)
+        with phase_clock(times, "8 fleet"):
+            fleet_phase(torch, ops, args.seed, loop)
+            del loop
+            free(torch)
+        with phase_clock(times, "9 train"):
+            train_phase(torch, ops, add)
+        with phase_clock(times, "10 cost model"):
+            cost_model_phase(torch, ops, add)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    print(f"phase times (s): {json.dumps(times)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -19,7 +19,8 @@ thread per 16-byte vector; serving no longer launches them.
 
 Each wrapper runs its kernel on CUDA tensors and its plain PyTorch version
 (``repro_torch.kernels.ref``) on CPU tensors; ``launches`` counts kernel
-launches.
+launches.  ``cost`` and ``row_write_cost`` are the FLOPs and HBM bytes of
+one launch, which a cost counter records for each call (``region``).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _lib, ref
+from repro_torch.kernels.region import Cost, counted, per_row_list
 
 DEC_TILE = 64            # split granule: splits are whole tiles of keys
 BLOCKS_PER_SM = 2        # split-K target: about this many blocks per SM
@@ -47,6 +49,50 @@ def split_plan(B: int, KV: int, Smax: int, sm_count: int) -> tuple[int, int]:
     n = min(max_splits, max(1, want, math.ceil(Smax / MAX_SPLIT_LEN)))
     split_len = math.ceil(math.ceil(Smax / n) / DEC_TILE) * DEC_TILE
     return split_len, math.ceil(Smax / split_len)
+
+
+def cost(B: int, H: int, KV: int, hd: int, live: int, *, itemsize: int = 2,
+         blocks: int = 0, new_itemsize: int = 0) -> Cost:
+    """One K1 launch (K5: ``blocks`` table entries read) over ``live`` keys
+    in all, the rows' horizons min(index + 1, Smax) summed: q read and the
+    output written, each live K and V row read once, the index read; with
+    ``new_itemsize`` (the write instances) the new K and V rows read and
+    written into the caches.  FLOPs: q.k and p.v, 2 a (key, head, dim)
+    each; transcendentals: one exp a (key, head)."""
+    nbytes = (2 * B * H * hd * itemsize + 2 * live * KV * hd * itemsize
+              + blocks * 4 + B * 4)
+    if new_itemsize:
+        nbytes += 2 * B * KV * hd * (new_itemsize + itemsize)
+    return Cost(4 * live * H * hd, nbytes, live * H)
+
+
+def row_write_cost(B: int, KV: int, hd: int, *, itemsize: int = 2,
+                   new_itemsize: int = 2, paged: bool = False) -> Cost:
+    """One K2 (K6: ``paged``) launch: B new (KV, hd) rows read and written
+    into the cache, and the slot (block and offset) of each row read."""
+    return Cost(0, B * KV * hd * (new_itemsize + itemsize)
+                + B * (8 if paged else 4))
+
+
+def _horizons(index, B: int, Smax: int) -> list[int]:
+    return [min(i + 1, Smax) for i in per_row_list(index, B)]
+
+
+def _dense_cost(q, k_cache, index, new=None) -> Cost:
+    B, _, H, hd = q.shape
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    return cost(B, H, KV, hd, sum(_horizons(index, B, Smax)),
+                itemsize=k_cache.element_size(),
+                new_itemsize=new.element_size() if new is not None else 0)
+
+
+def _paged_cost(q, k_cache, tbl, index, new=None) -> Cost:
+    B, _, H, hd = q.shape
+    bk, KV = k_cache.shape[1], k_cache.shape[2]
+    live = _horizons(index, B, tbl.shape[-1] * bk)
+    return cost(B, H, KV, hd, sum(live), itemsize=k_cache.element_size(),
+                blocks=sum(-(-n // bk) for n in live),
+                new_itemsize=new.element_size() if new is not None else 0)
 
 
 class Geometry(NamedTuple):
@@ -163,6 +209,8 @@ def _launch(name, q, k_cache, v_cache, index, KV, Smax, table, new_rows):
     return out
 
 
+@counted("decode_attention",
+         lambda q, k_cache, v_cache, index: _dense_cost(q, k_cache, index))
 def decode_attention(q, k_cache, v_cache, index):
     """q: (B, 1, H, hd); caches: (B, Smax, KV, hd), read in place through
     strides; index: int or (B,) — row b sees slots <= index[b] (all of them
@@ -179,6 +227,9 @@ def decode_attention(q, k_cache, v_cache, index):
 decode_attention.launches = 0
 
 
+@counted("decode_attention_write",
+         lambda q, k_new, v_new, k_cache, v_cache, index: _dense_cost(
+             q, k_cache, index, k_new))
 def decode_attention_write(q, k_new, v_new, k_cache, v_cache, index):
     """``cache_ring_update`` of k_new and v_new (B, KV, hd) into slot
     index[b] % Smax of row b, in place, cast to the cache dtype, then
@@ -197,6 +248,9 @@ def decode_attention_write(q, k_new, v_new, k_cache, v_cache, index):
 decode_attention_write.launches = 0
 
 
+@counted("decode_attention_paged",
+         lambda q, k_cache, v_cache, tbl, index: _paged_cost(
+             q, k_cache, tbl, index))
 def decode_attention_paged(q, k_cache, v_cache, tbl, index):
     """q: (B, 1, H, hd); caches: (NB, bk, KV, hd) block pools, read in place
     through strides; tbl: (B, nk) block ids in [0, NB) — row b's logical
@@ -215,6 +269,9 @@ def decode_attention_paged(q, k_cache, v_cache, tbl, index):
 decode_attention_paged.launches = 0
 
 
+@counted("decode_attention_paged_write",
+         lambda q, k_new, v_new, k_cache, v_cache, tbl, index: _paged_cost(
+             q, k_cache, tbl, index, k_new))
 def decode_attention_paged_write(q, k_new, v_new, k_cache, v_cache, tbl,
                                  index):
     """``cache_paged_update`` of k_new and v_new (B, KV, hd) into logical
@@ -261,6 +318,10 @@ def _rows_vec(cache, new) -> bool:
             and new.stride(0) * new.element_size() % step == 0)
 
 
+@counted("cache_ring_update",
+         lambda cache, new, slot: row_write_cost(
+             new.shape[0], cache.shape[2], cache.shape[3],
+             itemsize=cache.element_size(), new_itemsize=new.element_size()))
 def cache_ring_update(cache, new, slot):
     """Write ``new[b]`` (B, KV, hd) into ``cache[b, slot[b]]`` of the
     (B, Smax, KV, hd) cache, in place, cast to the cache dtype; returns the
@@ -282,6 +343,11 @@ def cache_ring_update(cache, new, slot):
 cache_ring_update.launches = 0
 
 
+@counted("cache_paged_update",
+         lambda cache, new, blk, off: row_write_cost(
+             new.shape[0], cache.shape[2], cache.shape[3],
+             itemsize=cache.element_size(), new_itemsize=new.element_size(),
+             paged=True))
 def cache_paged_update(cache, new, blk, off):
     """Write ``new[b]`` (B, KV, hd) into ``cache[blk[b], off[b]]`` of the
     (NB, bk, KV, hd) block pool, in place, cast to the pool dtype; returns

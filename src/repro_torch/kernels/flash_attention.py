@@ -8,14 +8,18 @@ padded to a multiple of 16 in shared memory), otherwise exact float32 FMA.
 
 The wrapper runs the kernel on CUDA tensors and its plain PyTorch version
 (``repro_torch.kernels.ref``) on CPU tensors; ``launches`` counts kernel
-launches.  The kernel has no backward: a CUDA call with grad enabled and an
-input that requires it raises ``_lib.NoBackwardError``.
+launches; ``cost`` is the FLOPs and HBM bytes of one launch, which a cost
+counter records for each call (``region``).  The kernel has no backward: a
+CUDA call with grad enabled and an input that requires it raises
+``_lib.NoBackwardError``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _lib, ref
+from repro_torch.kernels.region import Cost, counted
 
 SMEM_LIMIT = 232448      # dynamic shared memory a block may use on the H100
 # the tiles of csrc/flash_attention.cu
@@ -41,6 +45,35 @@ def smem_bytes(dtype, hd: int) -> int:
             + FMA_BQ * hd + 3 * FMA_BQ) * 4
 
 
+def visible_pairs(Sq: int, Sk: int, *, causal: bool = True,
+                  window=None) -> int:
+    """(query, key) pairs the mask lets through: key j is visible to query
+    i when ``j <= i`` (causal) and ``j > i - window`` (window given)."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i + 1, Sk) if causal else np.full(Sq, Sk, np.int64)
+    lo = np.zeros(Sq, np.int64) if window is None else np.maximum(
+        i - window + 1, 0)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def cost(B: int, Sq: int, Sk: int, H: int, KV: int, hd: int, *,
+         causal: bool = True, window=None, itemsize: int = 2) -> Cost:
+    """One K4 launch: q read and the output written, k and v read once.
+    FLOPs: q.k and p.v, 2 a (visible pair, head, dim) each; transcendentals:
+    one exp a (visible pair, head)."""
+    pairs = B * visible_pairs(Sq, Sk, causal=causal, window=window)
+    return Cost(4 * pairs * H * hd,
+                B * (2 * Sq * H * hd + 2 * Sk * KV * hd) * itemsize,
+                pairs * H)
+
+
+def _call_cost(q, k, v, *, causal: bool = True, window=None) -> Cost:
+    B, Sq, H, hd = q.shape
+    return cost(B, Sq, k.shape[1], H, k.shape[2], hd, causal=causal,
+                window=window, itemsize=q.element_size())
+
+
+@counted("flash_attention", _call_cost)
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd), read through strides →
     (B, Sq, H, hd) in q's dtype.  Key j is visible to query i when

@@ -10,6 +10,10 @@ tensors' own device, CPU or CUDA, as the reference routes it to its
 oracle.  Serving never asks for it: the fused tick passes no ``top_k`` and
 top-k rows sample on the host.
 
+Under a cost counter (``repro_torch.launch.cost.CostCounter``) each kernel
+wrapper is one region that records its module's ``cost(...)``
+(``kernels.region``).
+
 ``decode_attention_write`` and ``decode_attention_paged_write`` are what
 decode runs: the row's K/V write (``cache_ring_update``,
 ``cache_paged_update``) folded into the attention's launch.  They have no

@@ -7,7 +7,9 @@ scatters, decode with the row write folded in as the two scatters and the
 attention in turn, the murmur3-counter Gumbel-max sampler, and the
 sequential SSD (Mamba2) recurrence.  On a
 CPU tensor the kernel wrappers run these; on the card, tests and
-``chip_smoke.py`` hold each CUDA kernel against them.
+``chip_smoke.py`` hold each CUDA kernel against them.  Each returns its
+result laid out as the kernel's (contiguous), so the code after a call
+runs the same ops on either device.
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
     if window is not None:
         ok &= k_pos > q_pos - window
     out = _attend(q.reshape(B, Sq, KV, H // KV, hd), k, v, ok)
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    return out.reshape(B, Sq, H, hd).to(q.dtype).contiguous()
 
 
 def _rows_index(index, B, device):
@@ -66,7 +68,7 @@ def decode_attention_ref(q, k_cache, v_cache, index):
     ok = (torch.arange(Smax, device=q.device)[None, :] <= idx[:, None])
     out = _attend(q.reshape(B, 1, KV, H // KV, hd), k_cache, v_cache,
                   ok[:, None, None, None, :])
-    return out.reshape(B, 1, H, hd).to(q.dtype)
+    return out.reshape(B, 1, H, hd).to(q.dtype).contiguous()
 
 
 def decode_attention_paged_ref(q, k_cache, v_cache, tbl, index):

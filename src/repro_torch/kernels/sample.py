@@ -8,7 +8,8 @@ ranges' (score, first index) pairs.
 
 The wrapper runs the kernel on CUDA tensors and its plain PyTorch version
 (``repro_torch.kernels.ref``) on CPU tensors; ``launches`` counts kernel
-launches.
+launches; ``cost`` is the FLOPs and HBM bytes of one launch, which a cost
+counter records for each call (``region``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import math
 import torch
 
 from repro_torch.kernels import _lib, ref
+from repro_torch.kernels.region import Cost, counted, per_row_list
 
 SAMPLE_VEC = 4            # float32 columns in one 16-byte load
 MIN_SPLIT = 1024          # columns one block takes at least: 256 threads x 4
@@ -35,6 +37,21 @@ def split_plan(B: int, V: int, sm_count: int) -> tuple[int, int]:
     return split_len, math.ceil(V / split_len)
 
 
+def cost(B: int, V: int, sampled: int = 0) -> Cost:
+    """One K3 call: the (B, V) float32 logits read once, the four (B,)
+    counters read and the tokens written; a compare an element, and on each
+    of the ``sampled`` rows (temperature > 0) a divide and an add an
+    element and two logs of the Gumbel noise."""
+    return Cost(B * V + 2 * sampled * V, B * V * 4 + B * 20,
+                2 * sampled * V)
+
+
+def _call_cost(logits, seed, rid, pos, temperature) -> Cost:
+    B, V = logits.shape
+    return cost(B, V, sum(t > 0 for t in per_row_list(temperature, B)))
+
+
+@counted("fused_sample", _call_cost)
 def fused_sample(logits, seed, rid, pos, temperature):
     """logits: (B, V) float32; seed/rid/pos: (B,) int32 counters;
     temperature: (B,) float32, 0 → greedy → (B,) int32 tokens."""

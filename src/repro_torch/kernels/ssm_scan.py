@@ -9,7 +9,9 @@ kernel instance built for a padded width W (``width``) that covers hd and N.
 
 The wrapper runs the kernels on CUDA tensors and its plain PyTorch version
 (``repro_torch.kernels.ref.ssm_scan_ref``, the sequential recurrence) on
-CPU tensors; ``launches`` counts calls that launched the kernels.  Unlike
+CPU tensors; ``launches`` counts calls that launched the kernels, and
+``cost`` is the FLOPs and HBM bytes of one call, which a cost counter
+records for each call (``region``).  Unlike
 the reference wrapper, a ragged L (not a multiple of the chunk) runs the
 kernels too: they mask the tail.  The kernels have no backward: a CUDA call
 with grad enabled and an input that requires it raises
@@ -23,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _lib, ref
+from repro_torch.kernels.region import Cost, counted
 
 SSD_TILE = 64            # the kernels' largest chunk, as in the CUDA source
 SSD_QT = 32              # query rows of an output block
@@ -99,6 +102,37 @@ def smem_bytes(hd: int, N: int) -> tuple[int, int]:
     return 4 * state, 4 * out
 
 
+def cost(Bsz: int, L: int, H: int, hd: int, N: int, *, groups_b: int = 1,
+         groups_c: int = 1, T: int = SSD_TILE, state: bool = True) -> Cost:
+    """One call, in float32: each input read once (B and C as the number of
+    distinct (N,) rows a token holds, one on zamba2's layout, where every
+    head reads the same rows), y (and the final state) written once.  The
+    chunked form at the kernels' tile of T tokens, causal and unpadded: per
+    chunk of n tokens C B^T and M X over the n(n+1)/2 causal pairs, C . state
+    and the state update over n x N x hd, 2 FLOPs a product; one exp a
+    causal pair and a token for the decay factors."""
+    flops = exps = 0
+    for c0 in range(0, L, T):
+        n = min(T, L - c0)
+        tri = n * (n + 1) // 2
+        flops += 2 * tri * N + 2 * tri * hd + 2 * 2 * n * N * hd
+        exps += tri + n
+    elems = (2 * Bsz * L * H * hd + Bsz * L * H + H
+             + Bsz * L * (groups_b + groups_c) * N
+             + (Bsz * H * hd * N if state else 0))
+    return Cost(flops * Bsz * H, 4 * elems, exps * Bsz * H)
+
+
+def _call_cost(x, dt, A, B, C, *, chunk: int = 128,
+               return_state: bool = False) -> Cost:
+    Bsz, L, H, hd = x.shape
+    groups = lambda t: 1 if t.stride(2) == 0 else H
+    return cost(Bsz, L, H, hd, B.shape[-1], groups_b=groups(B),
+                groups_c=groups(C), T=min(chunk, SSD_TILE),
+                state=return_state)
+
+
+@counted("ssm_scan", _call_cost)
 def ssm_scan(x, dt, A, B, C, *, chunk: int = 128, return_state: bool = False):
     """x: (Bsz, L, H, hd); dt: (Bsz, L, H); A: (H,); B/C: (Bsz, L, H, N),
     cast to float32 as the reference wrapper does → y (Bsz, L, H, hd)

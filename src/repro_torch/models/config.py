@@ -2,8 +2,10 @@
 
 The same frozen dataclasses as the JAX package's ``repro.models.config``,
 field for field, so a config round-trips through the JSON codec of the
-serving wire protocol (``dataclasses.asdict`` out, keyword construction in).
-Only the dtype table differs: names map to torch dtypes.
+serving wire protocol (``dataclasses.asdict`` out, keyword construction in),
+and the same dry-run shape cells (``ShapeCfg``, ``SHAPES``,
+``applicable_shapes``).  Only the dtype table differs: names map to torch
+dtypes.
 
 ``use_pallas`` is kept as a field for that round trip, but nothing in this
 package reads it: a tensor's device picks between a hand-written kernel
@@ -182,3 +184,43 @@ class ModelConfig:
             # decoder adds cross-attn per layer
             n += self.n_enc_layers * enc + L * attn_params
         return int(n)
+
+    def active_params(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if self.moe is None:
+            return self.n_params()
+        d, L = self.d_model, self.n_layers
+        dense = self.n_params() - L * self.moe.n_experts * 3 * d * self.moe.d_ff_expert
+        return int(dense + L * self.moe.top_k * 3 * d * self.moe.d_ff_expert)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCfg:
+    """One assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str        # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeCfg("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[str]:
+    """Which of the four assigned shapes run for this arch.
+
+    long_500k requires sub-quadratic attention (SSM/hybrid/SWA); pure
+    full-attention archs skip it per the assignment rule."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        out.append("long_500k")
+    return out

@@ -15,9 +15,11 @@ The fleet's capacity is heterogeneous on three axes the router must see:
 
 ``ReplicaProfile`` is the router's static prior for one replica: its cost
 per tick, its relative speed (1.0 = the fleet baseline), whether the
-capacity is volatile, and which region it lives in.  Live, the router
-refines the speed axis from each replica's measured lifetime tokens/tick —
-the profile is a prior, the measurement wins once there is enough of it.
+capacity is volatile, and which region it lives in.  In simulation the
+prior is seeded from the roofline DB's ``ServiceProfile``
+(``ReplicaProfile.from_service``); live, the router refines the speed axis
+from each replica's measured lifetime tokens/tick — the profile is a
+prior, the measurement wins once there is enough of it.
 
 ``FleetPlan`` is the deployment shape the operator actually buys: the first
 ``reserved`` replica ids are on-demand (stable, expensive), every id past
@@ -27,9 +29,7 @@ the planner's cost model — ``cost_of(n, tick)`` is what the profile-aware
 ScalingOptimizer minimizes instead of a flat per-replica price, priced at
 the market's spot rate for that tick when a ``market`` is attached.
 
-A numpy copy of ``repro.serving.profiles`` without
-``ReplicaProfile.from_service``, which seeds a profile from the simulator's
-``ServiceProfile`` (not ported).
+A numpy copy of ``repro.serving.profiles``.
 """
 from __future__ import annotations
 
@@ -74,6 +74,19 @@ class ReplicaProfile:
     # in-region capacity for interactive traffic (region_spills counts
     # forced cross-region placements)
     region: str = ""
+
+    @classmethod
+    def from_service(cls, service, baseline=None, *,
+                     cost_per_tick: float = 1.0,
+                     preemptible: bool = False,
+                     region: str = "") -> "ReplicaProfile":
+        """Seed a profile from a sim ServiceProfile (repro_torch.sim.serving):
+        speed is the service's tokens/s relative to ``baseline`` (another
+        ServiceProfile, default: itself → 1.0)."""
+        base = baseline if baseline is not None else service
+        return cls(cost_per_tick=cost_per_tick,
+                   speed=service.relative_speed(base),
+                   preemptible=preemptible, region=region)
 
 
 @dataclasses.dataclass(frozen=True)
