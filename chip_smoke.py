@@ -10,8 +10,10 @@ control loop over full-width qwen2.5-3b replicas, phase 7 its offline
 learning and deployment orchestration on the trace phase 6 recorded,
 phase 8 the same loop over worker processes (the remote fleet), phase 9
 trains (the train route, full-width qwen2.5-3b steps) and serves the
-trained weights, and phase 10 runs the cost model: the one-card dry-run
-of six full-width cells and the queueing model the planner sizes against.
+trained weights, phase 10 runs the cost model: the one-card dry-run
+of six full-width cells and the queueing model the planner sizes against,
+and phase 11 the replica fabric: one replica over a device mesh, a
+multi-process pod, and phase 6's loop over the sharded topology.
 Each phase's wall time is printed.  Any failure exits non-zero and prints
 no result line.
 
@@ -261,6 +263,36 @@ no result line.
               ``PredictiveAllocator`` at 20, 40, 80 and 160 rps), 10
               ``ServingModel.tick``s and ``ReplicaProfile.from_service``
               for zamba2 against qwen.
+11. fabric  — (a) ``ShardedReplica`` on full-width qwen2.5-3b over a
+              2-shard mesh on cuda:0 (``make_mesh`` naming the card
+              twice), 8 slots, dense then paged, on phase 3's requests,
+              stepped side by side with the unsharded
+              ``InProcessReplica`` on the same core (its bulk path, whose
+              streams must equal its fused ticks') and held tick by tick
+              on the rows still in step: the first tick's logits within
+              1e-4, every tick's within 0.25, every slot's K/V cache
+              bitwise equal until a row's greedy choice first parts, and
+              at most one request parting (where, the layer the caches
+              part in, and the margin are printed); the write instances
+              of K1 (K5) launch exactly 2 x 36 a decode tick, K4 36 an
+              admission, K3 never (the sharded tick pulls the logits),
+              and the replica adds less than half the weights' bytes (no
+              copy on one card); ``logits_pulls`` and the host clock a
+              step beside the
+              unsharded replica's are printed.  (b) A 2-rank
+              ``DistributedPodReplica``: two ``--device cuda`` worker
+              processes over a gloo group, each a full-width qwen2.5-3b
+              in mirror mode, on the same requests: streams equal (a)'s,
+              a ``MetricsObserver`` on the head agrees with the stub's
+              ``lifetime()`` at every poll, the head's info says rank 0,
+              size 2, process count 2, mode mirror, and it compared one
+              digest round a step; each rank's launch counts and peak
+              device memory (``REPRO_TORCH_WORKER_STATS``) are held and
+              printed.  (c) Phase 6's ``LoopConfig()`` over
+              ``topology="sharded"`` (one shard a replica on one card):
+              every TickLog field but learn_loss and every stream equal
+              phase 6's; launch counts of the bulk path.  (a) and (c)
+              join the kernels line.
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -3972,6 +4004,420 @@ def cost_model_phase(torch, ops, add):
     print(f"  phase 10: {time.perf_counter() - t0:.1f} s")
 
 
+# -------------------------------------------------------------------- phase 11
+# the replica fabric: one replica over a device mesh (two shards on the one
+# card) and a two-rank pod of worker processes, on phase 3's requests; then
+# phase 6's loop over the sharded topology
+FABRIC_SHARDS = 2
+POD_SIZE = 2
+# a sharded tick's rows run at M = 4 where the unsharded tick's run at 8.
+# On the H100 the K/V caches stay bitwise equal and the logits agree to the
+# float32 readout's rounding (2.7e-6) for 11 decode ticks; at the 12th one
+# bf16 rounding in one layer moves the logits by 0.0455, and one request
+# whose top two logits were 0.0065 apart parts.  So the sharded replica is
+# held to the unsharded one tick by tick, on the rows whose input tokens
+# still agree: the first tick's logits within FABRIC_FIRST_GAP; every
+# tick's within FABRIC_TICK_GAP, above one rounding's reach and below a
+# wrong decode's (whole units); every slot's K/V bitwise equal until a
+# row's greedy choice first parts; at most FABRIC_MAX_PARTED rows parting.
+FABRIC_FIRST_GAP = 1e-4
+FABRIC_TICK_GAP = 0.25
+FABRIC_MAX_PARTED = 1
+
+
+def cli_requests(cfg):
+    """Phase 3's requests: the ones ``launch.serve`` draws for ``SERVE``
+    (its arrivals drawn first from the same generator), greedy."""
+    import numpy as np
+    from repro_torch.serving import SamplingParams, synthetic_requests
+    from repro_torch.sim.serving import WorkloadSpec
+    opts = dict(zip(SERVE[::2], SERVE[1::2]))
+    n, seed = int(opts["--requests"]), int(opts["--seed"])
+    rng = np.random.default_rng(seed)
+    rng.exponential(1.0, n)
+    spec = WorkloadSpec(prompt_len=int(opts["--prompt-len"]),
+                        gen_len=int(opts["--gen-len"]))
+    return synthetic_requests(spec, n, cfg.vocab, rng=rng,
+                              sampling=SamplingParams(0.0, 0, seed=seed))
+
+
+def fabric_run(torch, rep, requests, poll=None):
+    """Submit every request at once and step to the end; → (greedy streams
+    by request id, host seconds a step, steps).  ``poll()`` runs after
+    every step."""
+    for r in requests:
+        rep.submit(r, now=0.0)
+    done, steps = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while len(done) < len(requests):
+        steps += 1
+        check(steps < 5000, "the fabric run did not finish")
+        done.extend(rep.step(float(steps)))
+        if poll is not None:
+            poll()
+    torch.cuda.synchronize()
+    return ({r.rid: list(r.tokens_out) for r in done},
+            (time.perf_counter() - t0) / steps, steps)
+
+
+def sharded_launches(eng, shards, paged):
+    """A sharded engine's launch counts: every tick takes the legacy bulk
+    path, so per tick each shard launches one K1 (paged: K5) write instance
+    per layer and no K3; 36 K4 an admission that ran a prefill."""
+    prefilled = eng.stats.total_admitted - eng.lifetime().get(
+        "prefix_hits", 0)
+    lanes = shards * eng.logits_pulls
+    launches = decoder_launches(N_LAYERS)
+    if paged:
+        return launches(0, prefilled, lanes=lanes, fused=0)
+    return launches(lanes, prefilled, fused=0)
+
+
+def recorded(eng, decode):
+    """Route ``eng``'s ticks through ``decode`` (so the legacy bulk path),
+    keeping each tick's input tokens and float32 logits on the host."""
+    log = []
+
+    def rec(params, tokens, cache):
+        logits, cache = decode(params, tokens, cache)
+        log.append((tokens[:, 0].cpu(), logits[:, 0].float().cpu()))
+        return logits, cache
+
+    eng.decode = rec
+    return log
+
+
+def slot_kv(torch, pool, slot, n):
+    """Slot ``slot``'s K and V over its first ``n`` positions in every
+    layer, as one (2, layers, n, kv heads, head dim) tensor: the dense
+    pool's row, or the paged pool's blocks in its table's order, on the
+    shard that owns the slot."""
+    cache, row, base = pool.cache, slot, 0
+    if hasattr(cache, "shards"):
+        k, row = pool._locate(slot)
+        cache = cache.shards[k]
+        base = k * getattr(pool, "nb_local", 0)
+    kv = [cache["layers"][name] for name in ("k", "v")]
+    if "block_tbl" in cache:
+        ids = torch.as_tensor(pool.tables[slot, :-(-n // pool.block_size)]
+                              - base, dtype=torch.long, device=kv[0].device)
+        return torch.stack([x[:, ids].flatten(1, 2)[:, :n] for x in kv])
+    return torch.stack([x[:, row, :n] for x in kv])
+
+
+def kv_apart(torch, pool1, pool2, rows):
+    """The slots among ``rows`` whose index or K/V differ bitwise between
+    the two pools → {slot: the first layer whose K or V differs, or -1
+    where the index does}."""
+    idx = [pool.index.tolist() for pool in (pool1, pool2)]
+    out = {}
+    for r in rows:
+        if idx[0][r] != idx[1][r]:
+            out[r] = -1
+            continue
+        a, b = (slot_kv(torch, pool, r, idx[0][r]) for pool in (pool1, pool2))
+        layers = (a != b).transpose(0, 1).flatten(1).any(1).nonzero()
+        if len(layers):
+            out[r] = int(layers[0])
+    return out
+
+
+def lockstep(torch, ops, one, two, requests, label):
+    """Step the unsharded replica ``one`` and the sharded ``two`` side by
+    side, each on its own ``requests()`` (all submitted at once, so request
+    i takes slot i), both through the bulk path, and hold ``two`` to ``one``
+    tick by tick on the rows whose input tokens still agree (FABRIC_*).
+    → (each side's streams, the sharded side's launch counts, its host
+    seconds a step, steps, what the ticks showed)."""
+    logs = [recorded(rep.engine, rep.engine.decode) for rep in (one, two)]
+    reqs = [requests(), requests()]
+    for rep, rs in zip((one, two), reqs):
+        for r in rs:
+            rep.submit(r, now=0.0)
+    n = len(reqs[0])
+    done = [[], []]
+    live, parted, seen = set(range(n)), {}, {"ticks": 0, "exact": 0,
+                                             "exact_gap": 0.0,
+                                             "later_gap": 0.0}
+    counts = {name: 0 for name in ops.KERNELS}
+    seconds, steps = 0.0, 0
+    while len(done[0]) < n or len(done[1]) < n:
+        steps += 1
+        check(steps < 5000, f"{label}: the run did not finish")
+        done[0].extend(one.step(float(steps)))
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        done[1].extend(two.step(float(steps)))
+        torch.cuda.synchronize()
+        seconds += time.perf_counter() - t0
+        for name, c in ops.launch_counts().items():
+            counts[name] += c - before[name]
+        while seen["ticks"] < min(map(len, logs)) and live:
+            t = seen["ticks"]
+            seen["ticks"] += 1
+            (tok1, l1), (tok2, l2) = logs[0][t], logs[1][t]
+            live = {r for r in live if tok1[r] == tok2[r]}
+            rows = sorted(live)
+            gap = float((l1[rows] - l2[rows]).abs().max())
+            limit = FABRIC_FIRST_GAP if t == 0 else FABRIC_TICK_GAP
+            check(gap <= limit, f"{label}: decode tick {t}'s logits differ "
+                  f"by {gap:.4g} on the rows still in step (> {limit})")
+            if t == 0:
+                seen["first_gap"] = gap
+            flips = [r for r in rows
+                     if int(l1[r].argmax()) != int(l2[r].argmax())]
+            if not parted:
+                apart = kv_apart(torch, one.engine.pool, two.engine.pool,
+                                 rows)
+                check(not apart or flips, f"{label}: K/V caches part at "
+                      f"decode tick {t} (slot: first differing layer, -1 "
+                      f"for the index: {apart}), before any row's greedy "
+                      f"choice (logits within {gap:.4g})")
+                if apart:
+                    seen["cache_part"] = (t, min(apart.values()), gap)
+                else:
+                    seen["exact"] += 1
+                    seen["exact_gap"] = max(seen["exact_gap"], gap)
+            else:
+                seen["later_gap"] = max(seen["later_gap"], gap)
+            for r in flips:
+                top = [l[r].topk(2).values for l in (l1, l2)]
+                parted[r] = (t, min(float(v[0] - v[1]) for v in top), gap)
+                live.discard(r)
+            check(len(parted) <= FABRIC_MAX_PARTED,
+                  f"{label}: rows {sorted(parted)} part from the unsharded "
+                  f"replica's (at most {FABRIC_MAX_PARTED} may, at a "
+                  f"near-tie): {parted}")
+    streams = [{r.rid: list(r.tokens_out) for r in d} for d in done]
+    return streams, counts, seconds / steps, steps, parted, seen
+
+
+def sharded_phase(torch, ops, add):
+    """(a) ShardedReplica on full-width qwen2.5-3b over a 2-shard mesh on
+    cuda:0, 8 slots, dense then paged, on phase 3's requests, against the
+    unsharded InProcessReplica on the same core: the unsharded replica's
+    streams through its fused ticks and through the bulk path equal; the
+    sharded replica, stepped beside the bulk one, is held to it tick by
+    tick (``lockstep``); the write instances launch exactly 2 x 36 a
+    decode tick; the weights are not copied.  → the unsharded streams."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving import InProcessReplica, ShardedReplica
+    from repro_torch.serving.engine import EngineCore
+    opts = dict(zip(SERVE[::2], SERVE[1::2]))
+    slots, max_seq = int(opts["--slots"]), int(opts["--max-seq"])
+    cfg = get_config("qwen2.5-3b")
+    core = EngineCore(cfg, max_seq, seed=0, device="cuda")
+    weights = sum(p.numel() * p.element_size()
+                  for p in core.params.parameters())
+    mesh = make_mesh((FABRIC_SHARDS,), ("data",),
+                     devices=["cuda:0"] * FABRIC_SHARDS)
+    prompts = [np.asarray(r.prompt) for r in cli_requests(cfg)]
+    out = {}
+    for pool in ("dense", "paged"):
+        base = InProcessReplica.build(cfg, slots=slots, max_seq=max_seq,
+                                      core=core, pool=pool)
+        want, base_s, base_steps = fabric_run(torch, base, cli_requests(cfg))
+        del base
+        free(torch)
+        bulk = InProcessReplica.build(cfg, slots=slots, max_seq=max_seq,
+                                      core=core, pool=pool)
+        before = torch.cuda.memory_allocated()
+        rep = ShardedReplica(cfg, slots=slots, max_seq=max_seq, core=core,
+                             pool=pool, mesh=mesh)
+        label = f"sharded {pool}"
+        (same, got), counts, s, steps, parted, seen = lockstep(
+            torch, ops, bulk, rep, lambda: cli_requests(cfg), label)
+        grown = torch.cuda.memory_allocated() - before
+        check(same == want, f"unsharded {pool}: the bulk path's streams "
+              f"differ from the fused ticks' at "
+              f"{first_difference(torch, core, prompts, same, want)}")
+        eng = rep.engine
+        check_launches(counts, sharded_launches(eng, FABRIC_SHARDS,
+                                                pool == "paged"), label)
+        add(counts)
+        # request i took slot i
+        differ = sorted(rid for rid in want if got[rid] != want[rid])
+        check(set(differ) <= set(parted),
+              f"{label}: streams {differ} differ from the unsharded "
+              f"replica's where no row parted ({parted})")
+        check(grown < weights / 2,
+              f"{label}: the replica grew the card's memory by {grown} "
+              f"bytes (the weights are {weights})")
+        ticks = eng.logits_pulls
+        part = seen.get("cache_part")
+        print(f"  {label}: {len(want) - len(differ)} of {len(want)} greedy "
+              f"streams equal the unsharded replica's (its fused and bulk "
+              f"ticks agree); the K/V caches bitwise equal through "
+              f"{seen['exact']} of {seen['ticks']} decode ticks, the "
+              f"logits within {seen['exact_gap']:.3g} there (the first "
+              f"tick's {seen['first_gap']:.3g}); "
+              + (f"at tick {part[0]} the caches part first in layer "
+                 f"{part[1]}'s K/V, the logits by {part[2]:.4g}; "
+                 if part else "")
+              + (", ".join(f"request {r} parts at tick {t} (margin {m:.4g}, "
+                           f"tick gap {g:.4g})"
+                           for r, (t, m, g) in sorted(parted.items()))
+                 or "no row parts")
+              + (f"; the rows still in step within {seen['later_gap']:.4g} "
+                 f"after" if parted else "")
+              + f"; {FABRIC_SHARDS} shards x {N_LAYERS} layers x {ticks} "
+              f"decode ticks = {FABRIC_SHARDS * N_LAYERS * ticks} write "
+              f"instances; logits_pulls {ticks}; host clock {s * 1e3:.2f} "
+              f"ms a step over {steps} steps (unsharded, fused: "
+              f"{base_s * 1e3:.2f} ms over {base_steps}); the replica's "
+              f"pool and run added {grown / 2**30:.2f} GiB (weights "
+              f"{weights / 2**30:.2f} GiB, not copied)")
+        out[pool] = want
+        del rep, eng, bulk
+        free(torch)
+    del core
+    free(torch)
+    return out["dense"]
+
+
+def pod_phase(torch, want, out_dir: Path):
+    """(b) A 2-rank DistributedPodReplica, both worker processes on cuda:0,
+    each a full-width qwen2.5-3b in mirror mode, on phase 3's requests: the
+    streams equal (a)'s unsharded replica's (a rank runs all 8 rows, as it
+    does); a MetricsObserver on the head agrees with the stub at every
+    poll; the head's info and digest rounds; each rank's launch counts and
+    peak memory from its stats file."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import DistributedPodReplica, MetricsObserver
+    opts = dict(zip(SERVE[::2], SERVE[1::2]))
+    cfg = get_config("qwen2.5-3b")
+    with worker_processes(out_dir) as spawned:
+        try:
+            t0 = time.perf_counter()
+            pod = DistributedPodReplica(cfg, slots=int(opts["--slots"]),
+                                        max_seq=int(opts["--max-seq"]),
+                                        pod_size=POD_SIZE, device="cuda")
+            start_s = time.perf_counter() - t0
+            try:
+                obs = MetricsObserver(pod.addr)
+                info = obs.status()["pod"]
+                check((info["rank"], info["size"], info["process_count"],
+                       info["mode"]) == (0, POD_SIZE, POD_SIZE, "mirror"),
+                      f"pod info {info}")
+                polls = []
+                got, s, steps = fabric_run(
+                    torch, pod, cli_requests(cfg),
+                    poll=lambda: polls.append(obs.lifetime()
+                                              == pod.lifetime()))
+                info = obs.status()["pod"]
+                pulls = pod.lifetime()["logits_pulls"]
+                obs.close()
+            finally:
+                pod.close()
+            pids = [p.pid for p in spawned]
+            for proc in spawned:
+                proc.wait(timeout=60)
+            counts, peaks = worker_stats(out_dir, pids)
+        except Exception as e:
+            codes = [(p.pid, p.poll()) for p in spawned]
+            sys.stderr.flush()
+            tail = (out_dir / "stderr.txt").read_text().splitlines()
+            print(f"  pod FAILED: {e!r}; ranks (pid, exit code): {codes}; "
+                  f"stderr tail:")
+            for line in tail[-FLEET_STDERR_TAIL:]:
+                print(f"    | {line}")
+            if isinstance(e, SmokeFailure):
+                raise
+            raise SmokeFailure(f"pod: {e!r}") from e
+    check(polls and all(polls), f"the observer disagreed with the stub at "
+                                f"polls {[i for i, ok in enumerate(polls) if not ok]}")
+    check(got == want, f"pod streams differ from the unsharded replica's: "
+                       f"{sorted(r for r in want if got.get(r) != want[r])}")
+    check(info["digest_rounds"] == steps,
+          f"the head compared {info['digest_rounds']} digests in {steps} "
+          f"steps")
+    rank = {name: 0 for name in KERNEL_INFO}
+    rank.update(decode_attention_write=N_LAYERS * pulls,
+                flash_attention=N_LAYERS * len(want))
+    check(counts == {k: POD_SIZE * v for k, v in rank.items()},
+          f"the ranks' launch counts {counts}, expected {POD_SIZE} x {rank}")
+    check(len(peaks) == POD_SIZE and all(peaks.values()),
+          f"a rank never used the card: {peaks}")
+    print(f"  pod of {POD_SIZE} ranks on cuda:0: up in {start_s:.1f} s; "
+          f"{len(got)} streams equal (a)'s unsharded replica's; the "
+          f"observer agreed with the "
+          f"stub at all {len(polls)} polls; head info {info}; the head "
+          f"compared {info['digest_rounds']} digest rounds; host clock "
+          f"{s * 1e3:.2f} ms a step (observer polls included) over {steps} "
+          f"steps; the ranks' launches, summed: "
+          f"{ {k: v for k, v in counts.items() if v} }; each rank's peak "
+          f"device memory: "
+          f"{ {pid: round(b / 2**30, 2) for pid, b in peaks.items()} } GiB")
+
+
+def sharded_loop_phase(torch, ops, cfg, lc, phase6, seed, add):
+    """(c) Phase 6's loop (``LoopConfig()``) over the sharded topology, on
+    the default mesh (one shard per card): TickLogs (every field but
+    learn_loss) and streams equal phase 6's in-process run; the launch
+    counts of the bulk path."""
+    import dataclasses
+    from repro_torch.serving.closed_loop import run_closed_loop
+    sink, steps = [], []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with timed_router_steps(torch, steps):
+        router, logs = run_closed_loop(
+            cfg, autoscale=True, ticks=LOOP_TICKS, seed=seed,
+            lc=dataclasses.replace(lc, topology="sharded"), sink=sink,
+            device="cuda")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    try:
+        got, want = trajectory(logs), trajectory(phase6["logs"])
+        diff = next((i for i, (a, b) in enumerate(zip(got, want))
+                     if a != b), None)
+        check(len(got) == len(want) and diff is None,
+              f"sharded loop: tick {diff} {got[diff] if diff is not None else ''}"
+              f" vs phase 6's {want[diff] if diff is not None else ''}")
+        streams = {r.rid: list(r.tokens_out) for r in sink}
+        check(streams == phase6["streams"],
+              "sharded loop: streams differ from phase 6's")
+        reps = list(router.all_replicas)
+        check({r.kind for r in reps} == {"sharded"},
+              f"sharded loop built {[r.kind for r in reps]}")
+        shards = reps[0].mesh.size
+        want_counts = {name: 0 for name in KERNEL_INFO}
+        for rep in reps:
+            for name, n in sharded_launches(rep.engine, shards,
+                                            False).items():
+                want_counts[name] += n
+        check_launches(counts, want_counts, "sharded loop")
+        add(counts)
+    finally:
+        router.close()
+    print(f"  phase 6's loop over topology sharded ({shards} shard a "
+          f"replica, {len(reps)} replicas built): {len(logs)} TickLogs and "
+          f"{len(streams)} streams equal phase 6's; router step "
+          f"{statistics.mean(steps) * 1e3:.2f} ms mean host clock (phase "
+          f"6: {phase6['step_ms'][0]:.2f}); "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def fabric_phase(torch, ops, loop, seed, add):
+    """Phase 11: (a) sharded replica, (b) pod, (c) the sharded loop."""
+    import tempfile
+    from repro_torch.kernels import _lib
+    print(f"[11] the replica fabric on full-width qwen2.5-3b: a "
+          f"{FABRIC_SHARDS}-shard mesh on one card, a {POD_SIZE}-rank pod, "
+          f"the loop over the sharded topology ({gpu_line()})")
+    streams = sharded_phase(torch, ops, add)
+    pod_phase(torch, streams, Path(tempfile.mkdtemp(prefix="pod-",
+                                                    dir=_lib.BUILD_DIR)))
+    free(torch)
+    sharded_loop_phase(torch, ops, loop["cfg"], loop["lc"], loop["planner"],
+                       seed, add)
+    free(torch)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4089,12 +4535,18 @@ def main(argv=None) -> int:
             free(torch)
         with phase_clock(times, "8 fleet"):
             fleet_phase(torch, ops, args.seed, loop)
-            del loop
+            # phase 11 holds its sharded loop to phase 6's run
+            loop = {"cfg": loop["cfg"], "lc": loop["lc"], "planner": {
+                k: loop["planner"][k] for k in ("logs", "streams",
+                                                "step_ms")}}
             free(torch)
         with phase_clock(times, "9 train"):
             train_phase(torch, ops, add)
         with phase_clock(times, "10 cost model"):
             cost_model_phase(torch, ops, add)
+        with phase_clock(times, "11 fabric"):
+            fabric_phase(torch, ops, loop, args.seed, add)
+            del loop
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -18,12 +18,13 @@ loop doesn't just *compute* the straggler feed, it closes it); and — when
 router.scale_to.
 
 Every engine and the allocator's DQN run on ``device`` (cuda unless the
-caller asks for cpu); at ``proc`` and ``tcp`` the router spawns its workers
-there (an attached ``addrs`` worker runs on its own ``--device``).  The
-``sharded`` and ``pod`` topologies are not ported (D3) and raise
-``NotImplementedError`` by name, as does ``pod_size`` set away from its
-default; ``addrs`` and ``batch_submits`` raise with ``inproc``, which has
-no use for them.
+caller asks for cpu); at ``proc``, ``tcp`` and ``pod`` the router spawns
+its workers there (an attached ``addrs`` worker or pod runs on its own
+``--device``), and ``sharded`` lays each replica over the default mesh of
+``device`` (one shard per CUDA device, or one on the CPU).  ``pod_size``
+set away from its default raises outside ``pod``, and ``addrs`` and
+``batch_submits`` raise with ``inproc`` and ``sharded``, which have no use
+for them.
 """
 from __future__ import annotations
 

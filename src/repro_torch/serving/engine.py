@@ -175,14 +175,23 @@ def validate_request(cfg, max_seq: int, prompt: np.ndarray, frames=None):
 
 
 class ServingEngine:
-    """One replica: S decode slots over one shared cache tree."""
+    """One replica: S decode slots over one shared cache tree.
+
+    ``partitions`` splits a paged pool's blocks into that many contiguous
+    ranges, each slot drawing from its own (the reference's).  ``mesh``
+    (``launch.mesh``) lays the pool over a device mesh, one shard of slots
+    per device; the caller then installs a decode that runs shard by
+    shard (``replica.make_sharded_decode``; ``ShardedReplica`` and a pod
+    rank do), so every tick takes the legacy bulk-pull path (``tick``),
+    whatever ``spec_k`` says.  Prefill runs on ``device`` (the core's)."""
 
     def __init__(self, cfg, *, slots: int, max_seq: int, seed: int = 0,
                  prefill_chunk: int | None = None,
                  core: EngineCore | None = None, replica_id: int = 0,
                  pool: str = "dense", block_size: int | None = None,
-                 num_blocks: int | None = None, spec_k: int = 0,
-                 spec_ngram: int = 3, device="cuda"):
+                 num_blocks: int | None = None, partitions: int = 1,
+                 spec_k: int = 0, spec_ngram: int = 3, mesh=None,
+                 device="cuda"):
         self.cfg = cfg
         self.slots = slots
         self.max_seq = max_seq
@@ -195,6 +204,7 @@ class ServingEngine:
         self.decode = self.core.decode
         self.pool = make_pool(cfg, slots, max_seq, pool=pool,
                               block_size=block_size, num_blocks=num_blocks,
+                              partitions=partitions, mesh=mesh,
                               device=self.device)
         # "paged" on a family with no pageable leaves (a sliding window
         # shorter than max_seq) degenerates to the dense tree, and the

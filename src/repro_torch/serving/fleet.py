@@ -1,5 +1,5 @@
-"""Local worker fleets: spawn listening workers for demos, CI and the card
-(``repro.serving.fleet`` without its multi-process pods).
+"""Local worker fleets and pods: spawn listening workers for demos, CI and
+the card (``repro.serving.fleet``).
 
 In production a TcpReplica attaches to a worker pod somebody else scheduled
 (k8s, a launcher) — the router never forks it.  For demos, CI, and the
@@ -11,9 +11,15 @@ router detaching leaves the pod listening, unless the worker was started
 ``--once``), so the same two-terminal flow in the README works in one
 process.
 
+``launch_pod`` stands in for a multi-host pod scheduler: it spawns
+``pod_size`` ranks of one pod (``--pod-rank/--pod-size`` plus a shared
+gloo ``--coordinator``) on localhost — non-head ranks first (they must be
+listening before the head can claim their mutating sessions), then the
+head with ``--pod-peers`` pointing at them.  Only the HEAD's address is
+dialable by a router; the returned PodHandle owns every rank process.
+
 Every worker owns its device: ``device`` (cuda unless the caller asks for
-cpu) goes to its ``--device`` flag.  ``launch_pod`` and ``PodHandle``
-wait for the port's multi-device work (D3).
+cpu) goes to its ``--device`` flag — every rank of a pod too.
 """
 from __future__ import annotations
 
@@ -30,6 +36,9 @@ from typing import Sequence
 from repro_torch.serving.transport import TransportError
 
 BANNER = "WORKER_LISTENING"
+# how long a pod's ranks get to exit after a shutdown before they are
+# terminated (PodHandle.close)
+POD_EXIT_GRACE_S = 5.0
 
 
 def worker_env() -> dict:
@@ -157,3 +166,82 @@ def free_port(host: str = "127.0.0.1") -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind((host, 0))
         return s.getsockname()[1]
+
+
+@dataclasses.dataclass
+class PodHandle:
+    """One spawned multi-process pod: rank-ordered addresses and process
+    handles (index 0 is the head — the only rank a router dials)."""
+
+    rank_addrs: list[tuple[str, int]]
+    procs: list[subprocess.Popen]
+    coordinator: str
+
+    @property
+    def head_addr(self) -> tuple[str, int]:
+        return self.rank_addrs[0]
+
+    @property
+    def head_proc(self) -> subprocess.Popen:
+        return self.procs[0]
+
+    def close(self):
+        """Give the ranks POD_EXIT_GRACE_S to exit on their own (a head
+        that answered shutdown forwarded it to every rank, which then
+        writes its stats and exits), then terminate what is left and reap
+        all."""
+        deadline = time.monotonic() + POD_EXIT_GRACE_S
+        for proc in self.procs:
+            try:
+                proc.wait(timeout=max(deadline - time.monotonic(), 0.0))
+            except subprocess.TimeoutExpired:
+                pass
+        Fleet([(None, p) for p in self.procs]).close()
+
+    def __enter__(self) -> "PodHandle":
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def launch_pod(pod_size: int, *, host: str = "127.0.0.1",
+               once: bool = True, device: str = "cuda",
+               start_timeout_s: float = 120.0) -> PodHandle:
+    """Spawn one ``pod_size``-rank pod on localhost, every rank on
+    ``device``; → PodHandle.
+
+    Non-head ranks come up first (the head claims their mutating sessions
+    at startup, so they must already be listening), each handed the shared
+    coordinator address and its rank; the head comes up last with
+    ``--pod-peers`` naming the ranks.  The head's banner therefore means
+    the whole pod is wired.  ``once`` ties the HEAD's lifetime to its
+    first router session (stub-owned pods); non-head ranks always follow
+    the head — a forwarded shutdown or the handle's close() retires them."""
+    if pod_size < 1:
+        raise ValueError(f"pod_size must be >= 1, got {pod_size}")
+    coordinator = f"{host}:{free_port(host)}"
+    addrs: list[tuple[str, int]] = []
+    procs: list[subprocess.Popen] = []
+    try:
+        for rank in range(1, pod_size):
+            addr, proc = spawn_worker(
+                host, once=False, start_timeout_s=start_timeout_s,
+                device=device,
+                extra_args=["--pod-rank", str(rank),
+                            "--pod-size", str(pod_size),
+                            "--coordinator", coordinator])
+            addrs.append(addr)
+            procs.append(proc)
+        peers = ",".join(f"{h}:{p}" for h, p in addrs)
+        head_args = ["--pod-rank", "0", "--pod-size", str(pod_size),
+                     "--coordinator", coordinator]
+        if peers:
+            head_args += ["--pod-peers", peers]
+        head_addr, head_proc = spawn_worker(
+            host, once=once, start_timeout_s=start_timeout_s,
+            device=device, extra_args=head_args)
+    except Exception:
+        PodHandle(addrs, procs, coordinator).close()
+        raise
+    return PodHandle([head_addr] + addrs, [head_proc] + procs, coordinator)

@@ -1,4 +1,4 @@
-"""Read-only observation of a live worker — without its router
+"""Read-only observation of a live worker or pod — without its router
 (``repro.serving.observe``).
 
 A listening worker serves ONE mutating session (the router's SocketReplica)
@@ -11,7 +11,7 @@ client side of the read-only kind: it dials a worker, attaches with
               router's ``lifetime`` RPC reads, so an external monitor and
               the control plane can never disagree about served work
   status()    a non-draining snapshot: initialized / queue_depth / active /
-              draining / lifetime
+              draining / lifetime, plus pod rank+mode for pod ranks
 
 None of these drain the mutator's metric window (``report`` stays
 mutator-only — an observer draining it would corrupt the control loop's
@@ -29,7 +29,7 @@ from repro_torch.serving.transport import Connection, TransportError, dial, pars
 
 
 class MetricsObserver:
-    """One read-only session on a listening worker."""
+    """One read-only session on a listening worker (or a pod's head)."""
 
     def __init__(self, addr: str | tuple[str, int], *,
                  connect_timeout_s: float = 10.0,

@@ -1,5 +1,5 @@
 """The Replica protocol: the router's only view of a serving engine
-(``repro.serving.replica`` without its multi-device backends).
+(``repro.serving.replica``).
 
 The router is written purely against this surface (submit / step / report
 / scale hooks), so the replica boundary is a message protocol, never an
@@ -19,13 +19,24 @@ engine reference.  Backends:
                      rather than forks, with connect/handshake deadlines and
                      keepalive.  When no address is given the stub spawns a
                      local TCP worker (demos/CI) and owns its lifetime.
+  ShardedReplica   — ONE engine spanning a device mesh (launch/mesh.py):
+                     the pool's slots (and, paged, its blocks) are split
+                     into one shard per mesh device, and the decode tick
+                     runs ``LM.decode`` shard by shard, each on its device
+                     with the parameters carried there once.  Prefill
+                     stays on the core's device (batch-1); only the
+                     per-tick batched decode is sharded.
+  DistributedPodReplica — TcpReplica against the HEAD of a multi-process
+                     pod: N worker ranks (``--pod-rank/--pod-size``, a
+                     gloo ``--coordinator``) jointly back one replica the
+                     router addresses as a single unit; rank 0 forwards
+                     mutating ops so the ranks step in lockstep
+                     (digest-verified).
 
 Each worker process owns its device (``--device``, cuda unless the caller
 asks for cpu) and draws its weights from the init message's seed, so a
 worker on the device an in-process ``EngineCore`` uses serves the same
-weights.  ``ShardedReplica`` (one engine over a device mesh) and
-``DistributedPodReplica`` (a multi-process pod) wait for the port's
-multi-device work (D3); ``ReplicaRouter`` refuses their topologies by name.
+weights.
 
 Attach handshake: a listening worker serves ONE mutating session plus any
 number of read-only observers (serving/observe.py) concurrently, so an
@@ -59,6 +70,7 @@ Protocol semantics the router relies on:
 """
 from __future__ import annotations
 
+import copy
 import socket
 import subprocess
 import sys
@@ -66,6 +78,7 @@ import time
 from typing import Protocol, runtime_checkable
 
 import numpy as np
+import torch
 
 from repro_torch.core.monitoring.collector import ReplicaReport
 from repro_torch.serving.engine import (
@@ -261,6 +274,114 @@ class InProcessReplica:
     @property
     def transport_ms(self) -> float:
         return 0.0
+
+
+# ---------------------------------------------------------------------------
+# sharded backend: one replica spanning a device mesh
+# ---------------------------------------------------------------------------
+
+
+def make_sharded_decode(cfg, mesh, slots: int, max_seq: int, *,
+                        pool: str = "dense", block_size: int | None = None,
+                        num_blocks: int | None = None):
+    """The engine decode step over a mesh: the slot axis of the tokens, the
+    cache and the logits is split over EVERY mesh axis (the pool's
+    ``ShardedCache``, laid out by ``sharding.pod_decode_rules`` and
+    ``spec_for``), and each shard runs ``LM.decode`` over its slots on its
+    device.  The decode is collective-free (purely batch-parallel).  The
+    shards launch one after another from the host thread; CUDA launches
+    are asynchronous, so shards on distinct devices overlap.  Returns the
+    logits in slot order, on the tokens' device, and the sharded cache.
+
+    The parameters are replicated: the caller's ``LM`` serves every shard
+    on its own device, and a copy is carried once to each other distinct
+    device and kept — never one copy per shard.  ``pool``,
+    ``block_size`` and ``num_blocks`` keep the reference's signature; the
+    pool itself carries its layout."""
+    from repro_torch.device import same_device
+    from repro_torch.models.steps import make_decode_step
+
+    devices = mesh.flat_devices()
+    n = len(devices)
+    if slots % n:
+        raise ValueError(f"slots ({slots}) must divide evenly over the "
+                         f"mesh ({n} devices)")
+    per = slots // n
+    step = make_decode_step(cfg)
+    copies: dict = {}            # device → (source LM, its copy there)
+
+    def params_on(params, dev):
+        if same_device(params.device, dev):
+            return params
+        src, there = copies.get(dev, (None, None))
+        if src is not params:
+            there = copy.deepcopy(params).to(dev)
+            there.recast()
+            copies[dev] = (params, there)
+        return there
+
+    def decode(params, tokens, cache):
+        logits, shards = [], []
+        for k, dev in enumerate(devices):
+            lg, c = step(params_on(params, dev),
+                         tokens[k * per:(k + 1) * per].to(dev),
+                         cache.shards[k])
+            logits.append(lg)
+            shards.append(c)
+        return (torch.cat([lg.to(tokens.device) for lg in logits]),
+                cache.replace(shards))
+
+    return decode
+
+
+class ShardedReplica(InProcessReplica):
+    """One engine spanning a device mesh: S slots / N shards, shard k's
+    slots (and, paged, its block range) on the mesh's k-th device.  With
+    no ``mesh``: one shard on each CUDA device (``device="cpu"``: one shard
+    on the CPU).  Prefill runs on the engine core's device."""
+
+    kind = "sharded"
+
+    def __init__(self, cfg, *, slots: int, max_seq: int, mesh=None,
+                 seed: int = 0, prefill_chunk: int | None = None,
+                 core: EngineCore | None = None, replica_id: int = 0,
+                 decode_fn=None, pool: str = "dense",
+                 block_size: int | None = None,
+                 num_blocks: int | None = None, spec_k: int = 0,
+                 spec_ngram: int = 3, device="cuda"):
+        if mesh is None:
+            mesh = default_mesh(core.device if core is not None else device)
+        n_dev = int(mesh.devices.size)
+        if slots % n_dev != 0:
+            raise ValueError(f"slots ({slots}) must divide evenly over the "
+                             f"mesh ({n_dev} devices)")
+        # paged allocator partitions track the mesh: slot s draws blocks
+        # only from its own shard's contiguous block range.  The spec knobs
+        # are accepted but inert: the sharded decode routes every tick down
+        # the legacy bulk-pull path
+        engine = ServingEngine(cfg, slots=slots, max_seq=max_seq, seed=seed,
+                               prefill_chunk=prefill_chunk, core=core,
+                               replica_id=replica_id, pool=pool,
+                               block_size=block_size, num_blocks=num_blocks,
+                               partitions=n_dev, spec_k=spec_k,
+                               spec_ngram=spec_ngram, mesh=mesh,
+                               device=device)
+        engine.decode = (decode_fn if decode_fn is not None
+                         else make_sharded_decode(cfg, mesh, slots, max_seq,
+                                                  pool=pool,
+                                                  block_size=block_size,
+                                                  num_blocks=num_blocks))
+        super().__init__(engine)
+        self.mesh = mesh
+
+
+def default_mesh(device="cuda"):
+    """The sharded topology's mesh when none is given: one ("data",) shard
+    on each CUDA device, or one on the CPU."""
+    from repro_torch.launch.mesh import make_mesh
+    if torch.device(device).type == "cpu":
+        return make_mesh((1,), ("data",), devices=["cpu"])
+    return make_mesh((max(torch.cuda.device_count(), 1),), ("data",))
 
 
 # ---------------------------------------------------------------------------
@@ -779,3 +900,74 @@ class TcpReplica(SocketReplica):
             if proc is not None and proc.poll() is None:
                 proc.kill()
             raise
+
+
+class DistributedPodReplica(TcpReplica):
+    """A TcpReplica whose far side is a MULTI-PROCESS POD: ``pod_size``
+    worker ranks (``worker.py --pod-rank R --pod-size N``) jointly backing
+    one replica.  The router's view is unchanged — it dials rank 0 (the
+    RPC head) and speaks the ordinary replica protocol; the head forwards
+    every mutating op to the non-head ranks so the pod steps in lockstep,
+    and cross-checks per-step digests (see worker.py "Pod execution").
+
+    ``addr`` is the HEAD's address of a pod somebody else scheduled; with
+    no address the stub launches a local pod on ``device``
+    (fleet.launch_pod — demos, CI, the card) and owns every rank's
+    lifetime: close() shuts the head down over the wire (which forwards
+    the shutdown to the ranks) and then reaps all the rank processes."""
+
+    kind = "pod"
+
+    def __init__(self, cfg, *, slots: int, max_seq: int, pod_size: int = 2,
+                 addr: str | tuple[str, int] | None = None, seed: int = 0,
+                 prefill_chunk: int | None = None, replica_id: int = 0,
+                 rpc_timeout_s: float = 120.0,
+                 init_timeout_s: float = 600.0,
+                 connect_timeout_s: float = 10.0,
+                 batch_submits: bool = True, pool: str = "dense",
+                 block_size: int | None = None,
+                 num_blocks: int | None = None, spec_k: int = 0,
+                 spec_ngram: int = 3, device: str = "cuda"):
+        from repro_torch.serving.fleet import launch_pod
+
+        self.pod_size = int(pod_size)
+        self._pod_handle = None
+        if addr is None:
+            self._pod_handle = launch_pod(self.pod_size, once=True,
+                                          device=device)
+            addr = self._pod_handle.head_addr
+        try:
+            super().__init__(cfg, slots=slots, max_seq=max_seq, addr=addr,
+                             seed=seed, prefill_chunk=prefill_chunk,
+                             replica_id=replica_id,
+                             rpc_timeout_s=rpc_timeout_s,
+                             init_timeout_s=init_timeout_s,
+                             connect_timeout_s=connect_timeout_s,
+                             batch_submits=batch_submits, pool=pool,
+                             block_size=block_size, num_blocks=num_blocks,
+                             spec_k=spec_k, spec_ngram=spec_ngram)
+        except Exception:
+            if self._pod_handle is not None:
+                self._pod_handle.close()
+            raise
+        if self._pod_handle is not None:
+            # the stub owns the whole pod's lifetime: the head process
+            # carries the liveness probe + shutdown RPC (which it forwards
+            # to the other ranks), close()/failure reaps everything
+            self._proc = self._pod_handle.head_proc
+
+    def close(self):
+        super().close()
+        if self._pod_handle is not None:
+            self._pod_handle.close()
+
+    def __del__(self):
+        try:
+            handle = getattr(self, "_pod_handle", None)
+            if handle is not None:
+                for proc in handle.procs:
+                    if proc.poll() is None:
+                        proc.kill()
+        except Exception:
+            pass
+        super().__del__()

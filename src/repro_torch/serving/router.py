@@ -59,9 +59,7 @@ a profiled fleet whose profiles carry no regions routes bit-identically to
 the pre-region profiled key (no delay shims, no spill counting).
 
 The ``repro.serving.router`` logic line for line.  ``from_topology`` builds
-the ``inproc``, ``proc`` and ``tcp`` topologies; the sharded and pod
-topologies wait for the port's multi-device replicas (D3), and asking for
-one raises ``NotImplementedError`` by name.
+all five of the reference's topologies.
 """
 from __future__ import annotations
 
@@ -83,12 +81,6 @@ from repro_torch.serving.transport import TransportError
 MIN_SPEED_TICKS = 16
 
 TOPOLOGIES = ("inproc", "sharded", "proc", "tcp", "pod")
-# the reference's topologies this package cannot build yet, and the queue
-# item each waits for
-UNPORTED_TOPOLOGIES = {
-    "sharded": "D3 (a replica spanning a device mesh)",
-    "pod": "D3 (multi-process pods behind one head)",
-}
 
 
 def _attach_factory(klass, cfg, addr_list, topology, **fixed):
@@ -226,18 +218,26 @@ class ReplicaRouter:
                   spawn local workers on ``device`` and kernel-picked
                   ports, so scale-up keeps working in a demo without a pod
                   scheduler.  ``params`` raises, as for proc.
-        sharded, pod — not ported yet: the multi-device replica and the
-                  multi-process pod (D3).  ``mesh`` and ``pod_size`` belong
-                  to them: they keep the reference's signature and
-                  defaults, and setting one raises, since no ported
-                  topology uses it.
+        sharded — each replica is ONE engine spanning ``mesh``
+                  (``launch.mesh.make_mesh``; default one shard per CUDA
+                  device, or one on the CPU): its slots split over the
+                  mesh, decoded shard by shard (ShardedReplica).  The
+                  replicas share one EngineCore on ``device`` (``params``
+                  as for inproc) and one sharded decode, so each distinct
+                  mesh device holds one copy of the weights.
+        pod     — each replica is a MULTI-PROCESS pod of ``pod_size``
+                  worker ranks behind one head (DistributedPodReplica):
+                  ``addrs`` lists pre-scheduled pod HEAD addresses;
+                  replica ids past the list launch local pods, every rank
+                  on ``device``.  ``params`` raises, as for proc.
 
-        ``batch_submits`` (proc/tcp) folds per-tick submits into the step
-        RPC — one message per round per replica instead of one per
-        request.  For tcp, off-list local spawns are counted in
-        ``metrics()["off_list_spawns"]``.  ``addrs`` and ``batch_submits``
-        set away from their defaults raise for inproc, which has no use
-        for them.
+        ``batch_submits`` (proc/tcp/pod) folds per-tick submits into the
+        step RPC — one message per round per replica instead of one per
+        request.  For the attach topologies, off-list local spawns are
+        counted in ``metrics()["off_list_spawns"]``.  An option a topology
+        has no use for raises by name when set away from its default:
+        ``mesh`` outside sharded, ``pod_size`` outside pod, and ``addrs``
+        and ``batch_submits`` with inproc or sharded.
 
         ``pool`` ∈ {"dense", "paged"} selects each replica's KV layout
         (serving/slots.py); ``block_size``/``num_blocks`` tune the paged
@@ -247,7 +247,9 @@ class ReplicaRouter:
         ``spec_k``/``spec_ngram`` turn on speculative decoding inside each
         replica's engine (serving/engine.py) — also observationally
         invisible: accepted drafts are exact matches, so token streams are
-        bit-identical with speculation on or off.
+        bit-identical with speculation on or off.  The sharded topology
+        accepts the knobs but serves the plain path (its decode runs
+        single-position ticks).
 
         ``profile_fn(replica_id) -> ReplicaProfile`` (e.g. a
         serving/profiles.py FleetPlan) declares the fleet heterogeneous —
@@ -259,25 +261,22 @@ class ReplicaRouter:
         if topology not in TOPOLOGIES:
             raise ValueError(f"unknown topology {topology!r} "
                              f"(expected one of {TOPOLOGIES})")
-        if topology in UNPORTED_TOPOLOGIES:
-            raise NotImplementedError(
-                f"topology {topology!r} is not ported yet: it waits for "
-                f"{UNPORTED_TOPOLOGIES[topology]}; the port builds "
-                f"'inproc', 'proc' and 'tcp'")
-        unused = [("mesh", mesh, None), ("pod_size", pod_size, 2)]
-        if topology == "inproc":
+        unused = []
+        if topology != "sharded":
+            unused.append(("mesh", mesh, None))
+        if topology != "pod":
+            unused.append(("pod_size", pod_size, 2))
+        if topology in ("inproc", "sharded"):
             unused += [("addrs", addrs or None, None),
                        ("batch_submits", batch_submits, True)]
         for name, value, default in unused:
             if value != default:
                 raise NotImplementedError(
-                    f"{name}={value!r} has no use in topology {topology!r} "
-                    f"(mesh and pod_size belong to sharded and pod, which "
-                    f"wait for D3)")
+                    f"{name}={value!r} has no use in topology {topology!r}")
         pool_kw = dict(pool=pool, block_size=block_size,
                        num_blocks=num_blocks, spec_k=spec_k,
                        spec_ngram=spec_ngram)
-        if topology != "inproc" and params is not None:
+        if topology not in ("inproc", "sharded") and params is not None:
             raise ValueError(
                 f"params cannot cross the process boundary of topology "
                 f"{topology!r}: its workers draw their weights from seed "
@@ -297,6 +296,32 @@ class ReplicaRouter:
                 TcpReplica, cfg, list(addrs or []), topology, slots=slots,
                 max_seq=max_seq, seed=seed, prefill_chunk=prefill_chunk,
                 batch_submits=batch_submits, device=_worker_device(device), **pool_kw)
+        elif topology == "pod":
+            from repro_torch.serving.replica import DistributedPodReplica
+            factory = _attach_factory(
+                DistributedPodReplica, cfg, list(addrs or []), topology,
+                slots=slots, max_seq=max_seq, seed=seed,
+                prefill_chunk=prefill_chunk, pod_size=pod_size,
+                batch_submits=batch_submits, device=_worker_device(device),
+                **pool_kw)
+        elif topology == "sharded":
+            from repro_torch.serving.replica import (
+                ShardedReplica, default_mesh, make_sharded_decode,
+            )
+            core = EngineCore(cfg, max_seq, seed=seed, params=params,
+                              device=device)
+            if mesh is None:
+                mesh = default_mesh(core.device)
+            decode_fn = make_sharded_decode(cfg, mesh, slots, max_seq,
+                                            pool=pool, block_size=block_size,
+                                            num_blocks=num_blocks)
+
+            def factory(replica_id: int):
+                return ShardedReplica(cfg, slots=slots, max_seq=max_seq,
+                                      mesh=mesh, seed=seed,
+                                      prefill_chunk=prefill_chunk, core=core,
+                                      replica_id=replica_id,
+                                      decode_fn=decode_fn, **pool_kw)
         else:
             core = EngineCore(cfg, max_seq, seed=seed, params=params,
                               device=device)

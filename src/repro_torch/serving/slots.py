@@ -17,6 +17,17 @@ blocks read-only and skips that part of prefill entirely.  The allocator
 runs on the host, as in the reference; its edits of the device tree are
 in-place copies (``index_copy_`` over the block axis, block-to-block
 copies, table-row copies) where the reference rebuilds the arrays.
+
+``ShardedSlotPool`` and ``ShardedPagedSlotPool`` keep the same host state
+and lay the device state over a mesh (``launch/mesh.py``): each leaf's
+logical axes go through ``sharding.pod_decode_rules`` and ``spec_for``,
+which split the slot ("batch") dim of dense leaves and the block
+("cache_blocks") dim of paged ones into contiguous shards, one per mesh
+device.  ``cache`` is then a ``ShardedCache``, whose ``shards[k]`` is the
+cache tree ``LM.decode`` takes for shard k's slots; every device edit goes
+to the one shard that owns the slot (the paged allocator pins a slot's
+blocks to its own partition, so a slot's writes and forks touch one
+shard).
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models import LM
+from repro_torch.models.transformer import map_spec
 
 
 def _pad_to_pool(pool, one):
@@ -415,19 +427,17 @@ class PagedSlotPool(SlotPool):
         if not self.free[part]:
             raise AssertionError(f"partition {part} exhausted (COW fork)")
         new = self.free[part].pop()
-
-        def copy(leaf, paged):
-            if paged:      # pageable leaves are (A, NB, bk, KV, hd)
-                leaf[:, new].copy_(leaf[:, blk])
-
-        _map_tree(copy, {k: self.cache[k] for k in self._paged_leaf},
-                  self._paged_leaf)
+        self._copy_block(slot, blk, new)
         self.refcount[new] += 1
         self.refcount[blk] -= 1
         self.slot_blocks[slot][self.slot_blocks[slot].index(blk)] = new
         self.tables[slot, j] = new
         self._sync_tables(slot)
         return new
+
+    def _copy_block(self, slot: int, src: int, dst: int):
+        """Block ``src`` → ``dst`` in every pageable leaf."""
+        _copy_block(self.cache, self._paged_leaf, src, dst)
 
     def release(self, slot: int):
         """Drop the slot's references; blocks whose refcount reaches zero
@@ -459,9 +469,16 @@ class PagedSlotPool(SlotPool):
         bk-token chunks and copied into the slot's allocated blocks (never
         shared ones: on a prefix hit the engine runs no prefill)."""
         n_alloc = len(self.slot_blocks[slot])
-        device = self.cache["index"].device
-        tgt = torch.as_tensor(self.tables[slot, :n_alloc], dtype=torch.long,
-                              device=device)
+        self._write_pages(self.cache, one, slot,
+                          self.tables[slot, :n_alloc])
+        self.set_slot_index(slot, one["index"] if index is None else index)
+
+    def _write_pages(self, cache, one, slot: int, blocks):
+        """``one``'s leaves into ``cache``: dense leaves at row ``slot``,
+        pageable ones cut into bk-token chunks copied to ``blocks``."""
+        n_alloc = len(blocks)
+        tgt = torch.as_tensor(blocks, dtype=torch.long,
+                              device=cache["index"].device)
 
         def write_leaf(pool, o, paged):
             if not paged:
@@ -471,11 +488,18 @@ class PagedSlotPool(SlotPool):
             # (A, 1, Smax, KV, hd) → (A, nk, bk, KV, hd) chunks
             chunks = o[:, 0].reshape((o.shape[0], self.nk, self.block_size)
                                      + tuple(o.shape[3:]))
-            pool.index_copy_(1, tgt, chunks[:, :n_alloc].to(pool.dtype))
+            pool.index_copy_(1, tgt, chunks[:, :n_alloc].to(pool))
 
-        _map_tree(write_leaf, {k: self.cache[k] for k in self._paged_leaf},
+        _map_tree(write_leaf, {k: cache[k] for k in self._paged_leaf},
                   {k: one[k] for k in self._paged_leaf}, self._paged_leaf)
-        self.set_slot_index(slot, one["index"] if index is None else index)
+
+
+def _copy_block(cache, paged_leaf, src: int, dst: int):
+    def copy(leaf, paged):
+        if paged:      # pageable leaves are (A, NB, bk, KV, hd)
+            leaf[:, dst].copy_(leaf[:, src])
+
+    _map_tree(copy, {k: cache[k] for k in paged_leaf}, paged_leaf)
 
 
 def _pad_to_pool_seq(one, max_seq: int):
@@ -487,14 +511,188 @@ def _pad_to_pool_seq(one, max_seq: int):
     return one
 
 
+# ---------------------------------------------------------------------------
+# sharded pools: the same host state, the device state laid over a mesh
+# ---------------------------------------------------------------------------
+
+
+class ShardedCache:
+    """A pool's cache tree laid over a mesh: ``shards[k]`` holds the same
+    keys as the unsharded tree, each leaf's k-th contiguous slice along its
+    split dim (``dims``, the same tree of ints), on ``devices[k]`` — the
+    tree ``LM.decode`` takes for shard k's slots."""
+
+    def __init__(self, shards: list, devices: list, dims):
+        self.shards = shards
+        self.devices = devices
+        self.dims = dims
+
+    def __contains__(self, key) -> bool:
+        return key in self.shards[0]
+
+    def replace(self, shards: list) -> "ShardedCache":
+        return ShardedCache(shards, self.devices, self.dims)
+
+
+def shard_specs(axes_tree, mesh):
+    """Each leaf's partition spec: its logical axes through
+    ``pod_decode_rules(mesh)`` and ``spec_for`` (the reference's sharded
+    decode derives its per-leaf specs the same way)."""
+    from repro_torch.sharding import pod_decode_rules, spec_for
+    rules = pod_decode_rules(mesh)
+    return map_spec(lambda axes: spec_for(axes, rules, mesh), axes_tree)
+
+
+def shard_dims(specs, mesh):
+    """Each leaf's split dim: its spec must name every mesh axis, in mesh
+    order, on exactly one dim (the slot or the block dim) — the decode is
+    batch-parallel, so no other layout can be served."""
+    every = tuple(mesh.axis_names)
+
+    def one(spec):
+        split = [i for i, s in enumerate(spec) if s is not None]
+        entry = spec[split[0]] if len(split) == 1 else None
+        if ((entry,) if isinstance(entry, str) else entry) != every:
+            raise ValueError(f"cache leaf spec {spec} on mesh axes {every}: "
+                             f"a sharded pool splits one dim over every "
+                             f"mesh axis")
+        return split[0]
+
+    return map_spec(one, specs)
+
+
+def _split_leaf(leaf, dim: int, devices: list) -> list:
+    """``leaf`` cut into len(devices) contiguous slices along ``dim``, each
+    copied into storage of its own on its device."""
+    out = []
+    for part, dev in zip(leaf.chunk(len(devices), dim), devices):
+        own = torch.empty(part.shape, dtype=part.dtype, device=dev)
+        out.append(own.copy_(part))
+    return out
+
+
+class _Sharded:
+    """The sharding half of ShardedSlotPool / ShardedPagedSlotPool: built
+    once the unsharded pool (on the mesh's first device) holds its initial
+    state, which it then splits over the mesh."""
+
+    def _shard(self, mesh, axes):
+        self.mesh = mesh
+        self.devices = mesh.flat_devices()
+        n = len(self.devices)
+        if self.slots % n:
+            raise ValueError(f"slots ({self.slots}) must divide evenly over "
+                             f"the mesh ({n} devices)")
+        self.per_shard = self.slots // n
+        self.specs = shard_specs(axes, mesh)
+        dims = shard_dims(self.specs, mesh)
+        parts = _map_tree(lambda leaf, d: _split_leaf(leaf, d, self.devices),
+                          self.cache, dims)
+        shards = [_map_tree(lambda p, k=k: p[k], parts) for k in range(n)]
+        self.cache = ShardedCache(shards, self.devices, dims)
+
+    def _locate(self, slot: int) -> tuple[int, int]:
+        """(shard, row within it) of a slot."""
+        return divmod(slot, self.per_shard)
+
+    @property
+    def index(self) -> torch.Tensor:
+        return torch.cat([s["index"].to(self.devices[0])
+                          for s in self.cache.shards])
+
+    def set_index(self, values):
+        values = np.asarray(values)
+        for k, shard in enumerate(self.cache.shards):
+            rows = values[k * self.per_shard:(k + 1) * self.per_shard]
+            shard["index"] = torch.tensor(rows, dtype=torch.int32,
+                                          device=self.devices[k])
+
+    def set_slot_index(self, slot: int, pos):
+        k, row = self._locate(slot)
+        self.cache.shards[k]["index"][row] = int(pos)
+
+
+class ShardedSlotPool(_Sharded, SlotPool):
+    """SlotPool whose slots are split over ``mesh``: shard k owns slots
+    [k·S/N, (k+1)·S/N) of every leaf, on the mesh's k-th device."""
+
+    def __init__(self, cfg, slots: int, max_seq: int, *, mesh):
+        super().__init__(cfg, slots, max_seq, device=mesh.flat_devices()[0])
+        axes = map_spec(lambda s: s[2], LM.cache_spec(cfg, slots, max_seq))
+        axes["index"] = ("batch",)
+        self._shard(mesh, axes)
+
+    def write(self, one, slot: int, *, index=None):
+        k, row = self._locate(slot)
+        _write_tree({key: v for key, v in self.cache.shards[k].items()
+                     if key != "index"}, one, row)
+        self.set_slot_index(slot, one["index"] if index is None else index)
+
+
+class ShardedPagedSlotPool(_Sharded, PagedSlotPool):
+    """PagedSlotPool split over ``mesh``: partition k (its slots and its
+    contiguous block range) is shard k.  The block tables keep global block
+    ids, as the reference's sharded pool does; decode folds them into the
+    shard's local pool (``Attention._decode_paged``)."""
+
+    def __init__(self, cfg, slots: int, max_seq: int, *, mesh,
+                 block_size: int | None = None,
+                 num_blocks: int | None = None):
+        super().__init__(cfg, slots, max_seq, block_size=block_size,
+                         num_blocks=num_blocks, partitions=mesh.size,
+                         device=mesh.flat_devices()[0])
+        spec = paged_cache_spec(cfg, slots, max_seq,
+                                block_size=self.block_size,
+                                num_blocks=self.num_blocks)
+        self._shard(mesh, map_spec(lambda s: s[2], spec))
+
+    def _sync_tables(self, slot: int | None = None):
+        if not isinstance(self.cache, ShardedCache):    # still building
+            return super()._sync_tables(slot)
+        if "block_tbl" not in self.cache:
+            return
+        for k, shard in enumerate(self.cache.shards):
+            lo = k * self.per_shard
+            if slot is None:
+                shard["block_tbl"].copy_(torch.from_numpy(
+                    self.tables[lo:lo + self.per_shard]))
+            elif lo <= slot < lo + self.per_shard:
+                shard["block_tbl"][slot - lo].copy_(
+                    torch.from_numpy(self.tables[slot]))
+
+    def _copy_block(self, slot: int, src: int, dst: int):
+        k, _ = self._locate(slot)
+        base = k * self.nb_local
+        _copy_block(self.cache.shards[k], self._paged_leaf, src - base,
+                    dst - base)
+
+    def write(self, one, slot: int, *, index=None):
+        k, row = self._locate(slot)
+        n_alloc = len(self.slot_blocks[slot])
+        self._write_pages(self.cache.shards[k], one, row,
+                          self.tables[slot, :n_alloc] - k * self.nb_local)
+        self.set_slot_index(slot, one["index"] if index is None else index)
+
+
 def make_pool(cfg, slots: int, max_seq: int, *, pool: str = "dense",
               block_size: int | None = None, num_blocks: int | None = None,
-              partitions: int = 1, device="cuda"):
-    """Pool factory: ``pool`` ∈ {"dense", "paged"}."""
+              partitions: int = 1, mesh=None, device="cuda"):
+    """Pool factory: ``pool`` ∈ {"dense", "paged"}.  With a ``mesh`` the
+    pool is sharded over it (``partitions`` then must be the mesh size, and
+    ``device`` is unused: each shard lives on its mesh device)."""
+    if pool not in ("dense", "paged"):
+        raise ValueError(f"unknown pool {pool!r}")
+    if mesh is not None:
+        if partitions not in (1, mesh.size):
+            raise ValueError(f"{partitions} partitions for a mesh of "
+                             f"{mesh.size} devices")
+        if pool == "paged":
+            return ShardedPagedSlotPool(cfg, slots, max_seq, mesh=mesh,
+                                        block_size=block_size,
+                                        num_blocks=num_blocks)
+        return ShardedSlotPool(cfg, slots, max_seq, mesh=mesh)
     if pool == "paged":
         return PagedSlotPool(cfg, slots, max_seq, block_size=block_size,
                              num_blocks=num_blocks, partitions=partitions,
                              device=device)
-    if pool != "dense":
-        raise ValueError(f"unknown pool {pool!r}")
     return SlotPool(cfg, slots, max_seq, device=device)

@@ -978,3 +978,43 @@ def test_engine_takes_a_model_built_on_the_card(cuda):
     assert EngineCore(cfg, 16, params=model, device="cuda").params is model
     with pytest.raises(ValueError, match="params on"):
         EngineCore(cfg, 16, params=LM(cfg, device="cpu"), device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["dense", "paged"])
+def test_sharded_decode_on_the_card_matches_unsharded(cuda, pool):
+    """A replica over a 2-shard mesh on one card serves the streams of the
+    unsharded replica on the same core (float32 smoke width), and each
+    tick launches the decode kernel's write instance once per shard per
+    layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving import InProcessReplica, Request, ShardedReplica
+    from repro_torch.serving.engine import EngineCore
+    cfg = get_smoke_config("qwen2.5-3b")
+    core = EngineCore(cfg, 24, seed=0, device="cuda")
+    mesh = make_mesh((2,), ("data",), devices=["cuda:0", "cuda:0"])
+    kernel = ("decode_attention_paged_write" if pool == "paged"
+              else "decode_attention_write")
+
+    def run(rep):
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, size=6 + i)
+                        .astype(np.int32), gen_len=5) for i in range(5)]
+        for r in reqs:
+            rep.submit(r, now=0.0)
+        done, now = [], 0.0
+        while len(done) < len(reqs) and now < 200:
+            now += 1.0
+            done.extend(rep.step(now))
+        return {r.rid: tuple(r.tokens_out) for r in done}
+
+    want = run(InProcessReplica.build(cfg, slots=4, max_seq=24,
+                                      prefill_chunk=4, core=core, pool=pool))
+    rep = ShardedReplica(cfg, slots=4, max_seq=24, prefill_chunk=4,
+                         core=core, pool=pool, mesh=mesh)
+    ops.reset_launch_counts()
+    got = run(rep)
+    assert got == want
+    ticks = rep.engine.logits_pulls
+    assert ops.launch_counts()[kernel] == 2 * cfg.n_layers * ticks > 0

@@ -40,7 +40,8 @@ def test_import_leaves_jax_and_reference_out():
         "import repro_torch.serving.replica, repro_torch.serving.transport\n"
         "import repro_torch.serving.chaos, repro_torch.serving.profiles\n"
         "import repro_torch.serving.worker, repro_torch.serving.fleet\n"
-        "import repro_torch.serving.observe\n"
+        "import repro_torch.serving.observe, repro_torch.sharding\n"
+        "import repro_torch.launch.mesh\n"
         "import repro_torch.core.monitoring, repro_torch.core.scaling\n"
         "import repro_torch.core.allocation, repro_torch.core.dnn\n"
         "import repro_torch.optim, repro_torch.nn\n"
@@ -68,21 +69,25 @@ def test_port_sources_stay_clean(pattern, what):
 
 @pytest.mark.parametrize("topology", ["sharded", "proc", "tcp", "pod"])
 def test_unported_topologies_raise_by_name(topology):
-    """sharded and pod wait for D3 and raise by name.  proc and tcp are
-    built; what they lack of the reference, the pod options, raises by
-    name, before any worker spawns."""
+    """Every topology is built; an option a topology has no use for
+    (``pod_size`` outside pod, ``mesh`` outside sharded) raises by name,
+    naming the topology, before any worker spawns or any weight is drawn;
+    an unknown topology raises ValueError."""
     from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.serving.closed_loop import LoopConfig, run_closed_loop
     from repro_torch.serving.router import ReplicaRouter
     cfg = get_smoke_config("qwen2.5-3b")
-    unported = {} if topology in ("sharded", "pod") else {"pod_size": 4}
+    foreign = ({"mesh": make_mesh((1,), ("data",), devices=["cpu"])}
+               if topology == "pod" else {"pod_size": 4})
     with pytest.raises(NotImplementedError, match=topology):
         ReplicaRouter.from_topology(cfg, topology, slots=2, max_seq=16,
-                                    device="cpu", **unported)
-    with pytest.raises(NotImplementedError, match=topology):
-        run_closed_loop(cfg, ticks=1,
-                        lc=LoopConfig(topology=topology, **unported),
-                        device="cpu")
+                                    device="cpu", **foreign)
+    if "pod_size" in foreign:
+        with pytest.raises(NotImplementedError, match=topology):
+            run_closed_loop(cfg, ticks=1,
+                            lc=LoopConfig(topology=topology, **foreign),
+                            device="cpu")
     with pytest.raises(ValueError, match="unknown topology"):
         ReplicaRouter.from_topology(cfg, "mesh", slots=2, max_seq=16,
                                     device="cpu")
@@ -150,7 +155,7 @@ def test_spawned_worker_never_loads_jax(tmp_path):
     ("mesh", object()), ("addrs", ["127.0.0.1:1"]), ("pod_size", 4),
     ("batch_submits", False)])
 def test_other_topologies_options_raise_with_inproc(option, value):
-    """The options of the unported topologies have no effect on inproc, so
+    """The options of the other topologies have no effect on inproc, so
     setting one raises by name instead of being ignored; so does a
     LoopConfig that carries one."""
     from repro_torch.configs import get_smoke_config

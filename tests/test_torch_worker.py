@@ -16,8 +16,9 @@ returns to accept after each test's router detaches.  Pinned here:
   ``router.metrics()["off_list_spawns"]``;
 * a PodDesyncError step reply reaps the replica instead of crashing;
 * the command line: ``--device`` is cuda unless told, a worker asked for
-  cuda without a card raises before it listens, and the reference's pod
-  flags are refused by name.
+  cuda without a card raises before it listens, and each pod flag, in a
+  command line the reference refuses, is refused with the reference's
+  message and exit code.
 """
 import os
 import socket
@@ -261,16 +262,34 @@ def test_worker_device_defaults_to_cuda_and_raises_without_a_card():
         spawn_worker(start_timeout_s=60.0)
 
 
+# for each pod flag, the rest of a command line the reference refuses
+POD_FLAG_REFUSALS = {
+    "--pod-rank": ["--listen", "127.0.0.1:0"],                 # no size
+    "--pod-size": ["--listen", "127.0.0.1:0", "--pod-rank", "2"],  # range
+    "--coordinator": ["--pod-rank", "0", "--pod-size", "1"],  # no --listen
+    "--pod-peers": ["--listen", "127.0.0.1:0", "--pod-rank", "1",
+                    "--pod-size", "2"],                        # head-only
+}
+
+
 @pytest.mark.parametrize("flag,value", [
     ("--pod-rank", "0"), ("--pod-size", "2"),
     ("--coordinator", "127.0.0.1:1"), ("--pod-peers", "127.0.0.1:2")])
 def test_pod_flags_refused_by_name(flag, value, capsys):
-    with pytest.raises(SystemExit) as e:
-        worker.main(["--listen", "127.0.0.1:0", "--device", "cpu", flag,
-                     value])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and "D3" in err
+    """The worker refuses each pod flag's bad command line as the
+    reference's worker does: exit code 2 and the same message."""
+    from repro.serving import worker as ref_worker
+    argv = POD_FLAG_REFUSALS[flag] + [flag, value]
+    errs = []
+    for main, extra in ((worker.main, ["--device", "cpu"]),
+                        (ref_worker.main, [])):
+        with pytest.raises(SystemExit) as e:
+            main(argv + extra)
+        assert e.value.code == 2
+        errs.append(capsys.readouterr().err.strip().splitlines()[-1]
+                    .split("error: ", 1)[1])
+    assert errs[0] == errs[1]
+    assert "--pod-rank" in errs[0] or flag in errs[0]
 
 
 def test_worker_needs_an_fd_or_a_listen_address(capsys):
