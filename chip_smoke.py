@@ -12,8 +12,10 @@ phase 8 the same loop over worker processes (the remote fleet), phase 9
 trains (the train route, full-width qwen2.5-3b steps) and serves the
 trained weights, phase 10 runs the cost model: the one-card dry-run
 of six full-width cells and the queueing model the planner sizes against,
-and phase 11 the replica fabric: one replica over a device mesh, a
-multi-process pod, and phase 6's loop over the sharded topology.
+phase 11 the replica fabric: one replica over a device mesh, a
+multi-process pod, and phase 6's loop over the sharded topology, and phase
+12 the model axis: split-K decode and expert-parallel MoE over meshes
+whose shards all lie on the one card.
 Each phase's wall time is printed.  Any failure exits non-zero and prints
 no result line.
 
@@ -293,6 +295,38 @@ no result line.
               every TickLog field but learn_loss and every stream equal
               phase 6's; launch counts of the bulk path.  (a) and (c)
               join the kernels line.
+12. axis    — the split-K body alone at qwen2.5-3b's decode shapes over a
+              4096-slot ring on 4 shards (float32 within 1e-4 of
+              ``sdpa_ref``, bf16 within 2e-2 of K1's write instance, the
+              written caches bitwise equal; not counted).  Then, counted:
+              (a) full-width qwen2.5-3b (36 layers, bf16 weights): 8
+              prompts of 200 tokens prefilled through K4 into a 4096-slot
+              ring, 16 greedy steps (K3 picks every token) without a shard
+              context (K1's write instance) and under ``shard_ctx(
+              SERVE_RULES, mesh)`` on a (1, 4) mesh on cuda:0 (split-K: no
+              decode kernel launches).  Step 1's written K/V rows are the
+              body's new rows bitwise in every layer, layer 0's equal the
+              unsharded write, no other slot changes, the cache comes back
+              split.  Fed the unsharded run's tokens, every row's logits
+              stay within AXIS_GAP of K1's at every step and the greedy
+              choices part only at near-ties (top two within 2 x
+              AXIS_GAP); free-running, the rows in step are held the same
+              way and the parted ones printed.  A float32 copy at 4
+              layers, TF32 off: logits within 1e-4 x max(1, max |logit|)
+              of the unsharded steps.  (b) One card's share of qwen2.5-3b
+              decode_32k (8 rows over a 32768-slot ring, index 32767) over
+              a (1, 16) mesh on cuda:0 beside the unsharded step: CUDA-
+              event times, peaks (split-K within 1 GiB of the unsharded
+              step's: the cache is never gathered), the collectives'
+              wire bytes a device exactly 36 x 1.875 x (512 + 512 +
+              65536) = 4,492,800, logits within AXIS_GAP.  (c) olmoe-1b-7b
+              at full width and depth (64 experts, top 8): prefill 8 x 64
+              tokens and 8 steps on a (1, 4) mesh at capacity factor 1.25,
+              every expert-parallel MoE call held against the global path
+              on the same input (drop_frac and expert_load equal, y within
+              2e-2); then a dropless copy on a (2, 2) mesh held to the
+              global run as (a)'s streams are.  Launch counts join the
+              kernels line.
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -968,6 +1002,31 @@ def kernel_phase(torch, ops, ref, sample_noise):
     return rows
 
 
+def windowed_sdpa_ms(torch, q, k, v, window):
+    """One ``scaled_dot_product_attention`` call over a boolean causal
+    sliding-window mask (key j visible to query i when i - window < j <=
+    i), q (B, S, H, hd), k/v (B, S, KV, hd) → (ms, what ran).  Only the
+    memory-efficient backend takes a mask without holding the scores (the
+    math backend's float32 scores are B·H·S²·4 bytes, 275 GB at danube's 2
+    x 32768), and it refuses grouped K/V (no kernel for
+    ``enable_gqa``), so K/V are expanded to H heads before the timed
+    call."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    F = torch.nn.functional
+    S, H = q.shape[1], q.shape[2]
+    i = torch.arange(S, device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    G = H // k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kt, vt = (x.repeat_interleave(G, dim=1) for x in (kt, vt))
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        ms = timed_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), reps=5, warmup=1)
+    return ms, (f"memory-efficient SDPA, ({S}, {S}) boolean window mask "
+                f"({mask.numel() / 2**30:.2f} GiB), K/V expanded {G}x to "
+                f"{H} heads beforehand")
+
+
 def long_rows(torch, ops, ref, seed=29):
     """The kernels at phase 10's lengths.  K4 (qwen2.5-3b's 16 heads over
     2, hd 128, causal; h2o-danube-1.8b's 32 over 8, hd 80, window 4096) and
@@ -978,7 +1037,8 @@ def long_rows(torch, ops, ref, seed=29):
     measured.  K1's write instance over a DRY_LEN-slot ring at qwen2.5-3b's
     and zamba2-2.7b's shapes, every index regime of ``write_indices`` and
     the decode_32k cell's (every row at DRY_LEN - 1, the whole ring live),
-    timed in the latter.  Library: SDPA (causal rows only)."""
+    timed in the latter.  Library: SDPA (causal; danube's with a boolean
+    window mask, ``windowed_sdpa_ms``)."""
     from repro_torch.kernels import flash_attention, ssm_scan
     F = torch.nn.functional
     dev, bf16 = torch.device("cuda"), torch.bfloat16
@@ -1020,6 +1080,10 @@ def long_rows(torch, ops, ref, seed=29):
                         q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), is_causal=True, enable_gqa=True),
                     reps=5, warmup=1)
+            else:
+                r["library_ms"], r["library_call"] = windowed_sdpa_ms(
+                    torch, q, k, v, window)
+                print(f"  library at {label} S={S}: {r['library_call']}")
             c = flash_attention.cost(Bq, S, S, H, KV, hd, window=window)
             r["bound_ms"], r["bound_by"] = bound(c.bytes, c.flops,
                                                  PEAK_BF16_S)
@@ -4418,6 +4482,484 @@ def fabric_phase(torch, ops, loop, seed, add):
     free(torch)
 
 
+# -------------------------------------------------------------------- phase 12
+# the model axis: split-K decode over a sequence-split KV cache and
+# expert-parallel MoE, every mesh's shards on cuda:0
+AXIS_MESH = (1, 4)
+AXIS_B, AXIS_PROMPT, AXIS_RING, AXIS_STEPS = 8, 200, 4096, 16
+AXIS_F32_LAYERS, AXIS_F32_STEPS = 4, 4
+# float32 logits within this x max(1, max |logit|) of the unsharded steps:
+# the reference's own 1e-4, scaled to full-width logits
+AXIS_F32_TOL = 1e-4
+# bf16: split-K (the reference's casts: probabilities rounded to bf16
+# before P·V) against K1's write instance (float32 probabilities) at every
+# layer of a step.  Two vectors within AXIS_GAP can swap their argmax only
+# where the top two lie closer than 2 x AXIS_GAP: a row's greedy choice may
+# part there and nowhere else.  With random weights such near-ties are
+# common (on the H100, 4 of 8 free-running rows part within 16 steps, at
+# margins of 0.004-0.037), so the split-K steps are also run fed the
+# unsharded run's tokens, and there every row's logits are held at every
+# step.
+AXIS_GAP = 0.25
+SPLITK_SHARDS = 16
+# a decode_32k step over 16 shards: per layer the float32 pmax and psum of
+# (8, 2, 8) and the psum of (8, 2, 8, 128), all-reduce over n = 16 (ring:
+# 2 (n - 1) / n of the result a device)
+SPLITK_WIRE_BYTES = 36 * 1.875 * (512 + 512 + 65536)
+OLMOE_PROMPT, OLMOE_STEPS = 64, 8
+
+
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+@contextlib.contextmanager
+def launches_into(ops, out):
+    """The kernels' launches in the block, added into ``out``."""
+    before = ops.launch_counts()
+    try:
+        yield
+    finally:
+        for k, n in ops.launch_counts().items():
+            if n != before[k]:
+                out[k] = out.get(k, 0) + n - before[k]
+
+
+def greedy(torch, ops, logits):
+    """K3 at temperature 0 on the last position's float32 logits → (B, 1)
+    int32."""
+    rows = logits[:, -1].float()
+    z = torch.zeros(rows.shape[0], dtype=torch.int32, device=rows.device)
+    return ops.fused_sample(rows, z, z, z, z.float())[:, None]
+
+
+def axis_run(torch, ops, model, logits, cache, steps, ctx, feed=None):
+    """``steps`` greedy decode steps from the prefill's ``logits`` under
+    ``ctx()``: (tokens [(B, 1)], each picked by K3 from the logits beside
+    it, logits [(B, V) float32] the prefill's first, the last cache).
+    ``feed``: ``steps + 1`` tokens to take instead of the run's own picks
+    (teacher forcing)."""
+    from repro_torch.models.steps import make_decode_step
+    step = make_decode_step(model.cfg)
+    toks, outs = [], [logits[:, -1].float()]
+    for t in range(steps + 1):
+        toks.append(greedy(torch, ops, logits) if feed is None else feed[t])
+        if t == steps:
+            break
+        with ctx():
+            logits, cache = step(model, toks[-1], cache)
+        outs.append(logits[:, 0].float())
+    return toks, outs, cache
+
+
+def near_tie(torch, logits, row, what):
+    """The top-two margin of ``logits[row]``; fails unless it is under
+    2 x AXIS_GAP (a greedy choice may part only at such a near-tie)."""
+    top = logits[row].topk(2).values
+    margin = float(top[0] - top[1])
+    check(margin < 2 * AXIS_GAP, f"{what}: the greedy choice parts at a "
+          f"margin of {margin:.4g} (>= {2 * AXIS_GAP})")
+    return margin
+
+
+def held_forced(torch, one, two, label):
+    """Run ``two`` was fed run ``one``'s tokens: every row's logits within
+    AXIS_GAP at every step, and their greedy choices equal but at
+    near-ties.  → (worst gap, [(step, row, margin)] where they differ)."""
+    worst, flips = 0.0, []
+    for t, (a, b) in enumerate(zip(one, two)):
+        gap = float((a - b).abs().max())
+        check(gap <= AXIS_GAP, f"{label}: step {t}'s logits differ by "
+              f"{gap:.4g} (> {AXIS_GAP})")
+        worst = max(worst, gap)
+        for r in (a.argmax(-1) != b.argmax(-1)).nonzero()[:, 0].tolist():
+            flips.append((t, r, near_tie(torch, a, r,
+                                         f"{label}: step {t} row {r}")))
+    return worst, flips
+
+
+def held_in_step(torch, one, two, label):
+    """Free-running runs ``one`` and ``two`` (each (tokens, logits)), held
+    step by step on the rows whose tokens agree so far: logits within
+    AXIS_GAP; a row parts only at a near-tie of ``one``'s logits.  →
+    (worst gap, {row: (step, margin)})."""
+    (toks1, l1), (toks2, l2) = one, two
+    live, parted, worst = set(range(l1[0].shape[0])), {}, 0.0
+    for t in range(len(l1)):
+        rows = sorted(live)
+        gap = float((l1[t][rows] - l2[t][rows]).abs().max()) if rows else 0.0
+        check(gap <= AXIS_GAP, f"{label}: step {t}'s logits differ by "
+              f"{gap:.4g} on the rows still in step (> {AXIS_GAP})")
+        worst = max(worst, gap)
+        a, b = toks1[t][:, 0].tolist(), toks2[t][:, 0].tolist()
+        for r in rows:
+            if a[r] != b[r]:
+                parted[r] = (t, near_tie(torch, l1[t], r,
+                                         f"{label}: step {t} row {r}"))
+                live.discard(r)
+    return worst, parted
+
+
+def streams_line(parted, n) -> str:
+    return (f"{n - len(parted)} of {n} streams equal" + (
+        "; parted (row: step, margin) " + ", ".join(
+            f"{r}: {t}, {m:.3g}" for r, (t, m) in sorted(parted.items()))
+        if parted else ""))
+
+
+def splitk_alone(torch, ops, mesh, seed=31):
+    """The split-K body alone at qwen2.5-3b's decode shapes (8 rows, 16
+    heads over 2, hd 128, a 4096-slot ring split over 4 shards), the new
+    row in the first and in the last shard: float32 within 1e-4 of
+    ``sdpa_ref`` over the written cache; bf16 within ATTN_TOL of K1's
+    write instance, the written caches bitwise equal."""
+    from repro_torch.models.attention import NEG_INF, Attention, sdpa_ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, H, KV, hd, Smax = AXIS_B, 16, 2, 128, AXIS_RING
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
+        q, k, v = rnd(B, 1, H, hd), rnd(B, 1, KV, hd), rnd(B, 1, KV, hd)
+        kc, vc = rnd(B, Smax, KV, hd), rnd(B, Smax, KV, hd)
+        for index in (AXIS_PROMPT, Smax - 1):
+            idx = torch.tensor(index, dtype=torch.int32, device=dev)
+            sk_cache = {"k": kc.clone(), "v": vc.clone()}
+            out, got = Attention._decode_splitk(q, k, v, sk_cache, idx, mesh,
+                                                ("data",), mesh.shape["model"])
+            k2, v2 = kc.clone(), vc.clone()
+            if dt == torch.float32:
+                k2[:, index], v2[:, index] = k[:, 0], v[:, 0]
+                slots = torch.arange(Smax, device=dev)
+                bias = torch.where(slots <= index, 0.0, NEG_INF).expand(
+                    B, 1, Smax).float()
+                want, tol = sdpa_ref(q, k2, v2, bias), 1e-4
+            else:
+                want = ops.decode_attention_write(
+                    q, k[:, 0], v[:, 0], k2, v2, idx.expand(B))
+                tol = ATTN_TOL
+            err = max_err(torch, out, want, tol,
+                          f"split-K alone {dt} index {index}")
+            worst[str(dt)] = max(worst.get(str(dt), 0.0), err)
+            check(torch.equal(got["k"].full(), k2)
+                  and torch.equal(got["v"].full(), v2),
+                  f"split-K alone {dt} index {index}: the written cache "
+                  f"differs from the plain write")
+    print(f"  split-K alone, (8,1,16,128) over a 4096-slot ring on "
+          f"{mesh.shape['model']} shards, the row in the first and the last "
+          f"shard: float32 vs sdpa_ref max|err| {worst['torch.float32']:.3g} "
+          f"(<= 1e-4), bf16 vs K1's write instance "
+          f"{worst['torch.bfloat16']:.3g} (<= {ATTN_TOL}); caches bitwise "
+          f"equal")
+
+
+def qwen_axis_runs(torch, ops, model, mesh, counts):
+    """(a) full-width qwen2.5-3b: one prefill, then AXIS_STEPS greedy steps
+    unsharded (K1's write instance) and under the split-K context from a
+    copy of the same cache.  → the unsharded run's host seconds a step and
+    the split-K run's."""
+    import numpy as np
+    from repro_torch.models.attention import Attention
+    from repro_torch.models.steps import make_prefill_step
+    from repro_torch.sharding import SERVE_RULES, ShardedArray, shard_ctx
+    cfg = model.cfg
+    rng = np.random.default_rng(5)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (AXIS_B, AXIS_PROMPT), dtype=np.int32)).cuda()
+    with launches_into(ops, counts):
+        logits, cache = make_prefill_step(cfg, AXIS_RING)(
+            model, {"tokens": prompts})
+    before = clone_tree(cache)
+    ctx = lambda: shard_ctx(SERVE_RULES, mesh)
+    seen = []
+    real = Attention.__dict__["_decode_splitk"]
+
+    def spy(q, k, v, c, index, *a):
+        seen.append((k[:, 0].clone(), v[:, 0].clone()))
+        return real.__func__(q, k, v, c, index, *a)
+
+    un_counts, sk_counts = {}, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with launches_into(ops, un_counts):
+        un = axis_run(torch, ops, model, logits, cache, AXIS_STEPS,
+                      contextlib.nullcontext)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    # step 1 alone first, to read the rows it wrote
+    sk_cache = clone_tree(before)
+    Attention._decode_splitk = staticmethod(spy)
+    try:
+        with launches_into(ops, sk_counts):
+            first = axis_run(torch, ops, model, logits, sk_cache, 1, ctx)
+    finally:
+        Attention._decode_splitk = real
+    check(len(seen) == cfg.n_layers, f"split-K ran in {len(seen)} of "
+          f"{cfg.n_layers} layers")
+    split = first[2]["layers"]
+    check(all(isinstance(split[n], ShardedArray) for n in ("k", "v")),
+          "the split-K cache came back whole")
+    slot = AXIS_PROMPT
+    whole = {n: split[n].full() for n in ("k", "v")}
+    un1 = cache["layers"]     # the unsharded run wrote step 1's row there
+    for n, i in (("k", 0), ("v", 1)):
+        rows = torch.stack([s[i] for s in seen])
+        check(torch.equal(whole[n][:, :, slot], rows),
+              f"step 1: a written {n} row is not the body's new row")
+        old = before["layers"][n]
+        check(torch.equal(whole[n][:, :, :slot], old[:, :, :slot])
+              and torch.equal(whole[n][:, :, slot + 1:], old[:, :, slot + 1:]),
+              f"step 1: split-K changed a {n} slot other than {slot}")
+        check(torch.equal(whole[n][0, :, slot], un1[n][0, :, slot]),
+              f"step 1: layer 0's {n} row differs from the unsharded write")
+    same = sum(torch.equal(whole["k"][i, :, slot], un1["k"][i, :, slot])
+               for i in range(cfg.n_layers))
+    del whole, un1, first
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with launches_into(ops, sk_counts):
+        sk = axis_run(torch, ops, model, logits, clone_tree(before),
+                      AXIS_STEPS, ctx)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    with launches_into(ops, sk_counts):
+        forced = axis_run(torch, ops, model, logits, clone_tree(before),
+                          AXIS_STEPS, ctx, feed=un[0])
+    check(sk_counts.get("decode_attention_write", 0) == 0
+          and sk_counts.get("decode_attention", 0) == 0,
+          f"split-K steps launched decode kernels: {sk_counts}")
+    check(un_counts.get("decode_attention_write") == AXIS_STEPS
+          * cfg.n_layers, f"unsharded steps launched {un_counts}")
+    worst, parted = held_in_step(torch, un[:2], sk[:2],
+                                 "qwen2.5-3b split-K vs K1")
+    f_worst, flips = held_forced(torch, un[1], forced[1],
+                                 "qwen2.5-3b split-K fed K1's tokens")
+    for c in (un_counts, sk_counts):
+        for k, n in c.items():
+            counts[k] = counts.get(k, 0) + n
+    print(f"  qwen2.5-3b, 36 layers bf16, {AXIS_B} x {AXIS_PROMPT}-token "
+          f"prompts in a {AXIS_RING}-slot ring, {AXIS_STEPS} greedy steps on "
+          f"a {AXIS_MESH} mesh: step 1's written K/V rows are the body's "
+          f"new rows bitwise in all {cfg.n_layers} layers (layer 0's equal "
+          f"the unsharded write; {same} of {cfg.n_layers} layers' K rows "
+          f"equal it), no other slot changed; fed K1's tokens, every row's "
+          f"logits within {f_worst:.4g} of K1's (<= {AXIS_GAP}), greedy "
+          f"choices apart at {len(flips)} (step, row) near-ties {flips}; "
+          f"free-running, logits on rows in step within {worst:.4g}, "
+          f"{streams_line(parted, AXIS_B)}; "
+          f"host clock a step: unsharded {(t1 - t0) / AXIS_STEPS * 1e3:.2f} "
+          f"ms, split-K {(t3 - t2) / AXIS_STEPS * 1e3:.2f} ms; launches "
+          f"unsharded {un_counts}, split-K {sk_counts}", flush=True)
+    return prompts
+
+
+def f32_axis_runs(torch, ops, prompts, mesh, counts):
+    """(a) in float32 at AXIS_F32_LAYERS layers, TF32 off: split-K's logits
+    within AXIS_F32_TOL x max(1, max |logit|) of the unsharded steps, both
+    fed the unsharded run's tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.models.steps import make_prefill_step
+    from repro_torch.sharding import SERVE_RULES, shard_ctx
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                              n_layers=AXIS_F32_LAYERS, dtype="float32",
+                              param_dtype="float32")
+    model = LM(cfg, device="cuda", seed=0)
+    with launches_into(ops, counts):
+        logits, cache = make_prefill_step(cfg, AXIS_RING)(
+            model, {"tokens": prompts})
+        before = clone_tree(cache)
+        un = axis_run(torch, ops, model, logits, cache, AXIS_F32_STEPS,
+                      contextlib.nullcontext)
+        sk = axis_run(torch, ops, model, logits, before, AXIS_F32_STEPS,
+                      lambda: shard_ctx(SERVE_RULES, mesh), feed=un[0])
+    worst = 0.0
+    for t, (a, b) in enumerate(zip(un[1], sk[1])):
+        err = float((a - b).abs().max())
+        limit = AXIS_F32_TOL * max(1.0, float(a.abs().max()))
+        check(err <= limit, f"float32 split-K step {t}: logits differ by "
+              f"{err:.4g} (> {limit:.4g})")
+        worst = max(worst, err / limit)
+    print(f"  qwen2.5-3b float32 at {AXIS_F32_LAYERS} layers, "
+          f"{AXIS_F32_STEPS} steps: split-K logits within {worst:.3g} of "
+          f"the allowance {AXIS_F32_TOL} x max(1, max|logit|)", flush=True)
+    del model, cache, before
+    free(torch)
+
+
+def decode_32k_splitk(torch, ops, model, counts):
+    """(b) one card's share of qwen2.5-3b decode_32k (8 rows over a
+    32768-slot ring, index 32767) over a (1, SPLITK_SHARDS) model group on
+    cuda:0, beside the unsharded step: CUDA-event times, peaks, the
+    collectives' wire bytes, the logits."""
+    from repro_torch.launch.cost import CostCounter, collective_bytes
+    from repro_torch.launch.dryrun import _timed, build_cell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import SHAPES
+    from repro_torch.sharding import SERVE_RULES, shard_ctx
+    dev = torch.device("cuda")
+    shape = SHAPES["decode_32k"]
+    _, step, args = build_cell(model.cfg, shape, dev, params=model)
+    args[2]["index"] = torch.tensor(shape.seq_len - 1, dtype=torch.int32,
+                                    device=dev)
+    mesh = make_mesh((1, SPLITK_SHARDS), ("data", "model"),
+                     devices=["cuda:0"] * SPLITK_SHARDS)
+    ctx = lambda: shard_ctx(SERVE_RULES, mesh)
+    out = {}
+    for label, c in (("unsharded", contextlib.nullcontext), ("split-K", ctx)):
+        with launches_into(ops, counts), c():
+            step(*args)                                   # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            logits = step(*args)[0][:, 0].float()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            runs = _timed(step, args, dev, 3)
+        out[label] = (logits, peak, statistics.median(runs), runs)
+    with ctx(), CostCounter() as counter:
+        step(*args)
+    wire, detail = collective_bytes(counter)
+    check(wire == SPLITK_WIRE_BYTES, f"decode_32k split-K: {wire} wire bytes "
+          f"a device, expected {SPLITK_WIRE_BYTES:.0f} ({detail})")
+    (l_un, p_un, s_un, r_un), (l_sk, p_sk, s_sk, r_sk) = \
+        out["unsharded"], out["split-K"]
+    check(p_sk <= p_un + 2**30, f"decode_32k split-K peak {p_sk / 2**30:.2f} "
+          f"GiB > unsharded {p_un / 2**30:.2f} + 1 GiB: the cache was "
+          f"gathered")
+    gap = float((l_sk - l_un).abs().max())
+    check(gap <= AXIS_GAP, f"decode_32k split-K logits {gap:.4g} from the "
+          f"unsharded step's")
+    ms = lambda rs: ", ".join(f"{x * 1e3:.2f}" for x in rs)
+    print(f"  decode_32k (8 x ring 32768, index 32767) over "
+          f"{SPLITK_SHARDS} shards on one card: step_s {s_sk * 1e3:.2f} ms "
+          f"(runs {ms(r_sk)}), unsharded {s_un * 1e3:.2f} ms (runs "
+          f"{ms(r_un)}); peak {p_sk / 2**30:.2f} GiB vs {p_un / 2**30:.2f} "
+          f"GiB; collectives {detail['counts']}, {wire:.0f} wire bytes a "
+          f"device (= 36 x 1.875 x (512 + 512 + 65536)); logits within "
+          f"{gap:.4g}", flush=True)
+    del args, out
+    free(torch)
+
+
+def olmoe_axis_runs(torch, ops, counts):
+    """(c) olmoe-1b-7b at full width (64 experts, top 8): a (1, 4) mesh at
+    the config's capacity factor (every MoE call's EP result held against
+    the global path on the same input), then a dropless copy on (2, 2)
+    whose streams are held to the global path's."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import serve_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import LM
+    from repro_torch.models.moe import MoE
+    from repro_torch.models.steps import make_prefill_step
+    from repro_torch.sharding import SERVE_RULES, no_shard_ctx, shard_ctx
+    cfg = serve_config(get_config("olmoe-1b-7b"))
+    model = LM(cfg, device="cuda", seed=0)
+    moes = [m for m in model.modules() if isinstance(m, MoE)]
+    rng = np.random.default_rng(11)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (AXIS_B, OLMOE_PROMPT), dtype=np.int32)).cuda()
+    seen = {"calls": 0, "y": 0.0, "dropped": 0.0}
+
+    def hold(mod, inputs, output):
+        x = inputs[0]
+        if mod._ep_ctx(x.shape[0]) is None:
+            return
+        with no_shard_ctx():
+            y_g, aux_g = mod._apply_global(x)
+        y, aux = output
+        for k in ("drop_frac", "expert_load"):
+            check(torch.equal(aux[k], aux_g[k]), f"olmoe EP call "
+                  f"{seen['calls']}: {k} differs from the global path's")
+        seen["y"] = max(seen["y"], max_err(torch, y, y_g, ATTN_TOL,
+                                           "olmoe EP vs global y"))
+        seen["dropped"] = max(seen["dropped"], float(aux["drop_frac"]))
+        seen["calls"] += 1
+
+    def run(ctx, feed=None):
+        with launches_into(ops, counts), ctx():
+            logits, cache = make_prefill_step(cfg, OLMOE_PROMPT + OLMOE_STEPS)(
+                model, {"tokens": prompts})
+        with launches_into(ops, counts):
+            return axis_run(torch, ops, model, logits, cache, OLMOE_STEPS,
+                            ctx, feed=feed)[:2]
+
+    glob = run(contextlib.nullcontext)
+    hooks = [m.register_forward_hook(hold) for m in moes]
+    try:
+        mesh = make_mesh(AXIS_MESH, ("data", "model"),
+                         devices=["cuda:0"] * math.prod(AXIS_MESH))
+        ep = run(lambda: shard_ctx(SERVE_RULES, mesh))
+    finally:
+        for h in hooks:
+            h.remove()
+    check(seen["calls"] == len(moes) * (1 + OLMOE_STEPS),
+          f"olmoe: {seen['calls']} EP calls held")
+    same = sum(torch.equal(a, b) for a, b in zip(glob[0], ep[0]))
+    for m in moes:
+        m.mcfg = dataclasses.replace(m.mcfg, capacity_factor=(
+            m.mcfg.n_experts / m.mcfg.top_k))
+    glob_free = run(contextlib.nullcontext)
+    mesh22 = make_mesh((2, 2), ("data", "model"), devices=["cuda:0"] * 4)
+    ep_free = run(lambda: shard_ctx(SERVE_RULES, mesh22))
+    worst, parted = held_in_step(torch, glob_free, ep_free,
+                                 "olmoe dropless EP + split-K on (2, 2)")
+    forced = run(lambda: shard_ctx(SERVE_RULES, mesh22), feed=glob_free[0])
+    f_worst, flips = held_forced(torch, glob_free[1], forced[1],
+                                 "olmoe dropless EP fed the global tokens")
+    print(f"  olmoe-1b-7b at {cfg.n_layers} layers, {AXIS_B} x "
+          f"{OLMOE_PROMPT}-token prompts, {OLMOE_STEPS} steps: on {AXIS_MESH} "
+          f"at capacity factor {cfg.moe.capacity_factor} {seen['calls']} EP "
+          f"calls held (drop_frac and expert_load equal the global path's, "
+          f"drop_frac up to {seen['dropped']:.4g}; y within "
+          f"{seen['y']:.4g} <= {ATTN_TOL}); {same} of {len(glob[0])} token "
+          f"steps equal the global run's (printed only); dropless on (2, 2) "
+          f"fed the global run's tokens: every row's logits within "
+          f"{f_worst:.4g} (<= {AXIS_GAP}), choices apart at near-ties "
+          f"{flips}; free-running: logits on rows in step within "
+          f"{worst:.4g}, {streams_line(parted, AXIS_B)}", flush=True)
+    del model, moes
+    free(torch)
+
+
+def model_axis_phase(torch, ops, add):
+    """Phase 12: split-K alone, (a) qwen2.5-3b bf16 and float32, (b)
+    decode_32k over 16 shards, (c) olmoe-1b-7b EP."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import serve_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import LM
+    print(f"[12] the model axis: split-K decode and expert-parallel MoE on "
+          f"meshes laid on one card ({gpu_line()})")
+    t0 = time.perf_counter()
+    mesh = make_mesh(AXIS_MESH, ("data", "model"),
+                     devices=["cuda:0"] * math.prod(AXIS_MESH))
+    splitk_alone(torch, ops, mesh)
+    counts = {}
+    ops.reset_launch_counts()
+    model = LM(serve_config(get_config("qwen2.5-3b")), device="cuda", seed=0)
+    prompts = qwen_axis_runs(torch, ops, model, mesh, counts)
+    free(torch)
+    decode_32k_splitk(torch, ops, model, counts)
+    del model
+    free(torch)
+    f32_axis_runs(torch, ops, prompts, mesh, counts)
+    olmoe_axis_runs(torch, ops, counts)
+    check(counts == {k: n for k, n in ops.launch_counts().items() if n},
+          f"phase 12 launches {counts} != the counters' "
+          f"{ops.launch_counts()}")
+    for name in ("flash_attention", "decode_attention_write", "fused_sample"):
+        check(counts.get(name, 0) > 0, f"phase 12 never launched {name}")
+    add(counts)
+    print(f"  phase 12 launches {counts}; {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4547,6 +5089,8 @@ def main(argv=None) -> int:
         with phase_clock(times, "11 fabric"):
             fabric_phase(torch, ops, loop, args.seed, add)
             del loop
+        with phase_clock(times, "12 model axis"):
+            model_axis_phase(torch, ops, add)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

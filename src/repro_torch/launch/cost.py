@@ -32,9 +32,11 @@ records the kernel's own ``cost(...)`` and nothing it runs inside is
 counted, whether it launches the kernel or runs the plain version, so a
 program counts the same on the CPU as on the card.
 
-There are no collectives on one card: records carry ``collective_bytes``
-0.0 and an empty ``collective_detail``; the ring formulas wait for the
-multi-device slice.
+A collective of ``sharding.shard_map`` is one region too
+(``collective_region``): its own ops count nothing, and it appends
+``(kind, result bytes, group size)`` to ``collectives`` once per call.
+``collective_bytes`` turns those records into the bytes each device puts
+on the wire, by the reference's ring formulas (``hlo_cost.py``).
 """
 from __future__ import annotations
 
@@ -134,6 +136,7 @@ class CostCounter(TorchDispatchMode):
         self.bytes = 0
         self.by_op: dict[str, list[int]] = defaultdict(lambda: [0, 0, 0, 0])
         self.kernels: dict[str, dict[str, int]] = {}
+        self.collectives: list[tuple[str, int, int]] = []
         self._hidden = 0
 
     @contextlib.contextmanager
@@ -153,6 +156,18 @@ class CostCounter(TorchDispatchMode):
             yield
         finally:
             self._hidden -= 1
+
+    @contextlib.contextmanager
+    def collective_region(self, kind: str, group_size: int):
+        """Hide every op inside; record ``(kind, result bytes, group
+        size)``, the bytes set by the caller in the yielded dict."""
+        self._hidden += 1
+        rec = {"bytes": 0}
+        try:
+            yield rec
+        finally:
+            self._hidden -= 1
+        self.collectives.append((kind, int(rec["bytes"]), int(group_size)))
 
     def _add(self, name, flops, trans, nbytes_):
         self.flops += flops
@@ -232,6 +247,36 @@ class CostCounter(TorchDispatchMode):
             src, idx = ins[0], ins[1:]
             return sum(nbytes(t) for t in idx) + 2 * written
         return sum(nbytes(t) for t in ins) + written
+
+
+def collective_bytes(record):
+    """→ (wire bytes per device, {"bytes": by kind, "counts": by kind,
+    "tpu_corrected_total"}) over the collectives ``record`` (a
+    ``CostCounter`` or its ``collectives`` list) holds, by the reference's
+    ring formulas on the result's bytes and the group size n: all-gather
+    (n-1)/n, reduce-scatter n-1, all-reduce 2(n-1)/n, all-to-all (n-1)/n, a
+    collective-permute 1; a group of n <= 1 moves nothing.  Nothing is
+    promoted on the card, so ``tpu_corrected_total`` is the total."""
+    per_kind: dict[str, float] = defaultdict(float)
+    counts: dict[str, int] = defaultdict(int)
+    for kind, result, n in getattr(record, "collectives", record):
+        if kind == "collective-permute":
+            per_kind[kind] += result
+            counts[kind] += 1
+            continue
+        if n <= 1:
+            continue
+        per_kind[kind] += _RING[kind](n) * result
+        counts[kind] += 1
+    total = float(sum(per_kind.values()))
+    return total, {"bytes": dict(per_kind), "counts": dict(counts),
+                   "tpu_corrected_total": total}
+
+
+_RING = {"all-gather": lambda n: (n - 1) / n,
+         "reduce-scatter": lambda n: n - 1,
+         "all-reduce": lambda n: 2 * (n - 1) / n,
+         "all-to-all": lambda n: (n - 1) / n}
 
 
 def cost_summary(counter: CostCounter) -> dict:

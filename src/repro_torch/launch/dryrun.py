@@ -26,7 +26,8 @@ sees every scan step, so ``sim.roofline_db`` adds no SSM correction.
 Refused by name: ``--probe`` (the reference fits a per-layer count because
 XLA counts a ``lax.scan`` body once; an eager count is already per layer),
 the ``train_4k`` cell (one card's share of 16 × 4096 tokens does not fit
-beside the float32 state) and ``--mesh multi`` (the multi-device slice).
+beside the float32 state) and ``--mesh multi`` (``MULTI_REFUSED``: no
+partitioner lays out the ops outside the model-axis bodies).
 
 Usage (resumable: a cell whose JSON exists is skipped unless ``--force``):
   python -m repro_torch.launch.dryrun --arch qwen2.5-3b \\
@@ -63,7 +64,10 @@ REFUSED_SHAPES = {
 PROBE_REFUSED = ("--probe is refused: the reference fits a per-layer count "
                  "because XLA counts a lax.scan body once; the port's eager "
                  "count already sees every layer and every scan step")
-MULTI_REFUSED = "--mesh multi is refused: multi-device meshes are not ported"
+MULTI_REFUSED = ("--mesh multi is refused: the port has no partitioner for "
+                 "the ops outside the split-K and expert-parallel bodies, so "
+                 "a per-device count on the production mesh cannot yet be "
+                 "the reference's")
 
 
 def replica_batch(shape) -> int:

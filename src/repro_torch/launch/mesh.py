@@ -78,6 +78,16 @@ def _cuda_devices(n: int) -> list[torch.device]:
     return [torch.device("cuda", i) for i in range(n)]
 
 
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """The reference's production mesh: (16, 16) ("data", "model"), or
+    (2, 16, 16) ("pod", "data", "model") with ``multi_pod``; over
+    ``cuda:0 ..`` (raising with fewer cards) or an explicit ``devices``
+    list, which may repeat a device."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices)
+
+
 def make_mesh(shape, axes, devices=None) -> Mesh:
     """Any (shape, axes) pair.  With no ``devices`` the mesh covers
     ``cuda:0 .. cuda:n-1`` and raises when there are fewer cards than the

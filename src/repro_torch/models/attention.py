@@ -16,8 +16,15 @@ where the reference calls ``cache_ring_update`` (``cache_paged_update``)
 twice and then ``decode_attention`` (``decode_attention_paged``): one
 kernel launch a layer on the card, bitwise equal to the three, and the
 same three plain versions in turn on the CPU.  The kernel finds the written slot or block
-from the index and the table itself.  Split-K over a mesh and padded
-heads wait for the multi-device slice.
+from the index and the table itself.
+
+Under a shard context whose rules split the cache's sequence over "model",
+a decode with one index for every row takes split-K (``_decode_splitk``,
+the reference's flash-decoding over the model axis, in plain PyTorch):
+each model rank writes its own slot of its own block and attends over its
+block, and the partials combine by ``pmax`` and ``psum``.  The cache stays
+split between steps (``sharding.ShardedArray``).  Padded heads wait for
+training over a mesh.
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ from torch import nn
 from repro_torch.kernels import ops as kops
 from repro_torch.models.rotary import apply_rope
 from repro_torch.nn import Linear
+from repro_torch.sharding import current_ctx, no_shard_ctx
+from repro_torch.sharding import shard_map as sm
 
 NEG_INF = -1e9
 
@@ -189,7 +198,10 @@ class Attention(nn.Module):
         (NB, bk, KV, hd) block pools when ``block_tbl`` (B, nk) is given;
         updated in place.  index: the absolute position being written — an
         int or a (B,) tensor (every row at its own position).  An int
-        broadcasts to every row and takes the same kernels.  ``cross_kv``
+        broadcasts to every row and takes the same kernels, unless split-K
+        applies (a shard context, no block table; ``_splitk_ctx``): then the
+        cache comes back as ``ShardedArray`` leaves, split once if it came
+        whole (views of it on its own device).  ``cross_kv``
         (k, v) (B, S_enc, KV, hd) attends over them instead and leaves the
         cache untouched; keys at positions >= ``cross_len`` (an int or a
         (B,) tensor) are masked, so a max_seq-long cross pool holds each
@@ -202,6 +214,14 @@ class Attention(nn.Module):
             q = apply_rope(q, angles)
             k = apply_rope(k, angles)
         index = torch.as_tensor(index, dtype=torch.int32, device=x.device)
+        sk = (self._splitk_ctx(cache["k"].shape[1])
+              if block_tbl is None and index.ndim == 0 else None)
+        if sk is not None:
+            out, cache = self._decode_splitk(q, k, v, cache, index, *sk)
+            return self.wo(out.reshape(B, 1, -1)), cache
+        if isinstance(cache["k"], sm.ShardedArray):
+            raise TypeError("a split cache decodes under the shard context "
+                            "that split it, with one index for every row")
         index = index.reshape(-1).expand(B)
         if block_tbl is not None:
             out = self._decode_paged(q, k, v, cache, index, block_tbl)
@@ -251,6 +271,94 @@ class Attention(nn.Module):
         tbl = torch.remainder(block_tbl, cache["k"].shape[0])
         return kops.decode_attention_paged_write(
             q, k_new[:, 0], v_new[:, 0], cache["k"], cache["v"], tbl, index)
+
+    # ---------------- split-K decode (flash-decoding over the model axis) --
+    #
+    # With the cache's sequence split over "model" (SERVE_RULES), each model
+    # rank writes ITS slot in place and attends over its block; the partials
+    # combine by the log-sum-exp trick — pmax(m), psum(l), psum(o), a few
+    # hundred KB a layer — and the cache is never gathered.
+
+    @staticmethod
+    def _splitk_ctx(Smax: int):
+        """→ (mesh, batch_axes, m) when the split-K path applies, else
+        None (the reference's test, ``attention.py:418-431``)."""
+        ctx = current_ctx()
+        if ctx is None:
+            return None
+        rules, mesh = ctx
+        sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+        m = sizes.get("model", 1)
+        if m <= 1 or "model" not in rules.get("cache_seq"):
+            return None
+        if Smax % m != 0:
+            return None
+        batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
+        return mesh, batch_axes, m
+
+    @staticmethod
+    def splitk_spec(B: int, mesh, batch_axes) -> tuple:
+        """The (B, Smax, KV, hd) cache's spec in the split-K body: the batch
+        over ``batch_axes`` when B divides their product (else replicated,
+        as the reference falls back), the sequence over "model"."""
+        if B % max(sm.axis_size(mesh, batch_axes), 1) != 0:
+            batch_axes = ()
+        return sm.canonical((batch_axes, "model"))
+
+    @staticmethod
+    def _decode_splitk(q, k_new, v_new, cache, index, mesh, batch_axes, m):
+        """The reference's ``_decode_splitk`` body, shard by shard: q/k_new/
+        v_new (B, 1, ·, hd) whole, cache leaves whole or split, index 0-d →
+        (out (B, 1, H, hd) whole, {"k", "v"} as ``ShardedArray``)."""
+        B, _, H, hd = q.shape
+        Smax, KV = cache["k"].shape[1], cache["k"].shape[2]
+        G, S_loc = H // KV, Smax // m
+        kv_spec = Attention.splitk_spec(B, mesh, batch_axes)
+        row_spec = kv_spec[:1]
+        kc = sm.place(cache["k"], kv_spec, mesh)
+        vc = sm.place(cache["v"], kv_spec, mesh)
+        qs = sm.split(q[:, 0], row_spec, mesh)
+        ks = sm.split(k_new[:, 0], row_spec, mesh)
+        vs = sm.split(v_new[:, 0], row_spec, mesh)
+        idx = sm.split(index, (), mesh)
+        scores, m_loc = {}, {}
+        with no_shard_ctx():
+            for pos in sm.positions(mesh):
+                k_blk, v_blk, i = kc.blocks[pos], vc.blocks[pos], idx[pos]
+                rank = sm.axis_index(mesh, pos, "model")
+                ls = torch.remainder(i, Smax) - rank * S_loc
+                in_rng = (ls >= 0) & (ls < S_loc)
+                lsc = ls.clamp(0, S_loc - 1).reshape(1).long()
+                # the owner writes the new row; the others rewrite the row
+                # that is there (a (B, 1, KV, hd) temp, not a block copy)
+                for blk, new in ((k_blk, ks[pos]), (v_blk, vs[pos])):
+                    old = blk.index_select(1, lsc)
+                    blk.index_copy_(1, lsc, torch.where(
+                        in_rng, new[:, None].to(blk.dtype), old))
+                qb = qs[pos]
+                qg = qb.reshape(qb.shape[0], KV, G, hd)
+                s = torch.einsum("bkgh,btkh->bkgt", qg.float(),
+                                 k_blk.to(qb.dtype).float()) * (hd ** -0.5)
+                kpos = rank * S_loc + torch.arange(S_loc, dtype=torch.int32,
+                                                   device=s.device)
+                s = s + torch.where(kpos <= i, 0.0, NEG_INF)
+                scores[pos] = s
+                m_loc[pos] = s.amax(dim=-1)                   # (B, KV, G)
+            m_glob = sm.pmax(m_loc, "model", mesh)
+            l_loc, o_loc = {}, {}
+            for pos in sm.positions(mesh):
+                p = torch.exp(scores.pop(pos) - m_glob[pos][..., None])
+                l_loc[pos] = p.sum(dim=-1)
+                v_blk = vc.blocks[pos]
+                o_loc[pos] = torch.einsum("bkgt,btkh->bkgh",
+                                          p.to(v_blk.dtype).float(),
+                                          v_blk.float())
+            l_glob = sm.psum(l_loc, "model", mesh)
+            o_glob = sm.psum(o_loc, "model", mesh)
+            out = sm.per_shard(mesh, lambda pos: (
+                o_glob[pos] / l_glob[pos].clamp(min=1e-30)[..., None]
+            ).reshape(-1, 1, H, hd).to(q.dtype))
+        return sm.join(out, row_spec, mesh, q.device), {"k": kc, "v": vc}
 
     @staticmethod
     def cache_len(cfg, max_seq: int) -> int:

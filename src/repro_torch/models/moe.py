@@ -22,8 +22,14 @@ Two departures:
   and re-cast every expert's weights.  The train route (``train=True``)
   casts the stacks on the call instead, inside the autograd graph.
 
-The expert-parallel path (``MoE._apply_ep``) needs a device mesh, which the
-port does not have yet; this module is the single-device path.
+Under a shard context whose mesh has a "model" axis that the experts divide
+(and whose batch axes divide the batch), ``forward`` takes the reference's
+expert-parallel path (``_apply_ep``): tokens split over the batch axes and
+repeated over "model", each model rank routing its tokens and keeping the
+assignments to its own contiguous experts (the rest go to a foreign
+bucket), the same dispatch over its expert slab with the capacity of one
+data shard's tokens, then one ``psum`` over "model".  It runs shard by
+shard on the host thread (``sharding.shard_map``), in the train route too.
 """
 from __future__ import annotations
 
@@ -35,6 +41,8 @@ from repro_torch.models.config import MoECfg
 from repro_torch.nn import Linear
 from repro_torch.nn.init import _truncated_standard
 from repro_torch.nn.layers import _param
+from repro_torch.sharding import current_ctx, no_shard_ctx
+from repro_torch.sharding import shard_map as sm
 
 
 def capacity(n_tokens: int, mcfg: MoECfg) -> int:
@@ -90,11 +98,14 @@ class MoE(nn.Module):
         self.up_c = self.up.detach().to(self.dtype)
         self.down_c = self.down.detach().to(self.dtype)
 
-    def route(self, xf: torch.Tensor, *, train: bool = False):
+    def route(self, xf: torch.Tensor, *, train: bool = False,
+              router_w=None):
         """xf: (N, d) → (top_p (N, K), top_e (N, K) int64, lb_loss,
-        z_loss), the reference's ``_router``."""
+        z_loss), the reference's ``_router``.  ``router_w``: the router's
+        weight placed on xf's device (a shard's copy), else the module's."""
         E, K = self.mcfg.n_experts, self.mcfg.top_k
-        logits = self.router(xf.float(), train=train)              # (N, E)
+        logits = (self.router(xf.float(), train=train) if router_w is None
+                  else xf.float() @ router_w)                       # (N, E)
         probs = torch.softmax(logits, dim=-1)
         top_p, top_e = top_k_first(probs, K)
         if self.mcfg.norm_topk:
@@ -115,34 +126,41 @@ class MoE(nn.Module):
         return self.gate_c, self.up_c, self.down_c
 
     def dispatch_compute_combine(self, xf, top_e, top_p, C: int, *,
-                                 train: bool = False):
+                                 train: bool = False, experts=None):
         """xf (N, d); top_e/top_p (N, K) → (y (N, d) in the compute dtype,
-        dropped (N·K,) bool in assignment order, counts (E,))."""
+        dropped (N·K,) bool in assignment order, counts (n,)).  ``experts``:
+        an (n, ·, ·) slab of the (gate, up, down) stacks (one model rank's),
+        default all E; a bucket id of n in ``top_e`` is foreign: it takes no
+        slot, adds nothing and is not counted as dropped."""
         N, d = xf.shape
-        E, K = self.mcfg.n_experts, self.mcfg.top_k
+        K = self.mcfg.top_k
+        gate, up, down = experts if experts is not None else \
+            self.experts(train)
+        E = gate.shape[0]
         NK = N * K
         flat_e = top_e.reshape(-1)
         order = torch.argsort(flat_e, stable=True)
-        counts = expert_counts(flat_e, E)
-        offsets = torch.cumsum(counts, dim=0) - counts             # (E,)
+        counts_all = expert_counts(flat_e, E + 1)
+        counts = counts_all[:E]
+        offsets = torch.cumsum(counts_all, dim=0) - counts_all     # (E+1,)
         ar = torch.arange(NK, device=xf.device)
         # slab: expert e's first C assignments, in sorted order
         slots = torch.arange(C, device=xf.device)
-        slab_idx = (offsets[:, None] + slots[None, :]).clamp_(max=NK - 1)
+        slab_idx = (offsets[:E, None] + slots[None, :]).clamp_(max=NK - 1)
         slab_valid = slots[None, :] < counts[:, None]               # (E, C)
         slab_tok = order[slab_idx] // K
         x_e = xf[slab_tok.reshape(-1)].reshape(E, C, d).to(self.dtype)
         x_e = x_e * slab_valid[..., None].to(x_e.dtype)
-        gate, up, down = self.experts(train)
         h = F.silu(torch.bmm(x_e, gate)) * torch.bmm(x_e, up)
         y_e = torch.bmm(h, down).reshape(E * C, d)
         # each assignment's rank within its expert: its sorted position less
         # the expert's offset (the sort is undone by the inverse permutation)
         pos = torch.empty_like(order).scatter_(0, order, ar)
         rank = pos - offsets[flat_e]
-        dropped = rank >= C
-        src = flat_e * C + rank.clamp(max=C - 1)
-        y = y_e[src] * (~dropped)[:, None].to(y_e.dtype)
+        foreign = flat_e >= E
+        dropped = (rank >= C) & ~foreign
+        src = torch.where(foreign, 0, flat_e * C + rank.clamp(max=C - 1))
+        y = y_e[src] * (~(dropped | foreign))[:, None].to(y_e.dtype)
         y = y * top_p.reshape(-1)[:, None].to(y.dtype)
         # each token's K rows summed in float32 in a fixed order: no atomics
         y = y.reshape(N, K, d).float().sum(dim=1).to(y.dtype)
@@ -150,7 +168,16 @@ class MoE(nn.Module):
 
     def forward(self, x: torch.Tensor, *, train: bool = False):
         """x: (B, S, d) → (y (B, S, d) in x's dtype, aux) with aux =
-        {"lb_loss", "z_loss", "expert_load" (E,), "drop_frac"}."""
+        {"lb_loss", "z_loss", "expert_load" (E,), "drop_frac"}.  The
+        expert-parallel path where the reference takes it, else the global
+        one."""
+        ep = self._ep_ctx(x.shape[0])
+        if ep is not None:
+            return self._apply_ep(x, *ep, train=train)
+        return self._apply_global(x, train=train)
+
+    def _apply_global(self, x: torch.Tensor, *, train: bool = False):
+        """The reference's global path: one dispatch over every token."""
         B, S, d = x.shape
         N, K = B * S, self.mcfg.top_k
         xf = x.reshape(N, d)
@@ -162,3 +189,71 @@ class MoE(nn.Module):
                "expert_load": counts.float() / nk,
                "drop_frac": dropped.float().sum() / nk}
         return y.reshape(B, S, d).to(x.dtype), aux
+
+    # ------------------------------------------------------------------
+    # expert-parallel path (the reference's ``_apply_ep``)
+    # ------------------------------------------------------------------
+
+    def _ep_ctx(self, B: int):
+        """→ (mesh, batch_axes) when the EP path applies (a shard context,
+        "model" > 1 dividing the experts, the batch axes dividing B), else
+        None (the reference's test, ``moe.py:81-91``)."""
+        ctx = current_ctx()
+        if ctx is None:
+            return None
+        _, mesh = ctx
+        sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+        m = sizes.get("model", 1)
+        batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
+        if (m > 1 and self.mcfg.n_experts % m == 0
+                and B % max(sm.axis_size(mesh, batch_axes), 1) == 0):
+            return mesh, batch_axes
+        return None
+
+    def _apply_ep(self, x, mesh, batch_axes, *, train: bool = False):
+        """Experts split over "model", tokens over the batch axes and
+        repeated over "model": each rank's dispatch is local, and one psum
+        over "model" combines the experts' outputs.  Capacity is per (data
+        shard × expert): C from one data shard's N_loc tokens."""
+        B, S, d = x.shape
+        mcfg = self.mcfg
+        K = mcfg.top_k
+        E_loc = mcfg.n_experts // sm.axis_size(mesh, "model")
+        bsh = max(sm.axis_size(mesh, batch_axes), 1)
+        N_loc = (B // bsh) * S
+        C = capacity(N_loc, mcfg)
+        row = sm.canonical((batch_axes,))
+        xs = sm.split(x, row, mesh)
+        router_w = sm.split(self.router.w if train else self.router.w_c, (),
+                            mesh)
+        slabs = [sm.split(w, ("model",), mesh) for w in self.experts(train)]
+        y, lb, z, load, n_drop = {}, {}, {}, {}, {}
+        with no_shard_ctx():
+            for pos in sm.positions(mesh):
+                xf = xs[pos].reshape(-1, d)
+                top_p, top_e, lb[pos], z[pos] = self.route(
+                    xf, train=train, router_w=router_w[pos])
+                first = sm.axis_index(mesh, pos, "model") * E_loc
+                mine = (top_e >= first) & (top_e < first + E_loc)
+                local = torch.where(mine, top_e - first, E_loc)
+                y[pos], dropped, counts = self.dispatch_compute_combine(
+                    xf, local, top_p, C, train=train,
+                    experts=tuple(w[pos] for w in slabs))
+                load[pos], n_drop[pos] = counts.float(), dropped.float().sum()
+            y = sm.psum(y, "model", mesh)
+            if batch_axes:
+                lb = sm.pmean(lb, batch_axes, mesh)
+                z = sm.pmean(z, batch_axes, mesh)
+                load = sm.psum(load, batch_axes, mesh)
+                n_drop = sm.psum(n_drop, batch_axes, mesh)
+            load = sm.all_gather(load, "model", mesh)
+            n_drop = sm.psum(n_drop, "model", mesh)
+        nk = N_loc * K * bsh
+        y = sm.join(sm.per_shard(mesh, lambda p: y[p].reshape(-1, S, d)),
+                    row, mesh, x.device)
+        first = sm.positions(mesh)[0]
+        aux = {"lb_loss": lb[first].to(x.device),
+               "z_loss": z[first].to(x.device),
+               "expert_load": load[first].to(x.device) / nk,
+               "drop_frac": n_drop[first].to(x.device) / nk}
+        return y.to(x.dtype), aux

@@ -12,7 +12,10 @@ masters, and AdamW's moments keyed by parameter name; the step updates
 them in place, where the reference's jit donates the old state, and
 leaves the model's compute-dtype copies fresh (``LM.recast``) for serving.
 The axes helpers (``input_sharding_axes``, ``params_axes_and_structs``,
-``train_state_axes``) are sharding and wait for the multi-device slice.
+``train_state_axes``, ``cache_axes``) give the reference's trees of logical
+axes, and the struct helpers (``cache_structs``, ``input_structs``) its
+trees of ``ShapeDtypeStruct``, from a model built on the ``meta`` device:
+nothing is allocated, the 72B config included.
 """
 from __future__ import annotations
 
@@ -23,10 +26,16 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.bridge import stack_depth
+from repro_torch.models.bridge import _split, _stacks, stack_depth
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import LM, map_spec
 from repro_torch.optim import AdamWState, adamw, global_norm
+
+
+class ShapeDtypeStruct(NamedTuple):
+    """``jax.ShapeDtypeStruct``: a shape and a dtype, no data."""
+    shape: tuple
+    dtype: torch.dtype
 
 
 class TrainState(NamedTuple):
@@ -82,6 +91,92 @@ def model_inputs(cfg: ModelConfig, batch: int, seq: int, *,
     if with_labels:
         specs["labels"] = ((batch, seq), torch.int32)
     return specs
+
+
+def input_sharding_axes(cfg: ModelConfig, *, with_labels: bool):
+    """Logical axes of a step's inputs, family-aware."""
+    axes = {"tokens": ("batch", "seq")}
+    if cfg.family == "vlm":
+        axes["patches"] = ("batch", None, "embed_act")
+    if cfg.enc_dec:
+        axes["frames"] = ("batch", "seq", "embed_act")
+    if with_labels:
+        axes["labels"] = ("batch", "seq")
+    return axes
+
+
+# the logical axes of each module's parameters, as the reference's
+# ``init``s return them; a module's table claims its children's parameters
+# (Mamba2's norm is "d_inner", every other norm "embed_act")
+_ATTN = {"wq.w": ("embed", "heads"), "wq.b": ("heads",),
+         "wk.w": ("embed", "kv_heads"), "wk.b": ("kv_heads",),
+         "wv.w": ("embed", "kv_heads"), "wv.b": ("kv_heads",),
+         "wo.w": ("heads", "embed")}
+_NORM = {"scale": ("embed_act",), "bias": ("embed_act",)}
+_PARAM_AXES = {
+    "LM": {"embed.table": ("vocab", "embed"), "lm_head.w": ("embed", "vocab"),
+           "down.w": ("embed", "embed")},
+    "Attention": _ATTN,
+    "SwiGLU": {"gate.w": ("embed", "ff"), "up.w": ("embed", "ff"),
+               "down.w": ("ff", "embed")},
+    "MoE": {"router.w": ("embed", "experts"),
+            "gate": ("experts", "embed", "expert_ff"),
+            "up": ("experts", "embed", "expert_ff"),
+            "down": ("experts", "expert_ff", "embed")},
+    "Mamba1": {"in_proj.w": ("embed", "d_inner"),
+               "conv.w": (None, None, "d_inner"), "conv.b": ("d_inner",),
+               "x_proj.w": ("d_inner", None), "dt_proj.w": (None, "d_inner"),
+               "dt_proj.b": ("d_inner",), "A_log": ("d_inner", "d_state"),
+               "D": ("d_inner",), "out_proj.w": ("d_inner", "embed")},
+    "Mamba2": {"in_proj.w": ("embed", "d_inner"),
+               "conv.w": (None, None, "d_inner"), "conv.b": ("d_inner",),
+               "A_log": (None,), "dt_bias": (None,), "D": (None,),
+               "norm.scale": ("d_inner",), "out_proj.w": ("d_inner", "embed")},
+    "RMSNorm": _NORM,
+    "LayerNorm": _NORM,
+}
+
+
+def _nest(tree: dict, path: tuple, value):
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def params_axes_and_structs(cfg: ModelConfig):
+    """(logical-axes tree, ``ShapeDtypeStruct`` tree) of the reference's
+    parameter tree — its stacked leaves, ``"layers"`` once per stacking
+    axis — from a model built on the ``meta`` device."""
+    model = LM(cfg, device="meta")
+    leaf_axes: dict[str, tuple] = {}
+    for prefix, mod in model.named_modules():
+        table = _PARAM_AXES.get(type(mod).__name__, {})
+        for name, _ in mod.named_parameters():
+            full = f"{prefix}.{name}" if prefix else name
+            key = ".".join(p for p in name.split(".") if not p.isdigit())
+            if full not in leaf_axes and key in table:
+                leaf_axes[full] = table[key]
+    stacks = _stacks(cfg)
+    axes: dict = {}
+    structs: dict = {}
+    for name, p in model.named_parameters():
+        if name not in leaf_axes:
+            raise KeyError(f"no logical axes for parameter {name}")
+        path, _ = _split(name)
+        lead = stacks.get(path[0], ())
+        _nest(axes, path, ("layers",) * len(lead) + leaf_axes[name])
+        _nest(structs, path, ShapeDtypeStruct(lead + tuple(p.shape), p.dtype))
+    return axes, structs
+
+
+def train_state_axes(cfg: ModelConfig):
+    """Logical-axes tree mirroring the reference's TrainState (params and
+    AdamW moments)."""
+    params_axes, _ = params_axes_and_structs(cfg)
+    return TrainState(
+        params=params_axes,
+        opt_state=AdamWState(step=(), mu=params_axes, nu=params_axes),
+        step=())
 
 
 # ---------------------------------------------------------------------------
@@ -282,5 +377,18 @@ def cache_axes(cfg: ModelConfig, batch: int, max_seq: int):
 
 
 def cache_structs(cfg: ModelConfig, batch: int, max_seq: int):
-    """(shape, dtype) tree of the decode cache — no allocation."""
-    return map_spec(lambda s: (s[0], s[1]), LM.cache_spec(cfg, batch, max_seq))
+    """``ShapeDtypeStruct`` tree of the decode cache — no allocation."""
+    return map_spec(lambda s: ShapeDtypeStruct(s[0], s[1]),
+                    LM.cache_spec(cfg, batch, max_seq))
+
+
+def input_structs(cfg: ModelConfig, shape):
+    """``ShapeDtypeStruct`` stand-ins for one dry-run cell's inputs (no
+    allocation): the tokens (and labels, patches, frames) of a train or
+    prefill cell; one token and the cache at ``seq_len`` of a decode cell."""
+    if shape.kind in ("train", "prefill"):
+        t = model_inputs(cfg, shape.global_batch, shape.seq_len,
+                         with_labels=shape.kind == "train")
+        return {k: ShapeDtypeStruct(s, d) for k, (s, d) in t.items()}
+    return {"tokens": ShapeDtypeStruct((shape.global_batch, 1), torch.int32),
+            "cache": cache_structs(cfg, shape.global_batch, shape.seq_len)}

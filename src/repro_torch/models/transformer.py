@@ -51,6 +51,7 @@ from repro_torch.models.rotary import (
     mrope_positions, rope_angles, text_positions,
 )
 from repro_torch.nn import Embedding, LayerNorm, Linear
+from repro_torch.sharding import shard_map as sm
 
 
 def _angles(cfg: ModelConfig, batch: int, seq: int, start=0, device=None):
@@ -98,9 +99,12 @@ def add_aux(total: dict, aux) -> dict:
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0):
         super().__init__()
-        device = resolve_device(device)
+        # "meta" builds the shapes and dtypes alone (``steps``' axes helpers)
+        device = (torch.device(device) if torch.device(device).type == "meta"
+                  else resolve_device(device))
         self.cfg = cfg
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = (None if device.type == "meta" else
+               torch.Generator(device=device).manual_seed(seed))
         kw = dict(generator=gen, device=device)
         self.embed = Embedding(cfg.vocab, cfg.d_model, param_dtype=cfg.pdtype,
                                **kw)
@@ -369,10 +373,14 @@ class LM(nn.Module):
         are only read, masked past each row's "cross_len").  The K/V and
         SSM state leaves are written in place; the
         returned cache shares them and every other entry, and carries
-        index + 1."""
+        index + 1.  Under a split-K shard context with a scalar index and
+        no block table, the self-attention K/V leaves come back as
+        ``ShardedArray`` (``_split_kv``) and stay so between steps."""
         index = cache["index"]
         tbl = cache.get("block_tbl")
         B = tokens.shape[0]
+        if tbl is None and torch.as_tensor(index).ndim == 0:
+            cache = self._split_kv(cache, B)
         h = self._embed(tokens)
         angles = _angles(self.cfg, B, 1, start=index, device=h.device)
         if self.cfg.enc_dec:
@@ -396,6 +404,24 @@ class LM(nn.Module):
                                       block_tbl=tbl)
         logits = self._logits(self.ln_f(h))
         return logits, {**cache, "index": index + 1}
+
+    def _split_kv(self, cache, B):
+        """Under split-K, the self-attention K/V leaves placed as
+        ``ShardedArray`` once (views of a whole leaf on its own device), so
+        that every layer's ``Attention.decode`` gets its blocks and the
+        returned cache keeps them split; else ``cache`` as it is."""
+        name = ("self" if self.cfg.enc_dec else "attn"
+                if self.cfg.hybrid is not None else "layers")
+        kv = cache.get(name)
+        if kv is None or "k" not in kv:
+            return cache
+        sk = Attention._splitk_ctx(kv["k"].shape[2])
+        if sk is None:
+            return cache
+        mesh, batch_axes, _ = sk
+        spec = (None,) + Attention.splitk_spec(B, mesh, batch_axes)
+        return {**cache, name: {n: sm.place(leaf, spec, mesh)
+                                for n, leaf in kv.items()}}
 
     def _decode_hybrid(self, h, cache, index, angles, tbl):
         emb0 = h

@@ -13,6 +13,8 @@ import torch
 
 def _truncated_standard(shape, lower, upper, generator, device):
     """Standard normal truncated to [lower, upper] by inverse CDF."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, device=device)      # shapes only
     cdf = lambda x: 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))
     lo, hi = cdf(lower), cdf(upper)
     u = torch.rand(shape, generator=generator, device=device,

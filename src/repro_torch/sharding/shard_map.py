@@ -1,0 +1,322 @@
+"""The shard map and its collectives: the port's counterpart of
+``repro.sharding.shard_map`` and of the ``jax.lax`` collectives its bodies
+call (``axis_index``, ``psum``, ``pmax``, ``pmean``, ``all_gather``).
+
+The port has no SPMD partitioner.  A body the reference runs under
+``shard_map`` is written here as loops over the mesh's positions, broken
+at each collective, all on the host thread: between two collectives every
+shard runs its part in turn, and a collective takes the per-shard values
+of the whole mesh (a dict from mesh position to tensor, ``per_shard``) and
+returns the per-shard results.  One thread keeps what
+lives per thread — grad mode, the ambient shard context, a cost counter's
+dispatch mode, the kernels' launch counts — which one thread per shard
+would lose.
+
+Layout.  A spec is ``spec_for``'s canonical tuple: per dim ``None``, a mesh
+axis or a tuple of axes (row-major in the order given).  ``split`` cuts a
+tensor into one block per position; positions that hold the same block on
+the same device share one tensor, and a block on the tensor's own device
+is a view of it — nothing is copied on a one-card mesh, and an in-place
+write to such a block reaches the tensor.  ``join`` puts blocks back
+together (the first position holding each block gives it).
+``ShardedArray`` keeps a tensor's blocks between calls: the port's
+stand-in for a jax Array under a ``NamedSharding``, as ``ShardedCache``
+(``serving/slots.py``) keeps a pool's shards.  ``device_put`` places a
+tensor (or a tree, by a tree of ``NamedSharding`` from
+``tree_shardings``) that way.
+
+Collectives reduce over one mesh axis or a tuple of axes.  A reduction
+runs once per group, in rank order, on the device of the group's first
+member (a narrower float type adds in float32 and rounds once, as XLA:CPU
+promotes it), and its result is copied to each member's device (members
+on one device share it).  So every shard holds bitwise the same value.
+They are plain torch ops, so autograd flows through them.  Under a cost
+counter (``launch.cost.CostCounter``) each call is one region: its own ops
+count no FLOPs and no bytes, and it records ``(kind, result bytes, group
+size)`` once, as every device runs each collective once in the
+reference's per-device program.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.region import active_counter
+from repro_torch.sharding.rules import _map, tree_specs
+
+
+# ------------------------------------------------------------------ the mesh
+
+
+def axes_of(entry) -> tuple[str, ...]:
+    """A spec entry (None, an axis name or a tuple of names) as a tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def canonical(spec) -> tuple:
+    """``spec`` with trailing ``None`` dropped and 1-tuples unwrapped."""
+    out = [None if not axes_of(e) else
+           (axes_of(e)[0] if len(axes_of(e)) == 1 else tuple(axes_of(e)))
+           for e in spec]
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def positions(mesh) -> list[tuple[int, ...]]:
+    """Every mesh position, row-major."""
+    return list(np.ndindex(mesh.devices.shape))
+
+
+def axis_size(mesh, axes) -> int:
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    return math.prod(sizes[a] for a in axes_of(axes))
+
+
+def axis_index(mesh, pos, axes) -> int:
+    """``lax.axis_index``: the rank of ``pos`` along ``axes``, row-major
+    over the axes in the order given."""
+    r = 0
+    for a in axes_of(axes):
+        i = mesh.axis_names.index(a)
+        r = r * mesh.devices.shape[i] + pos[i]
+    return r
+
+
+def per_shard(mesh, fn) -> dict:
+    """{position: ``fn(position)``} over the mesh, row-major."""
+    return {pos: fn(pos) for pos in positions(mesh)}
+
+
+def _device_key(dev: torch.device):
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return ("cuda", torch.cuda.current_device())
+    return (dev.type, dev.index)
+
+
+def _block_slices(shape, spec, mesh, pos) -> tuple:
+    out = []
+    for d, n in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        k = axis_size(mesh, entry)
+        if n % k:
+            raise ValueError(f"dim {d} of size {n} does not split over "
+                             f"{axes_of(entry)} ({k} shards)")
+        r = axis_index(mesh, pos, entry)
+        out.append(slice(r * (n // k), (r + 1) * (n // k)))
+    return tuple(out)
+
+
+def _block_key(spec, mesh, pos) -> tuple:
+    return tuple(axis_index(mesh, pos, e) for e in spec)
+
+
+def split(x: torch.Tensor, spec, mesh) -> dict:
+    """``x`` as one block per position under ``spec``: a view where the
+    position's device is ``x``'s, a copy elsewhere; positions holding the
+    same block on one device share it."""
+    spec = canonical(spec)
+    memo: dict = {}
+    here = _device_key(x.device)
+
+    def one(pos):
+        dev = mesh.devices[pos]
+        key = (_block_key(spec, mesh, pos), _device_key(dev))
+        if key not in memo:
+            blk = x[_block_slices(x.shape, spec, mesh, pos)]
+            memo[key] = blk if key[1] == here else blk.to(dev)
+        return memo[key]
+    return per_shard(mesh, one)
+
+
+def join(blocks: dict, spec, mesh, device=None) -> torch.Tensor:
+    """The tensor whose blocks under ``spec`` are ``blocks``, on ``device``
+    (default: the first block's).  A replicated dim takes the first
+    position's block."""
+    spec = canonical(spec)
+    first = blocks[positions(mesh)[0]]
+    device = first.device if device is None else torch.device(device)
+    if not spec:
+        return first.to(device)
+    shape = tuple(n * axis_size(mesh, spec[d] if d < len(spec) else None)
+                  for d, n in enumerate(first.shape))
+    out = torch.empty(shape, dtype=first.dtype, device=device)
+    seen = set()
+    for pos in positions(mesh):
+        key = _block_key(spec, mesh, pos)
+        if key not in seen:
+            seen.add(key)
+            out[_block_slices(shape, spec, mesh, pos)] = blocks[pos]
+    return out
+
+
+def _map_blocks(blocks: dict, fn) -> dict:
+    """``fn`` over the blocks, once per shared tensor."""
+    memo: dict = {}
+    for b in blocks.values():
+        if id(b) not in memo:
+            memo[id(b)] = fn(b)
+    return {pos: memo[id(b)] for pos, b in blocks.items()}
+
+
+class ShardedArray:
+    """A global tensor held as one block per mesh position (``blocks``, a
+    dict from position to tensor) under ``spec``.  ``shape``
+    and ``dtype`` are the global tensor's.  Integer indices on leading
+    unsplit dims (a layer of a stacked cache: ``leaf[i]``) give the blocks'
+    views."""
+
+    def __init__(self, blocks, spec, mesh, shape, dtype):
+        self.blocks = blocks
+        self.spec = canonical(spec)
+        self.mesh = mesh
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+
+    def __getitem__(self, index):
+        index = index if isinstance(index, tuple) else (index,)
+        if not all(isinstance(i, int) for i in index) or any(
+                e is not None for e in self.spec[:len(index)]):
+            raise IndexError(f"a ShardedArray under {self.spec} takes "
+                             f"integer indices on its leading unsplit dims "
+                             f"only, not {index}")
+        n = len(index)
+        return ShardedArray(_map_blocks(self.blocks, lambda b: b[index]),
+                            self.spec[n:], self.mesh, self.shape[n:],
+                            self.dtype)
+
+    def full(self, device=None) -> torch.Tensor:
+        """The whole tensor (a gather: for checks, not the hot path)."""
+        return join(self.blocks, self.spec, self.mesh, device)
+
+    def __repr__(self) -> str:
+        axes = dict(zip(self.mesh.axis_names, self.mesh.devices.shape))
+        return (f"ShardedArray(shape={tuple(self.shape)}, dtype={self.dtype},"
+                f" spec={self.spec}, mesh={axes})")
+
+
+def same_layout(a: ShardedArray, spec, mesh) -> bool:
+    return (a.spec == canonical(spec) and a.mesh.axis_names == mesh.axis_names
+            and a.mesh.devices.shape == mesh.devices.shape
+            and all(_device_key(d1) == _device_key(d2) for d1, d2 in zip(
+                a.mesh.devices.flat, mesh.devices.flat)))
+
+
+def place(x, spec, mesh) -> ShardedArray:
+    """``x`` laid out under ``spec``: a ``ShardedArray`` already so laid is
+    returned as it is, one laid otherwise is gathered and split again, and a
+    tensor is split (views on its own device)."""
+    if isinstance(x, ShardedArray):
+        if same_layout(x, spec, mesh):
+            return x
+        x = x.full()
+    return ShardedArray(split(x, spec, mesh), spec, mesh, x.shape, x.dtype)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """``jax.sharding.NamedSharding``: a mesh and a spec."""
+    mesh: object
+    spec: tuple
+
+
+def tree_shardings(axes_tree, rules, mesh, shapes_tree=None):
+    """The reference's ``tree_shardings``: a tree of logical-axes tuples →
+    a tree of ``NamedSharding`` (``spec_for`` per leaf, with the
+    divisibility fallback when ``shapes_tree`` is given)."""
+    specs = tree_specs(axes_tree, rules, mesh, shapes_tree)
+    return _map(lambda _, s: NamedSharding(mesh, s), axes_tree, specs)
+
+
+def device_put(tree, shardings):
+    """``jax.device_put``: each tensor leaf of ``tree`` placed by the
+    ``NamedSharding`` at the same place of ``shardings`` (one sharding
+    places every leaf)."""
+    if isinstance(shardings, NamedSharding):
+        if isinstance(tree, dict):
+            return {k: device_put(v, shardings) for k, v in tree.items()}
+        return place(tree, shardings.spec, shardings.mesh)
+    if isinstance(shardings, dict):
+        return {k: device_put(tree[k], s) for k, s in shardings.items()}
+    return type(shardings)(device_put(t, s) for t, s in zip(tree, shardings))
+
+
+# --------------------------------------------------------------- collectives
+
+
+def groups(mesh, axes) -> list[list[tuple[int, ...]]]:
+    """The positions grouped by their coordinates off ``axes``, each group
+    in rank order along ``axes``."""
+    names = set(axes_of(axes))
+    out: dict = {}
+    for pos in positions(mesh):
+        key = tuple(c for a, c in zip(mesh.axis_names, pos) if a not in names)
+        out.setdefault(key, []).append(pos)
+    for g in out.values():
+        g.sort(key=lambda p: axis_index(mesh, p, axes))
+    return list(out.values())
+
+
+def _sum(xs):
+    dt = xs[0].dtype
+    wide = dt.is_floating_point and torch.finfo(dt).bits < 32
+    acc = xs[0].float() if wide else xs[0]
+    for x in xs[1:]:
+        acc = acc + (x.float() if wide else x)
+    return acc.to(dt) if wide else acc
+
+
+def _max(xs):
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = torch.maximum(acc, x)
+    return acc
+
+
+def _collective(kind, vals, axes, mesh, combine):
+    counter = active_counter()
+    region = (contextlib.nullcontext({}) if counter is None else
+              counter.collective_region(kind, axis_size(mesh, axes)))
+    out = {}
+    with region as rec:
+        for group in groups(mesh, axes):
+            dev = vals[group[0]].device
+            res = combine([vals[p].to(dev) for p in group])
+            memo = {_device_key(dev): res}
+            for p in group:
+                key = _device_key(vals[p].device)
+                if key not in memo:
+                    memo[key] = res.to(vals[p].device)
+                out[p] = memo[key]
+        rec["bytes"] = res.numel() * res.element_size()
+    return out
+
+
+def psum(vals, axes, mesh) -> dict:
+    """``lax.psum`` over ``axes``."""
+    return _collective("all-reduce", vals, axes, mesh, _sum)
+
+
+def pmax(vals, axes, mesh) -> dict:
+    """``lax.pmax`` over ``axes``."""
+    return _collective("all-reduce", vals, axes, mesh, _max)
+
+
+def pmean(vals, axes, mesh) -> dict:
+    """``lax.pmean``: the sum over ``axes`` over the group's size."""
+    n = axis_size(mesh, axes)
+    return _collective("all-reduce", vals, axes, mesh,
+                       lambda xs: _sum(xs) / n)
+
+
+def all_gather(vals, axes, mesh) -> dict:
+    """``lax.all_gather(..., tiled=True)``: the group's values in rank
+    order, concatenated along their first dim."""
+    return _collective("all-gather", vals, axes, mesh, torch.cat)
