@@ -13,9 +13,10 @@ trains (the train route, full-width qwen2.5-3b steps) and serves the
 trained weights, phase 10 runs the cost model: the one-card dry-run
 of six full-width cells and the queueing model the planner sizes against,
 phase 11 the replica fabric: one replica over a device mesh, a
-multi-process pod, and phase 6's loop over the sharded topology, and phase
-12 the model axis: split-K decode and expert-parallel MoE over meshes
-whose shards all lie on the one card.
+multi-process pod, and phase 6's loop over the sharded topology, phase 12
+the model axis: split-K decode and expert-parallel MoE over meshes whose
+shards all lie on the one card, and phase 13 training over such meshes,
+with padded heads and the elastic re-mesh restore.
 Each phase's wall time is printed.  Any failure exits non-zero and prints
 no result line.
 
@@ -134,8 +135,9 @@ no result line.
               write instances a fused tick (a fused tick or verify lane),
               one K3 a fused tick, and 0 standalone K1, K2, K5, K6.  The
               host clock per router step and per control tick (the loop's
-              work outside the router steps), device busy over the router
-              steps of one profiled tick, peak memory.  The card's TickLogs
+              work outside the router steps), device busy over the first
+              LOOP_PROFILED_STEPS router steps of one profiled tick, peak
+              memory.  The card's TickLogs
               (every field but ``learn_loss``) must equal the same loop's
               on the CPU at smoke width with qwen's vocabulary: no decision
               reads a token's value.  Last, the allocator's DQN on the card
@@ -327,6 +329,33 @@ no result line.
               2e-2); then a dropless copy on a (2, 2) mesh held to the
               global run as (a)'s streams are.  Launch counts join the
               kernels line.
+13. mesh    — training over a ("data", "model") mesh under TRAIN_RULES,
+              every position on cuda:0 (a collective is a copy within the
+              card); the train route launches no kernel.  (a) qwen2.5-3b
+              at full width and depth, float32 state, bf16 compute,
+              through the launcher (``train(args, mesh_devices=...)``) on
+              phase 9's batches (2 x 256 tokens, seed 0): 2 steps on one
+              device, 4 on (2, 2), step 1's loss, ce and grad_norm within
+              1e-2 relative; host clock a step and peak of each; one more
+              mesh step under ``CostCounter``, its collectives (kind,
+              group, count, result bytes; one data all-gather and one
+              reduce-scatter a weight matrix held) and wire bytes a
+              device; then a float32 copy at 4 layers, one step on each,
+              metrics and every updated leaf (parameters, mu, nu) within
+              1e-5 (leaves by max(1, max |leaf|)).  (b) Padded heads:
+              qwen2.5-14b at full width, 2 of 48 layers (``PAD_LAYERS``),
+              on (1, 16): 40 heads pad to 48, 3 a rank; 2 steps of 1 x
+              256 tokens within 1e-2 of one device's on loss and
+              grad_norm; the effective wo's pad rows exactly zero.  (c)
+              Elastic: qwen2.5-3b at 4 layers, 4 steps on (2, 2), a
+              checkpoint (bytes and write time printed),
+              ``elastic_restore`` onto ``ReMesh(1, 4)`` (restore time
+              printed) bitwise equal to the saved state, 2 more steps
+              within 1e-2 of 2 more on (2, 2).  (d) olmoe-1b-7b at 4 of
+              16 layers (``DEPTH_CUT``) on (2, 2), expert-parallel: a
+              dropless copy within 1e-2 of one device's step; at capacity
+              factor 1.25 the mesh's drop_frac (capacity per data shard)
+              printed beside one device's.
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -533,12 +562,14 @@ def ssd_inputs(torch, g, Bsz, L, H=80, hd=64, N=64):
 # the closed control loop, LoopConfig(): 4 slots, max_seq 48, a first
 # prefill chunk of 8 tokens (16-token prompts, 8 generated), 14 ticks of 10
 # router steps; its write-instance checks write key 0 and key 47 in each
-# regime; torch.profiler records the router steps of tick 5 (the spike)
+# regime; torch.profiler records the first 3 router steps of tick 5 (the
+# spike): summing a whole tick of four replicas' events took 47-57 s
 LOOP_TICKS, LOOP_SLOTS, LOOP_MAX_SEQ, LOOP_CHUNK = 14, 4, 48, 8
 LOOP_WRITE_INDICES = {"fresh": [0, 17, 47, 9],
                       "wrapped": [48, 95, 101, 68],
                       "mixed": [0, 53, 47, 143]}
 LOOP_PROFILED = (5, 5)
+LOOP_PROFILED_STEPS = 3
 # the allocator's DQN, card against CPU
 DQN_TOL, DQN_STEPS, DQN_TRANSITIONS = 1e-4, 10, 256
 SAMPLE_SHAPES = {"qwen2.5-3b": (8, 151936), "zamba2-2.7b": (8, 32000),
@@ -1790,13 +1821,22 @@ def profile_ticks(torch, eng, label, n, n_prof, counted=None,
         mix = (f"; the profiled ticks: {counted['fused'] - before['fused']} "
                f"fused, {counted['verify'] - before['verify']} verify with "
                f"{counted['lanes'] - before['lanes']} lanes")
-    device_ms, summed_ms = report_profile(prof, n_prof)
+    device_ms, summed_ms = report_profile(summed_once(prof), n_prof)
     print(f"  {label} tick: {tick_ms:.2f} ms host clock ({n} ticks, "
           f"unprofiled); profiled {prof_ms:.2f} ms, device busy "
           f"{device_ms:.2f} ms ({device_ms / prof_ms:.0%} of the profiled "
           f"tick; {summed_ms:.2f} ms summed over ops and kernels){mix}"
           f"{range_shares(prof, ranges, n_prof, device_ms)}")
     print_profile(prof, n_prof)
+
+
+def summed_once(prof):
+    """``prof`` with its ``key_averages()`` summed once: a report reads it
+    three or four times, and summing a trace takes seconds (tens for a
+    tick of four replicas)."""
+    averages = prof.key_averages()
+    prof.key_averages = lambda: averages
+    return prof
 
 
 def _by_kernel(prof, n, device_only=False):
@@ -1871,7 +1911,7 @@ def profile_admission(torch, core, label="qwen2.5-3b",
         admit(1, reqs[1])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device_ms, summed_ms = report_profile(prof, 1)
+    device_ms, summed_ms = report_profile(summed_once(prof), 1)
     shares = []
     for name, pattern in kernels:
         k_ms = sum(t for key, t in _by_kernel(prof, 1, device_only=True)
@@ -2333,9 +2373,10 @@ def trajectory(logs) -> list[dict]:
 
 
 @contextlib.contextmanager
-def timed_router_steps(torch, steps):
+def timed_router_steps(torch, steps, after_step=None):
     """The host time of every ``ReplicaRouter.step``, synchronised at its
-    end, appended to ``steps``."""
+    end, appended to ``steps``; ``after_step(len(steps))`` runs after each
+    one is timed."""
     from repro_torch.serving.router import ReplicaRouter
     step = ReplicaRouter.step
 
@@ -2344,6 +2385,8 @@ def timed_router_steps(torch, steps):
         out = step(self, now)
         torch.cuda.synchronize()
         steps.append(time.perf_counter() - t0)
+        if after_step is not None:
+            after_step(len(steps))
         return out
 
     ReplicaRouter.step = timed
@@ -2378,8 +2421,9 @@ def loop_run(torch, ops, cfg, lc, label, seed, profiled=None, recorder=None,
     before and read just after; every tick printed, the fleet totals, the
     host clock per router step and per control tick (the loop's work
     outside ``router.step``), the peak memory.  ``profiled`` = (first,
-    last) tick whose router steps torch.profiler records (device busy);
-    those ticks stay out of the host-clock means.  ``recorder`` takes the
+    last) tick whose first ``LOOP_PROFILED_STEPS`` router steps
+    torch.profiler records (device busy); those ticks stay out of the
+    host-clock means.  ``recorder`` takes the
     loop's per-tick training records; ``prime(alloc)`` runs before the
     first tick, after the allocator is kept."""
     from torch.profiler import ProfilerActivity, profile
@@ -2394,20 +2438,22 @@ def loop_run(torch, ops, cfg, lc, label, seed, profiled=None, recorder=None,
             prime(alloc)
 
     def hook(tick, router, collector):
-        # the profiler's start and stop fall in the profiled ticks' spans
-        if profiled and tick == profiled[1]:
-            torch.cuda.synchronize()
-            window["stop"] = (time.perf_counter(), len(steps))
-            prof.stop()
+        # the profiler starts where the profiled ticks start
         marks.append((time.perf_counter(), len(steps)))
         if profiled and tick == profiled[0] - 1:
             prof.start()
             window["start"] = (time.perf_counter(), len(steps))
 
+    def after_step(n):
+        if ("start" in window and "stop" not in window
+                and n - window["start"][1] == LOOP_PROFILED_STEPS):
+            window["stop"] = (time.perf_counter(), n)
+            prof.stop()
+
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    with timed_router_steps(torch, steps):
+    with timed_router_steps(torch, steps, after_step):
         router, logs = run_closed_loop(
             cfg, autoscale=True, ticks=LOOP_TICKS, seed=seed, lc=lc,
             sink=sink, chaos_hook=hook, device="cuda", recorder=recorder,
@@ -2443,11 +2489,7 @@ def loop_run(torch, ops, cfg, lc, label, seed, profiled=None, recorder=None,
           f"ticks; peak device memory {peak_gib(torch):.2f} GiB")
     if profiled:
         (ta, na), (tb, nb) = window["start"], window["stop"]
-        # the report reads the trace three times; summing a tick of four
-        # replicas' events takes tens of seconds, so sum it once
-        averages = prof.key_averages()
-        prof.key_averages = lambda: averages
-        device_ms, summed_ms = report_profile(prof, nb - na)
+        device_ms, summed_ms = report_profile(summed_once(prof), nb - na)
         step_ms = (tb - ta) / (nb - na) * 1e3
         print(f"    profiled tick{'s' if profiled[1] > profiled[0] else ''} "
               f"{'-'.join(map(str, sorted(set(profiled))))} "
@@ -3750,7 +3792,7 @@ def profile_train_step(torch, model, args):
                                  ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
-        device_ms, _ = report_profile(prof, 1)
+        device_ms, _ = report_profile(summed_once(prof), 1)
         launches = sum(e.count for e in prof.key_averages()
                        if e.key == "cudaLaunchKernel")
         out[label] = device_ms
@@ -4960,6 +5002,365 @@ def model_axis_phase(torch, ops, add):
     print(f"  phase 12 launches {counts}; {time.perf_counter() - t0:.1f} s")
 
 
+# -------------------------------------------------------------------- phase 13
+# training over a ("data", "model") mesh whose positions all lie on cuda:0:
+# a collective is a copy within the card.  (a) qwen2.5-3b full width and
+# depth on (2, 2) through the launcher, beside the one-device launcher run
+# on the same batches; a float32 copy at 4 layers held leaf by leaf;
+# (b) padded heads: qwen2.5-14b at 2 of 48 layers on (1, 16); (c) elastic:
+# 4 layers, (2, 2) → checkpoint → (1, 4); (d) olmoe-1b-7b at DEPTH_CUT
+# layers on (2, 2), dropless and at cf 1.25
+MESH_TRAIN = (2, 2)
+MESH_TRAIN_STEPS = 4
+MESH_TOL = 1e-2               # bf16 compute, the mesh's partial sums round
+MESH_F32_TOL = 1e-5           # float32 compute, leaves by their max (>= 1)
+LR, ADAM_B1 = 3e-4, 0.9       # the launcher's default lr, AdamW's b1
+ADAM_NOISE_G = 1e-6           # 100 x AdamW's eps: below, |g| is rounding
+MESH_SHORT_LAYERS = 4         # the float32 copy's and the elastic run's
+PAD_MESH = (1, 16)
+PAD_LAYERS = 2                # of qwen2.5-14b's 48: 2.1 B parameters
+ELASTIC_MESH = (1, 4)
+
+
+def card_mesh(shape):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, ("data", "model"),
+                     devices=["cuda:0"] * math.prod(shape))
+
+
+def mesh_runs(torch, cfg, shape, batches, keep=()):
+    """One seeded state stepped over ``batches`` on the card alone, then the
+    same init laid out on ``shape`` (positions on cuda:0) and stepped over
+    them → (one-device metrics, mesh metrics, mesh host clock a step after
+    the first, mesh peak GiB, (one-device state, mesh state), each None
+    unless ``keep`` names it: "one", "mesh")."""
+    from repro_torch.launch.elastic import state_shardings
+    from repro_torch.models import steps
+    from repro_torch.sharding import TRAIN_RULES, device_put, shard_ctx
+    step, (opt_init, _) = steps.make_train_step(cfg)
+    mesh = card_mesh(shape)
+    out, clocks, states = [], [], []
+    for label, on_mesh in (("one", False), ("mesh", True)):
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        state = steps.init_train_state(0, cfg, opt_init, device="cuda")
+        if on_mesh:
+            state = device_put(state, state_shardings(cfg, mesh)[0])
+        ms = []
+        for b in batches:
+            t0 = time.perf_counter()
+            with shard_ctx(TRAIN_RULES, mesh) if on_mesh else \
+                    contextlib.nullcontext():
+                state, m = step(state, b)
+            ms.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            clocks.append(time.perf_counter() - t0)
+        out.append(ms)
+        states.append(state if label in keep else None)
+        del state
+    per_step = statistics.mean(clocks[len(batches) + 1:] or clocks[-1:])
+    return out[0], out[1], per_step, peak_gib(torch), states
+
+
+def held_metrics(one, mesh, keys, tol, what) -> float:
+    """The largest relative gap of ``keys`` over the steps; fails past
+    ``tol``."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(one, mesh, strict=True)):
+        for k in keys:
+            gap = rel_gap(b[k], a[k])
+            check(gap <= tol, f"{what}: step {i + 1} {k} {b[k]} vs one "
+                  f"device {a[k]} (relative {gap:.3g} > {tol})")
+            worst = max(worst, gap)
+    return worst
+
+
+def step_collectives(torch, cfg, state, batch, mesh):
+    """One more mesh step under ``CostCounter``: the collectives it
+    records, by (kind, group): count and result bytes; wire bytes a device
+    by the ring formulas."""
+    from repro_torch.launch.cost import CostCounter, collective_bytes
+    from repro_torch.models import steps
+    from repro_torch.sharding import TRAIN_RULES, shard_ctx
+    step, _ = steps.make_train_step(cfg)
+    with CostCounter() as c, shard_ctx(TRAIN_RULES, mesh):
+        step(state, batch)
+    torch.cuda.synchronize()
+    by: dict = {}
+    for kind, nbytes, n in c.collectives:
+        row = by.setdefault((kind, n), [0, 0])
+        row[0] += 1
+        row[1] += nbytes
+    wire, _ = collective_bytes(c)
+    return by, wire
+
+
+def mesh_dense_phase(torch, ops, out_dir: Path):
+    """(a) qwen2.5-3b at full width and depth, float32 state, bf16 compute:
+    the launcher on one device (2 steps) and on (2, 2) (4 steps) over phase
+    9's batches, step 1's loss, ce and grad_norm within 1e-2; one more mesh
+    step counted; then a float32 copy at 4 layers, one step on each, every
+    metric and updated leaf within 1e-5 (leaves by max(1, max |leaf|))."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    runs = {}
+    for label, extra, devs in (
+            ("one device", ["--steps", "2"], None),
+            ("mesh", ["--steps", str(MESH_TRAIN_STEPS), "--mesh",
+                      ",".join(map(str, MESH_TRAIN))],
+             ["cuda:0"] * math.prod(MESH_TRAIN))):
+        log = out_dir / f"mesh-{label.replace(' ', '-')}.jsonl"
+        args = train_cli.parse_args(FULL_TRAIN[:2] + FULL_TRAIN[4:] + extra
+                                    + ["--log", str(log)])
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stdout(io.StringIO()):
+            state = train_cli.train(args, mesh_devices=devs)
+        torch.cuda.synchronize()
+        recs = [json.loads(line) for line in log.read_text().splitlines()]
+        per_step = recs[-1]["sec"] / (recs[-1]["step"] - recs[0]["step"])
+        runs[label] = (recs, per_step, peak_gib(torch))
+        check(all(math.isfinite(v) for r in recs for v in r.values()),
+              f"{label}: a metric is not finite: {recs}")
+        if label == "one device":
+            del state
+    (one, one_ms, one_peak), (mesh, mesh_ms, mesh_peak) = (
+        runs["one device"], runs["mesh"])
+    worst = held_metrics(one[:1], mesh[:1], ("loss", "ce", "grad_norm"),
+                         MESH_TOL, "qwen2.5-3b (2, 2) vs one device")
+    cfg = get_config("qwen2.5-3b")
+    batch = train_batches(torch, cfg, MESH_TRAIN_STEPS + 1, seq=256,
+                          device="cuda")[-1]
+    mesh22 = next(iter(state.params.values())).mesh
+    t0 = time.perf_counter()
+    by, wire = step_collectives(torch, cfg, state, batch, mesh22)
+    counted_s = time.perf_counter() - t0
+    del state
+    print(f"  (a) qwen2.5-3b, {cfg.n_layers} layers, on {MESH_TRAIN} (every "
+          f"position on cuda:0: a collective is a copy within the card), "
+          f"{MESH_TRAIN_STEPS} steps of 2 x 256 tokens through the launcher: "
+          + "; ".join(f"step {r['step']} loss {r['loss']:.4f} grad_norm "
+                      f"{r['grad_norm']:.3f}" for r in mesh)
+          + f"; step 1 within {worst:.3g} (<= {MESH_TOL}) of one device's "
+          f"(loss {one[0]['loss']:.4f}, grad_norm {one[0]['grad_norm']:.3f})")
+    print(f"    host clock a step after the first: mesh {mesh_ms * 1e3:.1f} ms"
+          f" against one device {one_ms * 1e3:.1f} ms in this phase (PR 22: "
+          f"516.1-533.4); peak {mesh_peak:.2f} GiB against {one_peak:.2f} "
+          f"(PR 22: 63.17) ({gpu_line()})")
+    print(f"    one step under CostCounter ({counted_s:.1f} s): "
+          + "; ".join(f"{n} {kind} over {g} ({b / 1e9:.4f} GB of results)"
+                      for (kind, g), (n, b) in sorted(by.items()))
+          + f"; {wire / 1e9:.4f} GB on the wire a device by the ring "
+          f"formulas")
+    check(by.get(("all-gather", 2), [0])[0] == 7 * cfg.n_layers + 1
+          and by.get(("reduce-scatter", 2), [0])[0] == 7 * cfg.n_layers + 1,
+          f"(a) collectives {by}: one data all-gather and one reduce-scatter "
+          f"a weight matrix")
+    # float32 compute at 4 layers: one step, every leaf held
+    f32 = dataclasses.replace(cfg, n_layers=MESH_SHORT_LAYERS,
+                              dtype="float32")
+    b1 = train_batches(torch, f32, 1, seq=256, device="cuda")
+    one, mesh, _, _, (s1, s2) = mesh_runs(torch, f32, MESH_TRAIN, b1,
+                                          keep=("one", "mesh"))
+    m_gap = held_metrics(one, mesh, ("loss", "ce", "grad_norm"),
+                         MESH_F32_TOL, "float32 (2, 2) vs one device")
+    gaps, noise = {}, [0, 0.0]
+    for part, a, b in (("params", dict(s1.params.named_parameters()),
+                        s2.params),
+                       ("mu", s1.opt_state.mu, s2.opt_state.mu),
+                       ("nu", s1.opt_state.nu, s2.opt_state.nu)):
+        for k, want in a.items():
+            gap = (b[k].full() - want.detach()).abs()
+            scale = max(1.0, float(want.abs().max()))
+            if part == "params":
+                # AdamW's first step moves by lr * g / (|g| + 1e-8): where
+                # the gradient is rounding-sized that ratio is not, and
+                # such an element may move by up to 2 lr
+                g = s1.opt_state.mu[k] / (1 - ADAM_B1)
+                noisy = g.abs() < ADAM_NOISE_G
+                check(bool((gap[noisy] <= 2 * LR).all()),
+                      f"float32 (2, 2): {k} moved past AdamW's step bound")
+                noise[0] += int((gap[noisy] > MESH_F32_TOL * scale).sum())
+                noise[1] = max(noise[1], float(gap[noisy].max()) / LR
+                               if noisy.any() else 0.0)
+                gap = torch.where(noisy, 0.0, gap)
+            gaps[f"{part}/{k}"] = float(gap.max()) / scale
+    where = max(gaps, key=gaps.get)
+    del s1, s2
+    print(f"    float32 compute at {MESH_SHORT_LAYERS} layers, one step: "
+          f"metrics within {m_gap:.3g}, every updated leaf (parameters, mu, "
+          f"nu) within {gaps[where]:.3g} of max(1, max |leaf|) (worst "
+          f"{where}; <= {MESH_F32_TOL}), the parameter elements whose "
+          f"gradient is under {ADAM_NOISE_G:g} aside: AdamW's first step "
+          f"divides it by |g| + 1e-8, and they moved within "
+          f"{noise[1]:.3g} lr (<= 2), {noise[0]} of them past "
+          f"{MESH_F32_TOL} of their leaf")
+    check(gaps[where] <= MESH_F32_TOL, f"float32 (2, 2): leaf {where} apart "
+          f"by {gaps[where]:.3g} > {MESH_F32_TOL}")
+
+
+def mesh_padded_phase(torch):
+    """(b) qwen2.5-14b at full width, 2 of 48 layers, on (1, 16): 40 heads
+    pad to 48, 3 a rank; 2 steps of 1 x 256 tokens held to the one-device
+    steps within 1e-2 on loss and grad_norm; the effective wo's pad rows
+    exactly zero."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import Attention
+    from repro_torch.sharding import TRAIN_RULES, shard_ctx
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"), n_layers=PAD_LAYERS)
+    batches = [{k: v[:1] for k, v in b.items()} for b in
+               train_batches(torch, cfg, 2, seq=256, device="cuda")]
+    with shard_ctx(TRAIN_RULES, card_mesh(PAD_MESH)):
+        Hp, G, Gp = Attention._padded_heads((0, 0, cfg.n_heads, cfg.hd),
+                                            cfg.n_kv_heads)
+    one, mesh, ms, peak, (_, state) = mesh_runs(torch, cfg, PAD_MESH,
+                                                batches, keep=("mesh",))
+    worst = held_metrics(one, mesh, ("loss", "grad_norm"), MESH_TOL,
+                         "qwen2.5-14b (1, 16) vs one device")
+    pads = 0
+    for i in range(cfg.n_layers):
+        wo = state.params[f"blocks.{i}.attn.wo.w"].full()
+        eff = Attention._wo_padded(wo, cfg.n_kv_heads, G, Gp, cfg.hd)
+        pad = eff.reshape(cfg.n_kv_heads, Gp, cfg.hd, -1)[:, G:]
+        check(torch.count_nonzero(pad) == 0,
+              f"layer {i}: the effective wo's pad rows are not zero")
+        pads += pad.numel()
+    n = sum(math.prod(t.shape) for t in state.params.values())
+    del state
+    print(f"  (b) qwen2.5-14b at {cfg.n_layers} of 48 layers ({n / 1e9:.3f} B "
+          f"parameters), {cfg.n_heads} heads over {cfg.n_kv_heads} KV pad "
+          f"to Hp = {Hp} on {PAD_MESH}, {Hp // PAD_MESH[1]} a rank; "
+          + "; ".join(f"step {i + 1} loss {m['loss']:.4f} grad_norm "
+                      f"{m['grad_norm']:.3f}" for i, m in enumerate(mesh))
+          + f"; within {worst:.3g} (<= {MESH_TOL}) of one device's; "
+          f"the {pads} elements of the effective wo's pad rows exactly zero; "
+          f"host clock "
+          f"a step after the first {ms * 1e3:.1f} ms, peak {peak:.2f} GiB "
+          f"({gpu_line()})")
+
+
+def mesh_elastic_phase(torch, out_dir: Path):
+    """(c) qwen2.5-3b at full width, 4 layers: 4 steps on (2, 2), a
+    checkpoint, ``elastic_restore`` onto ``ReMesh(1, 4)`` (bitwise the
+    saved state), 2 more steps there within 1e-2 of 2 more on (2, 2)."""
+    import dataclasses
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch.elastic import (
+        ReMesh, elastic_restore, state_shardings,
+    )
+    from repro_torch.models import steps
+    from repro_torch.sharding import TRAIN_RULES, device_put, shard_ctx
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                              n_layers=MESH_SHORT_LAYERS)
+    batches = train_batches(torch, cfg, 6, seq=256, device="cuda")
+    step, (opt_init, _) = steps.make_train_step(cfg)
+    mesh = card_mesh(MESH_TRAIN)
+    free(torch)
+    state = device_put(steps.init_train_state(0, cfg, opt_init,
+                                              device="cuda"),
+                       state_shardings(cfg, mesh)[0])
+
+    def run(st, bs, fn):
+        ms = []
+        for b in bs:
+            st, m = fn(st, b)
+            ms.append({k: float(v) for k, v in m.items()})
+        return st, ms
+
+    def on_mesh(st, b):
+        with shard_ctx(TRAIN_RULES, mesh):
+            return step(st, b)
+
+    state, _ = run(state, batches[:4], on_mesh)
+    root = out_dir / "elastic"
+    t0 = time.perf_counter()
+    CheckpointManager(root).save(state.step, state, blocking=True)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in (root / "step_4").iterdir())
+    t0 = time.perf_counter()
+    back, step2, mesh2 = elastic_restore(
+        str(root), cfg, ReMesh(data_axis=ELASTIC_MESH[0],
+                               model_axis=ELASTIC_MESH[1]),
+        devices=["cuda:0"] * math.prod(ELASTIC_MESH))
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    for part, a, b in (("params", state.params, back.params),
+                       ("mu", state.opt_state.mu, back.opt_state.mu),
+                       ("nu", state.opt_state.nu, back.opt_state.nu)):
+        for k in a:
+            check(torch.equal(a[k].full(), b[k].full()),
+                  f"elastic: restored {part}/{k} differs from the saved")
+    back, after = run(back, batches[4:], step2)
+    del back
+    state, cont = run(state, batches[4:], on_mesh)
+    del state
+    worst = held_metrics(cont, after, ("loss", "ce", "grad_norm"), MESH_TOL,
+                         "elastic (1, 4) vs (2, 2)")
+    print(f"  (c) elastic, qwen2.5-3b at {cfg.n_layers} layers: 4 steps on "
+          f"{MESH_TRAIN}, checkpoint {nbytes / 1e9:.3f} GB written in "
+          f"{write_s:.2f} s, restored onto {dict(mesh2.shape)} in "
+          f"{read_s:.2f} s (the file cache warm), bitwise the saved state; 2 "
+          f"more steps there: "
+          + "; ".join(f"loss {m['loss']:.4f}" for m in after)
+          + f", within {worst:.3g} (<= {MESH_TOL}) of 2 more on {MESH_TRAIN}"
+          f" ({gpu_line()})")
+
+
+def mesh_moe_phase(torch):
+    """(d) olmoe-1b-7b at full width, DEPTH_CUT layers, on (2, 2): a
+    dropless copy (EP on the mesh) held to the one-device step within 1e-2;
+    at cf 1.25 drop_frac printed beside the one-device step's."""
+    import dataclasses
+    cut = depth_cut("olmoe-1b-7b")
+    batches = train_batches(torch, cut, 1, seq=256, device="cuda")
+    E, K = cut.moe.n_experts, cut.moe.top_k
+    free_cfg = dataclasses.replace(cut, moe=dataclasses.replace(
+        cut.moe, capacity_factor=E / K))
+    one, mesh, ms, peak, _ = mesh_runs(torch, free_cfg, MESH_TRAIN, batches)
+    worst = held_metrics(one, mesh, ("loss", "ce", "grad_norm"), MESH_TOL,
+                         "olmoe dropless (2, 2) vs one device")
+    check(mesh[0]["drop_frac"] == 0.0, f"dropless copy dropped {mesh}")
+    one_d, mesh_d, _, _, _ = mesh_runs(torch, cut, MESH_TRAIN, batches)
+    print(f"  (d) olmoe-1b-7b at {cut.n_layers} of 16 layers on {MESH_TRAIN} "
+          f"(EP: {E // MESH_TRAIN[1]} experts a rank), 2 x 256 tokens: "
+          f"dropless loss {mesh[0]['loss']:.4f} grad_norm "
+          f"{mesh[0]['grad_norm']:.3f} lb_loss {mesh[0]['lb_loss']:.4f}, "
+          f"within {worst:.3g} (<= {MESH_TOL}) of one device's (lb_loss "
+          f"{one[0]['lb_loss']:.4f}: EP averages the data shards' balance "
+          f"losses); at cf {cut.moe.capacity_factor} drop_frac "
+          f"{mesh_d[0]['drop_frac']:.4f} on the mesh (capacity per data "
+          f"shard) against {one_d[0]['drop_frac']:.4f} on one device "
+          f"(printed only); host clock a step {ms * 1e3:.1f} ms, peak "
+          f"{peak:.2f} GiB")
+
+
+def train_mesh_phase(torch, ops):
+    """Phase 13: training over a mesh laid on the one card (above)."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels import _lib
+    print(f"[13] train mesh: the sharded train step on meshes laid on one "
+          f"card ({gpu_line()})")
+    t0 = time.perf_counter()
+    before = ops.launch_counts()
+    _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = Path(tempfile.mkdtemp(prefix="mesh-", dir=_lib.BUILD_DIR))
+    try:
+        mesh_dense_phase(torch, ops, out_dir)
+        mesh_padded_phase(torch)
+        mesh_elastic_phase(torch, out_dir)
+        mesh_moe_phase(torch)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    free(torch)
+    check(ops.launch_counts() == before,
+          f"kernels launched while training: {ops.launch_counts()}")
+    print(f"  phase 13: {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -5091,6 +5492,8 @@ def main(argv=None) -> int:
             del loop
         with phase_clock(times, "12 model axis"):
             model_axis_phase(torch, ops, add)
+        with phase_clock(times, "13 train mesh"):
+            train_mesh_phase(torch, ops)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -16,8 +16,15 @@ writer and raises its error.  numpy holds no bfloat16: such a leaf is
 saved as float32 and restored to the dtype its manifest names.
 ``restore`` puts each tensor on the device of ``like``'s leaf, and loads
 a module's parameters into it in place (then refreshes its cached casts,
-``recast``).  Restoring onto another device mesh (``shardings=``) waits
-for the multi-device slice.
+``recast``).
+
+Over a mesh a leaf is a ``sharding.ShardedArray``: ``save`` writes it
+whole, so a mesh checkpoint has the files, names, shapes and dtypes of a
+one-device one, and either restores into the other.  ``like`` may hold
+``ShapeDtypeStruct`` leaves (a shape and a dtype, no data), and
+``restore(like, shardings=...)`` places each leaf by the
+``NamedSharding`` at its place in ``shardings`` (``shard_map.device_put``):
+a restore onto any mesh, the elastic re-mesh's.
 """
 from __future__ import annotations
 
@@ -31,9 +38,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.sharding import shard_map as sm
+
 
 def _items(node):
-    """The children of a tree node as (key, child), or None for a leaf."""
+    """The children of a tree node as (key, child), or None for a leaf (a
+    tensor, a ``ShardedArray``, a struct: anything with a shape)."""
+    if hasattr(node, "shape"):
+        return None
     if isinstance(node, nn.Module):
         return list(node.named_parameters())
     if isinstance(node, dict):
@@ -67,13 +79,16 @@ def _structure(tree):
 
 
 def _dtype_name(leaf) -> str:
-    if isinstance(leaf, torch.Tensor):
+    if isinstance(getattr(leaf, "dtype", None), torch.dtype):
         return str(leaf.dtype).removeprefix("torch.")
     return str(np.asarray(leaf).dtype)
 
 
 def _host(leaf) -> np.ndarray:
-    """A host copy the caller may not change under the writer."""
+    """A host copy the caller may not change under the writer (a sharded
+    leaf gathered whole on the host)."""
+    if isinstance(leaf, sm.ShardedArray):
+        leaf = leaf.full("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
@@ -102,10 +117,13 @@ def _rebuild(like, vals: dict, prefix: str = ""):
 
 
 def _as_like(arr: np.ndarray, dtype: str, like):
-    """A loaded array as ``like``'s kind of leaf, in the saved dtype."""
+    """A loaded array as ``like``'s kind of leaf, in the saved dtype: a
+    tensor on ``like``'s device, or on the host for a struct."""
     if isinstance(like, torch.Tensor):
         return torch.from_numpy(arr).to(device=like.device,
                                         dtype=getattr(torch, dtype))
+    if isinstance(getattr(like, "dtype", None), torch.dtype):
+        return torch.from_numpy(arr).to(getattr(torch, dtype))
     if isinstance(like, (bool, int, float)):
         return type(like)(arr)
     return arr
@@ -191,11 +209,9 @@ class CheckpointManager:
     def restore(self, like, *, step: int | None = None, shardings=None):
         """→ (a tree like ``like`` holding step ``step``'s values (the
         latest by default), the manifest).  ``like`` gives the structure,
-        the devices and the modules to load into."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) re-shards onto a device mesh, which "
-                "waits for the multi-device slice")
+        the devices and the modules to load into.  ``shardings``: a tree
+        over ``like``'s leaves of ``NamedSharding`` (or ``None``): each
+        such leaf comes back a ``ShardedArray`` on its mesh."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
@@ -207,13 +223,16 @@ class CheckpointManager:
             want = manifest["leaves"].get(k)
             if want is not None and list(arr.shape) != want["shape"]:
                 raise ValueError(f"shape mismatch for {k}")
-            if (isinstance(leaf, torch.Tensor)
+            if (hasattr(leaf, "shape")
                     and tuple(arr.shape) != tuple(leaf.shape)):
                 raise ValueError(f"shape mismatch for {k}: saved "
                                  f"{arr.shape}, restoring into "
                                  f"{tuple(leaf.shape)}")
             dtype = want["dtype"] if want is not None else str(arr.dtype)
             vals[k] = _as_like(arr, dtype, leaf)
+        if shardings is not None:
+            placed = _flatten(shardings)
+            vals = {k: sm.device_put(v, placed[k]) for k, v in vals.items()}
         return _rebuild(like, vals), manifest
 
 

@@ -14,12 +14,23 @@ Fault tolerance, as the reference's:
     an uninterrupted run.
 A JSON record of the metrics goes to stdout (and ``--log``) every 10 steps
 and at the last; its ``sec`` is the host clock since the previous record.
-``--mesh`` (a data × model device mesh) waits for the multi-device slice.
+
+``--mesh D,M`` trains over a ("data", "model") mesh under ``TRAIN_RULES``
+(the dense and MoE families; the others are refused by name): the state is
+initialised (or restored) on the device and then laid out on the mesh,
+and each step runs under the mesh's shard context.  The mesh covers
+``cuda:0 ..`` and raises with fewer cards than positions; with ``--device
+cpu`` every position is on the CPU, and ``train(args, mesh_devices=...)``
+lays the positions on any devices, one card several times:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+        --smoke --device cpu --mesh 2,2 --steps 3 --seq 32 --batch 2
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import signal
 import sys
 import time
@@ -30,9 +41,12 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import DataConfig, TokenPipeline, extra_inputs
 from repro_torch.device import resolve_device
+from repro_torch.launch.elastic import state_shardings
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.steps import (
-    TrainState, init_train_state, make_train_step,
+    TrainState, check_mesh_family, init_train_state, make_train_step,
 )
+from repro_torch.sharding import TRAIN_RULES, device_put, shard_ctx
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -53,14 +67,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def train(args: argparse.Namespace) -> TrainState:
-    """The training loop of ``main``; returns the final state."""
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: training over a device mesh waits for the multi-device "
-            "slice; the port trains on one device")
+def train(args: argparse.Namespace, mesh_devices=None) -> TrainState:
+    """The training loop of ``main``; returns the final state.
+    ``mesh_devices``: the devices of ``--mesh``'s positions, row-major
+    (default: the CPU for each with ``--device cpu``, else ``cuda:0 ..``)."""
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        check_mesh_family(cfg)
+        shape = tuple(int(x) for x in args.mesh.split(","))
+        if mesh_devices is None and device.type == "cpu":
+            mesh_devices = ["cpu"] * math.prod(shape)
+        mesh = make_mesh(shape, ("data", "model")[:len(shape)], mesh_devices)
     data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                     global_batch=args.batch, seed=args.seed))
     train_step, (opt_init, _) = make_train_step(cfg, lr=args.lr)
@@ -70,6 +89,13 @@ def train(args: argparse.Namespace) -> TrainState:
     if ckpt and args.resume and ckpt.latest_step() is not None:
         state, manifest = ckpt.restore(state)
         print(f"resumed from step {manifest['step']}", flush=True)
+    if mesh is not None:
+        state = device_put(state, state_shardings(cfg, mesh)[0])
+        step_fn = train_step
+
+        def train_step(st, batch):
+            with shard_ctx(TRAIN_RULES, mesh):
+                return step_fn(st, batch)
 
     stop = {"flag": False}
 

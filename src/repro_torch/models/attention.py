@@ -23,12 +23,21 @@ a decode with one index for every row takes split-K (``_decode_splitk``,
 the reference's flash-decoding over the model axis, in plain PyTorch):
 each model rank writes its own slot of its own block and attends over its
 block, and the partials combine by ``pmax`` and ``psum``.  The cache stays
-split between steps (``sharding.ShardedArray``).  Padded heads wait for
-training over a mesh.
+split between steps (``sharding.ShardedArray``).
+
+Training over a mesh (``forward_mesh``, the train route shard by shard):
+each "model" rank projects its own q heads and the K/V heads they read,
+attends, multiplies by its rows of ``wo`` and a ``psum`` over "model"
+sums the ranks.  When the heads do not divide "model", q is padded per KV
+group to ``Hp`` heads (the reference's ``_padded_heads``): zero ``wq``
+columns, and zero ``wo`` rows (``_wo_padded``), so the pad heads add
+exactly 0.  The stored leaves keep their unpadded shapes and layout; the
+padding exists only in the computation.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops as kops
@@ -359,6 +368,117 @@ class Attention(nn.Module):
                 o_glob[pos] / l_glob[pos].clamp(min=1e-30)[..., None]
             ).reshape(-1, 1, H, hd).to(q.dtype))
         return sm.join(out, row_spec, mesh, q.device), {"k": kc, "v": vc}
+
+    # ---------------- training over a mesh ---------------------------------
+    #
+    # When n_heads does not divide the "model" axis (qwen2.5-14b: 40 heads on
+    # 16), q is padded per KV group up to the smallest head count that both
+    # "model" and n_kv_heads divide, and each rank runs Hp / m heads: 48 / 16
+    # = 3 there, a fifth of them pad, where replicating the attention would
+    # run all 40 on every rank.
+
+    @staticmethod
+    def _padded_heads(q_shape, kv_heads):
+        """→ (Hp, G, Gp) when padding applies under the current shard
+        context, else None (the reference's rule).  Hp is the smallest head
+        count >= H that both the "model" axis and ``kv_heads`` divide."""
+        ctx = current_ctx()
+        if ctx is None:
+            return None
+        _, mesh = ctx
+        m = dict(zip(mesh.axis_names, mesh.devices.shape)).get("model", 1)
+        H = q_shape[2]
+        if m <= 1 or H % m == 0 or kv_heads <= 0 or H % kv_heads != 0:
+            return None
+        Hp = H
+        while Hp % m or Hp % kv_heads:
+            Hp += kv_heads
+        return Hp, H // kv_heads, Hp // kv_heads
+
+    @staticmethod
+    def _wq_padded(w, b, kv_heads, G, Gp, hd):
+        """wq (d, H·hd) and its bias (or None) with zero columns for the pad
+        heads of each KV group: (d, KV·Gp·hd), the reference's ``qkv`` with
+        ``pad_hp``."""
+        w = F.pad(w.reshape(-1, kv_heads, G, hd), (0, 0, 0, Gp - G))
+        if b is not None:
+            b = F.pad(b.reshape(kv_heads, G, hd),
+                      (0, 0, 0, Gp - G)).reshape(-1)
+        return w.reshape(w.shape[0], -1), b
+
+    @staticmethod
+    def _wo_padded(w, kv_heads, G, Gp, hd):
+        """wo (H·hd, d) re-laid for Hp padded heads: (KV·Gp·hd, d) with zero
+        rows at the pad positions, so the pad heads contribute exactly 0."""
+        d_out = w.shape[-1]
+        w4 = F.pad(w.reshape(kv_heads, G, hd, d_out),
+                   (0, 0, 0, 0, 0, Gp - G))
+        return w4.reshape(kv_heads * Gp * hd, d_out)
+
+    def forward_mesh(self, w, xs, angles, *, causal=True, window=None):
+        """The train route over the shard context's mesh, shard by shard.
+        ``w``: the layer's parameters as ``steps.MeshParams`` gives them;
+        ``xs``: {position: (B_loc, S, d_in)}, replicated over "model";
+        ``angles``: {position: RoPE angles} → {position: (B_loc, S, d_out)}
+        after one ``psum`` over "model"."""
+        cfg = self.cfg
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        mesh = w.mesh
+        m = sm.axis_size(mesh, "model") if "model" in mesh.axis_names else 1
+        pad = self._padded_heads((0, 0, H, hd), KV)
+        Hc = pad[0] if pad else H           # heads computed, pad included
+        n, Gc = Hc // m, Hc // KV           # heads a rank, q heads a KV head
+        bias = cfg.qkv_bias
+        if pad is None:                     # a rank's heads are its columns
+            wq, wo = w("wq.w"), w("wo.w")
+            bq = w("wq.b") if bias else None
+        else:                               # re-laid from the whole leaves
+            wq, wo = w("wq.w", keep=()), w("wo.w", keep=())
+            bq = w("wq.b", keep=()) if bias else None
+        kv_keep = ("model",) if KV % m == 0 else ()
+        wk, wv = w("wk.w", kv_keep), w("wv.w", kv_keep)
+        bk, bv = ((w("wk.b", kv_keep), w("wv.b", kv_keep)) if bias
+                  else (None, None))
+        part = {}
+        with no_shard_ctx():
+            for pos, x in xs.items():
+                B, S = x.shape[:2]
+                r = sm.axis_index(mesh, pos, "model") if m > 1 else 0
+                wq_r, wo_r = wq[pos], wo[pos]
+                bq_r = None if bq is None else bq[pos]
+                if pad is not None:
+                    wq_r, bq_r = self._wq_padded(wq_r, bq_r, KV, *pad[1:], hd)
+                    cols = slice(r * n * hd, (r + 1) * n * hd)
+                    wq_r, wo_r = wq_r[:, cols], self._wo_padded(
+                        wo_r, KV, *pad[1:], hd)[cols]
+                    bq_r = None if bq_r is None else bq_r[cols]
+                q = self._project(x, wq_r, bq_r).reshape(B, S, n, hd)
+                k, v = (self._project(x, w_[pos], None if b_ is None else
+                                      b_[pos]).reshape(B, S, -1, hd)
+                        for w_, b_ in ((wk, bk), (wv, bv)))
+                if not kv_keep:             # the KV heads this rank reads
+                    k, v = self._rank_kv(k, v, r * n, n, Gc)
+                q, k = apply_rope(q, angles[pos]), apply_rope(k, angles[pos])
+                out = self._sdpa_masked(q, k, v, causal=causal, window=window)
+                part[pos] = out.reshape(B, S, n * hd) @ wo_r
+        return sm.psum(part, "model", mesh) if m > 1 else part
+
+    def _project(self, x, w, b):
+        """A Linear's train-route product on given (cast) weights."""
+        y = x.to(self.cfg.cdtype) @ w
+        return y if b is None else y + b.to(y.dtype)
+
+    @staticmethod
+    def _rank_kv(k, v, h0, n, Gc):
+        """Of every KV head (B, S, KV, hd), those that q heads h0 .. h0+n-1
+        read, where q head h reads KV head h // Gc: whole groups, part of
+        one group, or one KV head per q head when neither."""
+        if n % Gc == 0 or Gc % n == 0:
+            sel = slice(h0 // Gc, h0 // Gc + max(n // Gc, 1))
+            return k[:, :, sel], v[:, :, sel]
+        idx = torch.div(h0 + torch.arange(n, device=k.device), Gc,
+                        rounding_mode="floor")
+        return k[:, :, idx], v[:, :, idx]
 
     @staticmethod
     def cache_len(cfg, max_seq: int) -> int:

@@ -2,9 +2,11 @@
 the pre-norm Mamba block (Mamba1 or Mamba2), zamba2's shared attention
 block, and seamless's encoder block and cross-attending decoder block
 (``repro.models.blocks``).  ``train=True`` on a forward takes the train
-route down to every layer (``Attention.forward``)."""
+route down to every layer (``Attention.forward``); ``forward_mesh`` is the
+decoder block's train route over a mesh, shard by shard."""
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from repro_torch.models.attention import Attention
@@ -16,6 +18,16 @@ from repro_torch.nn import LayerNorm, RMSNorm
 
 def norm_cls(cfg):
     return LayerNorm if cfg.family == "audio" else RMSNorm
+
+
+def norm_mesh(norm, w, xs):
+    """A norm over a mesh: replicated ("embed_act"), each position runs it
+    on its own copy of the parameters.  ``w`` the norm's parameters as
+    ``steps.MeshParams`` gives them, ``xs`` {position: activation}."""
+    ps = {n: w(n, ()) for n, _ in norm.named_parameters()}
+    return {p: torch.func.functional_call(norm, {n: t[p] for n, t in
+                                                 ps.items()}, (x,))
+            for p, x in xs.items()}
 
 
 class DecoderBlock(nn.Module):
@@ -55,6 +67,21 @@ class DecoderBlock(nn.Module):
         out = (x,) + ((kv,) if return_kv else ()) + (
             (aux,) if return_aux else ())
         return out if len(out) > 1 else x
+
+    def forward_mesh(self, w, xs, angles, batch_axes):
+        """The train route over a mesh: {position: (B_loc, S, d)}, the batch
+        split over ``batch_axes`` → ({position: (B_loc, S, d)}, the MoE aux
+        or None)."""
+        h = self.attn.forward_mesh(w.sub("attn"), norm_mesh(
+            self.ln1, w.sub("ln1"), xs), angles,
+            window=self.cfg.sliding_window)
+        xs = {p: x + h[p] for p, x in xs.items()}
+        h = norm_mesh(self.ln2, w.sub("ln2"), xs)
+        if self.cfg.moe is not None:
+            h, aux = self.moe.forward_mesh(w.sub("moe"), h, batch_axes)
+        else:
+            h, aux = self.mlp.forward_mesh(w.sub("mlp"), h), None
+        return {p: x + h[p] for p, x in xs.items()}, aux
 
     def decode(self, x, cache, index, *, angles=None, block_tbl=None):
         h, cache = self.attn.decode(self.ln1(x), cache, index, angles=angles,

@@ -1,4 +1,6 @@
-"""SwiGLU feed-forward block."""
+"""SwiGLU feed-forward block.  Over a mesh (``forward_mesh``) each "model"
+rank runs its columns of ``gate``/``up`` and its rows of ``down``, and a
+``psum`` over "model" sums the ranks."""
 from __future__ import annotations
 
 import torch
@@ -6,6 +8,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from repro_torch.nn import Linear
+from repro_torch.sharding import shard_map as sm
 
 
 class SwiGLU(nn.Module):
@@ -23,3 +26,17 @@ class SwiGLU(nn.Module):
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         return self.down(F.silu(self.gate(x, train=train))
                          * self.up(x, train=train), train=train)
+
+    def forward_mesh(self, w, xs):
+        """The train route over a mesh: ``w`` the block's parameters as
+        ``steps.MeshParams`` gives them, ``xs`` {position: (B_loc, S, d)}
+        replicated over "model" → {position: (B_loc, S, d_out)}.  Where
+        d_ff does not split over "model" every rank runs the whole block
+        and nothing is summed."""
+        ws = {n: w(n) for n in ("gate.w", "up.w", "down.w")}
+        part = {p: torch.func.functional_call(
+                    self, {n: t[p] for n, t in ws.items()}, (x,),
+                    {"train": True}) for p, x in xs.items()}
+        if "model" in w.axes("down.w", 0):
+            return sm.psum(part, "model", w.mesh)
+        return part

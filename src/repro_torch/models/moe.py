@@ -30,6 +30,10 @@ assignments to its own contiguous experts (the rest go to a foreign
 bucket), the same dispatch over its expert slab with the capacity of one
 data shard's tokens, then one ``psum`` over "model".  It runs shard by
 shard on the host thread (``sharding.shard_map``), in the train route too.
+``forward_mesh`` is the train route over a mesh: the same EP body on the
+positions' own activations and weight blocks, or, where the reference
+takes the global path, the global path at every position over the batch
+gathered whole.
 """
 from __future__ import annotations
 
@@ -105,7 +109,7 @@ class MoE(nn.Module):
         weight placed on xf's device (a shard's copy), else the module's."""
         E, K = self.mcfg.n_experts, self.mcfg.top_k
         logits = (self.router(xf.float(), train=train) if router_w is None
-                  else xf.float() @ router_w)                       # (N, E)
+                  else xf.float() @ router_w.float())               # (N, E)
         probs = torch.softmax(logits, dim=-1)
         top_p, top_e = top_k_first(probs, K)
         if self.mcfg.norm_topk:
@@ -176,14 +180,19 @@ class MoE(nn.Module):
             return self._apply_ep(x, *ep, train=train)
         return self._apply_global(x, train=train)
 
-    def _apply_global(self, x: torch.Tensor, *, train: bool = False):
-        """The reference's global path: one dispatch over every token."""
+    def _apply_global(self, x: torch.Tensor, *, train: bool = False,
+                      router_w=None, experts=None):
+        """The reference's global path: one dispatch over every token.
+        ``router_w``/``experts``: given weights (a mesh position's) in place
+        of the module's."""
         B, S, d = x.shape
         N, K = B * S, self.mcfg.top_k
         xf = x.reshape(N, d)
-        top_p, top_e, lb_loss, z_loss = self.route(xf, train=train)
+        top_p, top_e, lb_loss, z_loss = self.route(xf, train=train,
+                                                   router_w=router_w)
         y, dropped, counts = self.dispatch_compute_combine(
-            xf, top_e, top_p, capacity(N, self.mcfg), train=train)
+            xf, top_e, top_p, capacity(N, self.mcfg), train=train,
+            experts=experts)
         nk = max(N * K, 1)
         aux = {"lb_loss": lb_loss, "z_loss": z_loss,
                "expert_load": counts.float() / nk,
@@ -215,18 +224,27 @@ class MoE(nn.Module):
         repeated over "model": each rank's dispatch is local, and one psum
         over "model" combines the experts' outputs.  Capacity is per (data
         shard × expert): C from one data shard's N_loc tokens."""
-        B, S, d = x.shape
-        mcfg = self.mcfg
-        K = mcfg.top_k
-        E_loc = mcfg.n_experts // sm.axis_size(mesh, "model")
-        bsh = max(sm.axis_size(mesh, batch_axes), 1)
-        N_loc = (B // bsh) * S
-        C = capacity(N_loc, mcfg)
         row = sm.canonical((batch_axes,))
-        xs = sm.split(x, row, mesh)
         router_w = sm.split(self.router.w if train else self.router.w_c, (),
                             mesh)
         slabs = [sm.split(w, ("model",), mesh) for w in self.experts(train)]
+        y, aux = self._ep_body(sm.split(x, row, mesh), router_w, slabs, mesh,
+                               batch_axes, train=train)
+        return (sm.join(y, row, mesh, x.device).to(x.dtype),
+                {k: v.to(x.device) for k, v in aux.items()})
+
+    def _ep_body(self, xs, router_w, slabs, mesh, batch_axes, *,
+                 train: bool = False):
+        """The EP body over per-position tokens ``xs`` {position: (B_loc, S,
+        d)}, the whole router at each position and each position's expert
+        slabs → ({position: y (B_loc, S, d)}, the first position's aux)."""
+        mcfg = self.mcfg
+        K = mcfg.top_k
+        B_loc, S, d = next(iter(xs.values())).shape
+        E_loc = mcfg.n_experts // sm.axis_size(mesh, "model")
+        bsh = max(sm.axis_size(mesh, batch_axes), 1)
+        N_loc = B_loc * S
+        C = capacity(N_loc, mcfg)
         y, lb, z, load, n_drop = {}, {}, {}, {}, {}
         with no_shard_ctx():
             for pos in sm.positions(mesh):
@@ -249,11 +267,35 @@ class MoE(nn.Module):
             load = sm.all_gather(load, "model", mesh)
             n_drop = sm.psum(n_drop, "model", mesh)
         nk = N_loc * K * bsh
-        y = sm.join(sm.per_shard(mesh, lambda p: y[p].reshape(-1, S, d)),
-                    row, mesh, x.device)
         first = sm.positions(mesh)[0]
-        aux = {"lb_loss": lb[first].to(x.device),
-               "z_loss": z[first].to(x.device),
-               "expert_load": load[first].to(x.device) / nk,
-               "drop_frac": n_drop[first].to(x.device) / nk}
-        return y.to(x.dtype), aux
+        aux = {"lb_loss": lb[first], "z_loss": z[first],
+               "expert_load": load[first] / nk,
+               "drop_frac": n_drop[first] / nk}
+        return {p: t.reshape(B_loc, S, d) for p, t in y.items()}, aux
+
+    def forward_mesh(self, w, xs, batch_axes):
+        """The train route over the shard context's mesh: ``w`` the layer's
+        parameters as ``steps.MeshParams`` gives them, ``xs`` {position:
+        (B_loc, S, d)} split over ``batch_axes`` → ({position: y}, the
+        first position's aux).  The EP body where the reference takes it
+        (``_ep_ctx``); else every position runs the global path over the
+        batch gathered whole and keeps its own rows."""
+        mesh = w.mesh
+        router = w("router.w", ())
+        B_loc = next(iter(xs.values())).shape[0]
+        ep = self._ep_ctx(B_loc * sm.axis_size(mesh, batch_axes))
+        if ep is not None:
+            slabs = [w(n) for n in ("gate", "up", "down")]
+            y, aux = self._ep_body(xs, router, slabs, mesh, ep[1], train=True)
+            return {p: t.to(xs[p].dtype) for p, t in y.items()}, aux
+        stacks = [w(n, ()) for n in ("gate", "up", "down")]
+        whole = sm.all_gather(xs, batch_axes, mesh) if batch_axes else xs
+        y, aux = {}, {}
+        with no_shard_ctx():
+            for pos, x in whole.items():
+                out, aux[pos] = self._apply_global(
+                    x, train=True, router_w=router[pos],
+                    experts=tuple(t[pos] for t in stacks))
+                r = sm.axis_index(mesh, pos, batch_axes)
+                y[pos] = out[r * B_loc:(r + 1) * B_loc]
+        return y, aux[sm.positions(mesh)[0]]

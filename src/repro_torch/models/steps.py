@@ -11,6 +11,19 @@ path.  Its state holds the model, whose parameters are the float32
 masters, and AdamW's moments keyed by parameter name; the step updates
 them in place, where the reference's jit donates the old state, and
 leaves the model's compute-dtype copies fresh (``LM.recast``) for serving.
+
+Over a mesh (the dense and MoE families) the state's parameters and
+moments are {name: ``ShardedArray``} laid out by the rules of the shard
+context the step runs under (``TRAIN_RULES``: FSDP over "data" on each
+weight's "embed" dim, tensor parallelism over "model"), and the step is
+the partition that layout implies, written shard by shard
+(``sharding.shard_map``): each position casts its blocks to the compute
+dtype (the reference's ``cast_params_sharded``), all-gathers them over
+"data" (whose backward reduce-scatters their gradients), runs its heads,
+columns and vocabulary range, and psums over "model"; the loss is the
+token-weighted mean over the batch axes; each leaf's gradient is psummed
+over the axes it is replicated on; the global norm counts each distinct
+block once, and AdamW updates each block in place.
 The axes helpers (``input_sharding_axes``, ``params_axes_and_structs``,
 ``train_state_axes``, ``cache_axes``) give the reference's trees of logical
 axes, and the struct helpers (``cache_structs``, ``input_structs``) its
@@ -19,6 +32,7 @@ nothing is allocated, the 72B config included.
 """
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import torch
@@ -30,6 +44,9 @@ from repro_torch.models.bridge import _split, _stacks, stack_depth
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import LM, map_spec
 from repro_torch.optim import AdamWState, adamw, global_norm
+from repro_torch.optim.adamw import global_norm_blocks, update_blocks
+from repro_torch.sharding import current_ctx, spec_for
+from repro_torch.sharding import shard_map as sm
 
 
 class ShapeDtypeStruct(NamedTuple):
@@ -39,7 +56,8 @@ class ShapeDtypeStruct(NamedTuple):
 
 
 class TrainState(NamedTuple):
-    params: LM          # the model: its parameters are the masters
+    params: object      # the LM (its parameters are the masters), or over
+                        # a mesh {parameter name: ShardedArray}
     opt_state: object   # AdamWState, moments keyed by parameter name
     step: int
 
@@ -143,11 +161,8 @@ def _nest(tree: dict, path: tuple, value):
     tree[path[-1]] = value
 
 
-def params_axes_and_structs(cfg: ModelConfig):
-    """(logical-axes tree, ``ShapeDtypeStruct`` tree) of the reference's
-    parameter tree — its stacked leaves, ``"layers"`` once per stacking
-    axis — from a model built on the ``meta`` device."""
-    model = LM(cfg, device="meta")
+def _leaf_axes(model: LM) -> dict:
+    """{parameter name: the logical axes of its (unstacked) leaf}."""
     leaf_axes: dict[str, tuple] = {}
     for prefix, mod in model.named_modules():
         table = _PARAM_AXES.get(type(mod).__name__, {})
@@ -156,6 +171,24 @@ def params_axes_and_structs(cfg: ModelConfig):
             key = ".".join(p for p in name.split(".") if not p.isdigit())
             if full not in leaf_axes and key in table:
                 leaf_axes[full] = table[key]
+    return leaf_axes
+
+
+def param_axes_and_structs(cfg: ModelConfig):
+    """({parameter name: logical axes}, {parameter name:
+    ``ShapeDtypeStruct``}) of the port's own leaves, one a layer, from a
+    model built on the ``meta`` device: the layout a mesh state takes."""
+    model = LM(cfg, device="meta")
+    return _leaf_axes(model), {k: ShapeDtypeStruct(tuple(p.shape), p.dtype)
+                               for k, p in model.named_parameters()}
+
+
+def params_axes_and_structs(cfg: ModelConfig):
+    """(logical-axes tree, ``ShapeDtypeStruct`` tree) of the reference's
+    parameter tree — its stacked leaves, ``"layers"`` once per stacking
+    axis — from a model built on the ``meta`` device."""
+    model = LM(cfg, device="meta")
+    leaf_axes = _leaf_axes(model)
     stacks = _stacks(cfg)
     axes: dict = {}
     structs: dict = {}
@@ -240,6 +273,165 @@ def loss_and_grads(model: LM, batch):
                                           aux.items()})), grads
 
 
+# ---------------------------------------------------------------------------
+# train over a mesh
+# ---------------------------------------------------------------------------
+
+def check_mesh_family(cfg: ModelConfig):
+    """Raise, naming the family, where training over a mesh is not
+    ported: the SSM and hybrid families (their "d_inner" dims split over
+    "model"), the VLM and the encoder-decoder."""
+    what = ("the hybrid family (Mamba2 towers)" if cfg.hybrid is not None
+            else f"the SSM family (Mamba{cfg.ssm.version})"
+            if cfg.ssm is not None
+            else "the encoder-decoder family" if cfg.enc_dec
+            else "the VLM family" if cfg.family == "vlm" else None)
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training over a mesh covers the dense and MoE "
+            f"families; {what} does not train over a mesh yet")
+
+
+class MeshParams:
+    """A mesh train step's parameters as the model's ``forward_mesh``
+    reads them.  Each position holds one autograd leaf over each of its
+    blocks (``leaves``); ``self(name, keep)`` is that block cast to the
+    compute dtype where it is a float32 master (the reference's
+    ``cast_params_sharded``: the gathers move the compute dtype), then
+    all-gathered over every mesh axis its spec splits it on except
+    ``keep``: ``("model",)``, the default, undoes FSDP alone, ``()``
+    gives each position the whole leaf.  Each gather is one
+    ``all_gather``, whose backward reduce-scatters the gradient (none over
+    axes of one position); each (name, keep) is gathered once a step.
+    ``sub(prefix)`` is the view a submodule reads."""
+
+    def __init__(self, params: dict, mesh, cdtype):
+        self.mesh = mesh
+        self.prefix = ""
+        self.specs = {k: a.spec for k, a in params.items()}
+        self.leaves = {k: {p: b.detach().requires_grad_()
+                           for p, b in a.blocks.items()}
+                       for k, a in params.items()}
+        self._cdtype = cdtype
+        self._memo: dict = {}
+
+    def sub(self, prefix: str) -> "MeshParams":
+        view = copy.copy(self)
+        view.prefix = f"{self.prefix}{prefix}."
+        return view
+
+    def axes(self, name: str, dim: int) -> tuple:
+        """The mesh axes splitting dim ``dim`` of leaf ``name``."""
+        spec = self.specs[self.prefix + name]
+        return sm.axes_of(spec[dim] if dim < len(spec) else None)
+
+    def __call__(self, name: str, keep=("model",)) -> dict:
+        name = self.prefix + name
+        key = (name, tuple(keep))
+        if key not in self._memo:
+            cast = lambda t: (t.to(self._cdtype)
+                              if t.dtype == torch.float32 else t)
+            vals = {p: cast(t) for p, t in self.leaves[name].items()}
+            for d, entry in enumerate(self.specs[name]):
+                axes = sm.axes_of(entry)
+                if sm.axis_size(self.mesh, axes) > 1 and not set(
+                        axes) <= set(keep):
+                    if set(axes) & set(keep):
+                        raise ValueError(f"{name}: dim {d} splits over "
+                                         f"{axes}; cannot keep {keep} alone")
+                    vals = sm.all_gather(vals, axes, self.mesh, dim=d)
+            self._memo[key] = vals
+        return self._memo[key]
+
+
+def _mesh_ce_terms(model: LM, w: MeshParams, h: dict, labels: dict,
+                   ignore_id: int = -1):
+    """Per position (Σ -log p(label), count) over the batch shard's labels
+    that are not ``ignore_id``, from vocab-split logits: ``pmax`` and
+    ``psum`` over the vocabulary's axes give the log-sum-exp, and the
+    label's logit comes from the rank that owns it.  The logits are made
+    one sequence chunk at a time where the one-device step chunks them."""
+    mesh = w.mesh
+    S = next(iter(labels.values())).shape[1]
+    chunk = CE_CHUNK if S > CE_CHUNK and S % CE_CHUNK == 0 else S
+    num = {p: 0.0 for p in labels}
+    den = {p: 0.0 for p in labels}
+    for i in range(0, S, chunk):
+        logits, start, vocab = model.logits_mesh(
+            w, {p: x[:, i:i + chunk] for p, x in h.items()})
+        lab = {p: t[:, i:i + chunk] for p, t in labels.items()}
+        top = {p: t.detach().amax(dim=-1) for p, t in logits.items()}
+        ll = {}
+        for p, t in logits.items():
+            idx = torch.where(lab[p] != ignore_id, lab[p], 0).long() - start[p]
+            own = (idx >= 0) & (idx < t.shape[-1])
+            picked = torch.gather(t, -1, idx.clamp(0, t.shape[-1] - 1)[
+                ..., None])[..., 0]
+            ll[p] = torch.where(own, picked, 0.0)
+        if vocab:
+            top = sm.pmax(top, vocab, mesh)
+        se = {p: torch.exp(t - top[p][..., None]).sum(dim=-1)
+              for p, t in logits.items()}
+        if vocab:
+            se, ll = sm.psum(se, vocab, mesh), sm.psum(ll, vocab, mesh)
+        for p in labels:
+            keep = (lab[p] != ignore_id).float()
+            logz = top[p] + torch.log(se[p])
+            num[p] = num[p] + ((logz - ll[p]) * keep).sum()
+            den[p] = den[p] + keep.sum()
+    return num, den
+
+
+def _mesh_train_step(model: LM, state: TrainState, batch, opt_update,
+                     grad_clip: float):
+    """The train step over the shard context's mesh (module docstring)."""
+    ctx = current_ctx()
+    if ctx is None:
+        raise ValueError("a sharded train state steps under the shard "
+                         "context (rules, mesh) it is laid out on")
+    rules, mesh = ctx
+    cfg = model.cfg
+    check_mesh_family(cfg)
+    tokens = batch["tokens"]
+    bspec = spec_for(("batch", "seq"), rules, mesh, tuple(tokens.shape))
+    batch_axes = sm.axes_of(bspec[0]) if bspec else ()
+    w = MeshParams(state.params, mesh, cfg.cdtype)
+    first = sm.positions(mesh)[0]
+    with torch.enable_grad():
+        h, aux = model.forward_mesh(w, sm.split(tokens, bspec, mesh),
+                                    batch_axes)
+        num, den = _mesh_ce_terms(model, w, h,
+                                  sm.split(batch["labels"], bspec, mesh))
+        ce = sm.token_mean(num, den, batch_axes, mesh)[first]
+        loss = ce
+        if cfg.moe is not None:
+            loss = (loss + cfg.moe.router_aux_coef * aux["lb_loss"]
+                    + cfg.moe.router_z_coef * aux["z_loss"])
+        flat = [(k, p, t) for k, d in w.leaves.items() for p, t in d.items()]
+        got = torch.autograd.grad(loss, [t for *_, t in flat],
+                                  allow_unused=True)
+    specs = w.specs
+    del h, w        # the gathered weights go before the update
+    grads: dict = {}
+    for (k, p, t), g in zip(flat, got):
+        grads.setdefault(k, {})[p] = torch.zeros_like(t) if g is None else g
+    del flat, got
+    with torch.no_grad():
+        for k, spec in specs.items():
+            rep = sm.replicated_axes(spec, mesh)
+            if rep:
+                grads[k] = sm.psum(grads[k], rep, mesh)
+        gnorm = global_norm_blocks(grads, specs, mesh)
+        scale = {p: torch.clamp(grad_clip / (n + 1e-9), max=1.0)
+                 for p, n in gnorm.items()}
+        opt = update_blocks(opt_update, grads, state.opt_state, state.params,
+                            scale)
+    metrics = {"loss": loss.detach(), "ce": ce.detach(),
+               "grad_norm": gnorm[first], "lb_loss": aux["lb_loss"].detach(),
+               "drop_frac": aux["drop_frac"].detach()}
+    return TrainState(state.params, opt, state.step + 1), metrics
+
+
 def make_train_step(cfg: ModelConfig, *, lr=3e-4, weight_decay: float = 0.1,
                     grad_clip: float = 1.0):
     """→ (train_step, (opt_init, opt_update)).  ``train_step(state, batch)
@@ -248,11 +440,20 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, weight_decay: float = 0.1,
     time so that no second copy of the gradients or moments is held.
     ``batch`` is {"tokens", "labels"} plus the family's extras, on the
     model's device; metrics are 0-d tensors ``loss``, ``ce``,
-    ``grad_norm``, ``lb_loss``, ``drop_frac``."""
+    ``grad_norm``, ``lb_loss``, ``drop_frac``.  A state whose parameters
+    are sharded (``device_put`` by ``launch.elastic.state_shardings``)
+    steps over the mesh of the shard context the call runs under, with
+    the whole batch given (it is split over the batch axes here)."""
     opt_init, opt_update = adamw(lr, weight_decay=weight_decay,
                                  mask=decay_mask)
+    skeleton: list = []     # the model built on "meta": the mesh route's
 
     def train_step(state: TrainState, batch):
+        if not isinstance(state.params, LM):
+            if not skeleton:
+                skeleton.append(LM(cfg, device="meta"))
+            return _mesh_train_step(skeleton[0], state, batch, opt_update,
+                                    grad_clip)
         model = state.params
         (loss, (ce, aux)), grads = loss_and_grads(model, batch)
         gnorm = global_norm(grads)

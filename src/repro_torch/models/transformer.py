@@ -25,6 +25,9 @@ Entry points:
   model(inputs, train=True)                the train route (kernels off,
                                            weights cast in the graph)
   model(inputs, return_hidden=True)        -> (final-norm hidden, aux)
+  model.forward_mesh(w, tokens, batch_axes) the train route over a mesh
+                                           (dense and MoE), shard by shard
+  model.logits_mesh(w, h)                  -> vocab-split logits
   model.prefill(inputs, max_seq)           -> (last-position logits, cache)
   model.decode(tokens, cache)              -> (logits, cache)
   LM.cache_spec(cfg, batch, max_seq)       -> tree of (shape, dtype, axes)
@@ -43,7 +46,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.blocks import (
     CrossDecoderBlock, DecoderBlock, EncoderBlock, SharedAttnBlock, SSMBlock,
-    norm_cls,
+    norm_cls, norm_mesh,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import MoE
@@ -206,6 +209,58 @@ class LM(nn.Module):
         if return_hidden:
             return h, aux
         return self._logits(h, train), aux
+
+    # ------------------------------------------------------- over a mesh
+    #
+    # The embedding table ("vocab", "embed") and the untied readout
+    # ("embed", "vocab") split the vocabulary over "model": each rank looks
+    # up the tokens in its range and zeros the rest, a psum joins them, and
+    # the logits stay split, each rank holding its range's columns.
+
+    def forward_mesh(self, w, tokens, batch_axes):
+        """The train route over the shard context's mesh (the dense and MoE
+        families), shard by shard.  ``w``: the parameters as
+        ``steps.MeshParams`` gives them; ``tokens`` {position: (B_loc, S)},
+        the batch split over ``batch_axes`` → ({position: final-norm hidden
+        (B_loc, S, d)}, aux)."""
+        table, vocab = w("embed.table"), w.axes("embed.table", 0)
+        h = {}
+        for pos, t in tokens.items():
+            V_loc = table[pos].shape[0]
+            idx = t.long() - self._vocab_start(w, pos, vocab, V_loc)
+            mine = (idx >= 0) & (idx < V_loc)
+            e = table[pos][idx.clamp(0, V_loc - 1)]
+            h[pos] = torch.where(mine[..., None], e, 0).to(self.cfg.cdtype)
+        if vocab:
+            h = sm.psum(h, vocab, w.mesh)
+        memo: dict = {}
+        angles = {p: memo.setdefault(x.device, _angles(
+                      self.cfg, x.shape[0], x.shape[1], device=x.device))
+                  for p, x in h.items()}
+        aux = zero_aux(h[sm.positions(w.mesh)[0]].device)
+        for i, blk in enumerate(self.blocks):
+            h, a = blk.forward_mesh(w.sub(f"blocks.{i}"), h, angles,
+                                    batch_axes)
+            aux = add_aux(aux, a)
+        return norm_mesh(self.ln_f, w.sub("ln_f"), h), aux
+
+    @staticmethod
+    def _vocab_start(w, pos, vocab, V_loc) -> int:
+        return sm.axis_index(w.mesh, pos, vocab) * V_loc if vocab else 0
+
+    def logits_mesh(self, w, h):
+        """{position: final-norm hidden} → ({position: float32 logits
+        (B_loc, S, V_loc) of the position's vocabulary range}, {position:
+        the range's first id}, the axes splitting the vocabulary)."""
+        if self.lm_head is None:
+            mat, vocab = w("embed.table"), w.axes("embed.table", 0)
+            logits = {p: x.float() @ mat[p].float().t() for p, x in h.items()}
+        else:
+            mat, vocab = w("lm_head.w"), w.axes("lm_head.w", 1)
+            logits = {p: x.float() @ mat[p].float() for p, x in h.items()}
+        start = {p: self._vocab_start(w, p, vocab, t.shape[-1])
+                 for p, t in logits.items()}
+        return logits, start, vocab
 
     def _encode(self, frames, train: bool = False):
         """The encoder over every frame: (B, S_enc, d) → the normed encoder

@@ -6,12 +6,19 @@ The reference's defaults, not ``torch.optim.AdamW``'s: ``b2 = 0.95``,
 and the decay term inside the learning-rate product:
 ``p ← p − lr · (m̂ / (√v̂ + eps) + wd · p)``.  Moments stay float32 whatever
 the parameters' dtype; the update is cast back to it.
+
+Over a mesh, parameters and moments are ``sharding.ShardedArray`` leaves
+and gradients per-position blocks: ``global_norm_blocks`` counts each
+distinct block once, and ``update_blocks`` runs an update on each distinct
+block in place.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.sharding import shard_map as sm
 
 
 class AdamWState(NamedTuple):
@@ -22,6 +29,51 @@ class AdamWState(NamedTuple):
 
 def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(sum(x.float().square().sum() for x in tree.values()))
+
+
+def _owns(mesh, pos, spec) -> bool:
+    """Whether ``pos`` is rank 0 along every mesh axis ``spec`` leaves its
+    leaf replicated on: one position of each distinct block."""
+    return sm.axis_index(mesh, pos, sm.replicated_axes(spec, mesh)) == 0
+
+
+def global_norm_blocks(grads: dict, specs: dict, mesh) -> dict:
+    """The global norm of gradients held as {name: {position: block}},
+    laid out by ``specs`` {name: spec}: each position sums the squares of
+    the blocks it owns (``_owns``), so a block replicated over an axis
+    counts once, not once a replica; one psum over the mesh → {position:
+    norm}."""
+    sq = {pos: sum((g[pos].float().square().sum() for k, g in grads.items()
+                    if _owns(mesh, pos, specs[k])),
+                   torch.zeros((), device=mesh.devices[pos]))
+          for pos in sm.positions(mesh)}
+    sq = sm.psum(sq, mesh.axis_names, mesh)
+    return {p: torch.sqrt(t) for p, t in sq.items()}
+
+
+@torch.no_grad()
+def update_blocks(update, grads: dict, state: AdamWState, params: dict,
+                  scale: dict) -> AdamWState:
+    """``update`` (an ``adamw`` update) over sharded leaves: ``params`` and
+    the moments {name: ``ShardedArray``} laid out alike, ``grads`` {name:
+    {position: block}}, ``scale`` {position: the clipping factor}.  Each
+    distinct block is updated once, in place (positions holding one block
+    on one device share it); the moments are written in place too."""
+    for k, leaf in params.items():
+        seen: set = set()
+        for pos, p in leaf.blocks.items():
+            if id(p) in seen:
+                continue
+            seen.add(id(p))
+            g = grads[k][pos]
+            g = (g.float() * scale[pos]).to(g.dtype)
+            mu, nu = state.mu[k].blocks[pos], state.nu[k].blocks[pos]
+            upd, new = update({k: g}, AdamWState(state.step, {k: mu},
+                                                 {k: nu}), {k: p})
+            mu.copy_(new.mu[k])
+            nu.copy_(new.nu[k])
+            p.add_(upd[k].to(p.dtype))
+    return AdamWState(state.step + 1, state.mu, state.nu)
 
 
 def clip_by_global_norm(tree: dict, max_norm: float):

@@ -5,8 +5,9 @@ Each step compresses (grad + residual) to per-tensor-scaled int8 and carries
 the quantization error into the next step's residual, so the sum of the
 decompressed gradients tracks the sum of the true ones.  ``torch.round``
 rounds half to even, as ``jnp.round`` does.  The compressed stream is meant
-for a cross-device all-reduce, which waits for the multi-device slice; the
-arithmetic is here.
+for a cross-device all-reduce; the reference's train step calls none of
+this, and neither does the port's: its mesh step reduces the gradients
+uncompressed (``models/steps.py``), as the reference's does.
 """
 from __future__ import annotations
 

@@ -30,11 +30,17 @@ runs once per group, in rank order, on the device of the group's first
 member (a narrower float type adds in float32 and rounds once, as XLA:CPU
 promotes it), and its result is copied to each member's device (members
 on one device share it).  So every shard holds bitwise the same value.
-They are plain torch ops, so autograd flows through them.  Under a cost
-counter (``launch.cost.CostCounter``) each call is one region: its own ops
-count no FLOPs and no bytes, and it records ``(kind, result bytes, group
-size)`` once, as every device runs each collective once in the
-reference's per-device program.
+``psum``, ``pmean`` and ``all_gather`` are each one autograd node whose
+backward is a collective too, as the reference's transposes are: a psum's
+backward psums the cotangents, an all-gather's reduce-scatters them
+(``lax.psum_scatter``).  The backward counts each distinct result once:
+members on one device share one result, into which autograd has already
+summed their uses.  ``token_mean`` is the loss's mean over every valid
+token of a batch split over the batch axes.  Under a cost counter
+(``launch.cost.CostCounter``) each call, forward or backward, is one
+region: its own ops count no FLOPs and no bytes, and it records ``(kind,
+result bytes, group size)`` once, as every device runs each collective
+once in the reference's per-device program.
 """
 from __future__ import annotations
 
@@ -87,6 +93,14 @@ def axis_index(mesh, pos, axes) -> int:
         i = mesh.axis_names.index(a)
         r = r * mesh.devices.shape[i] + pos[i]
     return r
+
+
+def replicated_axes(spec, mesh) -> tuple:
+    """The mesh axes (of more than one position) ``spec`` does not split:
+    those a leaf laid out by it is replicated on."""
+    used = {a for e in spec for a in axes_of(e)}
+    return tuple(a for a, n in zip(mesh.axis_names, mesh.devices.shape)
+                 if n > 1 and a not in used)
 
 
 def per_shard(mesh, fn) -> dict:
@@ -238,14 +252,21 @@ def tree_shardings(axes_tree, rules, mesh, shapes_tree=None):
 def device_put(tree, shardings):
     """``jax.device_put``: each tensor leaf of ``tree`` placed by the
     ``NamedSharding`` at the same place of ``shardings`` (one sharding
-    places every leaf)."""
+    places every leaf; ``None`` leaves its subtree as it is).  A module in
+    ``tree`` stands for {name: parameter}, as in a checkpoint."""
+    if shardings is None:
+        return tree
     if isinstance(shardings, NamedSharding):
         if isinstance(tree, dict):
             return {k: device_put(v, shardings) for k, v in tree.items()}
         return place(tree, shardings.spec, shardings.mesh)
     if isinstance(shardings, dict):
+        if hasattr(tree, "named_parameters"):
+            tree = {k: p.detach() for k, p in tree.named_parameters()}
         return {k: device_put(tree[k], s) for k, s in shardings.items()}
-    return type(shardings)(device_put(t, s) for t, s in zip(tree, shardings))
+    kids = (device_put(t, s) for t, s in zip(tree, shardings))
+    return (type(shardings)(*kids) if hasattr(shardings, "_fields")
+            else type(shardings)(kids))
 
 
 # --------------------------------------------------------------- collectives
@@ -280,43 +301,139 @@ def _max(xs):
     return acc
 
 
-def _collective(kind, vals, axes, mesh, combine):
+def _region(kind, axes, mesh):
+    """Under a cost counter, one collective region recording ``(kind,
+    result bytes, group size)``; else a dict nobody reads."""
     counter = active_counter()
-    region = (contextlib.nullcontext({}) if counter is None else
-              counter.collective_region(kind, axis_size(mesh, axes)))
+    return (contextlib.nullcontext({}) if counter is None else
+            counter.collective_region(kind, axis_size(mesh, axes)))
+
+
+def _collective(kind, vals, axes, mesh, combine, *, scatter=None,
+                distinct=False):
+    """``combine`` over each group's values, in rank order, on the device of
+    the group's first member; every member gets the result on its own
+    device (members on one device share it), or with ``scatter`` = (dim,
+    size) its rank's slice of it along dim.  ``distinct`` combines each
+    distinct tensor of a group once: a backward's cotangents, where members
+    on one device share one result and autograd has already summed their
+    uses into it."""
     out = {}
-    with region as rec:
+    with _region(kind, axes, mesh) as rec:
         for group in groups(mesh, axes):
-            dev = vals[group[0]].device
-            res = combine([vals[p].to(dev) for p in group])
-            memo = {_device_key(dev): res}
-            for p in group:
-                key = _device_key(vals[p].device)
+            members = group
+            if distinct:
+                first = {id(vals[p]): p for p in reversed(group)}
+                members = [p for p in group if first[id(vals[p])] == p]
+            dev = vals[members[0]].device
+            res = combine([vals[p].to(dev) for p in members])
+            memo: dict = {}
+            for r, p in enumerate(group):
+                piece = res if scatter is None else res.narrow(
+                    scatter[0], r * scatter[1], scatter[1])
+                key = (r if scatter else None, _device_key(vals[p].device))
                 if key not in memo:
-                    memo[key] = res.to(vals[p].device)
+                    memo[key] = (piece if _device_key(dev) == key[1]
+                                 else piece.to(vals[p].device))
                 out[p] = memo[key]
-        rec["bytes"] = res.numel() * res.element_size()
+            rec["bytes"] = piece.numel() * piece.element_size()
     return out
 
 
+def _distinct(vals: dict):
+    """(the distinct tensors among ``vals``' values, {position: index})."""
+    uniq, index, seen = [], {}, {}
+    for p, t in vals.items():
+        if id(t) not in seen:
+            seen[id(t)] = len(uniq)
+            uniq.append(t)
+        index[p] = seen[id(t)]
+    return uniq, index
+
+
+class _Exchange(torch.autograd.Function):
+    """One collective over the mesh as one autograd node.  ``plan`` =
+    (forward, backward, {position: input index}, {}); ``forward`` and
+    ``backward`` map a per-shard dict to a per-shard dict.  Returns the
+    distinct results and fills the last dict of ``plan`` with {position:
+    output index}.  The backward runs ``backward`` over the results'
+    cotangents and sums what each input receives: an input that several
+    positions share was used once by each."""
+
+    @staticmethod
+    def forward(ctx, plan, *xs):
+        fwd, _, index, out_index = plan
+        out = fwd({p: xs[i] for p, i in index.items()})
+        uniq, where = _distinct(out)
+        out_index.update(where)
+        ctx.plan, ctx.n_in = plan, len(xs)
+        # a result that is an input (a group of one) must be a new tensor
+        return tuple(u.clone() if any(u is x for x in xs) else u
+                     for u in uniq)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        _, bwd, index, out_index = ctx.plan
+        got = bwd({p: gs[i] for p, i in out_index.items()})
+        grads: list = [None] * ctx.n_in
+        for p, i in index.items():
+            grads[i] = got[p] if grads[i] is None else grads[i] + got[p]
+        return (None, *grads)
+
+
+def _exchange(vals: dict, fwd, bwd) -> dict:
+    uniq, index = _distinct(vals)
+    out_index: dict = {}
+    outs = _Exchange.apply((fwd, bwd, index, out_index), *uniq)
+    return {p: outs[i] for p, i in out_index.items()}
+
+
+def _reduction(kind, vals, axes, mesh, combine) -> dict:
+    """A reduction whose backward is the same reduction of the results'
+    cotangents, each distinct result once (``lax.psum``'s transpose on
+    values replicated over ``axes``)."""
+    return _exchange(
+        vals, lambda v: _collective(kind, v, axes, mesh, combine),
+        lambda g: _collective(kind, g, axes, mesh, combine, distinct=True))
+
+
 def psum(vals, axes, mesh) -> dict:
-    """``lax.psum`` over ``axes``."""
-    return _collective("all-reduce", vals, axes, mesh, _sum)
+    """``lax.psum`` over ``axes``; its backward is a psum of the
+    cotangents."""
+    return _reduction("all-reduce", vals, axes, mesh, _sum)
 
 
 def pmax(vals, axes, mesh) -> dict:
-    """``lax.pmax`` over ``axes``."""
+    """``lax.pmax`` over ``axes`` (on values that carry no gradient)."""
     return _collective("all-reduce", vals, axes, mesh, _max)
 
 
 def pmean(vals, axes, mesh) -> dict:
     """``lax.pmean``: the sum over ``axes`` over the group's size."""
     n = axis_size(mesh, axes)
-    return _collective("all-reduce", vals, axes, mesh,
-                       lambda xs: _sum(xs) / n)
+    return _reduction("all-reduce", vals, axes, mesh,
+                      lambda xs: _sum(xs) / n)
 
 
-def all_gather(vals, axes, mesh) -> dict:
+def all_gather(vals, axes, mesh, dim: int = 0) -> dict:
     """``lax.all_gather(..., tiled=True)``: the group's values in rank
-    order, concatenated along their first dim."""
-    return _collective("all-gather", vals, axes, mesh, torch.cat)
+    order, concatenated along ``dim``.  Its backward is a reduce-scatter
+    of the cotangents, each distinct result once (FSDP's gradient)."""
+    size = next(iter(vals.values())).shape[dim]
+
+    def bwd(g):
+        return _collective("reduce-scatter", g, axes, mesh, _sum,
+                           scatter=(dim, size), distinct=True)
+    return _exchange(vals, lambda v: _collective(
+        "all-gather", v, axes, mesh, lambda xs: torch.cat(xs, dim)), bwd)
+
+
+def token_mean(num, den, axes, mesh) -> dict:
+    """The reference's mean over every valid token of a batch split over
+    ``axes``: Σ num / max(Σ den, 1), one all-reduce of the (num, den)
+    pairs; not a mean of the shards' means.  ``num``/``den``: per-shard
+    0-d float32 tensors."""
+    pairs = per_shard(mesh, lambda p: torch.stack([num[p], den[p]]))
+    if axis_size(mesh, axes) > 1:
+        pairs = psum(pairs, axes, mesh)
+    return {p: t[0] / torch.clamp(t[1], min=1.0) for p, t in pairs.items()}

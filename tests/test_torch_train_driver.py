@@ -12,12 +12,13 @@ the checkpoint manager (``repro_torch.checkpoint``) and the train launcher
   for byte the reference's, over seeds and steps, and as
   ``tests/test_checkpoint_data.py`` asserts them.
 - ``CheckpointManager`` as ``tests/test_checkpoint_data.py`` asserts it
-  (without its elastic restore, a mesh path), and on the port's own
-  leaves: bfloat16, numbers, a module restored in place.
+  (its elastic restore is ``tests/test_torch_train_mesh.py``'s), and on the
+  port's own leaves: bfloat16, numbers, a module restored in place, a
+  restore re-sharded onto a mesh.
 - The launcher: checkpoints at 3 and 6, ``--resume`` to 9 bitwise equal to
   an uninterrupted 9-step run, the log's records as
   ``tests/test_integration.py`` reads them, SIGTERM's final checkpoint,
-  ``--mesh`` refused by name, cuda by default.
+  ``--mesh`` refusing a Mamba model by name, cuda by default.
 """
 import dataclasses
 import json
@@ -46,9 +47,11 @@ from repro_torch.checkpoint import (
 from repro_torch.data import DataConfig, TokenPipeline, extra_inputs
 from repro_torch.models import HybridCfg, ModelConfig, MoECfg, SSMCfg
 from repro_torch.launch import train as launcher
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.steps import (
-    init_train_state, make_train_step, model_inputs,
+    ShapeDtypeStruct, init_train_state, make_train_step, model_inputs,
 )
+from repro_torch.sharding import NamedSharding, ShardedArray
 from repro_torch.models.transformer import LM
 from repro_torch.optim import (
     adamw, apply_updates, clip_by_global_norm, compress_int8,
@@ -436,10 +439,32 @@ def test_restore_empty_dir_raises(tmp_path):
 
 
 def test_restore_onto_a_mesh_is_refused_by_name(tmp_path):
+    """A sharding whose mesh axes do not divide a leaf is refused, naming
+    the dim and the axes."""
     save_checkpoint(tmp_path, 1, {"w": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="shardings"):
+    mesh = make_mesh((4,), ("data",), devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match=r"dim 0 of size 2 .*'data'"):
         restore_checkpoint(tmp_path, {"w": torch.zeros(2)},
-                           shardings={"w": None})
+                           shardings={"w": NamedSharding(mesh, ("data",))})
+
+
+def test_restore_re_shards_onto_a_mesh(tmp_path):
+    """A one-device checkpoint restored by ``NamedSharding``s: each leaf
+    comes back a ``ShardedArray`` on the mesh, bitwise the saved values;
+    a ``None`` sharding leaves its leaf as ``like`` has it."""
+    w = torch.arange(24, dtype=torch.float32).reshape(4, 6)
+    save_checkpoint(tmp_path, 1, {"w": w, "b": torch.ones(3), "step": 1})
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    got, _ = restore_checkpoint(
+        tmp_path, {"w": ShapeDtypeStruct((4, 6), torch.float32),
+                   "b": torch.zeros(3), "step": 0},
+        shardings={"w": NamedSharding(mesh, ("data", "model")), "b": None,
+                   "step": None})
+    assert isinstance(got["w"], ShardedArray)
+    assert got["w"].spec == ("data", "model")
+    assert torch.equal(got["w"].blocks[(1, 0)], w[2:, :3])
+    assert torch.equal(got["w"].full(), w)
+    assert torch.equal(got["b"], torch.ones(3)) and got["step"] == 1
 
 
 def test_bfloat16_numbers_and_modules_round_trip(tmp_path):
@@ -537,8 +562,12 @@ def test_launcher_takes_a_final_checkpoint_on_sigterm(tmp_path, monkeypatch):
 
 
 def test_launcher_refuses_a_mesh_by_name():
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        launcher.main(ARGS + ["--steps", "1", "--mesh", "2,4"])
+    """``--mesh`` trains the dense and MoE families; a Mamba model on a
+    mesh is refused, naming its family."""
+    with pytest.raises(NotImplementedError, match=r"SSM family \(Mamba1\)"):
+        launcher.main(["--arch", "falcon-mamba-7b", "--smoke", "--device",
+                       "cpu", "--steps", "1", "--mesh", "2,4",
+                       "--seq", "16"])
 
 
 def test_training_entry_points_default_to_cuda():
