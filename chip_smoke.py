@@ -15,8 +15,9 @@ of six full-width cells and the queueing model the planner sizes against,
 phase 11 the replica fabric: one replica over a device mesh, a
 multi-process pod, and phase 6's loop over the sharded topology, phase 12
 the model axis: split-K decode and expert-parallel MoE over meshes whose
-shards all lie on the one card, and phase 13 training over such meshes,
-with padded heads and the elastic re-mesh restore.
+shards all lie on the one card, phase 13 training over such meshes,
+with padded heads and the elastic re-mesh restore, and phase 14 training
+the SSM, hybrid, VLM and encoder-decoder families over such a mesh.
 Each phase's wall time is printed.  Any failure exits non-zero and prints
 no result line.
 
@@ -356,6 +357,30 @@ no result line.
               dropless copy within 1e-2 of one device's step; at capacity
               factor 1.25 the mesh's drop_frac (capacity per data shard)
               printed beside one device's.
+14. families — phase 13's (2, 2) mesh for the families phase 13 leaves
+              out, each at full width, float32 state, bf16 compute:
+              falcon-mamba-7b at 2 of 64 layers (Mamba1, channel-parallel)
+              and zamba2-2.7b at 12 of 54 Mamba2 layers with both shared
+              blocks (two hybrid groups; Mamba2 head-parallel);
+              qwen2-vl-7b at 4 of 28 layers, 2 x 1280 tokens of
+              which 1024 are patch rows; seamless-m4t-medium at full
+              depth, 2 x 256 tokens and frames (``FAMILY_CUTS``; the SSM
+              families' tokens cut to 2 x 64: their scans are per-token
+              loops).  Each: 2 steps on one device and on the
+              mesh, step 1's loss, ce and grad_norm within 1e-2 relative;
+              host clock a step and peak of each.  The two SSM families
+              again with float32 compute, one step: metrics within 1e-5,
+              leaves by phase 13's rule.  One mesh step under
+              ``CostCounter`` (the SSM families' float32 step, the others'
+              third bf16 step): its collectives and wire bytes a device,
+              the "data" all-gathers and reduce-scatters held to the
+              layout's count.
+              zamba2's bf16 gradient is rounding-dominated (two valid
+              roundings of the one-device step part by up to 2.8% on
+              grad_norm), so its bf16 grad_norm is printed beside the
+              float32 step's and held by the float32 copy
+              (``BF16_NOISY_GRAD_NORM``).  Every block of a mesh state
+              must lie on the card.
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -5028,12 +5053,17 @@ def card_mesh(shape):
                      devices=["cuda:0"] * math.prod(shape))
 
 
-def mesh_runs(torch, cfg, shape, batches, keep=()):
+def mesh_runs(torch, cfg, shape, batches, keep=(), stats=None,
+              count=False):
     """One seeded state stepped over ``batches`` on the card alone, then the
     same init laid out on ``shape`` (positions on cuda:0) and stepped over
     them → (one-device metrics, mesh metrics, mesh host clock a step after
     the first, mesh peak GiB, (one-device state, mesh state), each None
-    unless ``keep`` names it: "one", "mesh")."""
+    unless ``keep`` names it: "one", "mesh").  ``stats``, a dict, gets
+    {"one": (host clock a step after the first, peak GiB), "mesh": ...},
+    and with ``count`` "counter": the ``CostCounter`` the mesh steps ran
+    under."""
+    from repro_torch.launch.cost import CostCounter
     from repro_torch.launch.elastic import state_shardings
     from repro_torch.models import steps
     from repro_torch.sharding import TRAIN_RULES, device_put, shard_ctx
@@ -5047,10 +5077,12 @@ def mesh_runs(torch, cfg, shape, batches, keep=()):
         if on_mesh:
             state = device_put(state, state_shardings(cfg, mesh)[0])
         ms = []
+        counter = CostCounter() if count and on_mesh else None
         for b in batches:
             t0 = time.perf_counter()
             with shard_ctx(TRAIN_RULES, mesh) if on_mesh else \
-                    contextlib.nullcontext():
+                    contextlib.nullcontext(), \
+                    counter or contextlib.nullcontext():
                 state, m = step(state, b)
             ms.append({k: float(v) for k, v in m.items()})
             torch.cuda.synchronize()
@@ -5058,6 +5090,11 @@ def mesh_runs(torch, cfg, shape, batches, keep=()):
         out.append(ms)
         states.append(state if label in keep else None)
         del state
+        if stats is not None:
+            run = clocks[-len(batches):]
+            stats[label] = (statistics.mean(run[1:] or run), peak_gib(torch))
+            if counter is not None:
+                stats["counter"] = counter
     per_step = statistics.mean(clocks[len(batches) + 1:] or clocks[-1:])
     return out[0], out[1], per_step, peak_gib(torch), states
 
@@ -5079,13 +5116,20 @@ def step_collectives(torch, cfg, state, batch, mesh):
     """One more mesh step under ``CostCounter``: the collectives it
     records, by (kind, group): count and result bytes; wire bytes a device
     by the ring formulas."""
-    from repro_torch.launch.cost import CostCounter, collective_bytes
+    from repro_torch.launch.cost import CostCounter
     from repro_torch.models import steps
     from repro_torch.sharding import TRAIN_RULES, shard_ctx
     step, _ = steps.make_train_step(cfg)
     with CostCounter() as c, shard_ctx(TRAIN_RULES, mesh):
         step(state, batch)
     torch.cuda.synchronize()
+    return tally(c)
+
+
+def tally(c):
+    """A ``CostCounter``'s collectives by (kind, group): count and result
+    bytes; and the wire bytes a device by the ring formulas."""
+    from repro_torch.launch.cost import collective_bytes
     by: dict = {}
     for kind, nbytes, n in c.collectives:
         row = by.setdefault((kind, n), [0, 0])
@@ -5165,6 +5209,17 @@ def mesh_dense_phase(torch, ops, out_dir: Path):
                                           keep=("one", "mesh"))
     m_gap = held_metrics(one, mesh, ("loss", "ce", "grad_norm"),
                          MESH_F32_TOL, "float32 (2, 2) vs one device")
+    line = held_leaves(torch, s1, s2, "float32 (2, 2)")
+    del s1, s2
+    print(f"    float32 compute at {MESH_SHORT_LAYERS} layers, one step: "
+          f"metrics within {m_gap:.3g}, {line}")
+
+
+def held_leaves(torch, s1, s2, what) -> str:
+    """A one-device state ``s1`` and a mesh state ``s2`` after one float32
+    step: every updated leaf (parameters, mu, nu) within 1e-5 of max(1, max
+    |leaf|), the parameter elements whose gradient is rounding-sized aside
+    (held to AdamW's first-step bound); fails past either → what to print."""
     gaps, noise = {}, [0, 0.0]
     for part, a, b in (("params", dict(s1.params.named_parameters()),
                         s2.params),
@@ -5180,24 +5235,21 @@ def mesh_dense_phase(torch, ops, out_dir: Path):
                 g = s1.opt_state.mu[k] / (1 - ADAM_B1)
                 noisy = g.abs() < ADAM_NOISE_G
                 check(bool((gap[noisy] <= 2 * LR).all()),
-                      f"float32 (2, 2): {k} moved past AdamW's step bound")
+                      f"{what}: {k} moved past AdamW's step bound")
                 noise[0] += int((gap[noisy] > MESH_F32_TOL * scale).sum())
                 noise[1] = max(noise[1], float(gap[noisy].max()) / LR
                                if noisy.any() else 0.0)
                 gap = torch.where(noisy, 0.0, gap)
             gaps[f"{part}/{k}"] = float(gap.max()) / scale
     where = max(gaps, key=gaps.get)
-    del s1, s2
-    print(f"    float32 compute at {MESH_SHORT_LAYERS} layers, one step: "
-          f"metrics within {m_gap:.3g}, every updated leaf (parameters, mu, "
-          f"nu) within {gaps[where]:.3g} of max(1, max |leaf|) (worst "
-          f"{where}; <= {MESH_F32_TOL}), the parameter elements whose "
-          f"gradient is under {ADAM_NOISE_G:g} aside: AdamW's first step "
-          f"divides it by |g| + 1e-8, and they moved within "
-          f"{noise[1]:.3g} lr (<= 2), {noise[0]} of them past "
-          f"{MESH_F32_TOL} of their leaf")
-    check(gaps[where] <= MESH_F32_TOL, f"float32 (2, 2): leaf {where} apart "
+    check(gaps[where] <= MESH_F32_TOL, f"{what}: leaf {where} apart "
           f"by {gaps[where]:.3g} > {MESH_F32_TOL}")
+    return (f"every updated leaf (parameters, mu, nu) within "
+            f"{gaps[where]:.3g} of max(1, max |leaf|) (worst {where}; <= "
+            f"{MESH_F32_TOL}), the parameter elements whose gradient is "
+            f"under {ADAM_NOISE_G:g} aside: AdamW's first step divides it "
+            f"by |g| + 1e-8, and they moved within {noise[1]:.3g} lr (<= "
+            f"2), {noise[0]} of them past {MESH_F32_TOL} of their leaf")
 
 
 def mesh_padded_phase(torch):
@@ -5361,6 +5413,170 @@ def train_mesh_phase(torch, ops):
     print(f"  phase 13: {time.perf_counter() - t0:.1f} s")
 
 
+# -------------------------------------------------------------------- phase 14
+# the families phase 13 leaves out, on its (2, 2) mesh laid on cuda:0: each
+# at full width, its depth cut so that a float32 state and its one-device
+# copy fit beside each other, and the SSM families' tokens cut so that the
+# phase stays short (their train scans are per-token loops, run once a
+# position: a zamba2 mesh step at 12 layers took 27.7 s at 2 x 256
+# tokens on an H100, 5.4 s at 2 x 64): (layers, tokens a row; 2 rows)
+FAMILY_CUTS = {"falcon-mamba-7b": (2, 64), "zamba2-2.7b": (12, 64),
+               "qwen2-vl-7b": (4, 1280), "seamless-m4t-medium": (None, 256)}
+FAMILY_STEPS = 2
+FAMILY_F32 = ("falcon-mamba-7b", "zamba2-2.7b")
+# zamba2's bf16 gradient is rounding-dominated at these weights: two valid
+# roundings of the one-device step (an H100's and a CPU's) part by
+# 0.6-2.8% on grad_norm, and bf16 from float32 compute by 1.1-12.4% (up
+# to a third on some leaves), so its bf16 grad_norm is printed beside one
+# device's and the float32 step's, and held by the float32 copy at 1e-5
+BF16_NOISY_GRAD_NORM = ("zamba2-2.7b",)
+
+
+def family_gathers(cfg) -> int:
+    """The "data" all-gathers of one (2, 2) mesh step (each one's backward
+    a reduce-scatter): the table (and an untied readout), and each weight
+    split over "data" once,
+    ``in_proj`` twice (over "data", then whole over "model"), a shared
+    block once however many groups read it."""
+    if cfg.enc_dec:
+        return 1 + 7 * cfg.n_enc_layers + 11 * cfg.n_layers
+    if cfg.hybrid is not None:
+        G = cfg.n_layers // cfg.hybrid.attn_every
+        return (1 + 5 * cfg.n_layers + 7 * min(G, cfg.hybrid.n_shared_blocks)
+                + G)
+    if cfg.ssm is not None:
+        return 1 + 3 * cfg.n_layers
+    # an untied readout (qwen2-vl-7b) is gathered as the table is
+    return 1 + 7 * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
+
+
+def on_card(torch, state, what):
+    """Every block of a mesh state lies on the card: nothing fell back."""
+    for part in (state.params, state.opt_state.mu, state.opt_state.nu):
+        for k, leaf in part.items():
+            for pos, blk in leaf.blocks.items():
+                check(blk.device.type == "cuda",
+                      f"{what}: {k} at {pos} lies on {blk.device}")
+
+
+def family_run(torch, arch):
+    """One family at ``FAMILY_CUTS[arch]`` on (2, 2): 2 steps beside one
+    device's; for the SSM families the float32 copy, its mesh step counted
+    (a bf16 counted step took 14 s of zamba2's 43: the scans' ops under
+    the counter), for the others one more bf16 mesh step counted."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    layers, seq = FAMILY_CUTS[arch]
+    cfg = get_config(arch)
+    full = cfg.n_layers + (cfg.n_enc_layers if cfg.enc_dec else 0)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    batches = train_batches(torch, cfg, FAMILY_STEPS + 1, seq=seq,
+                            device="cuda")
+    f32 = arch in FAMILY_F32
+    stats: dict = {}
+    t0 = time.perf_counter()
+    one, mesh, _, _, (_, state) = mesh_runs(
+        torch, cfg, MESH_TRAIN, batches[:FAMILY_STEPS],
+        keep=() if f32 else ("mesh",), stats=stats)
+    clocks = {"2 + 2 steps": time.perf_counter() - t0}
+    check(all(math.isfinite(v) for m in one + mesh for v in m.values()),
+          f"{arch}: a metric is not finite: {one} {mesh}")
+    worst = held_metrics(one[:1], mesh[:1], ("loss", "ce"), MESH_TOL,
+                         f"{arch} (2, 2) vs one device")
+    depth = (f"{cfg.n_enc_layers} + {cfg.n_layers} layers" if cfg.enc_dec
+             else f"{cfg.n_layers} of {full} layers")
+    extra = (f", {cfg.n_vision_patches} of them patch rows"
+             if cfg.family == "vlm" else ", frames of as many rows"
+             if cfg.enc_dec else "")
+    (one_s, one_peak), (mesh_s, mesh_peak) = stats["one"], stats["mesh"]
+    print(f"  {arch} at full width, {depth}, on {MESH_TRAIN}, 2 x {seq} "
+          f"tokens{extra}: "
+          + "; ".join(f"step {i + 1} loss {m['loss']:.4f} grad_norm "
+                      f"{m['grad_norm']:.3f}" for i, m in enumerate(mesh))
+          + f"; step 1's loss and ce within {worst:.3g} (<= {MESH_TOL}) of "
+          f"one device's (loss {one[0]['loss']:.4f}, grad_norm "
+          f"{one[0]['grad_norm']:.3f}) ({gpu_line()})")
+    print(f"    host clock a step after the first: mesh {mesh_s * 1e3:.1f} "
+          f"ms against one device {one_s * 1e3:.1f} ms ({mesh_s / one_s:.2f}"
+          f"x); peak {mesh_peak:.2f} GiB against {one_peak:.2f} "
+          f"({gpu_line()})")
+    f32_norm = None
+    if f32:
+        t0 = time.perf_counter()
+        counted: dict = {}
+        one32, mesh32, _, _, (s1, s2) = mesh_runs(
+            torch, dataclasses.replace(cfg, dtype="float32"), MESH_TRAIN,
+            batches[:1], keep=("one", "mesh"), stats=counted, count=True)
+        by, wire = tally(counted["counter"])
+        m_gap = held_metrics(one32, mesh32, ("loss", "ce", "grad_norm"),
+                             MESH_F32_TOL,
+                             f"{arch} float32 (2, 2) vs one device")
+        on_card(torch, s2, f"{arch} float32")
+        line = held_leaves(torch, s1, s2, f"{arch} float32 (2, 2)")
+        del s1, s2
+        free(torch)
+        clocks["float32, counted"] = time.perf_counter() - t0
+        f32_norm = one32[0]["grad_norm"]
+        print(f"    float32 compute at the same cut, one step: metrics "
+              f"within {m_gap:.3g} (<= {MESH_F32_TOL}), {line} "
+              f"({gpu_line()})")
+        what = "the float32 copy's mesh step under CostCounter"
+    else:
+        on_card(torch, state, arch)
+        mesh22 = next(iter(state.params.values())).mesh
+        t0 = time.perf_counter()
+        by, wire = step_collectives(torch, cfg, state, batches[-1], mesh22)
+        clocks["counted"] = time.perf_counter() - t0
+        del state
+        free(torch)
+        what = "one more mesh step under CostCounter"
+    gathers = family_gathers(cfg)
+    check(by.get(("all-gather", 2), [0])[0] == gathers
+          and by.get(("reduce-scatter", 2), [0])[0] == gathers,
+          f"{arch}: collectives {by}: {gathers} data all-gathers and "
+          f"reduce-scatters expected")
+    print(f"    {what}: "
+          + "; ".join(f"{n} {kind} over {g} ({nb / 1e9:.4f} GB of results)"
+                      for (kind, g), (n, nb) in sorted(by.items()))
+          + f"; {wire / 1e9:.4f} GB on the wire a device by the ring "
+          f"formulas ({gathers} data all-gathers and reduce-scatters, as "
+          f"the layout implies)")
+    a, b = one[0]["grad_norm"], mesh[0]["grad_norm"]
+    gap = rel_gap(b, a)
+    if arch in BF16_NOISY_GRAD_NORM:
+        print(f"    step 1's bf16 grad_norm {b:.4f}, {gap:.3g} from one "
+              f"device's {a:.4f}; the float32 step's {f32_norm:.4f} (one "
+              f"device's bf16 {rel_gap(a, f32_norm):.3g} from it, the "
+              f"mesh's {rel_gap(b, f32_norm):.3g}): printed, held by the "
+              f"float32 copy ({gpu_line()})")
+    else:
+        check(gap <= MESH_TOL, f"{arch}: step 1 grad_norm {b} vs one "
+              f"device {a} (relative {gap:.3g} > {MESH_TOL})")
+        print(f"    step 1's grad_norm {b:.4f} within {gap:.3g} (<= "
+              f"{MESH_TOL}) of one device's ({gpu_line()})")
+    print("    clocks: " + ", ".join(f"{k} {v:.1f} s"
+                                      for k, v in clocks.items()))
+
+
+def train_mesh_families_phase(torch, ops):
+    """Phase 14: the SSM, hybrid, VLM and encoder-decoder families trained
+    over a mesh laid on the one card (above)."""
+    print(f"[14] train mesh families: the sharded train step of the SSM, "
+          f"hybrid, VLM and encoder-decoder families on {MESH_TRAIN} laid "
+          f"on one card ({gpu_line()})")
+    t0 = time.perf_counter()
+    before = ops.launch_counts()
+    for arch in FAMILY_CUTS:
+        t1 = time.perf_counter()
+        family_run(torch, arch)
+        free(torch)
+        print(f"    ({arch}: {time.perf_counter() - t1:.1f} s)")
+    check(ops.launch_counts() == before,
+          f"kernels launched while training: {ops.launch_counts()}")
+    print(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -5494,6 +5710,8 @@ def main(argv=None) -> int:
             model_axis_phase(torch, ops, add)
         with phase_clock(times, "13 train mesh"):
             train_mesh_phase(torch, ops)
+        with phase_clock(times, "14 train mesh families"):
+            train_mesh_families_phase(torch, ops)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

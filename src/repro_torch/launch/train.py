@@ -16,7 +16,7 @@ A JSON record of the metrics goes to stdout (and ``--log``) every 10 steps
 and at the last; its ``sec`` is the host clock since the previous record.
 
 ``--mesh D,M`` trains over a ("data", "model") mesh under ``TRAIN_RULES``
-(the dense and MoE families; the others are refused by name): the state is
+(every family, with the extras ``data.extra_inputs`` makes): the state is
 initialised (or restored) on the device and then laid out on the mesh,
 and each step runs under the mesh's shard context.  The mesh covers
 ``cuda:0 ..`` and raises with fewer cards than positions; with ``--device
@@ -44,7 +44,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.elastic import state_shardings
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.steps import (
-    TrainState, check_mesh_family, init_train_state, make_train_step,
+    TrainState, init_train_state, make_train_step,
 )
 from repro_torch.sharding import TRAIN_RULES, device_put, shard_ctx
 
@@ -75,7 +75,6 @@ def train(args: argparse.Namespace, mesh_devices=None) -> TrainState:
     device = resolve_device(args.device)
     mesh = None
     if args.mesh:
-        check_mesh_family(cfg)
         shape = tuple(int(x) for x in args.mesh.split(","))
         if mesh_devices is None and device.type == "cpu":
             mesh_devices = ["cpu"] * math.prod(shape)

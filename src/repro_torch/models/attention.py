@@ -415,12 +415,16 @@ class Attention(nn.Module):
                    (0, 0, 0, 0, 0, Gp - G))
         return w4.reshape(kv_heads * Gp * hd, d_out)
 
-    def forward_mesh(self, w, xs, angles, *, causal=True, window=None):
+    def forward_mesh(self, w, xs, angles, *, causal=True, window=None,
+                     x_kv=None):
         """The train route over the shard context's mesh, shard by shard.
         ``w``: the layer's parameters as ``steps.MeshParams`` gives them;
         ``xs``: {position: (B_loc, S, d_in)}, replicated over "model";
-        ``angles``: {position: RoPE angles} → {position: (B_loc, S, d_out)}
-        after one ``psum`` over "model"."""
+        ``angles``: {position: RoPE angles}, or None for no RoPE → {position:
+        (B_loc, S, d_out)} after one ``psum`` over "model".  ``x_kv``
+        {position: (B_loc, S_kv, d_in)} is cross attention: K/V are
+        projected from it (the rank's KV heads, as for self attention) and
+        take no RoPE, as ``forward(cross_kv=...)``'s train route."""
         cfg = self.cfg
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         mesh = w.mesh
@@ -453,12 +457,17 @@ class Attention(nn.Module):
                         wo_r, KV, *pad[1:], hd)[cols]
                     bq_r = None if bq_r is None else bq_r[cols]
                 q = self._project(x, wq_r, bq_r).reshape(B, S, n, hd)
-                k, v = (self._project(x, w_[pos], None if b_ is None else
-                                      b_[pos]).reshape(B, S, -1, hd)
+                src = x if x_kv is None else x_kv[pos]
+                k, v = (self._project(src, w_[pos], None if b_ is None else
+                                      b_[pos]).reshape(B, src.shape[1], -1,
+                                                       hd)
                         for w_, b_ in ((wk, bk), (wv, bv)))
                 if not kv_keep:             # the KV heads this rank reads
                     k, v = self._rank_kv(k, v, r * n, n, Gc)
-                q, k = apply_rope(q, angles[pos]), apply_rope(k, angles[pos])
+                if angles is not None:
+                    q = apply_rope(q, angles[pos])
+                    if x_kv is None:
+                        k = apply_rope(k, angles[pos])
                 out = self._sdpa_masked(q, k, v, causal=causal, window=window)
                 part[pos] = out.reshape(B, S, n * hd) @ wo_r
         return sm.psum(part, "model", mesh) if m > 1 else part

@@ -2,8 +2,8 @@
 the pre-norm Mamba block (Mamba1 or Mamba2), zamba2's shared attention
 block, and seamless's encoder block and cross-attending decoder block
 (``repro.models.blocks``).  ``train=True`` on a forward takes the train
-route down to every layer (``Attention.forward``); ``forward_mesh`` is the
-decoder block's train route over a mesh, shard by shard."""
+route down to every layer (``Attention.forward``); each block's
+``forward_mesh`` is its train route over a mesh, shard by shard."""
 from __future__ import annotations
 
 import torch
@@ -115,6 +115,13 @@ class SSMBlock(nn.Module):
             return x + y, state
         return x + self.mamba(self.ln(x), train=train)
 
+    def forward_mesh(self, w, xs):
+        """The train route over a mesh: {position: (B_loc, L, d)} →
+        {position: x + mamba(ln(x))}."""
+        y = self.mamba.forward_mesh(w.sub("mamba"),
+                                    norm_mesh(self.ln, w.sub("ln"), xs))
+        return {p: x + y[p] for p, x in xs.items()}
+
     def decode(self, x, state):
         y, state = self.mamba.decode(self.ln(x), state)
         return x + y, state
@@ -146,6 +153,18 @@ class SharedAttnBlock(nn.Module):
         x2 = x2 + self.mlp(self.ln2(x2), train=train)
         return (x2, kv) if return_kv else x2
 
+    def forward_mesh(self, w, xs, angles):
+        """The train route over a mesh: {position: (B_loc, S, 2d)} → the
+        same.  A block shared by several groups is read through one
+        ``MeshParams``, which gathers each weight once a step; autograd
+        adds the groups' gradients."""
+        h = self.attn.forward_mesh(w.sub("attn"), norm_mesh(
+            self.ln1, w.sub("ln1"), xs), angles)
+        xs = {p: x + h[p] for p, x in xs.items()}
+        h = self.mlp.forward_mesh(w.sub("mlp"), norm_mesh(
+            self.ln2, w.sub("ln2"), xs))
+        return {p: x + h[p] for p, x in xs.items()}
+
     def decode(self, x2, cache, index, *, angles=None, block_tbl=None):
         h, cache = self.attn.decode(self.ln1(x2), cache, index, angles=angles,
                                     block_tbl=block_tbl)
@@ -171,6 +190,16 @@ class EncoderBlock(nn.Module):
         x = x + self.attn(self.ln1(x), angles=angles, causal=False,
                           train=train)
         return x + self.mlp(self.ln2(x), train=train)
+
+    def forward_mesh(self, w, xs, angles):
+        """The train route over a mesh: {position: (B_loc, S_enc, d)} →
+        the same."""
+        h = self.attn.forward_mesh(w.sub("attn"), norm_mesh(
+            self.ln1, w.sub("ln1"), xs), angles, causal=False)
+        xs = {p: x + h[p] for p, x in xs.items()}
+        h = self.mlp.forward_mesh(w.sub("mlp"), norm_mesh(
+            self.ln2, w.sub("ln2"), xs))
+        return {p: x + h[p] for p, x in xs.items()}
 
 
 class CrossDecoderBlock(nn.Module):
@@ -212,6 +241,21 @@ class CrossDecoderBlock(nn.Module):
                                 train=train)
         x = x + self.mlp(self.ln3(x), train=train)
         return (x, kv, ckv) if return_kv else x
+
+    def forward_mesh(self, w, xs, enc_out, angles):
+        """The train route over a mesh: {position: (B_loc, S, d)} over
+        {position: the batch shard's encoder output (B_loc, S_enc, d)} →
+        {position: (B_loc, S, d)}.  The cross attention projects each
+        rank's K/V heads of the encoder output, with no RoPE."""
+        h = self.self_attn.forward_mesh(w.sub("self_attn"), norm_mesh(
+            self.ln1, w.sub("ln1"), xs), angles)
+        xs = {p: x + h[p] for p, x in xs.items()}
+        h = self.cross_attn.forward_mesh(w.sub("cross_attn"), norm_mesh(
+            self.ln2, w.sub("ln2"), xs), None, causal=False, x_kv=enc_out)
+        xs = {p: x + h[p] for p, x in xs.items()}
+        h = self.mlp.forward_mesh(w.sub("mlp"), norm_mesh(
+            self.ln3, w.sub("ln3"), xs))
+        return {p: x + h[p] for p, x in xs.items()}
 
     def decode(self, x, state, index, *, angles=None, cross_len=None,
                block_tbl=None):

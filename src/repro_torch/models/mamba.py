@@ -21,6 +21,19 @@ differentiate: Mamba2 takes the plain sequential scan
 (``kernels.ref.ssm_scan_ref``) on either device, Mamba1 the out-of-place
 recurrence ``selective_scan_train`` (the serve scan writes its states in
 place), and the projections cast their weights inside the graph.
+
+``forward_mesh`` is the train route over a mesh, shard by shard, where the
+rules split "d_inner" over "model".  The fused ``in_proj`` columns (and
+Mamba2's conv channels) lie over "model" in contiguous blocks that do not
+line up with the channels a rank scans, so each rank gathers those two
+leaves whole and takes its own columns: Mamba1 is channel-parallel (rank r
+scans channels [r·di/m, (r+1)·di/m); ``x_proj`` contracts over them, so a
+``psum`` over "model" gives dt, B and C), Mamba2 head-parallel (rank r
+scans heads [r·H/m, (r+1)·H/m) and reads every B/C group they use; the
+gated norm runs over the whole ``d_inner``, its sum of squares psummed
+over "model").  ``out_proj`` rows end in a ``psum`` in both.  Where the
+layout does not split the channels (or the heads) over "model", each
+position runs the whole block.
 """
 from __future__ import annotations
 
@@ -31,7 +44,8 @@ from torch import nn
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.nn import Conv1D, Linear, RMSNorm
-from repro_torch.nn.layers import _param
+from repro_torch.nn.layers import _param, conv1d_nlc
+from repro_torch.sharding import shard_map as sm
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -73,6 +87,13 @@ def selective_scan_train(x, dt, A, Bm, C):
         h = decay * h + (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
     return torch.stack(ys, dim=1), h
+
+
+def _model_ranks(mesh, split: bool) -> dict:
+    """{position: its rank over "model"} when ``split``, else every
+    position rank 0 of 1: the whole block on each."""
+    return {p: sm.axis_index(mesh, p, "model") if split else 0
+            for p in sm.positions(mesh)}
 
 
 class Mamba1(nn.Module):
@@ -125,6 +146,45 @@ class Mamba1(nn.Module):
             return out, {"h": h_last,
                          "conv": x_in[:, -(cfg.ssm.d_conv - 1):].clone()}
         return out
+
+    def forward_mesh(self, w, xs):
+        """The train route over a mesh, channel-parallel over "model" where
+        the layout splits "d_inner" (module docstring).  ``w``: the block's
+        parameters as ``steps.MeshParams`` gives them; ``xs`` {position:
+        (B_loc, L, d)}, replicated over "model" → {position: (B_loc, L,
+        d)}."""
+        cfg = self.cfg
+        cd, di = cfg.cdtype, cfg.d_inner
+        N, R = cfg.ssm.d_state, cfg.dt_rank
+        split = "model" in w.axes("out_proj.w", 0)
+        rank = _model_ranks(w.mesh, split)
+        c = di // (sm.axis_size(w.mesh, "model") if split else 1)
+        w_in = w("in_proj.w", keep=())
+        conv_w, conv_b, x_w = w("conv.w"), w("conv.b"), w("x_proj.w")
+        dbc, kept = {}, {}
+        for pos, x in xs.items():
+            r, x = rank[pos], x.to(cd)
+            x_in = x @ w_in[pos][:, r * c:(r + 1) * c]
+            z = x @ w_in[pos][:, di + r * c:di + (r + 1) * c]
+            x_conv = F.silu(conv1d_nlc(x_in, conv_w[pos], conv_b[pos],
+                                       groups=c, causal=True))
+            dbc[pos] = x_conv @ x_w[pos]            # partial over "model"
+            kept[pos] = (x_conv, z)
+        if split:
+            dbc = sm.psum(dbc, "model", w.mesh)
+        dt_w, dt_b, A_log, D = (w(n) for n in ("dt_proj.w", "dt_proj.b",
+                                               "A_log", "D"))
+        out_w = w("out_proj.w")
+        part = {}
+        for pos, (x_conv, z) in kept.items():
+            dt_r, Bc, Cc = torch.split(dbc[pos].float(), [R, N, N], dim=-1)
+            dt = softplus(dt_r @ dt_w[pos].float() + dt_b[pos].float())
+            A = -torch.exp(A_log[pos].float())                  # (c, N)
+            xf = x_conv.float()
+            y, _ = selective_scan_train(xf, dt, A, Bc, Cc)
+            y = y + xf * D[pos].float()
+            part[pos] = (y.to(cd) * F.silu(z)) @ out_w[pos]
+        return sm.psum(part, "model", w.mesh) if split else part
 
     def decode(self, x, state):
         """x: (B, 1, d); state {"h": (B, di, N) float32, "conv": (B, k-1,
@@ -230,6 +290,85 @@ class Mamba2(nn.Module):
         if return_state:
             return y, {"h": h_last, "conv": conv_in[:, -(k - 1):]}
         return y
+
+    def forward_mesh(self, w, xs):
+        """The train route over a mesh, head-parallel over "model" where
+        the heads divide it and the layout splits "d_inner" (module
+        docstring).  ``w``: the block's parameters as ``steps.MeshParams``
+        gives them; ``xs`` {position: (B_loc, L, d)}, replicated over
+        "model" → {position: (B_loc, L, d)}."""
+        cfg = self.cfg
+        cd, di, N = cfg.cdtype, cfg.d_inner, cfg.ssm.d_state
+        H, hd, G = cfg.ssm_heads, cfg.ssm.headdim, cfg.ssm.n_groups
+        GN, per = G * N, H // G             # heads a B/C group serves
+        split = ("model" in w.axes("out_proj.w", 0)
+                 and "model" in w.axes("norm.scale", 0)
+                 and H % sm.axis_size(w.mesh, "model") == 0)
+        rank = _model_ranks(w.mesh, split)
+        n = H // (sm.axis_size(w.mesh, "model") if split else 1)
+        c = n * hd
+        keep = ("model",) if split else ()
+        w_in, conv_w, conv_b = (w(k, keep=()) for k in
+                                ("in_proj.w", "conv.w", "conv.b"))
+        A_log, dt_bias, D = w("A_log"), w("dt_bias"), w("D")
+        ss, kept = {}, {}
+        for pos, x in xs.items():
+            r, x = rank[pos], x.to(cd)
+            h0 = r * n
+            g0, g1 = h0 // per, (h0 + n - 1) // per + 1   # groups read
+            # the rank's channels of x and z, its groups of B and C, its
+            # heads of dt, in in_proj's columns [z | x | B | C | dt]
+            zc = slice(r * c, (r + 1) * c)
+            xc = slice(di + r * c, di + (r + 1) * c)
+            bc = slice(2 * di + g0 * N, 2 * di + g1 * N)
+            cc = slice(2 * di + GN + g0 * N, 2 * di + GN + g1 * N)
+            tc = slice(2 * di + 2 * GN + h0, 2 * di + 2 * GN + h0 + n)
+            z, xs_, Bc, Cc, dt = (x @ w_in[pos][:, cols]
+                                  for cols in (zc, xc, bc, cc, tc))
+            # the conv's channels are [x | B | C]: in_proj's less di
+            ch = [slice(s_.start - di, s_.stop - di) for s_ in (xc, bc, cc)]
+            cw = torch.cat([conv_w[pos][..., s_] for s_ in ch], dim=-1)
+            cb = torch.cat([conv_b[pos][s_] for s_ in ch])
+            conv_out = F.silu(conv1d_nlc(torch.cat([xs_, Bc, Cc], dim=-1),
+                                         cw, cb, groups=cw.shape[-1],
+                                         causal=True))
+            gn = (g1 - g0) * N
+            xs_, Bc, Cc = torch.split(conv_out, [c, gn, gn], dim=-1)
+            heads = slice(h0, h0 + n)
+            dt = softplus(dt.float() + dt_bias[pos][heads].float())
+            A = -torch.exp(A_log[pos][heads].float())
+            Bsz, L = x.shape[:2]
+            xh = xs_.reshape(Bsz, L, n, hd).float()
+            Bh, Ch = (self._rank_heads(t, h0, n, g0) for t in (Bc, Cc))
+            y = kref.ssm_scan_ref(xh, dt, A, Bh, Ch)
+            y = y + xh * D[pos][heads].float()[None, None, :, None]
+            # the gated norm, in RMSNorm's dtype order, over all of d_inner
+            u = y.reshape(Bsz, L, c).to(cd) * F.silu(z)
+            uf = u.float()
+            ss[pos] = uf.square().sum(dim=-1, keepdim=True)
+            kept[pos] = uf
+        if split:
+            ss = sm.psum(ss, "model", w.mesh)
+        scale, out_w = w("norm.scale", keep), w("out_proj.w", keep)
+        part = {}
+        for pos, uf in kept.items():
+            y = uf * torch.rsqrt(ss[pos] / di + self.norm.eps)
+            part[pos] = (y * scale[pos].float()).to(cd) @ out_w[pos]
+        return sm.psum(part, "model", w.mesh) if split else part
+
+    def _rank_heads(self, t, h0: int, n: int, g0: int):
+        """(..., g·N) of the B/C groups g0 .. g0+g-1 → (..., n, N) float32
+        for heads h0 .. h0+n-1, each reading its group as ``_heads`` maps
+        them: a stride-0 view of one group, else the rank's heads alone."""
+        cfg = self.cfg
+        N = cfg.ssm.d_state
+        g = t.reshape(*t.shape[:-1], -1, N).float()
+        if g.shape[-2] == 1:
+            return g.expand(*g.shape[:-2], n, N)
+        per = cfg.ssm_heads // cfg.ssm.n_groups
+        idx = torch.div(h0 + torch.arange(n, device=t.device), per,
+                        rounding_mode="floor") - g0
+        return g.index_select(-2, idx)
 
     def decode(self, x, state):
         """x: (B, 1, d); state {"h": (B, H, hd, N) float32, "conv":

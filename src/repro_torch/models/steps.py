@@ -12,18 +12,19 @@ masters, and AdamW's moments keyed by parameter name; the step updates
 them in place, where the reference's jit donates the old state, and
 leaves the model's compute-dtype copies fresh (``LM.recast``) for serving.
 
-Over a mesh (the dense and MoE families) the state's parameters and
-moments are {name: ``ShardedArray``} laid out by the rules of the shard
-context the step runs under (``TRAIN_RULES``: FSDP over "data" on each
-weight's "embed" dim, tensor parallelism over "model"), and the step is
-the partition that layout implies, written shard by shard
-(``sharding.shard_map``): each position casts its blocks to the compute
-dtype (the reference's ``cast_params_sharded``), all-gathers them over
-"data" (whose backward reduce-scatters their gradients), runs its heads,
-columns and vocabulary range, and psums over "model"; the loss is the
-token-weighted mean over the batch axes; each leaf's gradient is psummed
-over the axes it is replicated on; the global norm counts each distinct
-block once, and AdamW updates each block in place.
+Over a mesh (every family) the state's parameters and moments are
+{name: ``ShardedArray``} laid out by the rules of the shard context the
+step runs under (``TRAIN_RULES``: FSDP over "data" on each weight's
+"embed" dim, tensor parallelism over "model"), and the step is the
+partition that layout implies, written shard by shard
+(``sharding.shard_map``): each input the family takes is split over the
+batch axes; each position casts its blocks to the compute dtype (the
+reference's ``cast_params_sharded``), all-gathers them over "data" (whose
+backward reduce-scatters their gradients), runs its heads, columns, SSM
+channels or heads and vocabulary range, and psums over "model"; the loss
+is the token-weighted mean over the batch axes; each leaf's gradient is
+psummed over the axes it is replicated on; the global norm counts each
+distinct block once, and AdamW updates each block in place.
 The axes helpers (``input_sharding_axes``, ``params_axes_and_structs``,
 ``train_state_axes``, ``cache_axes``) give the reference's trees of logical
 axes, and the struct helpers (``cache_structs``, ``input_structs``) its
@@ -277,21 +278,6 @@ def loss_and_grads(model: LM, batch):
 # train over a mesh
 # ---------------------------------------------------------------------------
 
-def check_mesh_family(cfg: ModelConfig):
-    """Raise, naming the family, where training over a mesh is not
-    ported: the SSM and hybrid families (their "d_inner" dims split over
-    "model"), the VLM and the encoder-decoder."""
-    what = ("the hybrid family (Mamba2 towers)" if cfg.hybrid is not None
-            else f"the SSM family (Mamba{cfg.ssm.version})"
-            if cfg.ssm is not None
-            else "the encoder-decoder family" if cfg.enc_dec
-            else "the VLM family" if cfg.family == "vlm" else None)
-    if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training over a mesh covers the dense and MoE "
-            f"families; {what} does not train over a mesh yet")
-
-
 class MeshParams:
     """A mesh train step's parameters as the model's ``forward_mesh``
     reads them.  Each position holds one autograd leaf over each of its
@@ -391,17 +377,18 @@ def _mesh_train_step(model: LM, state: TrainState, batch, opt_update,
                          "context (rules, mesh) it is laid out on")
     rules, mesh = ctx
     cfg = model.cfg
-    check_mesh_family(cfg)
-    tokens = batch["tokens"]
-    bspec = spec_for(("batch", "seq"), rules, mesh, tuple(tokens.shape))
-    batch_axes = sm.axes_of(bspec[0]) if bspec else ()
+    # every input the family takes, split over the batch axes
+    specs = {k: spec_for(ax, rules, mesh, tuple(batch[k].shape))
+             for k, ax in input_sharding_axes(cfg, with_labels=True).items()
+             if k in batch}
+    inputs = {k: sm.split(batch[k], spec, mesh) for k, spec in specs.items()}
+    batch_axes = sm.axes_of(specs["tokens"][0]) if specs["tokens"] else ()
     w = MeshParams(state.params, mesh, cfg.cdtype)
     first = sm.positions(mesh)[0]
+    labels = inputs.pop("labels")
     with torch.enable_grad():
-        h, aux = model.forward_mesh(w, sm.split(tokens, bspec, mesh),
-                                    batch_axes)
-        num, den = _mesh_ce_terms(model, w, h,
-                                  sm.split(batch["labels"], bspec, mesh))
+        h, aux = model.forward_mesh(w, inputs, batch_axes)
+        num, den = _mesh_ce_terms(model, w, h, labels)
         ce = sm.token_mean(num, den, batch_axes, mesh)[first]
         loss = ce
         if cfg.moe is not None:

@@ -25,8 +25,8 @@ Entry points:
   model(inputs, train=True)                the train route (kernels off,
                                            weights cast in the graph)
   model(inputs, return_hidden=True)        -> (final-norm hidden, aux)
-  model.forward_mesh(w, tokens, batch_axes) the train route over a mesh
-                                           (dense and MoE), shard by shard
+  model.forward_mesh(w, inputs, batch_axes) the train route over a mesh
+                                           (every family), shard by shard
   model.logits_mesh(w, h)                  -> vocab-split logits
   model.prefill(inputs, max_seq)           -> (last-position logits, cache)
   model.decode(tokens, cache)              -> (logits, cache)
@@ -217,12 +217,44 @@ class LM(nn.Module):
     # up the tokens in its range and zeros the rest, a psum joins them, and
     # the logits stay split, each rank holding its range's columns.
 
-    def forward_mesh(self, w, tokens, batch_axes):
-        """The train route over the shard context's mesh (the dense and MoE
-        families), shard by shard.  ``w``: the parameters as
-        ``steps.MeshParams`` gives them; ``tokens`` {position: (B_loc, S)},
-        the batch split over ``batch_axes`` → ({position: final-norm hidden
-        (B_loc, S, d)}, aux)."""
+    def forward_mesh(self, w, inputs, batch_axes):
+        """The train route over the shard context's mesh, shard by shard.
+        ``w``: the parameters as ``steps.MeshParams`` gives them;
+        ``inputs`` {name: {position: its batch shard}}: "tokens" (B_loc,
+        S), and the family's "patches" or "frames", the batch split over
+        ``batch_axes`` → ({position: final-norm hidden (B_loc, S, d)},
+        aux).  The SSM stack, the hybrid's groups, the VLM's patch prefix
+        and the encoder-decoder follow ``forward``'s train route."""
+        cfg = self.cfg
+        h = self._embed_mesh(w, inputs["tokens"])
+        patches = inputs.get("patches") if cfg.family == "vlm" else None
+        if patches is not None:
+            # each batch shard's patches replace its first P rows (_embed)
+            h = {p: torch.cat([patches[p].to(x.dtype),
+                               x[:, patches[p].shape[1]:]], dim=1)
+                 for p, x in h.items()}
+        angles = self._angles_mesh(h)
+        aux = zero_aux(h[sm.positions(w.mesh)[0]].device)
+        if cfg.enc_dec:
+            enc = self._encode_mesh(w, inputs["frames"])
+            for i, blk in enumerate(self.dec_blocks):
+                h = blk.forward_mesh(w.sub(f"dec_blocks.{i}"), h, enc,
+                                     angles)
+        elif cfg.hybrid is not None:
+            h = self._hybrid_mesh(w, h, angles)
+        elif cfg.ssm is not None:
+            for i, blk in enumerate(self.blocks):
+                h = blk.forward_mesh(w.sub(f"blocks.{i}"), h)
+        else:
+            for i, blk in enumerate(self.blocks):
+                h, a = blk.forward_mesh(w.sub(f"blocks.{i}"), h, angles,
+                                        batch_axes)
+                aux = add_aux(aux, a)
+        return norm_mesh(self.ln_f, w.sub("ln_f"), h), aux
+
+    def _embed_mesh(self, w, tokens):
+        """{position: (B_loc, S) ids} → {position: (B_loc, S, d)} in the
+        compute dtype, the vocabulary split over "model" (above)."""
         table, vocab = w("embed.table"), w.axes("embed.table", 0)
         h = {}
         for pos, t in tokens.items():
@@ -231,18 +263,43 @@ class LM(nn.Module):
             mine = (idx >= 0) & (idx < V_loc)
             e = table[pos][idx.clamp(0, V_loc - 1)]
             h[pos] = torch.where(mine[..., None], e, 0).to(self.cfg.cdtype)
-        if vocab:
-            h = sm.psum(h, vocab, w.mesh)
+        return sm.psum(h, vocab, w.mesh) if vocab else h
+
+    def _angles_mesh(self, xs):
+        """{position: RoPE angles for its (B_loc, S, ·) shard}, made once a
+        device (None where the family has no RoPE)."""
         memo: dict = {}
-        angles = {p: memo.setdefault(x.device, _angles(
-                      self.cfg, x.shape[0], x.shape[1], device=x.device))
-                  for p, x in h.items()}
-        aux = zero_aux(h[sm.positions(w.mesh)[0]].device)
-        for i, blk in enumerate(self.blocks):
-            h, a = blk.forward_mesh(w.sub(f"blocks.{i}"), h, angles,
-                                    batch_axes)
-            aux = add_aux(aux, a)
-        return norm_mesh(self.ln_f, w.sub("ln_f"), h), aux
+        for x in xs.values():
+            if x.device not in memo:
+                memo[x.device] = _angles(self.cfg, x.shape[0], x.shape[1],
+                                         device=x.device)
+        return {p: memo[x.device] for p, x in xs.items()}
+
+    def _encode_mesh(self, w, frames):
+        """``_encode`` over a mesh: {position: (B_loc, S_enc, d) frames} →
+        {position: the normed encoder output}."""
+        x = {p: f.to(self.cfg.cdtype) for p, f in frames.items()}
+        angles = self._angles_mesh(x)
+        for i, blk in enumerate(self.enc_blocks):
+            x = blk.forward_mesh(w.sub(f"enc_blocks.{i}"), x, angles)
+        return norm_mesh(self.ln_enc, w.sub("ln_enc"), x)
+
+    def _hybrid_mesh(self, w, h, angles):
+        """``_apply_hybrid`` over a mesh: each group's SSM blocks, then its
+        round-robin shared block over concat(h, emb0) and its ``down``
+        (split over "data" alone: every "model" rank runs all of it)."""
+        emb0 = h
+        n = len(self.shared)
+        for g, group, shared, _ in self._groups():
+            for i, blk in enumerate(group):
+                h = blk.forward_mesh(w.sub(f"blocks.{g}.{i}"), h)
+            x2 = shared.forward_mesh(w.sub(f"shared.{g % n}"), {
+                p: torch.cat([x, emb0[p]], dim=-1) for p, x in h.items()},
+                angles)
+            down = w(f"down.{g}.w")
+            h = {p: x + x2[p].to(self.cfg.cdtype) @ down[p]
+                 for p, x in h.items()}
+        return h
 
     @staticmethod
     def _vocab_start(w, pos, vocab, V_loc) -> int:

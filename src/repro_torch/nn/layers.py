@@ -126,15 +126,23 @@ class Conv1D(nn.Module):
         NLC (channels last and contiguous, as the reference's)."""
         w = self.w if dtype is None else self.w.to(dtype)
         x = x if dtype is None else x.to(dtype)
-        k = w.shape[0]
-        # causal: k-1 steps on the left; "SAME": the reference's split
-        left = k - 1 if causal else (k - 1) // 2
-        xt = F.pad(x.transpose(1, 2), (left, k - 1 - left))   # (B, C, L+k-1)
-        y = F.conv1d(xt, w.permute(2, 1, 0),
-                     groups=self.groups).transpose(1, 2).contiguous()
-        if self.b is not None:
-            y = y + self.b.to(y.dtype)
-        return y
+        return conv1d_nlc(x, w, self.b, groups=self.groups, causal=causal)
+
+
+def conv1d_nlc(x, w, b=None, *, groups: int, causal: bool = False):
+    """``Conv1D.forward``'s arithmetic on given weights: x (B, L, C), w
+    (k, C/groups, out), b (out,) or None → (B, L, out) in x's dtype.  The
+    Mamba blocks' mesh route runs a rank's channels of the depthwise conv
+    through it."""
+    k = w.shape[0]
+    # causal: k-1 steps on the left; "SAME": the reference's split
+    left = k - 1 if causal else (k - 1) // 2
+    xt = F.pad(x.transpose(1, 2), (left, k - 1 - left))   # (B, C, L+k-1)
+    y = F.conv1d(xt, w.permute(2, 1, 0),
+                 groups=groups).transpose(1, 2).contiguous()
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
 
 
 class LayerNorm(nn.Module):

@@ -562,12 +562,17 @@ def test_launcher_takes_a_final_checkpoint_on_sigterm(tmp_path, monkeypatch):
 
 
 def test_launcher_refuses_a_mesh_by_name():
-    """``--mesh`` trains the dense and MoE families; a Mamba model on a
-    mesh is refused, naming its family."""
-    with pytest.raises(NotImplementedError, match=r"SSM family \(Mamba1\)"):
+    """``--mesh`` trains every family: the Mamba model that was refused on
+    (2, 4), naming its family, now trains there.  A mesh of three sizes
+    is refused, naming the two axes (data, model) the launcher lays
+    out."""
+    assert launcher.main(["--arch", "falcon-mamba-7b", "--smoke", "--device",
+                          "cpu", "--steps", "1", "--mesh", "2,4",
+                          "--seq", "16", "--batch", "2"]) == 0
+    with pytest.raises(ValueError, match=r"axes \('data', 'model'\)"):
         launcher.main(["--arch", "falcon-mamba-7b", "--smoke", "--device",
-                       "cpu", "--steps", "1", "--mesh", "2,4",
-                       "--seq", "16"])
+                       "cpu", "--steps", "1", "--mesh", "2,2,2",
+                       "--seq", "16", "--batch", "2"])
 
 
 def test_training_entry_points_default_to_cuda():

@@ -32,7 +32,9 @@ the reference, on the CPU, in float32 at smoke configs.
   saved one; a mesh checkpoint has a one-device one's files, shapes and
   dtypes and restores into a one-device state bitwise.  The launcher's
   ``--mesh 2,2 --device cpu --resume`` equals an uninterrupted run.
-* The families the mesh does not cover are refused by name.
+* The launcher's ``--mesh 2,2`` trains the SSM, hybrid, VLM and
+  encoder-decoder families too, equal to its one-device run (the families'
+  own partitions are tested in ``tests/test_torch_train_mesh_families.py``).
 """
 import collections
 import dataclasses
@@ -502,16 +504,24 @@ def test_launcher_resumes_on_a_mesh(tmp_path):
         assert np.load(a / n).tobytes() == np.load(b / n).tobytes(), n
 
 
-@pytest.mark.parametrize("arch,family", [
-    ("falcon-mamba-7b", "SSM family (Mamba1)"),
-    ("zamba2-2.7b", "hybrid family (Mamba2 towers)"),
-    ("qwen2-vl-7b", "VLM family"),
-    ("seamless-m4t-medium", "encoder-decoder family")])
-def test_uncovered_families_on_a_mesh_are_refused_by_name(arch, family):
-    with pytest.raises(NotImplementedError, match=family.replace("(", r"\(")
-                       .replace(")", r"\)")):
-        launcher.main(["--arch", arch, "--smoke", "--device", "cpu",
-                       "--mesh", "2,2", "--steps", "1"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b",
+                                  "qwen2-vl-7b", "seamless-m4t-medium"])
+def test_launcher_trains_every_family_on_a_mesh(arch, tmp_path):
+    """``--mesh 2,2`` trains the SSM, hybrid, VLM and encoder-decoder
+    families (with the extras ``data.extra_inputs`` makes) and equals the
+    one-device launcher's run."""
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+            "--seq", "8", "--batch", "4"]
+    logs = {}
+    for label, extra in (("one", []), ("mesh", ["--mesh", "2,2"])):
+        logs[label] = tmp_path / f"{label}.jsonl"
+        assert launcher.main(args + extra + ["--log",
+                                             str(logs[label])]) == 0
+    read = lambda p: [{k: v for k, v in json.loads(line).items()
+                       if k != "sec"} for line in p.read_text().splitlines()]
+    one, mesh = read(logs["one"]), read(logs["mesh"])
+    assert [r["step"] for r in mesh] == [r["step"] for r in one] == [1, 2]
+    assert_metrics_close(mesh, one)
 
 
 # ------------------------------------------------- the reference, read last
