@@ -16,8 +16,11 @@ phase 11 the replica fabric: one replica over a device mesh, a
 multi-process pod, and phase 6's loop over the sharded topology, phase 12
 the model axis: split-K decode and expert-parallel MoE over meshes whose
 shards all lie on the one card, phase 13 training over such meshes,
-with padded heads and the elastic re-mesh restore, and phase 14 training
-the SSM, hybrid, VLM and encoder-decoder families over such a mesh.
+with padded heads and the elastic re-mesh restore, phase 14 training
+the SSM, hybrid, VLM and encoder-decoder families over such a mesh, and
+phase 15 the dry-run on the production mesh: the serve steps partitioned
+under ``serve_rules``, lone positions of the (16, 16) and (2, 16, 16)
+meshes, and the training peaks under remat.
 Each phase's wall time is printed.  Any failure exits non-zero and prints
 no result line.
 
@@ -381,6 +384,32 @@ no result line.
               float32 step's and held by the float32 copy
               (``BF16_NOISY_GRAD_NORM``).  Every block of a mesh state
               must lie on the card.
+15. mesh dry-run — (a) the serve steps over weights laid out on a (2, 2)
+              mesh on cuda:0 under ``serve_rules`` (``steps.serve_shardings``):
+              full-width qwen2.5-3b, bf16, a prefill of 2 x 512 tokens into
+              a 1024-slot ring and 4 decode steps of 8 rows fed the
+              one-device run's tokens, logits and K/V caches within
+              AXIS_GAP of the one-device steps' (each rank's partial
+              products round to bf16 before the psum); a float32 copy at 4
+              layers and olmoe-1b-7b at 4 layers (dropless, float32: bf16
+              flips expert choices) within AXIS_F32_TOL x max(1, max
+              |logit|), their caches AXIS_F32_TOL x max(1, max |K/V|).
+              K4 one a layer on each position's heads, joining the kernels
+              line; no decode kernel (split-K is plain ops).  The first and
+              the last position alone (``LoneMesh``) record the same
+              collectives as the full run, and a quarter of its kernel
+              regions.  (b) Lone positions at full width and depth
+              (``launch.dryrun.analyze_mesh_cell``): qwen2.5-3b decode_32k,
+              prefill_32k (K4 36 a step, joining the kernels line) and
+              train_4k (remat) on (16, 16), decode_32k on (2, 16, 16);
+              qwen2-72b's and phi3.5-moe-42b-a6.6b's decode_32k on (16,
+              16): per-device FLOPs, bytes, wire bytes, ``step_s`` (the
+              position's compute), peak and the roofline terms
+              ``RooflineDB`` reads with chips 256 or 512.  (c) The training
+              peaks of phases 9 and 13 under remat "full"; one device's
+              loss and gradients at 2 x 256, remat "none" and "full"
+              (bitwise equal) and 2 x 1024, and "full" at 2 x 2048
+              (where "none" runs out of memory).
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -3569,6 +3598,9 @@ TRAIN_TOL = 1e-4
 FULL_TRAIN = ["--arch", "qwen2.5-3b", "--steps", "8", "--batch", "2",
               "--seq", "256", "--seed", "0", "--device", "cuda"]
 FULL_TRAIN_LRS = (3e-4, 3e-5)
+# the training peaks (GiB) phases 9 and 13 measure, under the configs'
+# remat ("full"), for phase 15 (c)
+TRAIN_PEAKS: dict = {}
 SMOKE_TRAIN = ["--arch", "qwen2.5-3b", "--smoke", "--seq", "32", "--batch",
                "2", "--device", "cuda"]
 
@@ -3776,6 +3808,7 @@ def full_train_phase(torch, ops, out_dir: Path):
               f"compute): "
               + "; ".join(f"step {r['step']} loss {r['loss']:.4f} "
                           f"grad_norm {r['grad_norm']:.3f}" for r in recs))
+        TRAIN_PEAKS[f"9 one device, 2 x 256, lr {lr}"] = peak_gib(torch)
         print(f"    peak {peak_gib(torch):.2f} GiB of "
               f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}"
               f"; host clock per step after the first {per_step * 1e3:.1f} "
@@ -4074,7 +4107,7 @@ def cost_model_phase(torch, ops, add):
         db = RooflineDB(out_dir)
         for arch in DRY_ARCHS:
             for shape_name in DRY_SHAPES:
-                t = db.terms(arch, shape_name)
+                t = db.terms(arch, shape_name, "card")
                 rec = json.loads(cell_path(out_dir, arch, shape_name)
                                  .read_text())
                 check(t.measured and t.chips == 1
@@ -5171,6 +5204,8 @@ def mesh_dense_phase(torch, ops, out_dir: Path):
             del state
     (one, one_ms, one_peak), (mesh, mesh_ms, mesh_peak) = (
         runs["one device"], runs["mesh"])
+    TRAIN_PEAKS["13 one device, 2 x 256"] = one_peak
+    TRAIN_PEAKS[f"13 {MESH_TRAIN} mesh, 2 x 256"] = mesh_peak
     worst = held_metrics(one[:1], mesh[:1], ("loss", "ce", "grad_norm"),
                          MESH_TOL, "qwen2.5-3b (2, 2) vs one device")
     cfg = get_config("qwen2.5-3b")
@@ -5197,10 +5232,11 @@ def mesh_dense_phase(torch, ops, out_dir: Path):
                       for (kind, g), (n, b) in sorted(by.items()))
           + f"; {wire / 1e9:.4f} GB on the wire a device by the ring "
           f"formulas")
-    check(by.get(("all-gather", 2), [0])[0] == 7 * cfg.n_layers + 1
-          and by.get(("reduce-scatter", 2), [0])[0] == 7 * cfg.n_layers + 1,
-          f"(a) collectives {by}: one data all-gather and one reduce-scatter "
-          f"a weight matrix")
+    gathers, scatters = family_gathers(cfg)
+    check(by.get(("all-gather", 2), [0])[0] == gathers
+          and by.get(("reduce-scatter", 2), [0])[0] == scatters,
+          f"(a) collectives {by}: one data reduce-scatter a weight matrix "
+          f"and one all-gather, two a layer's under remat {cfg.remat!r}")
     # float32 compute at 4 layers: one step, every leaf held
     f32 = dataclasses.replace(cfg, n_layers=MESH_SHORT_LAYERS,
                               dtype="float32")
@@ -5432,22 +5468,29 @@ FAMILY_F32 = ("falcon-mamba-7b", "zamba2-2.7b")
 BF16_NOISY_GRAD_NORM = ("zamba2-2.7b",)
 
 
-def family_gathers(cfg) -> int:
-    """The "data" all-gathers of one (2, 2) mesh step (each one's backward
-    a reduce-scatter): the table (and an untied readout), and each weight
-    split over "data" once,
-    ``in_proj`` twice (over "data", then whole over "model"), a shared
-    block once however many groups read it."""
+def family_gathers(cfg) -> tuple[int, int]:
+    """The "data" (all-gathers, reduce-scatters) of one (2, 2) mesh step:
+    the table (and an untied readout) once, and each weight split over
+    "data" once a layer, ``in_proj`` twice (over "data", then whole over
+    "model"), a shared block once however many groups read it; each
+    gather's backward a reduce-scatter.  Under ``remat`` ("full", the
+    configs' default) each layer or hybrid group is one checkpoint: it
+    gathers its weights itself (a shared block once a group) and its
+    recompute gathers them again."""
+    again = cfg.remat != "none"
     if cfg.enc_dec:
-        return 1 + 7 * cfg.n_enc_layers + 11 * cfg.n_layers
-    if cfg.hybrid is not None:
+        outer, layers = 1, 7 * cfg.n_enc_layers + 11 * cfg.n_layers
+    elif cfg.hybrid is not None:
         G = cfg.n_layers // cfg.hybrid.attn_every
-        return (1 + 5 * cfg.n_layers + 7 * min(G, cfg.hybrid.n_shared_blocks)
-                + G)
-    if cfg.ssm is not None:
-        return 1 + 3 * cfg.n_layers
-    # an untied readout (qwen2-vl-7b) is gathered as the table is
-    return 1 + 7 * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
+        shared = G if again else min(G, cfg.hybrid.n_shared_blocks)
+        outer, layers = 1, 5 * cfg.n_layers + 7 * shared + G
+    elif cfg.ssm is not None:
+        outer, layers = 1, 3 * cfg.n_layers
+    else:
+        # an untied readout (qwen2-vl-7b) is gathered as the table is
+        outer = 1 + (0 if cfg.tie_embeddings else 1)
+        layers = 7 * cfg.n_layers
+    return outer + (1 + again) * layers, outer + layers
 
 
 def on_card(torch, state, what):
@@ -5531,17 +5574,18 @@ def family_run(torch, arch):
         del state
         free(torch)
         what = "one more mesh step under CostCounter"
-    gathers = family_gathers(cfg)
+    gathers, scatters = family_gathers(cfg)
     check(by.get(("all-gather", 2), [0])[0] == gathers
-          and by.get(("reduce-scatter", 2), [0])[0] == gathers,
+          and by.get(("reduce-scatter", 2), [0])[0] == scatters,
           f"{arch}: collectives {by}: {gathers} data all-gathers and "
-          f"reduce-scatters expected")
+          f"{scatters} reduce-scatters expected")
     print(f"    {what}: "
           + "; ".join(f"{n} {kind} over {g} ({nb / 1e9:.4f} GB of results)"
                       for (kind, g), (n, nb) in sorted(by.items()))
           + f"; {wire / 1e9:.4f} GB on the wire a device by the ring "
-          f"formulas ({gathers} data all-gathers and reduce-scatters, as "
-          f"the layout implies)")
+          f"formulas ({gathers} data all-gathers and {scatters} "
+          f"reduce-scatters, as the layout and remat {cfg.remat!r} "
+          f"imply)")
     a, b = one[0]["grad_norm"], mesh[0]["grad_norm"]
     gap = rel_gap(b, a)
     if arch in BF16_NOISY_GRAD_NORM:
@@ -5575,6 +5619,411 @@ def train_mesh_families_phase(torch, ops):
     check(ops.launch_counts() == before,
           f"kernels launched while training: {ops.launch_counts()}")
     print(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+
+
+# -------------------------------------------------------------------- phase 15
+# the dry-run on the production mesh: (a) the serve partition at full width
+# on a (2, 2) mesh laid on cuda:0 beside the one-device steps, (b) lone
+# positions of the production meshes at full width and depth, (c) the
+# training peaks under remat
+SERVE_MESH = (2, 2)
+SERVE_PROMPT, SERVE_RING = 512, 1024         # (a): 2 prompts of 512 tokens
+SERVE_ROWS, SERVE_STEPS = 8, 4               # decode: 8 rows, 4 steps
+# bf16: every rank's partial products of wo and the MLP's down projection
+# round to bf16 before the psum adds them, where one device's product
+# rounds once, so logits part by rounding (0.0906 at 2 x 512 on the
+# H100), the K/V caches by 0.1094 after the prefill and 0.1211 after 4
+# decode steps: both held to phases 11-12's AXIS_GAP; a float32 copy at
+# SERVE_F32_LAYERS holds the partition itself to AXIS_F32_TOL x max(1,
+# max |logit|), its caches to AXIS_F32_TOL x max(1, max |K/V|)
+SERVE_F32_LAYERS = 4
+LONE_REPS = 2
+LONE_CELLS = (("qwen2.5-3b", "decode_32k", "single"),
+              ("qwen2.5-3b", "prefill_32k", "single"),
+              ("qwen2.5-3b", "train_4k", "single"),
+              ("qwen2.5-3b", "decode_32k", "multi"),
+              ("qwen2-72b", "decode_32k", "single"),
+              ("phi3.5-moe-42b-a6.6b", "decode_32k", "single"))
+# (c): one device, one train step's loss and gradients, (rows, tokens) and
+# the remat values run there; without remat 2 x 2048 runs out of the
+# card's memory (the chunked attention's saved scores, 36 layers)
+REMAT_RUNS = (((2, 256), ("none", "full")), ((2, 1024), ("none", "full")),
+              ((2, 2048), ("full",)))
+# the peaks PRs measured without remat (PERF.md): phase 9's one device and
+# phase 13's (2, 2) mesh at 2 x 256
+NO_REMAT_PEAKS = {"9": 63.17, "13 mesh": 52.57}
+# (c): phase 9's whole step timed under each remat, this many a turn
+REMAT_STEP_REPS = 3
+
+
+def lone_view(torch, tree, lone):
+    """A lone position's view of laid-out leaves: each ``ShardedArray``'s
+    block at ``lone.position`` (cloned with ``clone``)."""
+    from repro_torch.sharding import ShardedArray
+    return {k: ShardedArray({lone.position: a.blocks[lone.position]},
+                            a.spec, lone, a.shape, a.dtype)
+            for k, a in tree.items()}
+
+
+def held_lone(torch, step, args_of, mesh, full, label):
+    """The collective records of a lone position's run equal the full
+    mesh run's (``full``), at the first and the last position."""
+    from repro_torch.launch.cost import CostCounter
+    from repro_torch.sharding import shard_ctx
+    from repro_torch.sharding import shard_map as sm
+    rules = full["rules"]
+    for pos in (sm.positions(mesh)[0], sm.positions(mesh)[-1]):
+        lone = sm.LoneMesh(mesh, pos)
+        with shard_ctx(rules, lone), CostCounter() as c:
+            step(*args_of(lone))
+        check(c.collectives == full["counter"].collectives,
+              f"{label}: the lone position {pos} recorded "
+              f"{len(c.collectives)} collectives, the full run "
+              f"{len(full['counter'].collectives)}, or they differ")
+        check(c.kernels == {k: {**v, "calls": v["calls"] // mesh.size,
+                                "flops": v["flops"] // mesh.size,
+                                "bytes": v["bytes"] // mesh.size,
+                                "transcendentals":
+                                    v["transcendentals"] // mesh.size}
+                            for k, v in full["counter"].kernels.items()},
+              f"{label}: the lone position {pos}'s kernel regions "
+              f"{c.kernels} are not a {mesh.size}th of the full run's")
+
+
+def cache_gap(c1, c2, tol, relative):
+    """(the largest gap between the one-device caches ``c1`` and the laid
+    out ``c2``, gathered whole, over K and V; its limit): ``tol``, times
+    max(1, max |K/V|) where ``relative``, as the logits are held.  A wrong
+    layout or ring slot parts them by the size of a K/V entry."""
+    gap = top = 0.0
+    for n in ("k", "v"):
+        a = c1["layers"][n].float()
+        gap = max(gap, float((a - c2["layers"][n].full().float()).abs()
+                             .max()))
+        top = max(top, float(a.abs().max()))
+    return gap, tol * (max(1.0, top) if relative else 1.0)
+
+
+def serve_mesh_run(torch, ops, cfg, counts, label, tol=AXIS_GAP,
+                   relative=False):
+    """(a) one config at full width, bf16 weights: the one-device prefill
+    (2 prompts of SERVE_PROMPT into a SERVE_RING ring) and SERVE_STEPS
+    decode steps of SERVE_ROWS rows beside the partitioned steps over the
+    weights laid out on SERVE_MESH on cuda:0 under ``serve_rules``, fed the
+    same tokens: logits within ``tol`` (× max(1, max |logit|) where
+    ``relative``), the K/V caches by the same rule (``cache_gap``);
+    K4's launches on each position's heads counted into ``counts``, none
+    of a decode kernel; the lone positions' collective records held to the
+    full run's."""
+    import numpy as np
+    from repro_torch.launch.cost import CostCounter, collective_bytes
+    from repro_torch.launch.dryrun import serve_config
+    from repro_torch.models import LM
+    from repro_torch.models.steps import (
+        make_decode_step, make_prefill_step, serve_shardings,
+    )
+    from repro_torch.sharding import device_put, serve_rules, shard_ctx
+    from repro_torch.sharding import shard_map as sm
+    mesh = card_mesh(SERVE_MESH)
+    model = LM(serve_config(cfg), device="cuda", seed=0)
+    rng = np.random.default_rng(7)
+    out = {}
+    for what, B, S in (("prefill", 2, SERVE_PROMPT),
+                       ("decode", SERVE_ROWS, SERVE_PROMPT // 2)):
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S),
+                                               dtype=np.int32)).cuda()
+        rules = serve_rules(B)
+        params = device_put(model, serve_shardings(cfg, mesh, rules))
+        pre = make_prefill_step(cfg, SERVE_RING)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l1, c1 = pre(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mesh_counts: dict = {}
+        with shard_ctx(rules, mesh), launches_into(ops, mesh_counts), \
+                CostCounter() as counter:
+            l2, c2 = pre(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for k, n in mesh_counts.items():
+            counts[k] = counts.get(k, 0) + n
+        check(mesh_counts == {"flash_attention": cfg.n_layers * mesh.size},
+              f"{label} mesh prefill launched {mesh_counts}, expected "
+              f"{cfg.n_layers * mesh.size} K4 (a layer on each position)")
+        bound = tol * (max(1.0, float(l1.float().abs().max()))
+                       if relative else 1.0)
+        gap = float((l1.float() - l2.float()).abs().max())
+        kv_gap, kv_bound = cache_gap(c1, c2, tol, relative)
+        check(gap <= bound, f"{label} mesh prefill of {B} x {S} logits "
+              f"{gap:.4g} from the one-device step's (> {bound:.4g})")
+        check(kv_gap <= kv_bound, f"{label} mesh prefill's K/V caches "
+              f"{kv_gap:.4g} from the one-device step's (> {kv_bound:.4g})")
+        if what == "prefill":
+            held_lone(torch, pre, lambda lone: (
+                lone_view(torch, params, lone), {"tokens": tokens}),
+                mesh, {"rules": rules, "counter": counter},
+                f"{label} prefill")
+            wire, detail = collective_bytes(counter)
+            print(f"  (a) {label} prefill of 2 x {S} tokens on "
+                  f"{SERVE_MESH} (every position on cuda:0): logits within "
+                  f"{gap:.4g} (<= {bound:.4g}; max |logit| "
+                  f"{float(l1.float().abs().max()):.3f}) of the one-device "
+                  f"step's, the K/V caches within {kv_gap:.4g} (<= "
+                  f"{kv_bound:.4g}; laid out "
+                  f"{c2['layers']['k'].spec}); K4 {mesh_counts} on each "
+                  f"position's heads; host clock {(t2 - t1) * 1e3:.1f} ms "
+                  f"against one device {(t1 - t0) * 1e3:.1f} ms; "
+                  f"collectives {detail['counts']}, {wire:.0f} wire bytes "
+                  f"a device; the lone first and last positions record the "
+                  f"same collectives", flush=True)
+            out[what] = gap
+            continue
+        dec = make_decode_step(cfg)
+        gaps, one_s, mesh_s = [], [], []
+        tok = torch.argmax(l1[:, -1].float(), dim=-1).to(torch.int32)[:, None]
+        c1["index"] = c1["index"].reshape(())
+        for _ in range(SERVE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d1, c1 = dec(model, tok, c1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step_counts: dict = {}
+            with shard_ctx(rules, mesh), launches_into(ops, step_counts):
+                d2, c2 = dec(params, tok, c2)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            check(not step_counts, f"{label} mesh decode launched "
+                  f"{step_counts}: the split-K body is plain ops")
+            gaps.append(float((d1.float() - d2.float()).abs().max()))
+            one_s.append(t1 - t0)
+            mesh_s.append(t2 - t1)
+            tok = torch.argmax(d1[:, -1].float(), dim=-1).to(
+                torch.int32)[:, None]
+        kv_gap, kv_bound = cache_gap(c1, c2, tol, relative)
+        check(max(gaps) <= bound, f"{label} mesh decode logits {gaps} "
+              f"from the one-device step's (> {bound:.4g})")
+        check(kv_gap <= kv_bound, f"{label} mesh decode's K/V caches "
+              f"{kv_gap:.4g} from the one-device run's (> {kv_bound:.4g})")
+        with shard_ctx(rules, mesh), CostCounter() as counter:
+            cache = {**c2, "layers": {n: sm.ShardedArray(
+                {p: b.clone() for p, b in a.blocks.items()}, a.spec, mesh,
+                a.shape, a.dtype) for n, a in c2["layers"].items()}}
+            dec(params, tok, cache)
+        held_lone(torch, dec, lambda lone: (
+            lone_view(torch, params, lone), tok,
+            {**c2, "layers": {n: sm.ShardedArray(
+                {lone.position: a.blocks[lone.position].clone()}, a.spec,
+                lone, a.shape, a.dtype) for n, a in c2["layers"].items()}}),
+            mesh, {"rules": rules, "counter": counter}, f"{label} decode")
+        wire, detail = collective_bytes(counter)
+        print(f"  (a) {label} decode, {B} rows over a {SERVE_RING}-slot "
+              f"ring split over \"model\" (split-K, {c2['layers']['k'].spec}"
+              f"), {SERVE_STEPS} steps fed the one-device run's tokens: "
+              f"logits within {max(gaps):.4g} (<= {bound:.4g}), the "
+              f"K/V caches within {kv_gap:.4g} (<= {kv_bound:.4g}); no "
+              f"decode kernel launched "
+              f"(the split-K body is plain ops); host clock a step "
+              f"{statistics.median(mesh_s) * 1e3:.1f} ms against one "
+              f"device {statistics.median(one_s) * 1e3:.1f} ms; "
+              f"collectives {detail['counts']}, {wire:.0f} wire bytes a "
+              f"device; the lone positions record the same collectives",
+              flush=True)
+        out[what] = max(gaps)
+        del c1, c2
+    del model, params
+    free(torch)
+    return out
+
+
+def lone_cells_phase(torch, ops, counts):
+    """(b) lone positions of the production meshes at full width and
+    depth (``launch.dryrun.analyze_mesh_cell``): each cell's per-device
+    FLOPs, bytes, wire bytes, ``step_s`` (the position's compute), peak and
+    roofline terms (``RooflineDB`` reading the records with chips 256 or
+    512); K4 launches one a layer in a prefill, none in a decode."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.dryrun import (
+        analyze_mesh_cell, cell_path, production_mesh,
+    )
+    from repro_torch.models import SHAPES
+    from repro_torch.sim import RooflineDB
+    out_dir = Path(tempfile.mkdtemp(prefix="lone-", dir=_lib.BUILD_DIR))
+    try:
+        for arch, shape_name, tag in LONE_CELLS:
+            cfg = get_config(arch)
+            shape = SHAPES[shape_name]
+            mesh = production_mesh(tag, "cuda")
+            t0 = time.perf_counter()
+            cell_counts: dict = {}
+            with launches_into(ops, cell_counts):
+                rec = analyze_mesh_cell(cfg, shape, mesh, "cuda",
+                                        reps=LONE_REPS)
+            wall = time.perf_counter() - t0
+            for k, n in cell_counts.items():
+                counts[k] = counts.get(k, 0) + n
+            want = ({"flash_attention": cfg.n_layers}
+                    if shape.kind == "prefill" else {})
+            check(rec["launches"] == want, f"{arch} {shape_name} {tag}: "
+                  f"launches a step {rec['launches']}, expected {want}")
+            cell_path(out_dir, arch, shape_name, tag).write_text(
+                json.dumps(rec, indent=1))
+            t = RooflineDB(out_dir).terms(arch, shape_name, tag)
+            chips = {"single": 256, "multi": 512}[tag]
+            check(t.measured and t.chips == chips
+                  and t.flops == rec["cost"]["flops"],
+                  f"{arch} {shape_name} {tag}: the DB read {t}")
+            runs = ", ".join(f"{x * 1e3:.2f}" for x in rec["step_s_runs"])
+            kern = ("; no kernel launched: the split-K decode body is "
+                    "plain ops" if shape.kind == "decode" else
+                    "; no kernel on the train route" if shape.kind ==
+                    "train" else f"; K4 {rec['launches']} a step")
+            print(f"  (b) {arch} {shape_name} on {tag} {rec['mesh']} "
+                  f"(chips {rec['chips']}), lone position "
+                  f"{rec['lone_position']}, {rec['replica_batch']} rows: "
+                  f"{rec['cost']['flops']:.4e} FLOPs, "
+                  f"{rec['cost']['bytes']:.4e} bytes, "
+                  f"{rec['collective_bytes']:.4e} wire bytes a device "
+                  f"({rec['collective_detail']['counts']}); step_s "
+                  f"{rec['step_s'] * 1e3:.2f} ms (runs {runs}; compute "
+                  f"alone, no wire); peak "
+                  f"{(rec['peak_bytes'] or 0) / 2**30:.2f} GiB; roofline compute "
+                  f"{t.t_compute * 1e3:.3f} ms, memory "
+                  f"{t.t_memory * 1e3:.3f} ms, collective "
+                  f"{t.t_collective * 1e3:.3f} ms ({t.bottleneck}), "
+                  f"step_s {rec['step_s'] / t.step_time:.2f} x the "
+                  f"roofline{kern}; {wall:.1f} s ({gpu_line()})",
+                  flush=True)
+            free(torch)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def remat_peaks_phase(torch, ops):
+    """(c) the training peaks under remat: phases 9's and 13's (the
+    configs' remat "full") beside the peaks measured without it; then one
+    device's loss and gradients at full width, remat "none" and "full" on
+    the same batch at 2 x 256 (phase 9's) and 2 x 1024, "full" at 2 x
+    2048 (REMAT_RUNS): peak, host clock, gradients bitwise equal at 2 x
+    256."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM, steps
+    for k, v in TRAIN_PEAKS.items():
+        print(f"  (c) phase {k}: peak {v:.2f} GiB under remat \"full\"")
+    print(f"  (c) without remat (PERF.md): phase 9 {NO_REMAT_PEAKS['9']:.2f} "
+          f"GiB, phase 13's mesh {NO_REMAT_PEAKS['13 mesh']:.2f} GiB")
+    cfg = get_config("qwen2.5-3b")
+    model = LM(cfg, device="cuda", seed=0)
+    before = ops.launch_counts()
+    grads = {}
+    for (rows, seq), remats in REMAT_RUNS:
+        batch = train_batches(torch, cfg, 1, seq=seq, device="cuda")[0]
+        batch = {k: v[:rows] for k, v in batch.items()}
+        both = (rows, seq) == REMAT_RUNS[0][0]
+        for remat in remats:
+            model.cfg = dataclasses.replace(cfg, remat=remat)
+            free(torch)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (loss, _), g = steps.loss_and_grads(model, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if both:        # held on the host: the next peak is its own
+                grads[remat] = {k: t.cpu() for k, t in g.items()}
+            print(f"  (c) qwen2.5-3b loss and gradients, one device, "
+                  f"{rows} x {seq} tokens, remat {remat!r}: peak "
+                  f"{peak_gib(torch):.2f} GiB, host clock "
+                  f"{wall * 1e3:.1f} ms, loss {float(loss):.4f} "
+                  f"({gpu_line()})", flush=True)
+            del g
+    same = all(torch.equal(grads["none"][k], grads["full"][k])
+               for k in grads["none"])
+    check(same, "remat \"full\" gradients differ from \"none\"'s")
+    print(f"  (c) remat \"full\" gradients bitwise equal to \"none\"'s at "
+          f"{REMAT_RUNS[0][0][0]} x {REMAT_RUNS[0][0][1]}")
+    del grads
+    remat_step_clock(torch, model, cfg)
+    model.cfg = cfg
+    del model
+    free(torch)
+    check(ops.launch_counts() == before,
+          f"kernels launched while training: {ops.launch_counts()}")
+
+
+def remat_step_clock(torch, model, cfg):
+    """(c) phase 9's whole step (the loss, its gradients, clipping and
+    AdamW) at its 2 x 256 on one batch, remat "none", "full", "full",
+    "none": REMAT_STEP_REPS timed steps each after a warm one, the host
+    clock a step of each remat (the median), beside PERF.md's prediction
+    of +25-35% for "full"."""
+    import dataclasses
+    from repro_torch.models import steps
+    step, (opt_init, _) = steps.make_train_step(cfg, lr=FULL_TRAIN_LRS[-1])
+    state = steps.TrainState(
+        model, opt_init(dict(model.named_parameters())), 0)
+    rows, seq = REMAT_RUNS[0][0]
+    batch = train_batches(torch, cfg, 1, seq=seq, device="cuda")[0]
+    batch = {k: v[:rows] for k, v in batch.items()}
+    clock: dict = {"none": [], "full": []}
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    for remat in ("none", "full", "full", "none"):
+        model.cfg = dataclasses.replace(cfg, remat=remat)
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        for _ in range(REMAT_STEP_REPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            clock[remat].append(time.perf_counter() - t0)
+    check(math.isfinite(float(m["loss"])), f"the step's loss {m['loss']}")
+    none_s, full_s = (statistics.median(clock[r]) for r in ("none", "full"))
+    print(f"  (c) phase 9's step (AdamW besides), one device, {rows} x "
+          f"{seq} tokens: host clock a step {none_s * 1e3:.1f} ms under "
+          f"remat 'none', {full_s * 1e3:.1f} ms under 'full' "
+          f"({(full_s / none_s - 1) * 100:+.1f}%; predicted +25-35%); "
+          f"runs (ms) none {[round(t * 1e3, 1) for t in clock['none']]}, "
+          f"full {[round(t * 1e3, 1) for t in clock['full']]}; peak "
+          f"{peak_gib(torch):.2f} GiB ({gpu_line()})", flush=True)
+    del state, m
+    free(torch)
+
+
+def mesh_dryrun_phase(torch, ops, add):
+    """Phase 15: the dry-run on the production mesh (above)."""
+    from repro_torch.configs import get_config
+    print(f"[15] mesh dry-run: the serve partition, lone positions of the "
+          f"production meshes, remat ({gpu_line()})")
+    t0 = time.perf_counter()
+    counts: dict = {}
+    import dataclasses
+    qwen = get_config("qwen2.5-3b")
+    serve_mesh_run(torch, ops, qwen, counts, "qwen2.5-3b")
+    serve_mesh_run(torch, ops, dataclasses.replace(
+        qwen, n_layers=SERVE_F32_LAYERS, dtype="float32"), counts,
+        f"qwen2.5-3b float32 at {SERVE_F32_LAYERS} layers",
+        tol=AXIS_F32_TOL, relative=True)
+    olmoe = depth_cut("olmoe-1b-7b")
+    # dropless: the expert-parallel body's capacity is a data shard's, the
+    # one device's the batch's; with no drop the two compute the same.  In
+    # float32: in bf16 a rounding-sized change of the router's logits
+    # flips a token's top 8 of 64 experts (0.243 apart at 4 layers on the
+    # H100), so bf16 would hold only near-ties
+    olmoe = dataclasses.replace(olmoe, dtype="float32",
+                                moe=dataclasses.replace(
+        olmoe.moe, capacity_factor=float(olmoe.moe.n_experts)))
+    serve_mesh_run(torch, ops, olmoe, counts,
+                   f"olmoe-1b-7b float32 at {olmoe.n_layers} layers, "
+                   f"dropless", tol=AXIS_F32_TOL, relative=True)
+    lone_cells_phase(torch, ops, counts)
+    remat_peaks_phase(torch, ops)
+    add(counts)
+    print(f"  phase 15 kernels {counts}: {time.perf_counter() - t0:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -5712,6 +6161,8 @@ def main(argv=None) -> int:
             train_mesh_phase(torch, ops)
         with phase_clock(times, "14 train mesh families"):
             train_mesh_families_phase(torch, ops)
+        with phase_clock(times, "15 mesh dry-run"):
+            mesh_dryrun_phase(torch, ops, add)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -24,8 +24,9 @@ distinct elements (a broadcast view's stride-0 axes once); a gather counts
 the rows it reads, not its whole source; a copy or fill writes without
 reading its destination; an in-place op counts its read and its write.
 Views and metadata ops (``view``, ``reshape`` without a copy, ``expand``,
-``slice``, ``as_strided``, ``t``) count 0, and so does a copy between
-devices (a host transfer, not the device's traffic).
+``slice``, ``as_strided``, ``t``) count 0, and so do a copy between
+devices (a host transfer, not the device's traffic) and an op on the
+``meta`` device (a model built for its shapes does no work).
 
 A hand-written kernel is one region (``kernel_region``): its wrapper
 records the kernel's own ``cost(...)`` and nothing it runs inside is
@@ -36,7 +37,9 @@ A collective of ``sharding.shard_map`` is one region too
 (``collective_region``): its own ops count nothing, and it appends
 ``(kind, result bytes, group size)`` to ``collectives`` once per call.
 ``collective_bytes`` turns those records into the bytes each device puts
-on the wire, by the reference's ring formulas (``hlo_cost.py``).
+on the wire, by the reference's ring formulas (``hlo_cost.py``).  A run
+over one position of a mesh alone (``shard_map.LoneMesh``) records each
+collective as the whole mesh's run does, so its count is one device's.
 """
 from __future__ import annotations
 
@@ -196,6 +199,8 @@ class CostCounter(TorchDispatchMode):
             return
         devices = {t.device for t in ins + outs}
         if len(devices) > 1:                # a host <-> device copy
+            return
+        if next(iter(devices)).type == "meta":  # shapes only, no work
             return
         flops = trans = 0
         if packet in _MATMULS:

@@ -33,6 +33,11 @@ group to ``Hp`` heads (the reference's ``_padded_heads``): zero ``wq``
 columns, and zero ``wo`` rows (``_wo_padded``), so the pad heads add
 exactly 0.  The stored leaves keep their unpadded shapes and layout; the
 padding exists only in the computation.
+
+Serving over a mesh (``prefill_mesh``, ``decode_mesh``) takes the same
+rank's weights: prefill runs K4 on the rank's heads and hands its K/V to
+the cache's layout; decode gathers q over "model" and runs the split-K
+body (``_splitk_body``) over each position's sequence block.
 """
 from __future__ import annotations
 
@@ -319,22 +324,37 @@ class Attention(nn.Module):
         """The reference's ``_decode_splitk`` body, shard by shard: q/k_new/
         v_new (B, 1, ·, hd) whole, cache leaves whole or split, index 0-d →
         (out (B, 1, H, hd) whole, {"k", "v"} as ``ShardedArray``)."""
-        B, _, H, hd = q.shape
-        Smax, KV = cache["k"].shape[1], cache["k"].shape[2]
-        G, S_loc = H // KV, Smax // m
-        kv_spec = Attention.splitk_spec(B, mesh, batch_axes)
+        kv_spec = Attention.splitk_spec(q.shape[0], mesh, batch_axes)
         row_spec = kv_spec[:1]
         kc = sm.place(cache["k"], kv_spec, mesh)
         vc = sm.place(cache["v"], kv_spec, mesh)
-        qs = sm.split(q[:, 0], row_spec, mesh)
-        ks = sm.split(k_new[:, 0], row_spec, mesh)
-        vs = sm.split(v_new[:, 0], row_spec, mesh)
-        idx = sm.split(index, (), mesh)
+        out = Attention._splitk_body(
+            sm.split(q[:, 0], row_spec, mesh),
+            sm.split(k_new[:, 0], row_spec, mesh),
+            sm.split(v_new[:, 0], row_spec, mesh), kc, vc,
+            sm.split(index, (), mesh), mesh, ("model",))
+        return sm.join(out, row_spec, mesh, q.device), {"k": kc, "v": vc}
+
+    @staticmethod
+    def _splitk_body(qs, ks, vs, kc, vc, idx, mesh, seq_axes):
+        """Split-K over per-position values: qs {position: (B_loc, H, hd)},
+        ks/vs {position: (B_loc, KV, hd)} the new rows, kc/vc the cache
+        (``ShardedArray`` (B, Smax, KV, hd), its sequence split over
+        ``seq_axes``), idx {position: the 0-d index} → {position: (B_loc,
+        1, H, hd)}.  Each position writes the new row where its block holds
+        slot index % Smax and attends over its block; the partials combine
+        by ``pmax`` and ``psum`` over ``seq_axes``."""
+        Smax, KV = kc.shape[1], kc.shape[2]
+        m = sm.axis_size(mesh, seq_axes)
+        S_loc = Smax // m
         scores, m_loc = {}, {}
         with no_shard_ctx():
             for pos in sm.positions(mesh):
                 k_blk, v_blk, i = kc.blocks[pos], vc.blocks[pos], idx[pos]
-                rank = sm.axis_index(mesh, pos, "model")
+                qb = qs[pos]
+                H, hd = qb.shape[1:]
+                G = H // KV
+                rank = sm.axis_index(mesh, pos, seq_axes)
                 ls = torch.remainder(i, Smax) - rank * S_loc
                 in_rng = (ls >= 0) & (ls < S_loc)
                 lsc = ls.clamp(0, S_loc - 1).reshape(1).long()
@@ -344,7 +364,6 @@ class Attention(nn.Module):
                     old = blk.index_select(1, lsc)
                     blk.index_copy_(1, lsc, torch.where(
                         in_rng, new[:, None].to(blk.dtype), old))
-                qb = qs[pos]
                 qg = qb.reshape(qb.shape[0], KV, G, hd)
                 s = torch.einsum("bkgh,btkh->bkgt", qg.float(),
                                  k_blk.to(qb.dtype).float()) * (hd ** -0.5)
@@ -353,7 +372,7 @@ class Attention(nn.Module):
                 s = s + torch.where(kpos <= i, 0.0, NEG_INF)
                 scores[pos] = s
                 m_loc[pos] = s.amax(dim=-1)                   # (B, KV, G)
-            m_glob = sm.pmax(m_loc, "model", mesh)
+            m_glob = sm.pmax(m_loc, seq_axes, mesh) if m > 1 else m_loc
             l_loc, o_loc = {}, {}
             for pos in sm.positions(mesh):
                 p = torch.exp(scores.pop(pos) - m_glob[pos][..., None])
@@ -362,12 +381,13 @@ class Attention(nn.Module):
                 o_loc[pos] = torch.einsum("bkgt,btkh->bkgh",
                                           p.to(v_blk.dtype).float(),
                                           v_blk.float())
-            l_glob = sm.psum(l_loc, "model", mesh)
-            o_glob = sm.psum(o_loc, "model", mesh)
-            out = sm.per_shard(mesh, lambda pos: (
-                o_glob[pos] / l_glob[pos].clamp(min=1e-30)[..., None]
-            ).reshape(-1, 1, H, hd).to(q.dtype))
-        return sm.join(out, row_spec, mesh, q.device), {"k": kc, "v": vc}
+            if m > 1:
+                l_loc = sm.psum(l_loc, seq_axes, mesh)
+                o_loc = sm.psum(o_loc, seq_axes, mesh)
+            return sm.per_shard(mesh, lambda pos: (
+                o_loc[pos] / l_loc[pos].clamp(min=1e-30)[..., None]
+            ).reshape(-1, 1, qs[pos].shape[1], qs[pos].shape[2]).to(
+                qs[pos].dtype))
 
     # ---------------- training over a mesh ---------------------------------
     #
@@ -415,16 +435,14 @@ class Attention(nn.Module):
                    (0, 0, 0, 0, 0, Gp - G))
         return w4.reshape(kv_heads * Gp * hd, d_out)
 
-    def forward_mesh(self, w, xs, angles, *, causal=True, window=None,
-                     x_kv=None):
-        """The train route over the shard context's mesh, shard by shard.
-        ``w``: the layer's parameters as ``steps.MeshParams`` gives them;
-        ``xs``: {position: (B_loc, S, d_in)}, replicated over "model";
-        ``angles``: {position: RoPE angles}, or None for no RoPE → {position:
-        (B_loc, S, d_out)} after one ``psum`` over "model".  ``x_kv``
-        {position: (B_loc, S_kv, d_in)} is cross attention: K/V are
-        projected from it (the rank's KV heads, as for self attention) and
-        take no RoPE, as ``forward(cross_kv=...)``'s train route."""
+    def _mesh_weights(self, w):
+        """The layer's weights as each "model" rank reads them → (m, the
+        padding ``(Hp, G, Gp)`` or None, n heads a rank, Gc q heads a KV
+        head, kv_keep: ("model",) where the KV heads split over it, else
+        (), and per-position ``weights(pos)`` → (wq, bq, wo, wk, bk, wv,
+        bv) of the rank: its q columns and ``wo`` rows, padded where
+        padding applies (re-laid from the whole leaves), and its KV
+        heads' or every KV head's columns)."""
         cfg = self.cfg
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         mesh = w.mesh
@@ -443,25 +461,45 @@ class Attention(nn.Module):
         wk, wv = w("wk.w", kv_keep), w("wv.w", kv_keep)
         bk, bv = ((w("wk.b", kv_keep), w("wv.b", kv_keep)) if bias
                   else (None, None))
+
+        def weights(pos):
+            r = sm.axis_index(mesh, pos, "model") if m > 1 else 0
+            wq_r, wo_r = wq[pos], wo[pos]
+            bq_r = None if bq is None else bq[pos]
+            if pad is not None:
+                wq_r, bq_r = self._wq_padded(wq_r, bq_r, KV, *pad[1:], hd)
+                cols = slice(r * n * hd, (r + 1) * n * hd)
+                wq_r, wo_r = wq_r[:, cols], self._wo_padded(
+                    wo_r, KV, *pad[1:], hd)[cols]
+                bq_r = None if bq_r is None else bq_r[cols]
+            pick = lambda t: None if t is None else t[pos]
+            return (wq_r, bq_r, wo_r, wk[pos], pick(bk), wv[pos], pick(bv))
+        return m, pad, n, Gc, kv_keep, weights
+
+    def forward_mesh(self, w, xs, angles, *, causal=True, window=None,
+                     x_kv=None):
+        """The train route over the shard context's mesh, shard by shard.
+        ``w``: the layer's parameters as ``steps.MeshParams`` gives them;
+        ``xs``: {position: (B_loc, S, d_in)}, replicated over "model";
+        ``angles``: {position: RoPE angles}, or None for no RoPE → {position:
+        (B_loc, S, d_out)} after one ``psum`` over "model".  ``x_kv``
+        {position: (B_loc, S_kv, d_in)} is cross attention: K/V are
+        projected from it (the rank's KV heads, as for self attention) and
+        take no RoPE, as ``forward(cross_kv=...)``'s train route."""
+        hd = self.cfg.hd
+        mesh = w.mesh
+        m, _, n, Gc, kv_keep, weights = self._mesh_weights(w)
         part = {}
         with no_shard_ctx():
             for pos, x in xs.items():
                 B, S = x.shape[:2]
                 r = sm.axis_index(mesh, pos, "model") if m > 1 else 0
-                wq_r, wo_r = wq[pos], wo[pos]
-                bq_r = None if bq is None else bq[pos]
-                if pad is not None:
-                    wq_r, bq_r = self._wq_padded(wq_r, bq_r, KV, *pad[1:], hd)
-                    cols = slice(r * n * hd, (r + 1) * n * hd)
-                    wq_r, wo_r = wq_r[:, cols], self._wo_padded(
-                        wo_r, KV, *pad[1:], hd)[cols]
-                    bq_r = None if bq_r is None else bq_r[cols]
+                wq_r, bq_r, wo_r, wk_r, bk_r, wv_r, bv_r = weights(pos)
                 q = self._project(x, wq_r, bq_r).reshape(B, S, n, hd)
                 src = x if x_kv is None else x_kv[pos]
-                k, v = (self._project(src, w_[pos], None if b_ is None else
-                                      b_[pos]).reshape(B, src.shape[1], -1,
-                                                       hd)
-                        for w_, b_ in ((wk, bk), (wv, bv)))
+                k, v = (self._project(src, w_, b_).reshape(
+                    B, src.shape[1], -1, hd)
+                        for w_, b_ in ((wk_r, bk_r), (wv_r, bv_r)))
                 if not kv_keep:             # the KV heads this rank reads
                     k, v = self._rank_kv(k, v, r * n, n, Gc)
                 if angles is not None:
@@ -472,9 +510,120 @@ class Attention(nn.Module):
                 part[pos] = out.reshape(B, S, n * hd) @ wo_r
         return sm.psum(part, "model", mesh) if m > 1 else part
 
+    # ---------------- serving over a mesh ----------------------------------
+    #
+    # The partition ``SERVE_RULES`` lays out (``steps``' serve steps over
+    # laid-out weights): each "model" rank projects its q heads (padded
+    # where they do not divide) and its KV heads (every KV head where they
+    # do not), multiplies by its rows of ``wo``, and a psum over "model"
+    # sums the ranks.  Prefill attends through K4 on the rank's heads and
+    # hands its K/V to the cache's layout; decode gathers q over "model"
+    # and runs split-K over the cache's sequence blocks.
+
+    def prefill_mesh(self, w, xs, angles, *, window, max_seq, kv_spec,
+                     batch_axes):
+        """Causal self-attention over a prompt, shard by shard: ``xs``
+        {position: (B_loc, S, d)} replicated over "model" → ({position:
+        (B_loc, S, d)} after a psum over "model", {"k", "v"}: {position:
+        the block of this layer's ring cache (B, Smax, KV, hd) under
+        ``kv_spec``}).  Each rank attends over its heads through K4
+        (``kops.flash_attention``); its K/V (the rank's KV heads, or every
+        KV head) are laid out as the ring (``to_ring``) and moved to the
+        cache's layout (``shard_map.relayout``: gathers over the axes that
+        split them, then a local slice)."""
+        cfg = self.cfg
+        hd = cfg.hd
+        mesh = w.mesh
+        m, _, n, Gc, kv_keep, weights = self._mesh_weights(w)
+        part, ring = {}, {"k": {}, "v": {}}
+        with no_shard_ctx():
+            for pos, x in xs.items():
+                B, S = x.shape[:2]
+                r = sm.axis_index(mesh, pos, "model") if m > 1 else 0
+                wq_r, bq_r, wo_r, wk_r, bk_r, wv_r, bv_r = weights(pos)
+                q = self._project(x, wq_r, bq_r).reshape(B, S, n, hd)
+                k, v = (self._project(x, w_, b_).reshape(B, S, -1, hd)
+                        for w_, b_ in ((wk_r, bk_r), (wv_r, bv_r)))
+                if angles is not None:
+                    q = apply_rope(q, angles[pos])
+                    k = apply_rope(k, angles[pos])
+                ks, vs = (k, v) if kv_keep else self._rank_kv(
+                    k, v, r * n, n, Gc)
+                out = kops.flash_attention(q, ks, vs, causal=True,
+                                           window=window)
+                part[pos] = out.reshape(B, S, n * hd) @ wo_r.to(cfg.cdtype)
+                rk, rv = self.to_ring(cfg, k, v, max_seq)
+                ring["k"][pos], ring["v"][pos] = rk, rv
+        # the ring's layout as computed: rows over ``batch_axes``, the
+        # rank's KV heads (or all of them)
+        src = sm.canonical((batch_axes, None, kv_keep if m > 1 else ()))
+        kv = {name: sm.relayout(vals, src, kv_spec, mesh)
+              for name, vals in ring.items()}
+        return (sm.psum(part, "model", mesh) if m > 1 else part), kv
+
+    def decode_mesh(self, w, xs, angles, cache, index, kv_spec):
+        """One token over this layer's cache, shard by shard: ``xs``
+        {position: (B_loc, 1, d)}; ``cache`` {"k", "v"}: ``ShardedArray``
+        (B, Smax, KV, hd) under ``kv_spec``, its sequence split over
+        "model" (the split-K layout; a model axis of 1 holds it whole),
+        written in place → {position: (B_loc, 1, d)} after a psum over
+        "model".  Each rank projects its q heads and KV heads; q (and K/V
+        where they split) are all-gathered over "model"; the split-K body
+        attends over each position's sequence block; each rank multiplies
+        its heads' rows of ``wo``."""
+        cfg = self.cfg
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        mesh = w.mesh
+        m, pad, n, _, kv_keep, weights = self._mesh_weights(w)
+        spec = sm.canonical(kv_spec)
+        seq = sm.axes_of(spec[1] if len(spec) > 1 else None)
+        if len(spec) > 2 or (m > 1 and seq != ("model",)):
+            raise NotImplementedError(
+                f"a decode over a mesh takes the split-K cache layout "
+                f"(the sequence over \"model\", nothing else split but the "
+                f"batch), not {spec}")
+        qs, ks, vs, wos = {}, {}, {}, {}
+        with no_shard_ctx():
+            for pos, x in xs.items():
+                B = x.shape[0]
+                wq_r, bq_r, wo_r, wk_r, bk_r, wv_r, bv_r = weights(pos)
+                q = self._project(x, wq_r, bq_r).reshape(B, 1, n, hd)
+                k, v = (self._project(x, w_, b_).reshape(B, 1, -1, hd)
+                        for w_, b_ in ((wk_r, bk_r), (wv_r, bv_r)))
+                if angles is not None:
+                    q = apply_rope(q, angles[pos])
+                    k = apply_rope(k, angles[pos])
+                qs[pos], ks[pos], vs[pos], wos[pos] = q, k, v, wo_r
+        if m > 1:
+            qs = sm.all_gather(qs, "model", mesh, dim=2)
+            if kv_keep:
+                ks = sm.all_gather(ks, "model", mesh, dim=2)
+                vs = sm.all_gather(vs, "model", mesh, dim=2)
+        if pad is not None:                 # drop the pad heads
+            G, Gp = pad[1:]
+            qs = {p: q.reshape(q.shape[0], 1, KV, Gp, hd)[:, :, :, :G]
+                  .reshape(q.shape[0], 1, H, hd) for p, q in qs.items()}
+        idx = sm.split(torch.as_tensor(index, dtype=torch.int32), (), mesh)
+        out = self._splitk_body(
+            {p: q[:, 0] for p, q in qs.items()},
+            {p: k[:, 0] for p, k in ks.items()},
+            {p: v[:, 0] for p, v in vs.items()},
+            cache["k"], cache["v"], idx, mesh, seq)
+        part = {}
+        with no_shard_ctx():
+            for pos, o in out.items():
+                B = o.shape[0]
+                r = sm.axis_index(mesh, pos, "model") if m > 1 else 0
+                if pad is not None:         # re-pad, as the q heads were
+                    o = F.pad(o.reshape(B, 1, KV, pad[1], hd),
+                              (0, 0, 0, pad[2] - pad[1]))
+                o = o.reshape(B, 1, -1, hd)[:, :, r * n:(r + 1) * n]
+                part[pos] = o.reshape(B, 1, n * hd) @ wos[pos].to(cfg.cdtype)
+        return sm.psum(part, "model", mesh) if m > 1 else part
+
     def _project(self, x, w, b):
         """A Linear's train-route product on given (cast) weights."""
-        y = x.to(self.cfg.cdtype) @ w
+        y = x.to(self.cfg.cdtype) @ w.to(self.cfg.cdtype)
         return y if b is None else y + b.to(y.dtype)
 
     @staticmethod
@@ -488,6 +637,21 @@ class Attention(nn.Module):
         idx = torch.div(h0 + torch.arange(n, device=k.device), Gc,
                         rounding_mode="floor")
         return k[:, :, idx], v[:, :, idx]
+
+    @staticmethod
+    def to_ring(cfg, k, v, max_seq: int):
+        """Full-sequence K/V (B, S, ·, hd) laid out as the ring cache sized
+        for ``max_seq`` (position p lives at slot p % W) → (k, v)."""
+        S = k.shape[1]
+        W = Attention.cache_len(cfg, max_seq)
+        if W < S:
+            shift = (S - W) % W
+            k = torch.roll(k[:, S - W:], shift, dims=1)
+            v = torch.roll(v[:, S - W:], shift, dims=1)
+        elif W > S:
+            pad = (0, 0, 0, 0, 0, W - S)
+            k, v = F.pad(k, pad), F.pad(v, pad)
+        return k, v
 
     @staticmethod
     def cache_len(cfg, max_seq: int) -> int:

@@ -89,6 +89,38 @@ class DecoderBlock(nn.Module):
         x = x + h
         return x + self._ffn(self.ln2(x))[0], cache
 
+    def _ffn_mesh(self, w, xs, batch_axes):
+        """The serve route's feed-forward over a mesh: the column- and
+        row-parallel SwiGLU, or the MoE's expert-parallel body (or its
+        global path where the reference takes it)."""
+        h = norm_mesh(self.ln2, w.sub("ln2"), xs)
+        if self.cfg.moe is not None:
+            h = self.moe.forward_mesh(w.sub("moe"), h, batch_axes)[0]
+        else:
+            h = self.mlp.forward_mesh(w.sub("mlp"), h)
+        return {p: x + h[p] for p, x in xs.items()}
+
+    def prefill_mesh(self, w, xs, angles, batch_axes, *, max_seq, kv_spec):
+        """A prompt over a mesh (``Attention.prefill_mesh``, then the
+        feed-forward) → ({position: (B_loc, S, d)}, {"k", "v"}: this
+        layer's cache blocks under ``kv_spec``)."""
+        h, kv = self.attn.prefill_mesh(
+            w.sub("attn"), norm_mesh(self.ln1, w.sub("ln1"), xs), angles,
+            window=self.cfg.sliding_window, max_seq=max_seq,
+            kv_spec=kv_spec, batch_axes=batch_axes)
+        xs = {p: x + h[p] for p, x in xs.items()}
+        return self._ffn_mesh(w, xs, batch_axes), kv
+
+    def decode_mesh(self, w, xs, angles, batch_axes, cache, index, kv_spec):
+        """One token over a mesh: {position: (B_loc, 1, d)} → the same;
+        ``cache`` this layer's {"k", "v"} ``ShardedArray``, written in
+        place."""
+        h = self.attn.decode_mesh(
+            w.sub("attn"), norm_mesh(self.ln1, w.sub("ln1"), xs), angles,
+            cache, index, kv_spec)
+        xs = {p: x + h[p] for p, x in xs.items()}
+        return self._ffn_mesh(w, xs, batch_axes)
+
 
 class SSMBlock(nn.Module):
     """Pre-norm Mamba block — the ssm family (Mamba1 for ``ssm.version``

@@ -1,6 +1,6 @@
-"""SwiGLU feed-forward block.  Over a mesh (``forward_mesh``) each "model"
-rank runs its columns of ``gate``/``up`` and its rows of ``down``, and a
-``psum`` over "model" sums the ranks."""
+"""SwiGLU feed-forward block.  Over a mesh (``forward_mesh``, the train and
+the serve routes) each "model" rank runs its columns of ``gate``/``up`` and
+its rows of ``down``, and a ``psum`` over "model" sums the ranks."""
 from __future__ import annotations
 
 import torch

@@ -274,21 +274,25 @@ class MoE(nn.Module):
         return {p: t.reshape(B_loc, S, d) for p, t in y.items()}, aux
 
     def forward_mesh(self, w, xs, batch_axes):
-        """The train route over the shard context's mesh: ``w`` the layer's
-        parameters as ``steps.MeshParams`` gives them, ``xs`` {position:
-        (B_loc, S, d)} split over ``batch_axes`` → ({position: y}, the
-        first position's aux).  The EP body where the reference takes it
-        (``_ep_ctx``); else every position runs the global path over the
-        batch gathered whole and keeps its own rows."""
+        """The layer over the shard context's mesh, the train route's and
+        the serve route's: ``w`` the layer's parameters as
+        ``steps.MeshParams`` gives them, ``xs`` {position: (B_loc, S, d)}
+        split over ``batch_axes`` → ({position: y}, the first position's
+        aux).  The EP body where the reference takes it (``_ep_ctx``); else
+        every position runs the global path over the batch gathered whole
+        and keeps its own rows.  The expert stacks are read in the compute
+        dtype."""
         mesh = w.mesh
         router = w("router.w", ())
         B_loc = next(iter(xs.values())).shape[0]
         ep = self._ep_ctx(B_loc * sm.axis_size(mesh, batch_axes))
+        cast = lambda vals: {p: t.to(self.dtype) for p, t in vals.items()}
         if ep is not None:
-            slabs = [w(n) for n in ("gate", "up", "down")]
-            y, aux = self._ep_body(xs, router, slabs, mesh, ep[1], train=True)
+            slabs = [cast(w(n)) for n in ("gate", "up", "down")]
+            y, aux = self._ep_body(xs, router, slabs, mesh, ep[1],
+                                   train=True)
             return {p: t.to(xs[p].dtype) for p, t in y.items()}, aux
-        stacks = [w(n, ()) for n in ("gate", "up", "down")]
+        stacks = [cast(w(n, ())) for n in ("gate", "up", "down")]
         whole = sm.all_gather(xs, batch_axes, mesh) if batch_axes else xs
         y, aux = {}, {}
         with no_shard_ctx():

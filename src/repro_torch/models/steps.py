@@ -25,6 +25,19 @@ channels or heads and vocabulary range, and psums over "model"; the loss
 is the token-weighted mean over the batch axes; each leaf's gradient is
 psummed over the axes it is replicated on; the global norm counts each
 distinct block once, and AdamW updates each block in place.
+Under ``cfg.remat`` ("full", the default) each layer, or hybrid group,
+of the train route is one checkpoint (``transformer.remat``): it keeps its
+input alone and runs again, collectives included, in the backward.
+
+The serve steps take laid-out weights too ({name: ``ShardedArray``},
+``device_put`` by ``serve_shardings``): under ``shard_ctx(serve_rules(B),
+mesh)`` the prefill and decode run the partition the rules lay out, shard
+by shard — tokens split over the batch axes, the vocabulary-parallel
+embedding and readout, each "model" rank's heads (K4 on them at prefill),
+MLP columns and rows or experts, a psum over "model" after each; decode
+over the cache's sequence blocks (split-K) — and the logits come back
+whole, the cache laid out by ``cache_axes`` (the dense and MoE families;
+``SERVE_MESH_REFUSED`` names the rest).
 The axes helpers (``input_sharding_axes``, ``params_axes_and_structs``,
 ``train_state_axes``, ``cache_axes``) give the reference's trees of logical
 axes, and the struct helpers (``cache_structs``, ``input_structs``) its
@@ -34,6 +47,7 @@ nothing is allocated, the 72B config included.
 from __future__ import annotations
 
 import copy
+import functools
 from typing import NamedTuple
 
 import torch
@@ -288,22 +302,37 @@ class MeshParams:
     ``keep``: ``("model",)``, the default, undoes FSDP alone, ``()``
     gives each position the whole leaf.  Each gather is one
     ``all_gather``, whose backward reduce-scatters the gradient (none over
-    axes of one position); each (name, keep) is gathered once a step.
-    ``sub(prefix)`` is the view a submodule reads."""
+    axes of one position); each (name, keep) is gathered once a step, or
+    once a checkpointed block under ``remat`` (``scoped``).
+    ``sub(prefix)`` is the view a submodule reads.  The serve steps pass
+    ``cdtype=None`` (the weights as laid out, cast where they are used)
+    and ``grad=False``."""
 
-    def __init__(self, params: dict, mesh, cdtype):
+    def __init__(self, params: dict, mesh, cdtype, *, grad: bool = True,
+                 remat: bool = False):
         self.mesh = mesh
         self.prefix = ""
         self.specs = {k: a.spec for k, a in params.items()}
-        self.leaves = {k: {p: b.detach().requires_grad_()
+        self.leaves = {k: {p: b.detach().requires_grad_(grad)
                            for p, b in a.blocks.items()}
                        for k, a in params.items()}
         self._cdtype = cdtype
+        self.remat = remat
         self._memo: dict = {}
 
     def sub(self, prefix: str) -> "MeshParams":
         view = copy.copy(self)
         view.prefix = f"{self.prefix}{prefix}."
+        return view
+
+    def scoped(self, prefix: str | None = None) -> "MeshParams":
+        """``sub(prefix)`` (or this view) with a memo of its own, under
+        ``remat``: a checkpointed block gathers its weights inside, so that
+        they are freed after its forward and gathered again in its
+        recompute, where the reference's recompute gathers them again."""
+        view = copy.copy(self) if prefix is None else self.sub(prefix)
+        if self.remat:
+            view._memo = {}
         return view
 
     def axes(self, name: str, dim: int) -> tuple:
@@ -315,8 +344,8 @@ class MeshParams:
         name = self.prefix + name
         key = (name, tuple(keep))
         if key not in self._memo:
-            cast = lambda t: (t.to(self._cdtype)
-                              if t.dtype == torch.float32 else t)
+            cast = lambda t: (t.to(self._cdtype) if self._cdtype is not None
+                              and t.dtype == torch.float32 else t)
             vals = {p: cast(t) for p, t in self.leaves[name].items()}
             for d, entry in enumerate(self.specs[name]):
                 axes = sm.axes_of(entry)
@@ -381,9 +410,11 @@ def _mesh_train_step(model: LM, state: TrainState, batch, opt_update,
     specs = {k: spec_for(ax, rules, mesh, tuple(batch[k].shape))
              for k, ax in input_sharding_axes(cfg, with_labels=True).items()
              if k in batch}
-    inputs = {k: sm.split(batch[k], spec, mesh) for k, spec in specs.items()}
+    inputs = {k: sm.place(batch[k], spec, mesh).blocks
+              for k, spec in specs.items()}
     batch_axes = sm.axes_of(specs["tokens"][0]) if specs["tokens"] else ()
-    w = MeshParams(state.params, mesh, cfg.cdtype)
+    w = MeshParams(state.params, mesh, cfg.cdtype,
+                   remat=cfg.remat != "none")
     first = sm.positions(mesh)[0]
     labels = inputs.pop("labels")
     with torch.enable_grad():
@@ -433,14 +464,11 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, weight_decay: float = 0.1,
     the whole batch given (it is split over the batch axes here)."""
     opt_init, opt_update = adamw(lr, weight_decay=weight_decay,
                                  mask=decay_mask)
-    skeleton: list = []     # the model built on "meta": the mesh route's
 
     def train_step(state: TrainState, batch):
         if not isinstance(state.params, LM):
-            if not skeleton:
-                skeleton.append(LM(cfg, device="meta"))
-            return _mesh_train_step(skeleton[0], state, batch, opt_update,
-                                    grad_clip)
+            return _mesh_train_step(meta_model(cfg), state, batch,
+                                    opt_update, grad_clip)
         model = state.params
         (loss, (ce, aux)), grads = loss_and_grads(model, batch)
         gnorm = global_norm(grads)
@@ -478,17 +506,127 @@ def init_train_state(seed: int, cfg: ModelConfig, opt_init,
 # serve (prefill + decode)
 # ---------------------------------------------------------------------------
 
+# the families whose serve steps have no partition over a mesh yet, by name
+SERVE_MESH_REFUSED = {
+    "ssm": "Mamba1 and Mamba2 (the SSM family) have no serve partition over "
+           "a mesh yet: their prefill scans and decode states are not split",
+    "hybrid": "the zamba2 hybrid has no serve partition over a mesh yet: its "
+              "Mamba2 towers and shared attention blocks are not split",
+    "vlm": "the VLM has no serve partition over a mesh yet: its patch "
+           "prefix and M-RoPE prefill are not split",
+    "audio": "the encoder-decoder has no serve partition over a mesh yet: "
+             "its encoder and cross K/V are not split",
+}
+
+
+@functools.lru_cache(maxsize=None)
+def meta_model(cfg: ModelConfig) -> LM:
+    """The model built on the ``meta`` device: the modules a step over
+    laid-out weights runs, with no parameter allocated."""
+    return LM(cfg, device="meta")
+
+
+def serve_shardings(cfg: ModelConfig, mesh, rules) -> dict:
+    """{parameter name: ``NamedSharding``}: the layout of the weights the
+    serve steps take over ``mesh`` under ``rules`` (``spec_for`` on each
+    leaf's shape; ``device_put(model, serve_shardings(...))`` lays an
+    ``LM``'s parameters out as {name: ``ShardedArray``}, views on their
+    own device)."""
+    axes, structs = param_axes_and_structs(cfg)
+    return {k: sm.NamedSharding(mesh, spec_for(axes[k], rules, mesh,
+                                               s.shape))
+            for k, s in structs.items()}
+
+
+def _serve_ctx(cfg: ModelConfig):
+    ctx = current_ctx()
+    if ctx is None:
+        raise ValueError("laid-out serve weights step under the shard "
+                         "context (rules, mesh) they are laid out on")
+    if cfg.family in SERVE_MESH_REFUSED:
+        raise NotImplementedError(SERVE_MESH_REFUSED[cfg.family])
+    return ctx
+
+
+def _kv_spec(cfg: ModelConfig, batch: int, max_seq: int, rules, mesh):
+    """The (L, B, Smax, KV, hd) K/V leaves' spec: ``cache_axes`` through
+    ``spec_for`` at their shape."""
+    return spec_for(cache_axes(cfg, batch, max_seq)["layers"]["k"], rules,
+                    mesh, cache_structs(cfg, batch, max_seq)["layers"][
+                        "k"].shape)
+
+
+def _mesh_tokens(tokens, rules, mesh):
+    """(tokens laid out by the rules' ("batch", "seq"), {position: block},
+    the axes splitting the batch)."""
+    spec = spec_for(("batch", "seq"), rules, mesh, tuple(tokens.shape))
+    return (sm.place(tokens, spec, mesh).blocks,
+            sm.axes_of(spec[0]) if spec else ())
+
+
+def _mesh_prefill(cfg, params: dict, batch, max_seq: int):
+    """The prefill over the shard context's mesh (``make_prefill_step``)."""
+    rules, mesh = _serve_ctx(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    toks, batch_axes = _mesh_tokens(tokens, rules, mesh)
+    kv_spec = _kv_spec(cfg, B, max_seq, rules, mesh)
+    w = MeshParams(params, mesh, None, grad=False)
+    logits, kv = meta_model(cfg).prefill_mesh(w, toks, batch_axes, max_seq,
+                                              kv_spec)
+    struct = cache_structs(cfg, B, max_seq)["layers"]["k"]
+    first = mesh.devices[sm.positions(mesh)[0]]
+    return logits, {
+        "index": torch.tensor(S, dtype=torch.int32, device=first),
+        "layers": {n: sm.ShardedArray(kv[n], kv_spec, mesh, struct.shape,
+                                      struct.dtype) for n in ("k", "v")}}
+
+
+def _mesh_decode(cfg, params: dict, tokens, cache):
+    """The decode over the shard context's mesh (``make_decode_step``)."""
+    rules, mesh = _serve_ctx(cfg)
+    if torch.as_tensor(cache["index"]).ndim != 0 or "block_tbl" in cache:
+        raise ValueError("a decode over a mesh takes one index for every "
+                         "row and the ring cache (no block table)")
+    B = tokens.shape[0]
+    Smax = cache["layers"]["k"].shape[2]
+    toks, batch_axes = _mesh_tokens(tokens, rules, mesh)
+    kv_spec = _kv_spec(cfg, B, Smax, rules, mesh)
+    layers = {n: sm.place(leaf, kv_spec, mesh)
+              for n, leaf in cache["layers"].items()}
+    w = MeshParams(params, mesh, None, grad=False)
+    return meta_model(cfg).decode_mesh(w, toks, {**cache, "layers": layers},
+                                       batch_axes, kv_spec)
+
+
 def make_prefill_step(cfg: ModelConfig, max_seq: int):
+    """``prefill_step(params, batch) → (last-position logits, cache)``.
+    ``params`` an ``LM``: its ``prefill``.  Laid-out weights ({name:
+    ``ShardedArray``}, ``device_put`` by ``serve_shardings``) prefill over
+    the shard context's mesh shard by shard, as the reference's partition
+    under ``serve_rules``: tokens split over the batch axes, the vocabulary,
+    heads, MLP columns and experts over "model", K4 on each rank's heads;
+    the logits come back whole, the cache as {"index", "layers": {"k",
+    "v"}} with ``ShardedArray`` leaves laid out by ``cache_axes``."""
     @torch.no_grad()
-    def prefill_step(params: LM, batch):
-        return params.prefill(batch, max_seq)
+    def prefill_step(params, batch):
+        if isinstance(params, LM):
+            return params.prefill(batch, max_seq)
+        return _mesh_prefill(cfg, params, batch, max_seq)
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig):
+    """``decode_step(params, tokens, cache) → (logits, cache)``.  ``params``
+    an ``LM``: its ``decode``.  Laid-out weights decode over the shard
+    context's mesh (as ``make_prefill_step``'s): the cache's K/V leaves
+    (``ShardedArray``, or whole tensors, placed by ``cache_axes``) keep
+    their sequence split over "model" and the attention runs split-K."""
     @torch.no_grad()
-    def decode_step(params: LM, tokens, cache):
-        return params.decode(tokens, cache)
+    def decode_step(params, tokens, cache):
+        if isinstance(params, LM):
+            return params.decode(tokens, cache)
+        return _mesh_decode(cfg, params, tokens, cache)
     return decode_step
 
 

@@ -28,9 +28,16 @@ Entry points:
   model.forward_mesh(w, inputs, batch_axes) the train route over a mesh
                                            (every family), shard by shard
   model.logits_mesh(w, h)                  -> vocab-split logits
+  model.prefill_mesh / decode_mesh         the serve steps over a mesh
+                                           (dense and MoE), shard by shard
   model.prefill(inputs, max_seq)           -> (last-position logits, cache)
   model.decode(tokens, cache)              -> (logits, cache)
   LM.cache_spec(cfg, batch, max_seq)       -> tree of (shape, dtype, axes)
+
+On the train route each layer (a hybrid's each group, an encoder-decoder's
+each encoder and decoder layer) is one checkpoint under ``cfg.remat``
+("full"): ``remat``, the reference's ``jax.checkpoint`` with
+``nothing_saveable``.
 
 ``inputs`` is ``{"tokens": (B, S)}``, plus ``"patches"`` (B, P, d_model) for
 the VLM (they replace the first P embeddings) and ``"frames"`` (B, S_enc,
@@ -39,8 +46,8 @@ d_model) for the encoder-decoder.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention
@@ -54,6 +61,7 @@ from repro_torch.models.rotary import (
     mrope_positions, rope_angles, text_positions,
 )
 from repro_torch.nn import Embedding, LayerNorm, Linear
+from repro_torch.sharding import current_ctx, no_shard_ctx, shard_ctx
 from repro_torch.sharding import shard_map as sm
 
 
@@ -76,6 +84,58 @@ def _hybrid_groups(cfg: ModelConfig) -> int:
 
 def _stack_states(states: list[dict]) -> dict:
     return {n: torch.stack([s[n] for s in states]) for n in states[0]}
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, checkpointed when ``cfg.remat`` is not "none" and
+    grad is on: the reference's ``jax.checkpoint(..., nothing_saveable)``
+    around a layer or a hybrid group.  ``torch.utils.checkpoint`` without
+    reentry keeps only what the block is given (its input and the tensors
+    it closes over) and runs ``fn`` again in the backward, the shard map's
+    collectives included, so a cost counter records them again, as the
+    reference's recompute runs them again.  The recompute runs the whole
+    block (no early stop), and under the shard context the forward ran in:
+    the autograd engine runs a card's backward on a thread of its own,
+    which does not see this thread's context."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    ctx = current_ctx()
+
+    def run(*a):
+        with shard_ctx(*ctx) if ctx else no_shard_ctx():
+            return fn(*a)
+    with set_checkpoint_early_stop(False):
+        return checkpoint(run, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
+
+def run_block(cfg: ModelConfig, blk: nn.Module, *args, **kw):
+    """``blk(*args, **kw)``; on the train route (``train=True``) one
+    ``remat`` checkpoint over the parameters the block holds now (under the
+    train step's ``functional_call``, the cast ones: the recompute runs
+    after that call has put the masters back)."""
+    if not kw.get("train"):
+        return blk(*args, **kw)
+    params = dict(blk.named_parameters())
+    return remat(cfg, lambda *a: torch.func.functional_call(
+        blk, params, a, kw), *args)
+
+
+class _HybridGroup(nn.Module):
+    """One zamba2 group as one module, so that ``run_block`` checkpoints it
+    whole (the reference's ``group_body``): its SSM blocks, then the
+    shared block over concat(h, emb0) and the group's down projection."""
+
+    def __init__(self, blocks, shared, down):
+        super().__init__()
+        self.blocks, self.shared, self.down = blocks, shared, down
+
+    def forward(self, h, emb0, *, angles=None, train: bool = False):
+        for blk in self.blocks:
+            h = blk(h, train=train)
+        return h + self.down(self.shared(torch.cat([h, emb0], dim=-1),
+                                         angles=angles, train=train),
+                             train=train)
 
 
 def map_spec(fn, spec):
@@ -192,18 +252,21 @@ class LM(nn.Module):
         h = self._embed(tokens, inputs)
         angles = _angles(self.cfg, B, S, device=h.device)
         aux = zero_aux(h.device)
-        if self.cfg.enc_dec:
+        cfg = self.cfg
+        if cfg.enc_dec:
             enc_out = self._encode(inputs["frames"], train)
             for blk in self.dec_blocks:
-                h = blk(h, enc_out=enc_out, angles=angles, train=train)
-        elif self.cfg.hybrid is not None:
+                h = run_block(cfg, blk, h, enc_out=enc_out, angles=angles,
+                              train=train)
+        elif cfg.hybrid is not None:
             h = self._apply_hybrid(h, angles, train)
-        elif self.cfg.ssm is not None:
+        elif cfg.ssm is not None:
             for blk in self.blocks:
-                h = blk(h, train=train)
+                h = run_block(cfg, blk, h, train=train)
         else:
             for blk in self.blocks:
-                h, a = blk(h, angles=angles, return_aux=True, train=train)
+                h, a = run_block(cfg, blk, h, angles=angles,
+                                 return_aux=True, train=train)
                 aux = add_aux(aux, a)
         h = self.ln_f(h)
         if return_hidden:
@@ -238,17 +301,18 @@ class LM(nn.Module):
         if cfg.enc_dec:
             enc = self._encode_mesh(w, inputs["frames"])
             for i, blk in enumerate(self.dec_blocks):
-                h = blk.forward_mesh(w.sub(f"dec_blocks.{i}"), h, enc,
-                                     angles)
+                h = remat(cfg, lambda h, blk=blk, i=i: blk.forward_mesh(
+                    w.scoped(f"dec_blocks.{i}"), h, enc, angles), h)
         elif cfg.hybrid is not None:
             h = self._hybrid_mesh(w, h, angles)
         elif cfg.ssm is not None:
             for i, blk in enumerate(self.blocks):
-                h = blk.forward_mesh(w.sub(f"blocks.{i}"), h)
+                h = remat(cfg, lambda h, blk=blk, i=i: blk.forward_mesh(
+                    w.scoped(f"blocks.{i}"), h), h)
         else:
             for i, blk in enumerate(self.blocks):
-                h, a = blk.forward_mesh(w.sub(f"blocks.{i}"), h, angles,
-                                        batch_axes)
+                h, a = remat(cfg, lambda h, blk=blk, i=i: blk.forward_mesh(
+                    w.scoped(f"blocks.{i}"), h, angles, batch_axes), h)
                 aux = add_aux(aux, a)
         return norm_mesh(self.ln_f, w.sub("ln_f"), h), aux
 
@@ -265,15 +329,70 @@ class LM(nn.Module):
             h[pos] = torch.where(mine[..., None], e, 0).to(self.cfg.cdtype)
         return sm.psum(h, vocab, w.mesh) if vocab else h
 
-    def _angles_mesh(self, xs):
-        """{position: RoPE angles for its (B_loc, S, ·) shard}, made once a
-        device (None where the family has no RoPE)."""
+    def _angles_mesh(self, xs, start=0):
+        """{position: RoPE angles for its (B_loc, S, ·) shard from position
+        ``start``}, made once a device (None where the family has no
+        RoPE)."""
         memo: dict = {}
         for x in xs.values():
             if x.device not in memo:
                 memo[x.device] = _angles(self.cfg, x.shape[0], x.shape[1],
-                                         device=x.device)
+                                         start=start, device=x.device)
         return {p: memo[x.device] for p, x in xs.items()}
+
+    # The serve steps over a mesh (``steps``' prefill and decode over
+    # laid-out weights; the dense and MoE families): the embedding and the
+    # readout split the vocabulary over "model", each layer's heads, MLP
+    # columns or experts split over it, and the logits come back whole (an
+    # all-gather over the vocabulary's axes, then over the batch's), as the
+    # reference's ``out_shardings`` replicate them.
+
+    def prefill_mesh(self, w, tokens, batch_axes, max_seq, kv_spec):
+        """{position: (B_loc, S) ids} split over ``batch_axes`` → (the
+        last position's logits (B, 1, V) float32, whole, on the first
+        position's device; {"k", "v"}: {position: the block of the (L, B,
+        Smax, KV, hd) cache under ``kv_spec``})."""
+        h = self._embed_mesh(w, tokens)
+        angles = self._angles_mesh(h)
+        layer_spec = sm.canonical(kv_spec)[1:]
+        kvs = []
+        for i, blk in enumerate(self.blocks):
+            h, kv = blk.prefill_mesh(w.sub(f"blocks.{i}"), h, angles,
+                                     batch_axes, max_seq=max_seq,
+                                     kv_spec=layer_spec)
+            kvs.append(kv)
+        cache = {n: {p: torch.stack([kv[n][p] for kv in kvs])
+                     for p in h} for n in ("k", "v")}
+        last = {p: x[:, -1:] for p, x in h.items()}
+        return self._whole_logits(w, last, batch_axes), cache
+
+    def decode_mesh(self, w, tokens, cache, batch_axes, kv_spec):
+        """{position: (B_loc, 1) ids} → (logits (B, 1, V) float32, whole,
+        on the first position's device; the cache, its K/V
+        ``ShardedArray`` leaves written in place, index + 1)."""
+        index = cache["index"]
+        h = self._embed_mesh(w, tokens)
+        angles = self._angles_mesh(h, start=index)
+        layer_spec = sm.canonical(kv_spec)[1:]
+        layers = cache["layers"]
+        for i, blk in enumerate(self.blocks):
+            h = blk.decode_mesh(w.sub(f"blocks.{i}"), h, angles, batch_axes,
+                                {n: leaf[i] for n, leaf in layers.items()},
+                                index, layer_spec)
+        return (self._whole_logits(w, h, batch_axes),
+                {**cache, "index": index + 1})
+
+    def _whole_logits(self, w, h, batch_axes):
+        """{position: (B_loc, S, d) hidden} → the float32 logits (B, S, V)
+        after the final norm, gathered whole: the first position's."""
+        mesh = w.mesh
+        logits, _, vocab = self.logits_mesh(
+            w, norm_mesh(self.ln_f, w.sub("ln_f"), h))
+        if vocab:
+            logits = sm.all_gather(logits, vocab, mesh, dim=2)
+        if batch_axes:
+            logits = sm.all_gather(logits, batch_axes, mesh, dim=0)
+        return logits[sm.positions(mesh)[0]]
 
     def _encode_mesh(self, w, frames):
         """``_encode`` over a mesh: {position: (B_loc, S_enc, d) frames} →
@@ -281,7 +400,8 @@ class LM(nn.Module):
         x = {p: f.to(self.cfg.cdtype) for p, f in frames.items()}
         angles = self._angles_mesh(x)
         for i, blk in enumerate(self.enc_blocks):
-            x = blk.forward_mesh(w.sub(f"enc_blocks.{i}"), x, angles)
+            x = remat(self.cfg, lambda x, blk=blk, i=i: blk.forward_mesh(
+                w.scoped(f"enc_blocks.{i}"), x, angles), x)
         return norm_mesh(self.ln_enc, w.sub("ln_enc"), x)
 
     def _hybrid_mesh(self, w, h, angles):
@@ -290,15 +410,19 @@ class LM(nn.Module):
         (split over "data" alone: every "model" rank runs all of it)."""
         emb0 = h
         n = len(self.shared)
-        for g, group, shared, _ in self._groups():
+
+        def group_body(h, g, group, shared, w):
             for i, blk in enumerate(group):
                 h = blk.forward_mesh(w.sub(f"blocks.{g}.{i}"), h)
             x2 = shared.forward_mesh(w.sub(f"shared.{g % n}"), {
                 p: torch.cat([x, emb0[p]], dim=-1) for p, x in h.items()},
                 angles)
             down = w(f"down.{g}.w")
-            h = {p: x + x2[p].to(self.cfg.cdtype) @ down[p]
-                 for p, x in h.items()}
+            return {p: x + x2[p].to(self.cfg.cdtype) @ down[p]
+                    for p, x in h.items()}
+        for g, group, shared, _ in self._groups():
+            h = remat(self.cfg, lambda h, g=g, group=group, shared=shared:
+                      group_body(h, g, group, shared, w.scoped()), h)
         return h
 
     @staticmethod
@@ -326,7 +450,7 @@ class LM(nn.Module):
         angles = _angles(self.cfg, B, Se, device=frames.device)
         x = frames.to(self.cfg.cdtype)
         for blk in self.enc_blocks:
-            x = blk(x, angles=angles, train=train)
+            x = run_block(self.cfg, blk, x, angles=angles, train=train)
         return self.ln_enc(x)
 
     def _groups(self):
@@ -342,10 +466,8 @@ class LM(nn.Module):
         projection."""
         emb0 = h
         for _, group, shared, down in self._groups():
-            for blk in group:
-                h = blk(h, train=train)
-            h = h + down(shared(torch.cat([h, emb0], dim=-1), angles=angles,
-                                train=train), train=train)
+            h = run_block(self.cfg, _HybridGroup(group, shared, down), h,
+                          emb0, angles=angles, train=train)
         return h
 
     # ------------------------------------------------------------- cache
@@ -463,15 +585,7 @@ class LM(nn.Module):
     def _kv_to_ring(self, k, v, max_seq):
         """Lay full-sequence K/V out as the ring cache sized for ``max_seq``
         (position p lives at slot p % W)."""
-        S = k.shape[1]
-        W = Attention.cache_len(self.cfg, max_seq)
-        if W < S:
-            shift = (S - W) % W
-            k = torch.roll(k[:, S - W:], shift, dims=1)
-            v = torch.roll(v[:, S - W:], shift, dims=1)
-        elif W > S:
-            pad = (0, 0, 0, 0, 0, W - S)
-            k, v = F.pad(k, pad), F.pad(v, pad)
+        k, v = Attention.to_ring(self.cfg, k, v, max_seq)
         return {"k": k, "v": v}
 
     # ------------------------------------------------------------- decode

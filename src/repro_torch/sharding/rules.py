@@ -21,7 +21,8 @@ per dim ``None``, one mesh axis name or a tuple of names, trailing ``None``
 dropped.  It reads a mesh only through ``axis_names`` and
 ``devices.shape``.  The port has no partitioner: a sharded replica
 (``serving/replica.py``) places each shard on its device itself from these
-specs, so ``constrain`` returns its input unchanged.
+specs, and the mesh train and serve steps are written shard by shard from
+them (``shard_map``), so ``constrain`` returns its input unchanged.
 """
 from __future__ import annotations
 

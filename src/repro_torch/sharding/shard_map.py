@@ -23,7 +23,10 @@ together (the first position holding each block gives it).
 stand-in for a jax Array under a ``NamedSharding``, as ``ShardedCache``
 (``serving/slots.py``) keeps a pool's shards.  ``device_put`` places a
 tensor (or a tree, by a tree of ``NamedSharding`` from
-``tree_shardings``) that way.
+``tree_shardings``) that way.  ``relayout`` moves blocks from one
+layout to another (gathers over the axes the first splits, then a local
+slice).  ``LoneMesh`` is one position of a mesh alone: the dry-run counts
+one device's program with it.
 
 Collectives reduce over one mesh axis or a tuple of axes.  A reduction
 runs once per group, in rank order, on the device of the group's first
@@ -40,7 +43,8 @@ token of a batch split over the batch axes.  Under a cost counter
 (``launch.cost.CostCounter``) each call, forward or backward, is one
 region: its own ops count no FLOPs and no bytes, and it records ``(kind,
 result bytes, group size)`` once, as every device runs each collective
-once in the reference's per-device program.
+once in the reference's per-device program; over a ``LoneMesh`` it
+returns a stand-in and records the same.
 """
 from __future__ import annotations
 
@@ -76,8 +80,40 @@ def canonical(spec) -> tuple:
 
 
 def positions(mesh) -> list[tuple[int, ...]]:
-    """Every mesh position, row-major."""
+    """Every mesh position, row-major; a lone mesh's one position."""
+    if isinstance(mesh, LoneMesh):
+        return [mesh.position]
     return list(np.ndindex(mesh.devices.shape))
+
+
+class LoneMesh:
+    """One position of a mesh: the per-device program of the reference's
+    dry-run, counted on one card.  It keeps the whole mesh's ``axis_names``
+    and ``devices`` (so ``spec_for``, ``axis_size`` and ``axis_index`` read
+    the full mesh's sizes and this position's indices), but ``positions``
+    yields ``position`` alone, and only its blocks exist.  A collective
+    over it has one member a group and returns a stand-in of its result's
+    shape and dtype: a reduction its member's value (a mean divided by the
+    group's size), an all-gather that value repeated over the group, a
+    reduce-scatter its rank's slice; it records ``(kind, result bytes,
+    group size)`` as the whole mesh's run does.  So a lone run's FLOPs,
+    bytes and collectives are one device's, and its values are not the
+    model's: only their shapes and finiteness can be checked."""
+
+    def __init__(self, mesh, position):
+        self.mesh = mesh
+        self.axis_names = tuple(mesh.axis_names)
+        self.devices = mesh.devices
+        self.position = tuple(int(i) for i in position)
+        if len(self.position) != self.devices.ndim or any(
+                not 0 <= i < n for i, n in zip(self.position,
+                                               self.devices.shape)):
+            raise ValueError(f"position {self.position} is not in a mesh of "
+                             f"shape {self.devices.shape}")
+
+
+def is_lone(mesh) -> bool:
+    return isinstance(mesh, LoneMesh)
 
 
 def axis_size(mesh, axes) -> int:
@@ -159,6 +195,9 @@ def join(blocks: dict, spec, mesh, device=None) -> torch.Tensor:
     device = first.device if device is None else torch.device(device)
     if not spec:
         return first.to(device)
+    if is_lone(mesh):
+        raise ValueError("a lone mesh position holds one block: the whole "
+                         "tensor cannot be joined from it")
     shape = tuple(n * axis_size(mesh, spec[d] if d < len(spec) else None)
                   for d, n in enumerate(first.shape))
     out = torch.empty(shape, dtype=first.dtype, device=device)
@@ -217,7 +256,10 @@ class ShardedArray:
 
 
 def same_layout(a: ShardedArray, spec, mesh) -> bool:
-    return (a.spec == canonical(spec) and a.mesh.axis_names == mesh.axis_names
+    return (a.spec == canonical(spec) and is_lone(a.mesh) == is_lone(mesh)
+            and getattr(a.mesh, "position", None) == getattr(
+                mesh, "position", None)
+            and a.mesh.axis_names == mesh.axis_names
             and a.mesh.devices.shape == mesh.devices.shape
             and all(_device_key(d1) == _device_key(d2) for d1, d2 in zip(
                 a.mesh.devices.flat, mesh.devices.flat)))
@@ -420,12 +462,41 @@ def all_gather(vals, axes, mesh, dim: int = 0) -> dict:
     order, concatenated along ``dim``.  Its backward is a reduce-scatter
     of the cotangents, each distinct result once (FSDP's gradient)."""
     size = next(iter(vals.values())).shape[dim]
+    n = axis_size(mesh, axes)
 
     def bwd(g):
         return _collective("reduce-scatter", g, axes, mesh, _sum,
                            scatter=(dim, size), distinct=True)
+    # a lone mesh's group has one member: its value stands for each rank's
     return _exchange(vals, lambda v: _collective(
-        "all-gather", v, axes, mesh, lambda xs: torch.cat(xs, dim)), bwd)
+        "all-gather", v, axes, mesh,
+        lambda xs: torch.cat(xs * (n // len(xs)), dim)), bwd)
+
+
+def relayout(vals: dict, src, dst, mesh) -> dict:
+    """Per-position blocks of one global tensor laid out by ``src`` → its
+    blocks under ``dst``: a dim split over other axes in ``src`` is
+    all-gathered over them first (``all_gather``), then each position
+    slices its own part of each dim ``dst`` splits.  What the
+    partitioner inserts between two layouts, as gathers and local
+    slices."""
+    src, dst = canonical(src), canonical(dst)
+    ndim = next(iter(vals.values())).ndim
+    entry = lambda spec, d: axes_of(spec[d] if d < len(spec) else None)
+    for d in range(ndim):
+        a, b = entry(src, d), entry(dst, d)
+        if a and a != b and axis_size(mesh, a) > 1:
+            vals = all_gather(vals, a, mesh, dim=d)
+    out = {}
+    for pos, x in vals.items():
+        for d in range(ndim):
+            a, b = entry(src, d), entry(dst, d)
+            k = axis_size(mesh, b)
+            if b and b != a and k > 1:
+                n = x.shape[d] // k
+                x = x.narrow(d, axis_index(mesh, pos, b) * n, n)
+        out[pos] = x
+    return out
 
 
 def token_mean(num, den, axes, mesh) -> dict:

@@ -2,13 +2,21 @@
 simulator (the "grounding loop"; ``repro.sim.roofline_db`` on H100
 constants).
 
-Reads results/torch_dryrun/<arch>__<shape>__<mesh>.json (written by
-repro_torch.launch.dryrun: one card's share of a cell, counted and timed on
-it) and derives the three roofline terms per device:
+Reads results/torch_dryrun/<arch>__<shape>__<mesh>.json, written by
+``repro_torch.launch.dryrun``, and derives the three roofline terms per
+device:
 
     compute    = FLOPs_dev / PEAK_FLOPS
     memory     = bytes_dev / HBM_BW
     collective = coll_bytes_dev / ICI_BW
+
+The mesh tags are the reference's: ``single`` the (16, 16) ("data",
+"model") production mesh (256 chips), ``multi`` the (2, 16, 16) one (512
+chips); the port counts one lone position of the mesh, so its record
+holds one device's FLOPs, bytes and wire bytes, as the reference's
+per-device XLA count does, and ``chips`` comes from the record.  ``card``
+is one card's share of a cell on one device (chips 1), which the planner
+(``ServiceProfile.from_db``) reads.
 
 A record in the reference's format reads as the reference reads it: scan
 bodies are counted once by XLA's cost analysis, so totals prefer the
@@ -20,8 +28,10 @@ step_time_s() = max(terms) (perfect-overlap roofline).
 
 When a cell's JSON is missing (dry-run still running), an analytic fallback
 estimates the terms from the model config — benchmarks stay runnable, and
-the report marks which cells are measured vs estimated.  It counts the
-ShapeCfg's whole work on one card (chips = 1).
+the report marks which cells are measured vs estimated.  It divides the
+ShapeCfg's whole work over the tag's chips (``MESH_CHIPS``: 256 for
+``single``, as the reference's fallback, 512 for ``multi``, 1 for
+``card``).
 """
 from __future__ import annotations
 
@@ -38,6 +48,8 @@ HBM_BW = 3.35e12             # bytes/s
 ICI_BW = 450e9               # bytes/s, NVLink, one direction
 
 DEFAULT_DIR = Path("results/torch_dryrun")
+# the chips of each mesh tag's cell (the analytic fallback's divisor)
+MESH_CHIPS = {"single": 256, "multi": 512, "card": 1}
 
 
 def ssm_scan_flops(cfg, shape) -> float:
@@ -127,14 +139,13 @@ class RooflineDB:
                               coll_bytes=max(coll, 0.0), chips=chips,
                               measured=True, mem_per_dev=mem_b)
         else:
-            t = self._analytic(cfg, shape)
+            t = self._analytic(cfg, shape, MESH_CHIPS.get(mesh, 256))
         self._cache[key] = t
         return t
 
     # ------------------------------------------------------- analytic fallback
 
-    def _analytic(self, cfg, shape) -> RooflineTerms:
-        chips = 1
+    def _analytic(self, cfg, shape, chips: int) -> RooflineTerms:
         n_active = cfg.active_params()
         if shape.kind == "train":
             tokens = shape.global_batch * shape.seq_len

@@ -50,8 +50,10 @@ class ServiceProfile:
     @classmethod
     def from_db(cls, db: RooflineDB, arch: str, *, data_axis: int = 16,
                 model_axis: int = 1) -> "ServiceProfile":
-        dec = db.terms(arch, "decode_32k")
-        pre = db.terms(arch, "prefill_32k")
+        """The profile of one replica from the ``card`` cells of ``db`` (the
+        one-card share: one replica a card)."""
+        dec = db.terms(arch, "decode_32k", "card")
+        pre = db.terms(arch, "prefill_32k", "card")
         from repro_torch.models import SHAPES
         slots = SHAPES["decode_32k"].global_batch // data_axis
         # the prefill_32k cell runs global_batch prompts across data_axis

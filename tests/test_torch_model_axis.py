@@ -694,10 +694,13 @@ def test_make_production_mesh(multi_pod):
 
 
 def test_dryrun_mesh_multi_refusal_names_the_partitioner(capsys, tmp_path):
+    """``--mesh multi`` counts a lone position of the (2, 16, 16) mesh; a
+    serve cell of a family with no serve partition over a mesh is refused
+    by name."""
     with pytest.raises(SystemExit) as e:
-        dryrun.main(["--mesh", "multi", "--arch", "qwen2.5-3b", "--out",
-                     str(tmp_path)])
+        dryrun.main(["--mesh", "multi", "--arch", "falcon-mamba-7b",
+                     "--shape", "decode_32k", "--out", str(tmp_path)])
     assert e.value.code != 0
     err = capsys.readouterr().err
-    assert "no partitioner" in err and "split-K" in err
+    assert "no serve partition over a mesh" in err and "not split" in err
     assert "not ported" not in err

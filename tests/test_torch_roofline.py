@@ -149,11 +149,26 @@ def test_h100_constants():
                                   "olmoe-1b-7b", "falcon-mamba-7b"])
 def test_analytic_fallback_is_the_reference_on_one_card(tmp_path, arch,
                                                         shape):
-    got = RooflineDB(tmp_path).terms(arch, shape)
+    got = RooflineDB(tmp_path).terms(arch, shape, "card")
     want = ref_db.RooflineDB(tmp_path).terms(arch, shape)
     assert not got.measured and got.chips == 1
     assert (got.flops, got.bytes, got.coll_bytes) == (
         want.flops * 256, want.bytes * 256, want.coll_bytes * 256)
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "zamba2-2.7b",
+                                  "olmoe-1b-7b", "falcon-mamba-7b"])
+def test_analytic_fallback_on_the_production_meshes(tmp_path, arch, shape):
+    """``single`` is the reference's 16 x 16 cell, its fallback the
+    reference's exactly; ``multi`` divides the same work over 512."""
+    want = ref_db.RooflineDB(tmp_path).terms(arch, shape)
+    single = RooflineDB(tmp_path).terms(arch, shape, "single")
+    multi = RooflineDB(tmp_path).terms(arch, shape, "multi")
+    assert not single.measured and (single.chips, multi.chips) == (256, 512)
+    assert (single.flops, single.bytes, single.coll_bytes) == (
+        want.flops, want.bytes, want.coll_bytes)
+    assert multi.flops == pytest.approx(want.flops / 2, rel=1e-12)
 
 
 def test_scan_flops_counted_skips_the_ssm_correction(tmp_path):
@@ -187,16 +202,18 @@ def test_cpu_dryrun_cells_ground_the_planner(tmp_path):
     for name, kind in (("decode_32k", "decode"), ("prefill_32k", "prefill")):
         rec = dryrun.analyze_cell(cfg, ShapeCfg(name, 24, 32, kind), "cpu",
                                   reps=1)
-        dryrun.cell_path(tmp_path, arch, name).write_text(json.dumps(rec))
+        dryrun.cell_path(tmp_path, arch, name, "card").write_text(
+            json.dumps(rec))
     db = RooflineDB(tmp_path)
     for name in ("decode_32k", "prefill_32k"):
-        t = db.terms(arch, name)
+        t = db.terms(arch, name, "card")
         rec = json.loads(dryrun.cell_path(tmp_path, arch, name).read_text())
         assert t.measured and t.chips == 1
         assert t.flops == rec["cost"]["flops"]      # no SSM correction
     profile = ServiceProfile.from_db(db, arch)
     assert (profile.chips_per_replica, profile.slots) == (1, 8)
-    assert profile.prefill_32k_s == db.terms(arch, "prefill_32k").step_time / 2
+    assert profile.prefill_32k_s == db.terms(arch, "prefill_32k",
+                                             "card").step_time / 2
     fields = dataclasses.asdict(profile)
     # the smoke cell's profile, and one at a card's scale, where decisions
     # change with the load

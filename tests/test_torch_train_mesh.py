@@ -370,7 +370,8 @@ def test_padded_heads_equal_the_reference(H, KV, m):
                           np.asarray(q).reshape(d, Hp * hd))
 
 
-def test_collectives_of_one_step_follow_the_layout():
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_collectives_of_one_step_follow_the_layout(remat):
     """qwen2.5-3b smoke (2 layers, 4 heads over 2 KV heads, d_ff 64, tied
     vocab 128) on (2, 2): every weight matrix is split over "data" on its
     embed dim (7 a layer and the table), so each is all-gathered over
@@ -380,9 +381,11 @@ def test_collectives_of_one_step_follow_the_layout():
     backward); the token mean one psum over "data" (1 backward); the
     biases (split over "model") psum their gradients over "data", the
     norms (replicated) over both axes; the global norm one psum over
-    both."""
-    cfg = get_smoke_config("qwen2.5-3b")
+    both.  With ``remat="full"`` each layer's recompute runs its forward
+    collectives again: its 7 gathers and its 2 "model" psums."""
+    cfg = dataclasses.replace(get_smoke_config("qwen2.5-3b"), remat=remat)
     L = cfg.n_layers
+    again = remat != "none"
     step, (opt_init, _) = steps.make_train_step(cfg)
     mesh = cpu_mesh((2, 2))
     model = steps.init_train_state(0, cfg, opt_init, device="cpu").params
@@ -391,9 +394,10 @@ def test_collectives_of_one_step_follow_the_layout():
         step(state, port_batches(cfg, n=1, batch=2)[0])
     got = collections.Counter((k, n) for k, _, n in c.collectives)
     gathered = 7 * L + 1
-    want = {("all-gather", 2): gathered,
+    want = {("all-gather", 2): gathered + again * 7 * L,
             ("reduce-scatter", 2): gathered,
             ("all-reduce", 2): (2 * (2 * L + 1)          # "model" psums
+                                + again * 2 * L         # their recompute
                                 + 1 + 2 * 2             # CE
                                 + 2                     # token mean
                                 + 3 * L),               # bias gradients

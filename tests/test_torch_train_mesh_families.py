@@ -271,7 +271,11 @@ def test_each_position_scans_its_own_channels_or_heads(arch, shape,
     mesh = cpu_mesh(shape)
     model = steps.init_train_state(0, cfg, opt_init, device="cpu").params
     run(step, mesh_state(cfg, mesh, model), port_batches(cfg, n=1), mesh)
-    assert calls == [want] * (cfg.n_layers * shape[0] * shape[1])
+    # under remat ("full", the configs' default) each layer's recompute
+    # scans again
+    again = cfg.remat != "none"
+    assert calls == [want] * (cfg.n_layers * shape[0] * shape[1]
+                              * (1 + again))
 
 
 def test_replicated_ssm_leaves_take_the_summed_gradient():
@@ -294,8 +298,8 @@ def test_replicated_ssm_leaves_take_the_summed_gradient():
         assert float((got - want).abs().max()) <= TOL * top, k
 
 
-def _collectives(arch):
-    cfg = get_smoke_config(arch)
+def _collectives(arch, remat):
+    cfg = dataclasses.replace(get_smoke_config(arch), remat=remat)
     step, (opt_init, _) = steps.make_train_step(cfg)
     mesh = cpu_mesh((2, 2))
     model = steps.init_train_state(0, cfg, opt_init, device="cpu").params
@@ -321,7 +325,8 @@ def _plus(*counts):
     return dict(out)
 
 
-def test_collectives_of_one_falcon_step_follow_the_layout():
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_collectives_of_one_falcon_step_follow_the_layout(remat):
     """falcon-mamba-7b smoke (2 layers, d 32, d_inner 64, N 4, dt_rank 2)
     on (2, 2), batch 2 x 16.  A layer: ``in_proj`` (data, model) gathered
     whole, over "data" then "model", and ``out_proj`` (model, data) over
@@ -329,25 +334,31 @@ def test_collectives_of_one_falcon_step_follow_the_layout():
     "model" of the (1, 16, 10) partial products and the ``out_proj`` psum,
     each with its backward psum; the gradient psums over "data" of the
     leaves split over "model" alone (conv w and b, x_proj, dt_proj w and
-    b, A_log, D: 7) and over both axes of the replicated ``ln``."""
-    cfg, recs = _collectives("falcon-mamba-7b")
+    b, A_log, D: 7) and over both axes of the replicated ``ln``.  With
+    ``remat="full"`` each layer's recompute runs its 3 gathers and its 2
+    forward psums again."""
+    cfg, recs = _collectives("falcon-mamba-7b", remat)
     L, d, di = cfg.n_layers, cfg.d_model, cfg.d_inner
     R, N = cfg.dt_rank, cfg.ssm.d_state
-    layer = {("all-gather", 2): 3, ("reduce-scatter", 2): 3,
-             ("all-reduce", 2): 2 * 2 + 7, ("all-reduce", 4): 1}
+    again = remat != "none"
+    layer = {("all-gather", 2): 3 + again * 3, ("reduce-scatter", 2): 3,
+             ("all-reduce", 2): 2 * 2 + 7 + again * 2,
+             ("all-reduce", 4): 1}
     want = _plus(EMBED_AND_LOSS, *[layer] * L)
     assert dict(collections.Counter((k, n) for k, _, n in recs)) == want
     got = collections.Counter(recs)
     f32 = 4
     # in_proj whole over "model" (d, 2 di), and its reduce-scatter back to
     # the (d, di) block the "data" gather made
-    assert got[("all-gather", d * 2 * di * f32, 2)] == L
+    assert got[("all-gather", d * 2 * di * f32, 2)] == L * (1 + again)
     assert got[("reduce-scatter", d * di * f32, 2)] == L
-    # the x_proj psum, forward and backward: (B_loc, S, R + 2N)
-    assert got[("all-reduce", S * (R + 2 * N) * f32, 2)] == 2 * L
+    # the x_proj psum, forward (and its recompute) and backward: (B_loc, S,
+    # R + 2N)
+    assert got[("all-reduce", S * (R + 2 * N) * f32, 2)] == (2 + again) * L
 
 
-def test_collectives_of_one_zamba2_step_follow_the_layout():
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_collectives_of_one_zamba2_step_follow_the_layout(remat):
     """zamba2-2.7b smoke (4 Mamba2 layers in 2 groups, 2 shared blocks,
     d 32, d_inner 64, 8 heads, N 8) on (2, 2), batch 2 x 16.  A Mamba2
     layer: ``in_proj`` gathered whole (over "data", then "model"), the
@@ -360,26 +371,31 @@ def test_collectives_of_one_zamba2_step_follow_the_layout():
     group here): 7 weights gathered over "data", the attention's and the
     MLP's psums with their backward, its two norms' gradient psums over
     both axes.  A group's ``down``, split over "data" alone: one gather,
-    one reduce-scatter, its gradient psummed over "model"."""
-    cfg, recs = _collectives("zamba2-2.7b")
+    one reduce-scatter, its gradient psummed over "model".  With
+    ``remat="full"`` each group is one checkpoint: its recompute runs the
+    group's gathers (its shared block's among them) and forward psums
+    again."""
+    cfg, recs = _collectives("zamba2-2.7b", remat)
     A, d, di = cfg.n_layers, cfg.d_model, cfg.d_inner
     G = A // cfg.hybrid.attn_every
-    mamba2 = {("all-gather", 2): 5, ("reduce-scatter", 2): 5,
-              ("all-reduce", 2): 2 * 2 + 3, ("all-reduce", 4): 1 + 3}
-    shared = {("all-gather", 2): 7, ("reduce-scatter", 2): 7,
-              ("all-reduce", 2): 2 * 2, ("all-reduce", 4): 2}
-    down = {("all-gather", 2): 1, ("reduce-scatter", 2): 1,
+    again = remat != "none"
+    mamba2 = {("all-gather", 2): 5 + again * 5, ("reduce-scatter", 2): 5,
+              ("all-reduce", 2): 2 * 2 + 3 + again * 2,
+              ("all-reduce", 4): 1 + 3}
+    shared = {("all-gather", 2): 7 + again * 7, ("reduce-scatter", 2): 7,
+              ("all-reduce", 2): 2 * 2 + again * 2, ("all-reduce", 4): 2}
+    down = {("all-gather", 2): 1 + again, ("reduce-scatter", 2): 1,
             ("all-reduce", 2): 1}
     want = _plus(EMBED_AND_LOSS, *[mamba2] * A, *[shared] * G, *[down] * G)
     assert dict(collections.Counter((k, n) for k, _, n in recs)) == want
     got = collections.Counter(recs)
     f32 = 4
     cols = 2 * di + 2 * cfg.ssm.d_state + cfg.ssm_heads
-    assert got[("all-gather", d * cols * f32, 2)] == A
+    assert got[("all-gather", d * cols * f32, 2)] == A * (1 + again)
     assert got[("reduce-scatter", d * cols // 2 * f32, 2)] == A
     # the norm's psum of (B_loc, S, 1) and the CE's pmax and 4 psums of
     # (B_loc, S): the same size
-    assert got[("all-reduce", S * f32, 2)] == 2 * A + 5
+    assert got[("all-reduce", S * f32, 2)] == (2 + again) * A + 5
     # the replicated (H,) leaves' gradient psums over both axes
     assert got[("all-reduce", cfg.ssm_heads * f32, 4)] == 3 * A
 
