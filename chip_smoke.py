@@ -20,7 +20,9 @@ with padded heads and the elastic re-mesh restore, phase 14 training
 the SSM, hybrid, VLM and encoder-decoder families over such a mesh, and
 phase 15 the dry-run on the production mesh: the serve steps partitioned
 under ``serve_rules``, lone positions of the (16, 16) and (2, 16, 16)
-meshes, and the training peaks under remat.
+meshes, and the training peaks under remat, and phase 16 the same serve
+partition and lone cells for the SSM, hybrid, VLM and encoder-decoder
+families.
 Each phase's wall time is printed.  Any failure exits non-zero and prints
 no result line.
 
@@ -410,6 +412,26 @@ no result line.
               loss and gradients at 2 x 256, remat "none" and "full"
               (bitwise equal) and 2 x 1024, and "full" at 2 x 2048
               (where "none" runs out of memory).
+16. families — phase 15 (a) and (b) for falcon-mamba-7b (8 of 64
+              layers), zamba2-2.7b (12 of 54: two hybrid groups),
+              qwen2-vl-7b (4 of 28 layers; 2 x 1224 tokens, 1024 of them
+              patch rows, ring 2048) and seamless-m4t-medium (6 + 6 of
+              12 + 12 layers; 2 x 512 frames and tokens): (a) on (2, 2)
+              on cuda:0, bf16 beside one device, qwen2-vl's and
+              seamless's logits and cache leaves within AXIS_GAP, the SSM families' against a float32 copy of
+              the same weights (the witness: for the logits and every
+              cache leaf, the mesh's gap to it within WITNESS_RATIO x one
+              device's; FAMILY_BF16_NOTE), and a float32 copy at
+              SERVE_F32_LAYERS layers (zamba2's in two hybrid groups, both
+              shared blocks) within AXIS_F32_TOL x max(1, max |value|), each
+              cache leaf at its own scale, its lone positions' collectives
+              held to the full run's; K7 once a Mamba2 layer and K4 once
+              a causal attention layer on each position.  (b)
+              LONE_FAMILY_CELLS at full width and depth with their
+              per-device counts, the largest sources of each cell's wire
+              bytes (``collective_sizes``) and exact launches; falcon's
+              and seamless's ``prefill_32k`` named as left out
+              (LONE_LEFT_OUT).
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -616,14 +638,15 @@ def ssd_inputs(torch, g, Bsz, L, H=80, hd=64, N=64):
 # the closed control loop, LoopConfig(): 4 slots, max_seq 48, a first
 # prefill chunk of 8 tokens (16-token prompts, 8 generated), 14 ticks of 10
 # router steps; its write-instance checks write key 0 and key 47 in each
-# regime; torch.profiler records the first 3 router steps of tick 5 (the
-# spike): summing a whole tick of four replicas' events took 47-57 s
+# regime; torch.profiler records the first router step of tick 5 (the
+# spike): its trace is parsed on the host in proportion to its events
+# (summing a whole tick of four replicas' took 47-57 s)
 LOOP_TICKS, LOOP_SLOTS, LOOP_MAX_SEQ, LOOP_CHUNK = 14, 4, 48, 8
 LOOP_WRITE_INDICES = {"fresh": [0, 17, 47, 9],
                       "wrapped": [48, 95, 101, 68],
                       "mixed": [0, 53, 47, 143]}
 LOOP_PROFILED = (5, 5)
-LOOP_PROFILED_STEPS = 3
+LOOP_PROFILED_STEPS = 1
 # the allocator's DQN, card against CPU
 DQN_TOL, DQN_STEPS, DQN_TRANSITIONS = 1e-4, 10, 256
 SAMPLE_SHAPES = {"qwen2.5-3b": (8, 151936), "zamba2-2.7b": (8, 32000),
@@ -1850,6 +1873,12 @@ def range_shares(prof, ranges, n, device_ms):
                    for label in ranges)
 
 
+# ticks torch.profiler records for a tick's device time (its trace is
+# parsed on the host in proportion to its events, inside the run's time
+# limit)
+PROFILED_TICKS = 3
+
+
 def profile_ticks(torch, eng, label, n, n_prof, counted=None,
                   annotate=contextlib.nullcontext, ranges=()):
     """Host time per tick over ``n`` unprofiled ticks, then device time per
@@ -2009,7 +2038,7 @@ def profile_dense_tick(torch, core, label, requests=None, **kw):
     what = "weights and cross K/V" if cfg.enc_dec else "weights"
     print(f"  {label}: a tick reads at least {gb:.2f} GB of {what}, a byte "
           f"floor of {floor_ms:.3f} ms at 3.35 TB/s")
-    profile_ticks(torch, eng, label, n=20, n_prof=10, **kw)
+    profile_ticks(torch, eng, label, n=20, n_prof=PROFILED_TICKS, **kw)
 
 
 def profile_phase(torch, core, prompts):
@@ -2029,7 +2058,7 @@ def profile_phase(torch, core, prompts):
         eng.step(now=0.0)
     with counted_steps(core) as calls:
         profile_ticks(torch, eng, f"paged + spec_k={SPEC_K}", n=10,
-                      n_prof=5, counted=calls)
+                      n_prof=PROFILED_TICKS, counted=calls)
     del eng
     free(torch)
     profile_admission(torch, core)
@@ -3947,7 +3976,9 @@ def train_phase(torch, ops, add):
 # the queueing model over those cells; the planner sized against them
 DRY_ARCHS = ("h2o-danube-1.8b", "qwen2.5-3b", "zamba2-2.7b")
 DRY_SHAPES = ("decode_32k", "prefill_32k")
-DRY_REPS = 2
+# timed steps after the counted one (one, to keep the whole run inside its
+# time limit)
+DRY_REPS = 1
 # smoke width, card against CPU: the small shapes whose counts must agree
 DRY_SMOKE = ((48, 32, "decode"), (40, 32, "prefill"))
 PLANNER_RPS = (20.0, 40.0, 80.0, 160.0)
@@ -5469,14 +5500,15 @@ BF16_NOISY_GRAD_NORM = ("zamba2-2.7b",)
 
 
 def family_gathers(cfg) -> tuple[int, int]:
-    """The "data" (all-gathers, reduce-scatters) of one (2, 2) mesh step:
+    """The (all-gathers, reduce-scatters) over 2 of one (2, 2) mesh step:
     the table (and an untied readout) once, and each weight split over
-    "data" once a layer, ``in_proj`` twice (over "data", then whole over
-    "model"), a shared block once however many groups read it; each
-    gather's backward a reduce-scatter.  Under ``remat`` ("full", the
-    configs' default) each layer or hybrid group is one checkpoint: it
-    gathers its weights itself (a shared block once a group) and its
-    recompute gathers them again."""
+    "data" once a layer, ``in_proj`` twice (over "data", then over "model"
+    whole or, with fewer rows than d_model as here, each rank's product:
+    ``mamba.project_columns``), a shared block once however many groups
+    read it; each gather's backward a reduce-scatter.  Under ``remat``
+    ("full", the configs' default) each layer or hybrid group is one
+    checkpoint: it gathers its weights itself (a shared block once a
+    group) and its recompute gathers them again."""
     again = cfg.remat != "none"
     if cfg.enc_dec:
         outer, layers = 1, 7 * cfg.n_enc_layers + 11 * cfg.n_layers
@@ -5637,7 +5669,8 @@ SERVE_ROWS, SERVE_STEPS = 8, 4               # decode: 8 rows, 4 steps
 # SERVE_F32_LAYERS holds the partition itself to AXIS_F32_TOL x max(1,
 # max |logit|), its caches to AXIS_F32_TOL x max(1, max |K/V|)
 SERVE_F32_LAYERS = 4
-LONE_REPS = 2
+# timed steps of a lone cell after the counted one (one: the time limit)
+LONE_REPS = 1
 LONE_CELLS = (("qwen2.5-3b", "decode_32k", "single"),
               ("qwen2.5-3b", "prefill_32k", "single"),
               ("qwen2.5-3b", "train_4k", "single"),
@@ -5652,17 +5685,15 @@ REMAT_RUNS = (((2, 256), ("none", "full")), ((2, 1024), ("none", "full")),
 # the peaks PRs measured without remat (PERF.md): phase 9's one device and
 # phase 13's (2, 2) mesh at 2 x 256
 NO_REMAT_PEAKS = {"9": 63.17, "13 mesh": 52.57}
-# (c): phase 9's whole step timed under each remat, this many a turn
-REMAT_STEP_REPS = 3
+# (c): phase 9's whole step timed under each remat, this many a turn (one:
+# the time limit)
+REMAT_STEP_REPS = 1
 
 
-def lone_view(torch, tree, lone):
-    """A lone position's view of laid-out leaves: each ``ShardedArray``'s
-    block at ``lone.position`` (cloned with ``clone``)."""
-    from repro_torch.sharding import ShardedArray
-    return {k: ShardedArray({lone.position: a.blocks[lone.position]},
-                            a.spec, lone, a.shape, a.dtype)
-            for k, a in tree.items()}
+def cache_leaves(tree) -> dict:
+    """{path: leaf} of a cache tree, "index" aside."""
+    from repro_torch.sharding import shard_map as sm
+    return {k: v for k, v in sm.tree_leaves(tree).items() if k != "index"}
 
 
 def held_lone(torch, step, args_of, mesh, full, label):
@@ -5690,31 +5721,109 @@ def held_lone(torch, step, args_of, mesh, full, label):
               f"{c.kernels} are not a {mesh.size}th of the full run's")
 
 
+def cache_gaps(c1, c2) -> dict:
+    """{leaf: (the largest gap between the one-device cache ``c1`` and the
+    laid out ``c2``, gathered whole; max |leaf| of ``c1``)} over every leaf
+    but "index".  A wrong layout, ring slot or state parts them by the size
+    of an entry."""
+    got = cache_leaves(c2)
+    out = {}
+    for path, a in cache_leaves(c1).items():
+        a = a.float()
+        out[path] = (float((a - got[path].full().float()).abs().max()),
+                     float(a.abs().max()))
+    return out
+
+
 def cache_gap(c1, c2, tol, relative):
-    """(the largest gap between the one-device caches ``c1`` and the laid
-    out ``c2``, gathered whole, over K and V; its limit): ``tol``, times
-    max(1, max |K/V|) where ``relative``, as the logits are held.  A wrong
-    layout or ring slot parts them by the size of a K/V entry."""
-    gap = top = 0.0
-    for n in ("k", "v"):
-        a = c1["layers"][n].float()
-        gap = max(gap, float((a - c2["layers"][n].full().float()).abs()
-                             .max()))
-        top = max(top, float(a.abs().max()))
-    return gap, tol * (max(1.0, top) if relative else 1.0)
+    """(the largest gap of ``cache_gaps`` over the leaves, each leaf's
+    within its limit): ``tol``, times max(1, the leaf's max |entry|) where
+    ``relative``, as the logits are held."""
+    gaps = cache_gaps(c1, c2)
+    return (max(g for g, _ in gaps.values()),
+            all(g <= tol * (max(1.0, t) if relative else 1.0)
+                for g, t in gaps.values()))
+
+
+def leaf_line(c1, c2) -> str:
+    """Each leaf's gap beside its max |entry|, for the output."""
+    return ", ".join(f"{k} {g:.4g} (max {t:.4g})"
+                     for k, (g, t) in cache_gaps(c1, c2).items())
+
+
+def prefill_kernels(cfg) -> dict:
+    """The kernels one device's prefill launches: K4 on each causal
+    attention layer (a decoder layer, a shared block's application; the
+    encoder is plain), K7 on each Mamba2 layer; Mamba1's scan is plain."""
+    if cfg.hybrid is not None:
+        return {"ssm_scan": cfg.n_layers,
+                "flash_attention": cfg.n_layers // cfg.hybrid.attn_every}
+    if cfg.ssm is not None:
+        return {"ssm_scan": cfg.n_layers} if cfg.ssm.version == 2 else {}
+    return {"flash_attention": cfg.n_layers}
+
+
+def family_inputs(torch, cfg, rng, B, S):
+    """A prefill's inputs at (B, S) from ``rng``, on the card: the tokens,
+    and the family's patches (B, P, d_model) or frames (B, S, d_model) in
+    the compute dtype."""
+    import numpy as np
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, S), dtype=np.int32)).cuda()}
+    extra = {"patches": (B, cfg.n_vision_patches, cfg.d_model)
+             if cfg.family == "vlm" else None,
+             "frames": (B, S, cfg.d_model) if cfg.enc_dec else None}
+    for name, shape in extra.items():
+        if shape is not None:
+            batch[name] = torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).cuda().to(cfg.cdtype)
+    return batch
+
+
+def witness_gaps(one, mesh_, truth) -> dict:
+    """{leaf: (one device's gap to the float32 witness, the mesh's)} of
+    the logits (a tensor each) or of every cache leaf but "index"."""
+    def gaps(a, b, t):
+        t = t.float()
+        return (float((a.float() - t).abs().max()),
+                float((b.float() - t).abs().max()))
+    if not isinstance(truth, dict):
+        return {"logits": gaps(one, mesh_, truth)}
+    got, one = cache_leaves(mesh_), cache_leaves(one)
+    return {path: gaps(one[path], got[path].full(), t)
+            for path, t in cache_leaves(truth).items()}
+
+
+def witness_held(gaps: dict) -> bool:
+    """Each of ``witness_gaps``' leaves: the mesh's gap to the witness
+    within WITNESS_RATIO × one device's (an integer leaf exact where one
+    device is)."""
+    return all(m <= WITNESS_RATIO * o for o, m in gaps.values())
+
+
+def witness_line(gaps: dict) -> str:
+    return ", ".join(f"{k} {o:.4g} / {m:.4g}" for k, (o, m) in gaps.items())
 
 
 def serve_mesh_run(torch, ops, cfg, counts, label, tol=AXIS_GAP,
-                   relative=False):
+                   relative=False, *, prompt=SERVE_PROMPT, ring=SERVE_RING,
+                   decode_prompt=SERVE_PROMPT // 2, witness=False,
+                   lone=True):
     """(a) one config at full width, bf16 weights: the one-device prefill
-    (2 prompts of SERVE_PROMPT into a SERVE_RING ring) and SERVE_STEPS
-    decode steps of SERVE_ROWS rows beside the partitioned steps over the
-    weights laid out on SERVE_MESH on cuda:0 under ``serve_rules``, fed the
-    same tokens: logits within ``tol`` (× max(1, max |logit|) where
-    ``relative``), the K/V caches by the same rule (``cache_gap``);
-    K4's launches on each position's heads counted into ``counts``, none
-    of a decode kernel; the lone positions' collective records held to the
-    full run's."""
+    (2 prompts of ``prompt`` tokens, and the family's patches or frames,
+    into a ``ring``-slot ring) and SERVE_STEPS decode steps of SERVE_ROWS
+    rows (prefilled with ``decode_prompt`` tokens) beside the partitioned
+    steps over the weights laid out on SERVE_MESH on cuda:0 under
+    ``serve_rules``, fed the same tokens: logits within ``tol`` (×
+    max(1, max |logit|) where ``relative``), every cache leaf by the same
+    rule at its own scale (``cache_gap``); with
+    ``witness`` instead the bf16 logits and cache leaves of the mesh and of
+    one device against the one-device steps of a float32 copy of the same
+    weights fed the same tokens, the mesh's gap within WITNESS_RATIO × one
+    device's (``witness_gaps``); the prefill's kernels
+    (``prefill_kernels``) on each position counted into ``counts``, no
+    decode kernel; with ``lone`` the lone positions' collective records
+    held to the full run's."""
     import numpy as np
     from repro_torch.launch.cost import CostCounter, collective_bytes
     from repro_torch.launch.dryrun import serve_config
@@ -5727,62 +5836,93 @@ def serve_mesh_run(torch, ops, cfg, counts, label, tol=AXIS_GAP,
     mesh = card_mesh(SERVE_MESH)
     model = LM(serve_config(cfg), device="cuda", seed=0)
     rng = np.random.default_rng(7)
+    want = {k: n * mesh.size for k, n in prefill_kernels(cfg).items()}
+    rule = f"{tol} x {'max(1, max |leaf|)' if relative else '1'}"
+    model32 = None
+    if witness:         # the same weights in float32, computed in float32
+        import dataclasses
+        model32 = LM(dataclasses.replace(cfg, dtype="float32",
+                                         param_dtype="float32"),
+                     device="cuda", seed=0)
+        with torch.no_grad():
+            for p32, p in zip(model32.parameters(), model.parameters()):
+                p32.copy_(p.float())
+        model32.recast()
     out = {}
-    for what, B, S in (("prefill", 2, SERVE_PROMPT),
-                       ("decode", SERVE_ROWS, SERVE_PROMPT // 2)):
-        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S),
-                                               dtype=np.int32)).cuda()
+    for what, B, S in (("prefill", 2, prompt),
+                       ("decode", SERVE_ROWS, decode_prompt)):
+        batch = family_inputs(torch, cfg, rng, B, S)
         rules = serve_rules(B)
         params = device_put(model, serve_shardings(cfg, mesh, rules))
-        pre = make_prefill_step(cfg, SERVE_RING)
+        pre = make_prefill_step(cfg, ring)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        l1, c1 = pre(model, {"tokens": tokens})
+        l1, c1 = pre(model, batch)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
         mesh_counts: dict = {}
         with shard_ctx(rules, mesh), launches_into(ops, mesh_counts), \
                 CostCounter() as counter:
-            l2, c2 = pre(params, {"tokens": tokens})
+            l2, c2 = pre(params, batch)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        peak = peak_gib(torch)
         for k, n in mesh_counts.items():
             counts[k] = counts.get(k, 0) + n
-        check(mesh_counts == {"flash_attention": cfg.n_layers * mesh.size},
-              f"{label} mesh prefill launched {mesh_counts}, expected "
-              f"{cfg.n_layers * mesh.size} K4 (a layer on each position)")
+        check(mesh_counts == want, f"{label} mesh prefill launched "
+              f"{mesh_counts}, expected {want} (a layer's on each position)")
         bound = tol * (max(1.0, float(l1.float().abs().max()))
                        if relative else 1.0)
         gap = float((l1.float() - l2.float()).abs().max())
-        kv_gap, kv_bound = cache_gap(c1, c2, tol, relative)
-        check(gap <= bound, f"{label} mesh prefill of {B} x {S} logits "
-              f"{gap:.4g} from the one-device step's (> {bound:.4g})")
-        check(kv_gap <= kv_bound, f"{label} mesh prefill's K/V caches "
-              f"{kv_gap:.4g} from the one-device step's (> {kv_bound:.4g})")
+        kv_gap, kv_ok = cache_gap(c1, c2, tol, relative)
+        if witness:
+            l32, c32 = pre(model32, batch)
+            wit = {**witness_gaps(l1, l2, l32), **witness_gaps(c1, c2, c32)}
+            check(witness_held(wit), f"{label} mesh prefill of {B} x {S}, "
+                  f"one device / the mesh against the float32 witness: "
+                  f"{witness_line(wit)} (the mesh within {WITNESS_RATIO} x "
+                  f"one device)")
+        else:
+            check(gap <= bound, f"{label} mesh prefill of {B} x {S} logits "
+                  f"{gap:.4g} from the one-device step's (> {bound:.4g})")
+            check(kv_ok, f"{label} mesh prefill's caches from the "
+                  f"one-device step's: {leaf_line(c1, c2)} (limit {rule})")
+        held = (f"one device / the mesh against the float32 witness "
+                f"{witness_line(wit)} (the mesh within {WITNESS_RATIO} x "
+                f"one device); " if witness else "")
+        specs = {k: v.spec for k, v in cache_leaves(c2).items()}
         if what == "prefill":
-            held_lone(torch, pre, lambda lone: (
-                lone_view(torch, params, lone), {"tokens": tokens}),
-                mesh, {"rules": rules, "counter": counter},
-                f"{label} prefill")
+            if lone:
+                held_lone(torch, pre, lambda lone: (
+                    sm.lone_tree(params, lone), batch),
+                    mesh, {"rules": rules, "counter": counter},
+                    f"{label} prefill")
             wire, detail = collective_bytes(counter)
             print(f"  (a) {label} prefill of 2 x {S} tokens on "
                   f"{SERVE_MESH} (every position on cuda:0): logits within "
-                  f"{gap:.4g} (<= {bound:.4g}; max |logit| "
+                  f"{gap:.4g} (max |logit| "
                   f"{float(l1.float().abs().max()):.3f}) of the one-device "
-                  f"step's, the K/V caches within {kv_gap:.4g} (<= "
-                  f"{kv_bound:.4g}; laid out "
-                  f"{c2['layers']['k'].spec}); K4 {mesh_counts} on each "
+                  f"step's, the caches within {kv_gap:.4g} ("
+                  f"{leaf_line(c1, c2)}); {held or f'limits {bound:.4g}, {rule}; '}laid out "
+                  f"{specs}); kernels {mesh_counts} on each "
                   f"position's heads; host clock {(t2 - t1) * 1e3:.1f} ms "
-                  f"against one device {(t1 - t0) * 1e3:.1f} ms; "
+                  f"(under the cost counter) against one device "
+                  f"{(t1 - t0) * 1e3:.1f} ms; peak {peak:.2f} GiB; "
                   f"collectives {detail['counts']}, {wire:.0f} wire bytes "
-                  f"a device; the lone first and last positions record the "
-                  f"same collectives", flush=True)
+                  f"a device" + ("; the lone first and last positions "
+                                 "record the same collectives" if lone
+                                 else ""), flush=True)
             out[what] = gap
             continue
         dec = make_decode_step(cfg)
         gaps, one_s, mesh_s = [], [], []
         tok = torch.argmax(l1[:, -1].float(), dim=-1).to(torch.int32)[:, None]
         c1["index"] = c1["index"].reshape(())
+        if witness:
+            c32["index"] = c32["index"].reshape(())
+            wit = {}
+        torch.cuda.reset_peak_memory_stats()
         for _ in range(SERVE_STEPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -5795,54 +5935,72 @@ def serve_mesh_run(torch, ops, cfg, counts, label, tol=AXIS_GAP,
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             check(not step_counts, f"{label} mesh decode launched "
-                  f"{step_counts}: the split-K body is plain ops")
+                  f"{step_counts}: the decode bodies are plain ops")
             gaps.append(float((d1.float() - d2.float()).abs().max()))
+            if witness:
+                d32, c32 = dec(model32, tok, c32)
+                wit["logits"] = tuple(map(max, zip(
+                    witness_gaps(d1, d2, d32)["logits"],
+                    wit.get("logits", (0.0, 0.0)))))
             one_s.append(t1 - t0)
             mesh_s.append(t2 - t1)
             tok = torch.argmax(d1[:, -1].float(), dim=-1).to(
                 torch.int32)[:, None]
-        kv_gap, kv_bound = cache_gap(c1, c2, tol, relative)
-        check(max(gaps) <= bound, f"{label} mesh decode logits {gaps} "
-              f"from the one-device step's (> {bound:.4g})")
-        check(kv_gap <= kv_bound, f"{label} mesh decode's K/V caches "
-              f"{kv_gap:.4g} from the one-device run's (> {kv_bound:.4g})")
+        peak = peak_gib(torch)
+        kv_gap, kv_ok = cache_gap(c1, c2, tol, relative)
+        if witness:
+            wit.update(witness_gaps(c1, c2, c32))
+            check(witness_held(wit), f"{label} mesh decode, one device / "
+                  f"the mesh against the float32 witness: "
+                  f"{witness_line(wit)} (the mesh within {WITNESS_RATIO} x "
+                  f"one device)")
+        else:
+            check(max(gaps) <= bound, f"{label} mesh decode logits {gaps} "
+                  f"from the one-device step's (> {bound:.4g})")
+            check(kv_ok, f"{label} mesh decode's caches from the one-device "
+                  f"run's: {leaf_line(c1, c2)} (limit {rule})")
+        held = (f"one device / the mesh against the float32 witness "
+                f"{witness_line(wit)} (the mesh within {WITNESS_RATIO} x "
+                f"one device); " if witness else "")
         with shard_ctx(rules, mesh), CostCounter() as counter:
-            cache = {**c2, "layers": {n: sm.ShardedArray(
-                {p: b.clone() for p, b in a.blocks.items()}, a.spec, mesh,
-                a.shape, a.dtype) for n, a in c2["layers"].items()}}
-            dec(params, tok, cache)
-        held_lone(torch, dec, lambda lone: (
-            lone_view(torch, params, lone), tok,
-            {**c2, "layers": {n: sm.ShardedArray(
-                {lone.position: a.blocks[lone.position].clone()}, a.spec,
-                lone, a.shape, a.dtype) for n, a in c2["layers"].items()}}),
-            mesh, {"rules": rules, "counter": counter}, f"{label} decode")
+            dec(params, tok, sm.clone_tree(c2))
+        if lone:
+            held_lone(torch, dec, lambda lone: (
+                sm.lone_tree(params, lone), tok,
+                sm.lone_tree(c2, lone, clone=True)),
+                mesh, {"rules": rules, "counter": counter},
+                f"{label} decode")
         wire, detail = collective_bytes(counter)
-        print(f"  (a) {label} decode, {B} rows over a {SERVE_RING}-slot "
-              f"ring split over \"model\" (split-K, {c2['layers']['k'].spec}"
-              f"), {SERVE_STEPS} steps fed the one-device run's tokens: "
-              f"logits within {max(gaps):.4g} (<= {bound:.4g}), the "
-              f"K/V caches within {kv_gap:.4g} (<= {kv_bound:.4g}); no "
-              f"decode kernel launched "
-              f"(the split-K body is plain ops); host clock a step "
+        print(f"  (a) {label} decode, {B} rows over a {ring}-slot ring "
+              f"(self-attention split-K over \"model\"; {specs}), "
+              f"{SERVE_STEPS} steps fed the one-device run's tokens: "
+              f"logits within {max(gaps):.4g}, the caches within "
+              f"{kv_gap:.4g} ({leaf_line(c1, c2)}); "
+              f"{held or f'limits {bound:.4g}, {rule}; '}"
+              f"no decode kernel launched "
+              f"(the decode bodies are plain ops); host clock a step "
               f"{statistics.median(mesh_s) * 1e3:.1f} ms against one "
-              f"device {statistics.median(one_s) * 1e3:.1f} ms; "
-              f"collectives {detail['counts']}, {wire:.0f} wire bytes a "
-              f"device; the lone positions record the same collectives",
-              flush=True)
+              f"device {statistics.median(one_s) * 1e3:.1f} ms; peak "
+              f"{peak:.2f} GiB; collectives {detail['counts']}, "
+              f"{wire:.0f} wire bytes a device" + (
+                  "; the lone positions record the same collectives"
+                  if lone else ""), flush=True)
         out[what] = max(gaps)
         del c1, c2
-    del model, params
+        if witness:
+            del c32
+    del model, params, model32
     free(torch)
     return out
 
 
-def lone_cells_phase(torch, ops, counts):
+def lone_cells_phase(torch, ops, counts, cells=None):
     """(b) lone positions of the production meshes at full width and
     depth (``launch.dryrun.analyze_mesh_cell``): each cell's per-device
-    FLOPs, bytes, wire bytes, ``step_s`` (the position's compute), peak and
-    roofline terms (``RooflineDB`` reading the records with chips 256 or
-    512); K4 launches one a layer in a prefill, none in a decode."""
+    FLOPs, bytes, wire bytes (the largest sources by collective size),
+    ``step_s`` (the position's compute), peak and roofline terms
+    (``RooflineDB`` reading the records with chips 256 or 512); a prefill
+    launches ``prefill_kernels`` a step, a decode no kernel."""
     import shutil
     import tempfile
     from repro_torch.configs import get_config
@@ -5854,7 +6012,7 @@ def lone_cells_phase(torch, ops, counts):
     from repro_torch.sim import RooflineDB
     out_dir = Path(tempfile.mkdtemp(prefix="lone-", dir=_lib.BUILD_DIR))
     try:
-        for arch, shape_name, tag in LONE_CELLS:
+        for arch, shape_name, tag in cells or LONE_CELLS:
             cfg = get_config(arch)
             shape = SHAPES[shape_name]
             mesh = production_mesh(tag, "cuda")
@@ -5866,8 +6024,7 @@ def lone_cells_phase(torch, ops, counts):
             wall = time.perf_counter() - t0
             for k, n in cell_counts.items():
                 counts[k] = counts.get(k, 0) + n
-            want = ({"flash_attention": cfg.n_layers}
-                    if shape.kind == "prefill" else {})
+            want = prefill_kernels(cfg) if shape.kind == "prefill" else {}
             check(rec["launches"] == want, f"{arch} {shape_name} {tag}: "
                   f"launches a step {rec['launches']}, expected {want}")
             cell_path(out_dir, arch, shape_name, tag).write_text(
@@ -5878,17 +6035,20 @@ def lone_cells_phase(torch, ops, counts):
                   and t.flops == rec["cost"]["flops"],
                   f"{arch} {shape_name} {tag}: the DB read {t}")
             runs = ", ".join(f"{x * 1e3:.2f}" for x in rec["step_s_runs"])
-            kern = ("; no kernel launched: the split-K decode body is "
-                    "plain ops" if shape.kind == "decode" else
+            kern = ("; no kernel launched: the decode bodies are plain ops"
+                    if shape.kind == "decode" else
                     "; no kernel on the train route" if shape.kind ==
-                    "train" else f"; K4 {rec['launches']} a step")
+                    "train" else f"; kernels {rec['launches']} a step")
+            top = "; ".join(f"{n} x {k} of {b} B over {g}: {w:.4e} B"
+                            for k, b, g, n, w in rec["collective_sizes"][:4])
             print(f"  (b) {arch} {shape_name} on {tag} {rec['mesh']} "
                   f"(chips {rec['chips']}), lone position "
                   f"{rec['lone_position']}, {rec['replica_batch']} rows: "
                   f"{rec['cost']['flops']:.4e} FLOPs, "
                   f"{rec['cost']['bytes']:.4e} bytes, "
                   f"{rec['collective_bytes']:.4e} wire bytes a device "
-                  f"({rec['collective_detail']['counts']}); step_s "
+                  f"({rec['collective_detail']['counts']}; the most: "
+                  f"{top}); step_s "
                   f"{rec['step_s'] * 1e3:.2f} ms (runs {runs}; compute "
                   f"alone, no wire); peak "
                   f"{(rec['peak_bytes'] or 0) / 2**30:.2f} GiB; roofline compute "
@@ -6024,6 +6184,118 @@ def mesh_dryrun_phase(torch, ops, add):
     remat_peaks_phase(torch, ops)
     add(counts)
     print(f"  phase 15 kernels {counts}: {time.perf_counter() - t0:.1f} s")
+
+
+# phase 16: the serve partition of the other four families.  (a) each on
+# SERVE_MESH laid on cuda:0 beside the one-device steps, full width, bf16:
+# arch → (layers, prompt tokens, ring, the decode rows' prompt); depth cut
+# to keep the whole run inside its time limit (zamba2 at two hybrid
+# groups, both shared blocks), qwen2-vl at 2 x VL_PROMPT tokens (its 1024
+# patch rows) into a VL_MAX_SEQ ring, seamless at full depth, 2 x 512
+# frames and tokens
+FAMILY_SERVE = {
+    "zamba2-2.7b": (12, SERVE_PROMPT, SERVE_RING, SERVE_PROMPT // 2),
+    "falcon-mamba-7b": (8, SERVE_PROMPT, SERVE_RING, SERVE_PROMPT // 2),
+    "qwen2-vl-7b": (4, VL_PROMPT, VL_MAX_SEQ, VL_PROMPT),
+    "seamless-m4t-medium": (6, 512, SERVE_RING, SERVE_PROMPT // 2),
+}
+# FAMILY_BF16_NOTE: in bf16 each rank's partial products round before a
+# psum adds them.  qwen2-vl's and seamless's bf16 runs part from one
+# device by rounding alone, as phase 15's do (0.12 and 0.11 at most on the
+# H100), and are held to AXIS_GAP.  The SSM states carry that rounding
+# through every later token and layer: the bf16 mesh parted from one
+# device by up to 1.63 on falcon's logits (16 layers) and 12.3 on
+# zamba2's h (max |h| 63), where the float32 copies agree to 1e-4.  Two
+# bf16 roundings of one model part that far (zamba2's one-device K cache
+# lies 2.96 from its float32 copy's, of max 6); what the partition must
+# not do is round worse than one device.  So the SSM families' bf16 runs
+# are held against the one-device steps of a float32 copy of their
+# weights (the witness), fed the same tokens: for the logits and every
+# cache leaf, the mesh's largest gap to the witness within WITNESS_RATIO
+# x one device's (an integer leaf exact).  Sound partitions read 0.56 to
+# 1.26 x one device's on the H100; the one fault this rule found, falcon's
+# ranks rounding their x_proj partials, dt among them, to bf16 before the
+# psum, read 2.19 x (the logits 1.648 against 0.752; they now sum in
+# float32).  The float32 copy holds the partition itself to AXIS_F32_TOL x
+# max(1, max |value|).
+WITNESS_RATIO = 2.0
+FAMILY_WITNESS = ("zamba2-2.7b", "falcon-mamba-7b")
+# The float32 copies run SERVE_F32_LAYERS layers (seamless's encoder
+# too), zamba2's in FAMILY_F32_GROUPS hybrid groups of 2 Mamba2 layers, so
+# both shared blocks are held to AXIS_F32_TOL.  At the config's 6 layers a
+# group the float32 mesh parted from one device by 8.9e-4 on the second
+# group's K cache at 12 layers (max |K| 5.6) and 4.5e-4 at 6, on the H100;
+# one device parts from itself as far (8.8e-4 and 4.7e-4: its 2 rows
+# prefilled together against each alone), so that is float32 rounding
+# growing with the Mamba2 layers before a cache, where a wrong layout,
+# shared block or state parts a leaf by its own size
+FAMILY_F32_GROUPS = 2
+# (b) lone positions of the production meshes, full width and depth
+LONE_FAMILY_CELLS = (("zamba2-2.7b", "decode_32k", "single"),
+                     ("zamba2-2.7b", "prefill_32k", "single"),
+                     ("zamba2-2.7b", "long_500k", "single"),
+                     ("zamba2-2.7b", "decode_32k", "multi"),
+                     ("falcon-mamba-7b", "decode_32k", "single"),
+                     ("falcon-mamba-7b", "long_500k", "single"),
+                     ("qwen2-vl-7b", "decode_32k", "single"),
+                     ("qwen2-vl-7b", "prefill_32k", "single"),
+                     ("seamless-m4t-medium", "decode_32k", "single"))
+LONE_LEFT_OUT = {
+    ("falcon-mamba-7b", "prefill_32k"):
+        "the Mamba1 scan is a Python loop per token (32768 x 64 layers on "
+        "the lone position); it waits for a Mamba1 scan kernel",
+    ("seamless-m4t-medium", "prefill_32k"):
+        "its plain bidirectional encoder over 32768 frames takes 6.1 s on "
+        "the H100, more than the run's 1200 s limit leaves (PERF.md §5)",
+}
+
+
+def family_serve_phase(torch, ops, add):
+    """Phase 16: (a) each family's serve partition at full width on
+    SERVE_MESH beside one device, bf16 within AXIS_GAP or against the
+    float32 witness (FAMILY_WITNESS), and a
+    float32 copy held to AXIS_F32_TOL x max(1, max |value|); (b)
+    LONE_FAMILY_CELLS through ``lone_cells_phase``; the cells left out
+    named with their reason."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    print(f"[16] the serve partition of the SSM, hybrid, VLM and "
+          f"encoder-decoder families ({gpu_line()})")
+    t0 = time.perf_counter()
+    counts: dict = {}
+    for arch, (layers, prompt, ring, dprompt) in FAMILY_SERVE.items():
+        t1 = time.perf_counter()
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, n_layers=layers, **(
+            {"n_enc_layers": layers} if cfg.enc_dec else {}))
+        kw = dict(prompt=prompt, ring=ring, decode_prompt=dprompt)
+        # bf16: within AXIS_GAP, or against a float32 witness
+        # (FAMILY_BF16_NOTE); the lone positions are held on the float32
+        # copy below
+        serve_mesh_run(torch, ops, cfg, counts,
+                       f"{arch} at {cfg.n_layers} layers",
+                       witness=arch in FAMILY_WITNESS, lone=False, **kw)
+        n = SERVE_F32_LAYERS
+        cut = dict(n_layers=n, dtype="float32")
+        if cfg.enc_dec:
+            cut["n_enc_layers"] = n
+        if cfg.hybrid is not None:      # FAMILY_F32_GROUPS
+            cut["hybrid"] = dataclasses.replace(
+                cfg.hybrid, attn_every=n // FAMILY_F32_GROUPS)
+        f32 = dataclasses.replace(cfg, **cut)
+        serve_mesh_run(torch, ops, f32, counts,
+                       f"{arch} float32 at {n} layers" + (
+                           f" in {FAMILY_F32_GROUPS} hybrid groups"
+                           if cfg.hybrid is not None else ""),
+                       tol=AXIS_F32_TOL, relative=True, **kw)
+        print(f"  (a) {arch}: {time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    lone_cells_phase(torch, ops, counts, LONE_FAMILY_CELLS)
+    for (arch, shape_name), why in LONE_LEFT_OUT.items():
+        print(f"  (b) left out: {arch} {shape_name}: {why}")
+    print(f"  (b) {time.perf_counter() - t1:.1f} s", flush=True)
+    add(counts)
+    print(f"  phase 16 kernels {counts}: {time.perf_counter() - t0:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -6163,6 +6435,8 @@ def main(argv=None) -> int:
             train_mesh_families_phase(torch, ops)
         with phase_clock(times, "15 mesh dry-run"):
             mesh_dryrun_phase(torch, ops, add)
+        with phase_clock(times, "16 family serve mesh"):
+            family_serve_phase(torch, ops, add)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -14,7 +14,8 @@ result's shape that records ``(kind, result bytes, group size)`` as the
 whole mesh's run does.  The step is the port's own partition: the train
 step over ``TRAIN_RULES`` (``train_4k``, with ``cfg.remat``), the prefill
 and decode steps over laid-out weights under ``serve_rules(global_batch)``
-(the dense and MoE families; ``SERVE_MESH_REFUSED`` names the others).
+(every family; a decode cell draws each leaf of the family's cache at its
+block, a prefill cell its tokens and the family's patches or frames).
 So a record's FLOPs, bytes, transcendentals and collective bytes are one
 device's, as the reference's are; ``step_s`` is the position's compute
 alone (``"step_s_excludes_wire": true``: no collective crosses a wire),
@@ -37,17 +38,18 @@ peak device memory.  A record has the reference's keys (``arch``,
 ``collective_bytes``, ``collective_detail``, per device) and the
 measurement's own: ``device`` (name and power limit), ``replica_batch``
 (the rows one device holds), ``step_s`` (the median) and ``step_s_runs``,
-``launches``, ``kernel_regions`` (each kernel's counted cost) and
-``scan_flops_counted: true`` — the eager count sees every scan step, so
-``sim.roofline_db`` adds no SSM correction.  A cell that fails (one whose
+``launches``, ``kernel_regions`` (each kernel's counted cost), a mesh
+cell's ``collective_sizes`` (each distinct collective's kind, result
+bytes, group, count and wire bytes) and ``scan_flops_counted: true`` —
+the eager count sees every scan step, so ``sim.roofline_db`` adds no SSM
+correction.  A cell that fails (one whose
 lone position does not fit on the card among them) leaves
 ``<cell>.FAILED`` with its traceback.
 
 Refused by name: ``--probe`` (the reference fits a per-layer count because
 XLA counts a ``lax.scan`` body once; an eager count is already per layer),
-and the serve cells of the families with no serve partition over a mesh
-(``SERVE_MESH_REFUSED``) on ``single`` or ``multi``: named, the CLI
-refuses; under ``--arch all`` they are skipped with the reason printed.
+and ``train_4k`` on ``card``: named, the CLI refuses; under ``--arch all``
+it is skipped with the reason printed.
 
 Usage (resumable: a cell whose JSON exists is skipped unless ``--force``):
   python -m repro_torch.launch.dryrun --arch qwen2.5-3b --mesh both \\
@@ -81,9 +83,9 @@ from repro_torch.launch.cost import (
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.models import LM, SHAPES, ShapeCfg, applicable_shapes
 from repro_torch.models.steps import (
-    SERVE_MESH_REFUSED, TrainState, _kv_spec, cache_structs,
-    input_sharding_axes, make_decode_step, make_prefill_step,
-    make_train_step, model_inputs, param_axes_and_structs,
+    TrainState, cache_specs, cache_structs, input_sharding_axes,
+    make_decode_step, make_prefill_step, make_train_step, model_inputs,
+    param_axes_and_structs,
 )
 from repro_torch.optim import AdamWState
 from repro_torch.sharding import (
@@ -268,8 +270,6 @@ def build_lone_cell(cfg, shape, mesh):
         step, _ = make_train_step(cfg)
         return state, step, (state, _lone_inputs(
             cfg, shape, mesh, rules, with_labels=True)), rules
-    if cfg.family in SERVE_MESH_REFUSED:
-        raise NotImplementedError(SERVE_MESH_REFUSED[cfg.family])
     rules = serve_rules(shape.global_batch)
     params = lone_params(cfg, mesh, rules, cfg.cdtype)
     if shape.kind == "prefill":
@@ -277,13 +277,21 @@ def build_lone_cell(cfg, shape, mesh):
             params, _lone_inputs(cfg, shape, mesh, rules,
                                  with_labels=False)), rules
     B, S = shape.global_batch, shape.seq_len
-    struct = cache_structs(cfg, B, S)["layers"]
-    kv_spec = _kv_spec(cfg, B, S, rules, mesh)
+    structs = cache_structs(cfg, B, S)
     first = mesh.devices[mesh.position]
+
+    def draw(name, struct, spec):
+        if isinstance(struct, dict):
+            return {k: draw(f"{name}.{k}", struct[k], spec[k])
+                    for k in struct}
+        if name == "cache.cross_len":   # every row's encoder length: S
+            return draw_block(name, struct.shape, spec, mesh, struct.dtype,
+                              fill="ints", ints=(S, S + 1))
+        return draw_block(name, struct.shape, spec, mesh, struct.dtype)
+    specs = cache_specs(cfg, structs, rules, mesh)
     cache = {"index": torch.tensor(S - 1, dtype=torch.int32, device=first),
-             "layers": {n: draw_block(f"cache.{n}", struct[n].shape,
-                                      kv_spec, mesh, struct[n].dtype)
-                        for n in ("k", "v")}}
+             **{k: draw(f"cache.{k}", v, specs[k])
+                for k, v in structs.items() if k != "index"}}
     tok_spec = spec_for(("batch", "seq"), rules, mesh, (B, 1))
     tokens = draw_block("tokens", (B, 1), tok_spec, mesh, torch.int32,
                         fill="ints", ints=_own_ids(cfg, mesh, rules))
@@ -451,6 +459,7 @@ def analyze_mesh_cell(cfg, shape, mesh, device="cuda", *, position=None,
                    if peak is not None else 0},
         "collective_bytes": wire,
         "collective_detail": detail,
+        "collective_sizes": collective_sizes(counter),
         "device": device_info(dev),
         "lone_position": list(position),
         "replica_batch": rows,
@@ -464,18 +473,28 @@ def analyze_mesh_cell(cfg, shape, mesh, device="cuda", *, position=None,
     }
 
 
+def collective_sizes(counter) -> list:
+    """[kind, result bytes, group size, count, wire bytes] of each distinct
+    collective a run recorded, the most wire bytes first: where a step's
+    wire bytes come from."""
+    seen: dict = {}
+    for rec in counter.collectives:
+        seen[rec] = seen.get(rec, 0) + 1
+    rows = [[k, b, n, c, collective_bytes([(k, b, n)])[0] * c]
+            for (k, b, n), c in seen.items()]
+    return sorted(rows, key=lambda r: -r[4])
+
+
 def cell_path(outdir, arch: str, shape_name: str, tag: str = "card") -> Path:
     return Path(outdir) / f"{arch}__{shape_name}__{tag}.json"
 
 
-def refused(cfg, shape_name: str, tag: str) -> str | None:
+def refused(shape_name: str, tag: str) -> str | None:
     """Why the port runs no such cell, or None."""
     kind = SHAPES[shape_name].kind
     if tag == "card" and kind == "train":
         return ("train_4k has no one-card share: it counts a position of "
                 "the production mesh (--mesh single or multi)")
-    if tag != "card" and kind != "train" and cfg.family in SERVE_MESH_REFUSED:
-        return SERVE_MESH_REFUSED[cfg.family]
     return None
 
 
@@ -514,7 +533,7 @@ def main(argv=None) -> int:
     if args.arch != "all":          # a cell named outright: refused here
         for arch, name, t in ((a, n, t) for a in archs for n in named
                               for t in tags):
-            why = refused(config(arch), name, t)
+            why = refused(name, t)
             if why is not None:
                 ap.error(f"{arch} {name} on --mesh {t} is refused: {why}")
     dev = resolve_device(args.device)
@@ -537,7 +556,7 @@ def main(argv=None) -> int:
         for shape_name in shapes:
             for tag in tags:
                 cell_id = f"{arch}__{shape_name}__{tag}"
-                why = refused(cfg, shape_name, tag)
+                why = refused(shape_name, tag)
                 if why is not None:
                     print(f"=== {cell_id} === refused: {why}", flush=True)
                     n_refused += 1

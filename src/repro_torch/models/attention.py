@@ -37,7 +37,9 @@ padding exists only in the computation.
 Serving over a mesh (``prefill_mesh``, ``decode_mesh``) takes the same
 rank's weights: prefill runs K4 on the rank's heads and hands its K/V to
 the cache's layout; decode gathers q over "model" and runs the split-K
-body (``_splitk_body``) over each position's sequence block.
+body (``_splitk_body``) over each position's sequence block.  Cross
+attention (``prefill_cross_mesh``, ``decode_cross_mesh``) is head-parallel
+over the encoder output's K/V, plain.
 """
 from __future__ import annotations
 
@@ -442,7 +444,8 @@ class Attention(nn.Module):
         (), and per-position ``weights(pos)`` → (wq, bq, wo, wk, bk, wv,
         bv) of the rank: its q columns and ``wo`` rows, padded where
         padding applies (re-laid from the whole leaves), and its KV
-        heads' or every KV head's columns)."""
+        heads' or every KV head's columns; ``weights(pos, kv=False)`` →
+        (wq, bq, wo), reading no K/V leaf)."""
         cfg = self.cfg
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         mesh = w.mesh
@@ -458,11 +461,8 @@ class Attention(nn.Module):
             wq, wo = w("wq.w", keep=()), w("wo.w", keep=())
             bq = w("wq.b", keep=()) if bias else None
         kv_keep = ("model",) if KV % m == 0 else ()
-        wk, wv = w("wk.w", kv_keep), w("wv.w", kv_keep)
-        bk, bv = ((w("wk.b", kv_keep), w("wv.b", kv_keep)) if bias
-                  else (None, None))
 
-        def weights(pos):
+        def weights(pos, kv=True):
             r = sm.axis_index(mesh, pos, "model") if m > 1 else 0
             wq_r, wo_r = wq[pos], wo[pos]
             bq_r = None if bq is None else bq[pos]
@@ -472,8 +472,13 @@ class Attention(nn.Module):
                 wq_r, wo_r = wq_r[:, cols], self._wo_padded(
                     wo_r, KV, *pad[1:], hd)[cols]
                 bq_r = None if bq_r is None else bq_r[cols]
-            pick = lambda t: None if t is None else t[pos]
-            return (wq_r, bq_r, wo_r, wk[pos], pick(bk), wv[pos], pick(bv))
+            if not kv:          # cross attention over cached K/V
+                return wq_r, bq_r, wo_r
+            # read (and gathered, once a step) when a position first asks
+            wk_r, wv_r = (w(f"w{n}.w", kv_keep)[pos] for n in "kv")
+            bk_r, bv_r = ((w(f"w{n}.b", kv_keep)[pos] for n in "kv")
+                          if bias else (None, None))
+            return wq_r, bq_r, wo_r, wk_r, bk_r, wv_r, bv_r
         return m, pad, n, Gc, kv_keep, weights
 
     def forward_mesh(self, w, xs, angles, *, causal=True, window=None,
@@ -620,6 +625,74 @@ class Attention(nn.Module):
                 o = o.reshape(B, 1, -1, hd)[:, :, r * n:(r + 1) * n]
                 part[pos] = o.reshape(B, 1, n * hd) @ wos[pos].to(cfg.cdtype)
         return sm.psum(part, "model", mesh) if m > 1 else part
+
+    # Cross attention over a mesh (the encoder-decoder): each rank projects
+    # its q heads and attends over its KV heads of the encoder output (every
+    # KV head where they do not divide "model"), plain as on one device.
+    # The prefill hands the K/V it projected to the cache's layout (the
+    # encoder's length kept: "enc_seq" maps to no mesh axis); the decode
+    # reads the rank's KV heads where the cache splits them over "model".
+
+    def _cross_mesh(self, w, xs, kvs, bias=None):
+        """The ranks' cross attention: ``xs`` {position: (B_loc, S, d)},
+        ``kvs`` {position: (k, v)} (B_loc, S_kv, ·, hd), the rank's KV
+        heads or every KV head, ``bias`` {position: (B_loc, S, S_kv)} or
+        None → {position: (B_loc, S, d)} after a psum over "model"."""
+        cfg = self.cfg
+        hd, mesh = cfg.hd, w.mesh
+        m, _, n, Gc, kv_keep, weights = self._mesh_weights(w)
+        part = {}
+        with no_shard_ctx():
+            for pos, x in xs.items():
+                B, S = x.shape[:2]
+                r = sm.axis_index(mesh, pos, "model") if m > 1 else 0
+                wq_r, bq_r, wo_r = weights(pos, kv=False)
+                q = self._project(x, wq_r, bq_r).reshape(B, S, n, hd)
+                k, v = kvs[pos]
+                if not kv_keep:             # the KV heads this rank reads
+                    k, v = self._rank_kv(k, v, r * n, n, Gc)
+                out = (self._sdpa_masked(q, k, v, causal=False, window=None)
+                       if bias is None else sdpa_ref(q, k, v, bias[pos]))
+                part[pos] = out.reshape(B, S, n * hd) @ wo_r.to(cfg.cdtype)
+        return sm.psum(part, "model", mesh) if m > 1 else part
+
+    def prefill_cross_mesh(self, w, xs, enc_out, kv_spec, batch_axes):
+        """Cross attention over a prompt, shard by shard: ``xs`` {position:
+        (B_loc, S, d)} over ``enc_out`` {position: (B_loc, S_enc, d)} →
+        ({position: (B_loc, S, d)}, {"k", "v"}: {position: the block of
+        this layer's cross K/V (B, S_enc, KV, hd) under ``kv_spec``})."""
+        hd, mesh = self.cfg.hd, w.mesh
+        m, _, _, _, kv_keep, weights = self._mesh_weights(w)
+        kvs = {}
+        with no_shard_ctx():
+            for pos, e in enc_out.items():
+                _, _, _, wk_r, bk_r, wv_r, bv_r = weights(pos)
+                kvs[pos] = tuple(self._project(e, w_, b_).reshape(
+                    e.shape[0], e.shape[1], -1, hd)
+                    for w_, b_ in ((wk_r, bk_r), (wv_r, bv_r)))
+        src = sm.canonical((batch_axes, None, kv_keep if m > 1 else ()))
+        kv = {name: sm.relayout({p: t[i] for p, t in kvs.items()}, src,
+                                kv_spec, mesh)
+              for i, name in enumerate(("k", "v"))}
+        return self._cross_mesh(w, xs, kvs), kv
+
+    def decode_cross_mesh(self, w, xs, cache, cross_len):
+        """One token over this layer's cross K/V, shard by shard: ``xs``
+        {position: (B_loc, 1, d)}; ``cache`` {"k", "v"}: ``ShardedArray``
+        (B, S_enc, KV, hd), the batch over the batch axes and the KV heads
+        over "model" where they divide it; ``cross_len`` (B,) ``ShardedArray``
+        → {position: (B_loc, 1, d)}: keys at positions >= the row's
+        ``cross_len`` are masked (``_decode_cross``)."""
+        kvs, bias = {}, {}
+        for pos in xs:
+            k, v = cache["k"].blocks[pos], cache["v"].blocks[pos]
+            kvs[pos] = (k, v)
+            cl = cross_len.blocks[pos].reshape(-1, 1, 1)
+            k_pos = torch.arange(k.shape[1], dtype=torch.int32,
+                                 device=k.device)
+            bias[pos] = torch.where(k_pos < cl, 0.0, NEG_INF).to(
+                torch.float32).expand(k.shape[0], 1, k.shape[1])
+        return self._cross_mesh(w, xs, kvs, bias)
 
     def _project(self, x, w, b):
         """A Linear's train-route product on given (cast) weights."""

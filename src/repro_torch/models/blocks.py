@@ -3,7 +3,10 @@ the pre-norm Mamba block (Mamba1 or Mamba2), zamba2's shared attention
 block, and seamless's encoder block and cross-attending decoder block
 (``repro.models.blocks``).  ``train=True`` on a forward takes the train
 route down to every layer (``Attention.forward``); each block's
-``forward_mesh`` is its train route over a mesh, shard by shard."""
+``forward_mesh`` is its train route over a mesh, shard by shard, and its
+``prefill_mesh`` and ``decode_mesh`` the serve route over one (the
+encoder's serve route over a mesh is its ``forward_mesh``: plain,
+bidirectional, as on one device)."""
 from __future__ import annotations
 
 import torch
@@ -158,6 +161,22 @@ class SSMBlock(nn.Module):
         y, state = self.mamba.decode(self.ln(x), state)
         return x + y, state
 
+    def prefill_mesh(self, w, xs, batch_axes, specs):
+        """A prompt over a mesh on the serve route → ({position: x +
+        mamba(ln(x))}, {"h", "conv"}: this layer's state blocks under
+        ``specs``)."""
+        y, state = self.mamba.prefill_mesh(
+            w.sub("mamba"), norm_mesh(self.ln, w.sub("ln"), xs), batch_axes,
+            specs)
+        return {p: x + y[p] for p, x in xs.items()}, state
+
+    def decode_mesh(self, w, xs, state):
+        """One token over a mesh: ``state`` this layer's {"h", "conv"}
+        ``ShardedArray``, written in place."""
+        y = self.mamba.decode_mesh(w.sub("mamba"),
+                                   norm_mesh(self.ln, w.sub("ln"), xs), state)
+        return {p: x + y[p] for p, x in xs.items()}
+
 
 class SharedAttnBlock(nn.Module):
     """Zamba2's shared transformer block over concat(hidden, embed0), at
@@ -202,6 +221,29 @@ class SharedAttnBlock(nn.Module):
                                     block_tbl=block_tbl)
         x2 = x2 + h
         return x2 + self.mlp(self.ln2(x2)), cache
+
+    def _mlp_mesh(self, w, xs, h):
+        xs = {p: x + h[p] for p, x in xs.items()}
+        h = self.mlp.forward_mesh(w.sub("mlp"), norm_mesh(
+            self.ln2, w.sub("ln2"), xs))
+        return {p: x + h[p] for p, x in xs.items()}
+
+    def prefill_mesh(self, w, xs, angles, batch_axes, *, max_seq, kv_spec):
+        """A prompt over a mesh (``Attention.prefill_mesh``: K4 on each
+        rank's heads) → ({position: (B_loc, S, 2d)}, {"k", "v"}: this
+        application's ring blocks under ``kv_spec``)."""
+        h, kv = self.attn.prefill_mesh(
+            w.sub("attn"), norm_mesh(self.ln1, w.sub("ln1"), xs), angles,
+            window=None, max_seq=max_seq, kv_spec=kv_spec,
+            batch_axes=batch_axes)
+        return self._mlp_mesh(w, xs, h), kv
+
+    def decode_mesh(self, w, xs, angles, cache, index, kv_spec):
+        """One token over a mesh (split-K over ``cache``, written in
+        place) → {position: (B_loc, 1, 2d)}."""
+        h = self.attn.decode_mesh(w.sub("attn"), norm_mesh(
+            self.ln1, w.sub("ln1"), xs), angles, cache, index, kv_spec)
+        return self._mlp_mesh(w, xs, h)
 
 
 class EncoderBlock(nn.Module):
@@ -288,6 +330,48 @@ class CrossDecoderBlock(nn.Module):
         h = self.mlp.forward_mesh(w.sub("mlp"), norm_mesh(
             self.ln3, w.sub("ln3"), xs))
         return {p: x + h[p] for p, x in xs.items()}
+
+    def _cross_mlp_mesh(self, w, xs, h, cross):
+        """The residual after self attention, then cross attention
+        (``cross``: the ln2 output → its psummed output) and the MLP."""
+        xs = {p: x + h[p] for p, x in xs.items()}
+        h = cross(norm_mesh(self.ln2, w.sub("ln2"), xs))
+        xs = {p: x + h[p] for p, x in xs.items()}
+        h = self.mlp.forward_mesh(w.sub("mlp"), norm_mesh(
+            self.ln3, w.sub("ln3"), xs))
+        return {p: x + h[p] for p, x in xs.items()}
+
+    def prefill_mesh(self, w, xs, enc_out, angles, batch_axes, *, max_seq,
+                     specs):
+        """A prompt over a mesh on the serve route: {position: (B_loc, S,
+        d)} over {position: the batch shard's encoder output} →
+        ({position: (B_loc, S, d)}, {"self": the ring blocks, "cross": the
+        cross K/V blocks at the encoder's length}, laid out by ``specs``'
+        "self" and "cross" layer specs)."""
+        h, kv = self.self_attn.prefill_mesh(
+            w.sub("self_attn"), norm_mesh(self.ln1, w.sub("ln1"), xs), angles,
+            window=None, max_seq=max_seq, kv_spec=specs["self"],
+            batch_axes=batch_axes)
+        got = {}
+
+        def cross(x):
+            out, got["kv"] = self.cross_attn.prefill_cross_mesh(
+                w.sub("cross_attn"), x, enc_out, specs["cross"], batch_axes)
+            return out
+        xs = self._cross_mlp_mesh(w, xs, h, cross)
+        return xs, {"self": kv, "cross": got["kv"]}
+
+    def decode_mesh(self, w, xs, angles, state, index, specs, cross_len):
+        """One token over a mesh: ``state`` {"self", "cross"}: this
+        layer's ``ShardedArray`` K/V (the self ring written in place,
+        split-K; the cross K/V read, head-parallel, masked past
+        ``cross_len``'s rows)."""
+        h = self.self_attn.decode_mesh(
+            w.sub("self_attn"), norm_mesh(self.ln1, w.sub("ln1"), xs), angles,
+            state["self"], index, specs["self"])
+        return self._cross_mlp_mesh(w, xs, h, lambda x: (
+            self.cross_attn.decode_cross_mesh(w.sub("cross_attn"), x,
+                                              state["cross"], cross_len)))
 
     def decode(self, x, state, index, *, angles=None, cross_len=None,
                block_tbl=None):

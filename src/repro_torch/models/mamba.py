@@ -34,6 +34,21 @@ gated norm runs over the whole ``d_inner``, its sum of squares psummed
 over "model").  ``out_proj`` rows end in a ``psum`` in both.  Where the
 layout does not split the channels (or the heads) over "model", each
 position runs the whole block.
+
+``prefill_mesh`` and ``decode_mesh`` are the serve route over a mesh (the
+serve steps over laid-out weights), with the same ranks.  There the fused
+``in_proj`` moves whichever is fewer bytes (``project_columns``): the
+weight gathered whole, as the train route does, or each rank's product
+with the columns it holds, gathered — a decode step's few rows, where the
+weight would cost d_model x its width every token.  Mamba1's states split
+"d_inner" as its ranks do.  Mamba2's do not follow the heads: ``h`` is
+replicated over "model" and ``conv`` splits its ``di + 2·G·N`` channels in
+blocks that cross the heads' and the x|B|C boundaries.  Its prefill runs
+K7 on the rank's heads and all-gathers their final states; its decode
+convolves the rank's block of the conv channels, all-gathers the outputs
+and updates every head on every rank (the states stay replicated, and no
+rank's heads are gathered), each rank multiplying its rows of
+``out_proj``.
 """
 from __future__ import annotations
 
@@ -96,6 +111,42 @@ def _model_ranks(mesh, split: bool) -> dict:
             for p in sm.positions(mesh)}
 
 
+ALL = slice(None)
+
+
+def project_columns(w, name, xs, picks, dtype):
+    """{position: [x[:, rows] @ W[:, cols] for (rows, cols) in
+    picks[position]]} in ``dtype``, for the (d, width) leaf ``name`` whose
+    columns lie over "model" in blocks that are not the columns a rank
+    reads (the fused ``in_proj``).  It moves the fewer bytes of two: the
+    weight all-gathered whole, each rank then multiplying its columns
+    alone, or each rank's product with the block of columns it holds,
+    all-gathered over their axes, each rank then slicing the product."""
+    mesh = w.mesh
+    axes = w.axes(name, 1)
+    weight = w.struct(name)
+    x0 = next(iter(xs.values()))
+    gather_weight = (x0.shape[0] * x0.shape[1] * dtype.itemsize
+                     >= weight.shape[0] * weight.dtype.itemsize)
+    if gather_weight or sm.axis_size(mesh, axes) == 1:
+        whole = w(name, keep=())
+        return {p: [x[:, rows].to(dtype) @ whole[p][:, cols].to(dtype)
+                    for rows, cols in picks[p]] for p, x in xs.items()}
+    own = w(name, keep=axes)
+    full = sm.all_gather({p: x.to(dtype) @ own[p].to(dtype)
+                          for p, x in xs.items()}, axes, mesh, dim=2)
+    return {p: [full[p][:, rows, cols] for rows, cols in picks[p]]
+            for p in xs}
+
+
+def _write_states(state: dict, new: dict):
+    """Each position's new state blocks into the cache's, in place, after
+    every position has read the old ones (positions may share a block)."""
+    for pos, blocks in new.items():
+        for n, t in blocks.items():
+            state[n].blocks[pos].copy_(t)
+
+
 class Mamba1(nn.Module):
     def __init__(self, cfg, *, generator=None, device=None):
         super().__init__()
@@ -147,44 +198,88 @@ class Mamba1(nn.Module):
                          "conv": x_in[:, -(cfg.ssm.d_conv - 1):].clone()}
         return out
 
+    @staticmethod
+    def _dbc_part(x_conv, x_w):
+        """A rank's partial of ``x_proj`` (dt, B and C before the psum over
+        "model"), in float32: the psum's sum is rounded to the compute
+        dtype once, as one device's ``x_proj`` rounds it, where rounding
+        each rank's partial first would carry through exp(dt·A) into every
+        later token's state."""
+        return x_conv.float() @ x_w.float()
+
     def forward_mesh(self, w, xs):
         """The train route over a mesh, channel-parallel over "model" where
         the layout splits "d_inner" (module docstring).  ``w``: the block's
         parameters as ``steps.MeshParams`` gives them; ``xs`` {position:
         (B_loc, L, d)}, replicated over "model" → {position: (B_loc, L,
         d)}."""
-        cfg = self.cfg
-        cd, di = cfg.cdtype, cfg.d_inner
-        N, R = cfg.ssm.d_state, cfg.dt_rank
+        return self._channels_mesh(w, xs, train=True)[0]
+
+    def _layout(self, w):
+        """(split, {position: its rank}, c channels a rank): channel-
+        parallel over "model" where the layout splits "d_inner"."""
         split = "model" in w.axes("out_proj.w", 0)
-        rank = _model_ranks(w.mesh, split)
-        c = di // (sm.axis_size(w.mesh, "model") if split else 1)
-        w_in = w("in_proj.w", keep=())
+        return split, _model_ranks(w.mesh, split), self.cfg.d_inner // (
+            sm.axis_size(w.mesh, "model") if split else 1)
+
+    def _channels_mesh(self, w, xs, *, train: bool):
+        """The channel-parallel body over a prompt: ``forward_mesh`` (the
+        train route) or, with ``train`` False, the serve scan → ({position:
+        (B_loc, L, d)}, {position: (h_L (B_loc, c, N), the conv inputs'
+        tail (B_loc, min(L, k-1), c))} or None)."""
+        cfg = self.cfg
+        cd, di, k = cfg.cdtype, cfg.d_inner, cfg.ssm.d_conv
+        N, R = cfg.ssm.d_state, cfg.dt_rank
+        split, rank, c = self._layout(w)
+        xz = project_columns(w, "in_proj.w", xs, {
+            p: [(ALL, slice(r * c, (r + 1) * c)),
+                (ALL, slice(di + r * c, di + (r + 1) * c))]
+            for p, r in rank.items()}, cd)
         conv_w, conv_b, x_w = w("conv.w"), w("conv.b"), w("x_proj.w")
         dbc, kept = {}, {}
-        for pos, x in xs.items():
-            r, x = rank[pos], x.to(cd)
-            x_in = x @ w_in[pos][:, r * c:(r + 1) * c]
-            z = x @ w_in[pos][:, di + r * c:di + (r + 1) * c]
-            x_conv = F.silu(conv1d_nlc(x_in, conv_w[pos], conv_b[pos],
-                                       groups=c, causal=True))
-            dbc[pos] = x_conv @ x_w[pos]            # partial over "model"
-            kept[pos] = (x_conv, z)
+        for pos in xs:
+            x_in, z = xz[pos]
+            x_conv = F.silu(conv1d_nlc(x_in, conv_w[pos].to(cd),
+                                       conv_b[pos], groups=c, causal=True))
+            dbc[pos] = self._dbc_part(x_conv, x_w[pos])
+            kept[pos] = (x_in, x_conv, z)
         if split:
             dbc = sm.psum(dbc, "model", w.mesh)
         dt_w, dt_b, A_log, D = (w(n) for n in ("dt_proj.w", "dt_proj.b",
                                                "A_log", "D"))
         out_w = w("out_proj.w")
-        part = {}
-        for pos, (x_conv, z) in kept.items():
-            dt_r, Bc, Cc = torch.split(dbc[pos].float(), [R, N, N], dim=-1)
+        part, states = {}, {}
+        for pos, (x_in, x_conv, z) in kept.items():
+            dt_r, Bc, Cc = torch.split(dbc[pos].to(cd).float(), [R, N, N],
+                                       dim=-1)
             dt = softplus(dt_r @ dt_w[pos].float() + dt_b[pos].float())
             A = -torch.exp(A_log[pos].float())                  # (c, N)
             xf = x_conv.float()
-            y, _ = selective_scan_train(xf, dt, A, Bc, Cc)
+            scan = selective_scan_train if train else selective_scan
+            y, h_last = scan(xf, dt, A, Bc, Cc)
             y = y + xf * D[pos].float()
-            part[pos] = (y.to(cd) * F.silu(z)) @ out_w[pos]
-        return sm.psum(part, "model", w.mesh) if split else part
+            part[pos] = (y.to(cd) * F.silu(z)) @ out_w[pos].to(cd)
+            if not train:
+                states[pos] = (h_last, x_in[:, -(k - 1):].clone())
+        part = sm.psum(part, "model", w.mesh) if split else part
+        return part, (None if train else states)
+
+    def prefill_mesh(self, w, xs, batch_axes, specs):
+        """A prompt over a mesh on the serve route, channel-parallel as
+        ``forward_mesh`` (``selective_scan``): ``xs`` {position: (B_loc,
+        L, d)}, the batch split over ``batch_axes`` → ({position: (B_loc,
+        L, d)}, {"h", "conv"}: {position: its block of the layer's state
+        under ``specs``}).  A rank's final state and conv tail are its
+        channels', the blocks "d_inner" gives it over "model"."""
+        split = self._layout(w)[0]
+        part, states = self._channels_mesh(w, xs, train=False)
+        ch = "model" if split else None
+        return part, {
+            "h": sm.relayout({p: s[0] for p, s in states.items()},
+                             (batch_axes, ch), specs["h"], w.mesh),
+            "conv": sm.relayout({p: s[1] for p, s in states.items()},
+                                (batch_axes, None, ch), specs["conv"],
+                                w.mesh)}
 
     def decode(self, x, state):
         """x: (B, 1, d); state {"h": (B, di, N) float32, "conv": (B, k-1,
@@ -207,6 +302,51 @@ class Mamba1(nn.Module):
         state["h"].copy_(h)
         state["conv"].copy_(window[:, 1:])
         return out, state
+
+    def decode_mesh(self, w, xs, state):
+        """One token over a mesh, channel-parallel: ``xs`` {position:
+        (B_loc, 1, d)}; ``state`` {"h", "conv"}: ``ShardedArray`` laid out
+        by ``cache_axes`` (each position's block its rank's channels),
+        written in place → {position: (B_loc, 1, d)}."""
+        cfg = self.cfg
+        cd, di = cfg.cdtype, cfg.d_inner
+        N, R = cfg.ssm.d_state, cfg.dt_rank
+        mesh = w.mesh
+        split, rank, c = self._layout(w)
+        xz = project_columns(w, "in_proj.w", xs, {
+            p: [(ALL, slice(r * c, (r + 1) * c)),
+                (ALL, slice(di + r * c, di + (r + 1) * c))]
+            for p, r in rank.items()}, cd)
+        conv_w, conv_b, x_w = w("conv.w"), w("conv.b"), w("x_proj.w")
+        dbc, kept = {}, {}
+        for pos in xs:
+            x_in, z = xz[pos]
+            window = torch.cat([state["conv"].blocks[pos], x_in], dim=1)
+            cw = conv_w[pos].to(x_in.dtype)                  # (k, 1, c)
+            xc = (window * cw.transpose(0, 1)).sum(dim=1, keepdim=True)
+            x_conv = F.silu(xc + conv_b[pos].to(xc.dtype))
+            dbc[pos] = self._dbc_part(x_conv, x_w[pos])
+            kept[pos] = (window, x_conv, z)
+        if split:
+            dbc = sm.psum(dbc, "model", mesh)
+        dt_w, dt_b, A_log, D = (w(n) for n in ("dt_proj.w", "dt_proj.b",
+                                               "A_log", "D"))
+        out_w = w("out_proj.w")
+        part, new = {}, {}
+        for pos, (window, x_conv, z) in kept.items():
+            dt_r, Bc, Cc = torch.split(dbc[pos][:, 0].to(cd).float(),
+                                       [R, N, N], dim=-1)
+            dt = softplus(dt_r @ dt_w[pos].float() + dt_b[pos].float())
+            A = -torch.exp(A_log[pos].float())
+            x_t = x_conv[:, 0].float()
+            h = (torch.exp(dt[..., None] * A[None]) * state["h"].blocks[pos]
+                 + (dt * x_t)[..., None] * Bc[:, None, :])
+            y = torch.einsum("bdn,bn->bd", h, Cc) + x_t * D[pos].float()
+            part[pos] = ((y[:, None].to(cd) * F.silu(z))
+                         @ out_w[pos].to(cd))
+            new[pos] = {"h": h, "conv": window[:, 1:]}
+        _write_states(state, new)
+        return sm.psum(part, "model", mesh) if split else part
 
     @staticmethod
     def state_shape(cfg, batch: int):
@@ -297,40 +437,63 @@ class Mamba2(nn.Module):
         docstring).  ``w``: the block's parameters as ``steps.MeshParams``
         gives them; ``xs`` {position: (B_loc, L, d)}, replicated over
         "model" → {position: (B_loc, L, d)}."""
+        return self._heads_mesh(w, xs, train=True)[0]
+
+    def _layout(self, w):
+        """(split, {position: its rank}, n heads a rank): head-parallel
+        over "model" where the heads divide it and the layout splits
+        "d_inner"."""
+        H = self.cfg.ssm_heads
+        split = ("model" in w.axes("out_proj.w", 0)
+                 and "model" in w.axes("norm.scale", 0)
+                 and H % sm.axis_size(w.mesh, "model") == 0)
+        return split, _model_ranks(w.mesh, split), H // (
+            sm.axis_size(w.mesh, "model") if split else 1)
+
+    def _heads_mesh(self, w, xs, *, train: bool):
+        """The head-parallel body over a prompt: ``forward_mesh`` (the
+        train route, the plain scan) or, with ``train`` False, the serve
+        route (K7 on the rank's heads) → ({position: (B_loc, L, d)},
+        {position: (h_L (B_loc, n, hd, N), the conv inputs' tail (B_loc,
+        min(L, k-1), conv_ch), every channel)} or None)."""
         cfg = self.cfg
         cd, di, N = cfg.cdtype, cfg.d_inner, cfg.ssm.d_state
         H, hd, G = cfg.ssm_heads, cfg.ssm.headdim, cfg.ssm.n_groups
         GN, per = G * N, H // G             # heads a B/C group serves
-        split = ("model" in w.axes("out_proj.w", 0)
-                 and "model" in w.axes("norm.scale", 0)
-                 and H % sm.axis_size(w.mesh, "model") == 0)
-        rank = _model_ranks(w.mesh, split)
-        n = H // (sm.axis_size(w.mesh, "model") if split else 1)
+        k = cfg.ssm.d_conv
+        split, rank, n = self._layout(w)
         c = n * hd
         keep = ("model",) if split else ()
-        w_in, conv_w, conv_b = (w(k, keep=()) for k in
-                                ("in_proj.w", "conv.w", "conv.b"))
-        A_log, dt_bias, D = w("A_log"), w("dt_bias"), w("D")
-        ss, kept = {}, {}
-        for pos, x in xs.items():
-            r, x = rank[pos], x.to(cd)
+        picks, groups = {}, {}
+        for pos, r in rank.items():
             h0 = r * n
             g0, g1 = h0 // per, (h0 + n - 1) // per + 1   # groups read
+            groups[pos] = (h0, g0, g1)
             # the rank's channels of x and z, its groups of B and C, its
             # heads of dt, in in_proj's columns [z | x | B | C | dt]
-            zc = slice(r * c, (r + 1) * c)
-            xc = slice(di + r * c, di + (r + 1) * c)
-            bc = slice(2 * di + g0 * N, 2 * di + g1 * N)
-            cc = slice(2 * di + GN + g0 * N, 2 * di + GN + g1 * N)
-            tc = slice(2 * di + 2 * GN + h0, 2 * di + 2 * GN + h0 + n)
-            z, xs_, Bc, Cc, dt = (x @ w_in[pos][:, cols]
-                                  for cols in (zc, xc, bc, cc, tc))
+            picks[pos] = [
+                (ALL, slice(r * c, (r + 1) * c)),
+                (ALL, slice(di + r * c, di + (r + 1) * c)),
+                (ALL, slice(2 * di + g0 * N, 2 * di + g1 * N)),
+                (ALL, slice(2 * di + GN + g0 * N, 2 * di + GN + g1 * N)),
+                (ALL, slice(2 * di + 2 * GN + h0, 2 * di + 2 * GN + h0 + n))]
+            if not train:       # the conv inputs' tail, every channel
+                picks[pos].append((slice(-(k - 1), None),
+                                   slice(di, 2 * di + 2 * GN)))
+        proj = project_columns(w, "in_proj.w", xs, picks, cd)
+        conv_w, conv_b = (w(k_, keep=()) for k_ in ("conv.w", "conv.b"))
+        A_log, dt_bias, D = w("A_log"), w("dt_bias"), w("D")
+        ss, kept, states = {}, {}, {}
+        for pos, x in xs.items():
+            h0, g0, g1 = groups[pos]
+            z, xs_, Bc, Cc, dt, *tail = proj[pos]
             # the conv's channels are [x | B | C]: in_proj's less di
-            ch = [slice(s_.start - di, s_.stop - di) for s_ in (xc, bc, cc)]
+            ch = [slice(s_.start - di, s_.stop - di)
+                  for _, s_ in picks[pos][1:4]]
             cw = torch.cat([conv_w[pos][..., s_] for s_ in ch], dim=-1)
             cb = torch.cat([conv_b[pos][s_] for s_ in ch])
             conv_out = F.silu(conv1d_nlc(torch.cat([xs_, Bc, Cc], dim=-1),
-                                         cw, cb, groups=cw.shape[-1],
+                                         cw.to(cd), cb, groups=cw.shape[-1],
                                          causal=True))
             gn = (g1 - g0) * N
             xs_, Bc, Cc = torch.split(conv_out, [c, gn, gn], dim=-1)
@@ -340,7 +503,13 @@ class Mamba2(nn.Module):
             Bsz, L = x.shape[:2]
             xh = xs_.reshape(Bsz, L, n, hd).float()
             Bh, Ch = (self._rank_heads(t, h0, n, g0) for t in (Bc, Cc))
-            y = kref.ssm_scan_ref(xh, dt, A, Bh, Ch)
+            if train:
+                y = kref.ssm_scan_ref(xh, dt, A, Bh, Ch)
+            else:
+                y, h_last = kops.ssm_scan(xh, dt, A, Bh, Ch,
+                                          chunk=cfg.ssm.chunk,
+                                          return_state=True)
+                states[pos] = (h_last, tail[0])
             y = y + xh * D[pos][heads].float()[None, None, :, None]
             # the gated norm, in RMSNorm's dtype order, over all of d_inner
             u = y.reshape(Bsz, L, c).to(cd) * F.silu(z)
@@ -353,8 +522,92 @@ class Mamba2(nn.Module):
         part = {}
         for pos, uf in kept.items():
             y = uf * torch.rsqrt(ss[pos] / di + self.norm.eps)
-            part[pos] = (y * scale[pos].float()).to(cd) @ out_w[pos]
-        return sm.psum(part, "model", w.mesh) if split else part
+            part[pos] = (y * scale[pos].float()).to(cd) @ out_w[pos].to(cd)
+        part = sm.psum(part, "model", w.mesh) if split else part
+        return part, (None if train else states)
+
+    def prefill_mesh(self, w, xs, batch_axes, specs):
+        """A prompt over a mesh on the serve route, head-parallel as
+        ``forward_mesh`` with K7 (``kops.ssm_scan``) on each rank's heads:
+        ``xs`` {position: (B_loc, L, d)}, the batch split over
+        ``batch_axes`` → ({position: (B_loc, L, d)}, {"h", "conv"}:
+        {position: its block of the layer's state under ``specs``}).  The
+        ranks' final states are all-gathered over "model" (``h`` is
+        replicated there); every rank holds every channel of the conv
+        inputs' tail and keeps its block."""
+        split = self._layout(w)[0]
+        part, states = self._heads_mesh(w, xs, train=False)
+        return part, {
+            "h": sm.relayout({p: s[0] for p, s in states.items()},
+                             (batch_axes, "model" if split else None),
+                             specs["h"], w.mesh),
+            "conv": sm.relayout({p: s[1] for p, s in states.items()},
+                                (batch_axes,), specs["conv"], w.mesh)}
+
+    def decode_mesh(self, w, xs, state):
+        """One token over a mesh (module docstring): ``xs`` {position:
+        (B_loc, 1, d)}; ``state`` {"h", "conv"}: ``ShardedArray`` laid out
+        by ``cache_axes`` (``h`` split over the batch alone, ``conv`` its
+        channels over "d_inner"'s axes too), written in place → {position:
+        (B_loc, 1, d)}.  Each rank holds the whole ``in_proj`` product
+        (``project_columns``), convolves its block of the conv channels,
+        all-gathers the outputs, updates every head from them, runs the
+        gated norm over all of ``d_inner`` and multiplies its rows of
+        ``out_proj``."""
+        cfg = self.cfg
+        cd, di = cfg.cdtype, cfg.d_inner
+        GN = cfg.ssm.n_groups * cfg.ssm.d_state
+        H, hd = cfg.ssm_heads, cfg.ssm.headdim
+        mesh = w.mesh
+        split, rank, n = self._layout(w)
+        c = n * hd
+        cspec = state["conv"].spec
+        ch_axes = sm.axes_of(cspec[2] if len(cspec) > 2 else None)
+        cb = (di + 2 * GN) // sm.axis_size(mesh, ch_axes)
+        proj = project_columns(w, "in_proj.w", xs,
+                               {p: [(ALL, ALL)] for p in xs}, cd)
+        conv_w, conv_b = (w(k_, keep=()) for k_ in ("conv.w", "conv.b"))
+        outs, kept, new = {}, {}, {}
+        for pos in xs:
+            z, xs_, Bc, Cc, dt = self._split(proj[pos][0])
+            blk = slice(sm.axis_index(mesh, pos, ch_axes) * cb,
+                        (sm.axis_index(mesh, pos, ch_axes) + 1) * cb)
+            conv_in = torch.cat([xs_, Bc, Cc], dim=-1)[..., blk]
+            window = torch.cat([state["conv"].blocks[pos], conv_in], dim=1)
+            cw = conv_w[pos][..., blk].to(cd)                # (k, 1, cb)
+            co = (window * cw.transpose(0, 1)).sum(dim=1, keepdim=True)
+            outs[pos] = F.silu(co + conv_b[pos][blk].to(co.dtype))
+            kept[pos] = (z, dt)
+            new[pos] = {"conv": window[:, 1:]}
+        if sm.axis_size(mesh, ch_axes) > 1:
+            outs = sm.all_gather(outs, ch_axes, mesh, dim=2)
+        A_log, dt_bias, D = w("A_log"), w("dt_bias"), w("D")
+        keep = ("model",) if split else ()
+        scale, out_w = w("norm.scale", keep), w("out_proj.w", keep)
+        part = {}
+        for pos, (z, dt) in kept.items():
+            Bsz = z.shape[0]
+            xs_, Bc, Cc = torch.split(outs[pos], [di, GN, GN], dim=-1)
+            dt = softplus(dt.float() + dt_bias[pos].float())[:, 0]
+            a = torch.exp(dt * -torch.exp(A_log[pos].float())[None])
+            x_t = xs_[:, 0].reshape(Bsz, H, hd).float()
+            B_t, C_t = self._heads(Bc[:, 0], 1), self._heads(Cc[:, 0], 1)
+            h = (a[..., None, None] * state["h"].blocks[pos]
+                 + (dt[..., None] * x_t)[..., None] * B_t[:, :, None, :])
+            y = torch.einsum("bhdn,bhn->bhd", h, C_t)
+            y = y + x_t * D[pos].float()[None, :, None]
+            # the gated norm over all of d_inner (RMSNorm's arithmetic),
+            # then the rank's rows
+            uf = (y.reshape(Bsz, 1, di).to(cd) * F.silu(z)).float()
+            uf = uf * torch.rsqrt(uf.square().mean(dim=-1, keepdim=True)
+                                  + self.norm.eps)
+            r = rank[pos]
+            rows = uf[..., r * c:(r + 1) * c] if split else uf
+            part[pos] = ((rows * scale[pos].float()).to(cd)
+                         @ out_w[pos].to(cd))
+            new[pos]["h"] = h
+        _write_states(state, new)
+        return sm.psum(part, "model", mesh) if split else part
 
     def _rank_heads(self, t, h0: int, n: int, g0: int):
         """(..., g·N) of the B/C groups g0 .. g0+g-1 → (..., n, N) float32

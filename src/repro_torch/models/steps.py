@@ -31,13 +31,15 @@ input alone and runs again, collectives included, in the backward.
 
 The serve steps take laid-out weights too ({name: ``ShardedArray``},
 ``device_put`` by ``serve_shardings``): under ``shard_ctx(serve_rules(B),
-mesh)`` the prefill and decode run the partition the rules lay out, shard
-by shard — tokens split over the batch axes, the vocabulary-parallel
-embedding and readout, each "model" rank's heads (K4 on them at prefill),
-MLP columns and rows or experts, a psum over "model" after each; decode
-over the cache's sequence blocks (split-K) — and the logits come back
-whole, the cache laid out by ``cache_axes`` (the dense and MoE families;
-``SERVE_MESH_REFUSED`` names the rest).
+mesh)`` the prefill and decode of every family run the partition the
+rules lay out, shard by shard — tokens, patches and frames split over the
+batch axes, the vocabulary-parallel embedding and readout, each "model"
+rank's heads (K4 on them at prefill), MLP columns and rows, experts, Mamba1
+channels or Mamba2 heads (K7 on them at prefill), a psum over "model"
+after each; decode over the cache's sequence blocks (split-K), cross
+attention over the rank's KV heads of the encoder output — and the logits
+come back whole, every cache leaf laid out by ``cache_axes``
+(``cache_specs``).
 The axes helpers (``input_sharding_axes``, ``params_axes_and_structs``,
 ``train_state_axes``, ``cache_axes``) give the reference's trees of logical
 axes, and the struct helpers (``cache_structs``, ``input_structs``) its
@@ -60,7 +62,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import LM, map_spec
 from repro_torch.optim import AdamWState, adamw, global_norm
 from repro_torch.optim.adamw import global_norm_blocks, update_blocks
-from repro_torch.sharding import current_ctx, spec_for
+from repro_torch.sharding import current_ctx, spec_for, tree_specs
 from repro_torch.sharding import shard_map as sm
 
 
@@ -340,6 +342,15 @@ class MeshParams:
         spec = self.specs[self.prefix + name]
         return sm.axes_of(spec[dim] if dim < len(spec) else None)
 
+    def struct(self, name: str) -> ShapeDtypeStruct:
+        """Leaf ``name``'s whole shape and the dtype its gathers move."""
+        blk = next(iter(self.leaves[self.prefix + name].values()))
+        dt = (self._cdtype if self._cdtype is not None
+              and blk.dtype == torch.float32 else blk.dtype)
+        return ShapeDtypeStruct(tuple(
+            n * sm.axis_size(self.mesh, self.axes(name, d))
+            for d, n in enumerate(blk.shape)), dt)
+
     def __call__(self, name: str, keep=("model",)) -> dict:
         name = self.prefix + name
         key = (name, tuple(keep))
@@ -406,13 +417,7 @@ def _mesh_train_step(model: LM, state: TrainState, batch, opt_update,
                          "context (rules, mesh) it is laid out on")
     rules, mesh = ctx
     cfg = model.cfg
-    # every input the family takes, split over the batch axes
-    specs = {k: spec_for(ax, rules, mesh, tuple(batch[k].shape))
-             for k, ax in input_sharding_axes(cfg, with_labels=True).items()
-             if k in batch}
-    inputs = {k: sm.place(batch[k], spec, mesh).blocks
-              for k, spec in specs.items()}
-    batch_axes = sm.axes_of(specs["tokens"][0]) if specs["tokens"] else ()
+    inputs, batch_axes = _mesh_inputs(cfg, batch, rules, mesh)
     w = MeshParams(state.params, mesh, cfg.cdtype,
                    remat=cfg.remat != "none")
     first = sm.positions(mesh)[0]
@@ -506,19 +511,6 @@ def init_train_state(seed: int, cfg: ModelConfig, opt_init,
 # serve (prefill + decode)
 # ---------------------------------------------------------------------------
 
-# the families whose serve steps have no partition over a mesh yet, by name
-SERVE_MESH_REFUSED = {
-    "ssm": "Mamba1 and Mamba2 (the SSM family) have no serve partition over "
-           "a mesh yet: their prefill scans and decode states are not split",
-    "hybrid": "the zamba2 hybrid has no serve partition over a mesh yet: its "
-              "Mamba2 towers and shared attention blocks are not split",
-    "vlm": "the VLM has no serve partition over a mesh yet: its patch "
-           "prefix and M-RoPE prefill are not split",
-    "audio": "the encoder-decoder has no serve partition over a mesh yet: "
-             "its encoder and cross K/V are not split",
-}
-
-
 @functools.lru_cache(maxsize=None)
 def meta_model(cfg: ModelConfig) -> LM:
     """The model built on the ``meta`` device: the modules a step over
@@ -538,65 +530,77 @@ def serve_shardings(cfg: ModelConfig, mesh, rules) -> dict:
             for k, s in structs.items()}
 
 
-def _serve_ctx(cfg: ModelConfig):
+def _serve_ctx():
     ctx = current_ctx()
     if ctx is None:
         raise ValueError("laid-out serve weights step under the shard "
                          "context (rules, mesh) they are laid out on")
-    if cfg.family in SERVE_MESH_REFUSED:
-        raise NotImplementedError(SERVE_MESH_REFUSED[cfg.family])
     return ctx
 
 
-def _kv_spec(cfg: ModelConfig, batch: int, max_seq: int, rules, mesh):
-    """The (L, B, Smax, KV, hd) K/V leaves' spec: ``cache_axes`` through
-    ``spec_for`` at their shape."""
-    return spec_for(cache_axes(cfg, batch, max_seq)["layers"]["k"], rules,
-                    mesh, cache_structs(cfg, batch, max_seq)["layers"][
-                        "k"].shape)
+def cache_specs(cfg: ModelConfig, shapes, rules, mesh):
+    """The cache's tree of specs: ``cache_axes`` through ``spec_for`` at
+    each leaf's shape (``shapes``: a tree like the cache's whose leaves
+    have a ``shape``, as ``cache_structs`` or a cache itself)."""
+    axes = cache_axes(cfg, 1, 1)
+    return tree_specs({k: v for k, v in axes.items() if k in shapes}, rules,
+                      mesh, shapes_tree=shapes)
 
 
-def _mesh_tokens(tokens, rules, mesh):
-    """(tokens laid out by the rules' ("batch", "seq"), {position: block},
-    the axes splitting the batch)."""
-    spec = spec_for(("batch", "seq"), rules, mesh, tuple(tokens.shape))
-    return (sm.place(tokens, spec, mesh).blocks,
-            sm.axes_of(spec[0]) if spec else ())
+def _mesh_inputs(cfg, batch, rules, mesh):
+    """({name: {position: its block}} of every input of ``batch``, each
+    laid out by ``input_sharding_axes``, the axes splitting the batch)."""
+    specs = {k: spec_for(ax, rules, mesh, tuple(batch[k].shape))
+             for k, ax in input_sharding_axes(
+                 cfg, with_labels=True).items() if k in batch}
+    inputs = {k: sm.place(batch[k], spec, mesh).blocks
+              for k, spec in specs.items()}
+    return inputs, sm.axes_of(specs["tokens"][0]) if specs["tokens"] else ()
 
 
 def _mesh_prefill(cfg, params: dict, batch, max_seq: int):
     """The prefill over the shard context's mesh (``make_prefill_step``)."""
-    rules, mesh = _serve_ctx(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    toks, batch_axes = _mesh_tokens(tokens, rules, mesh)
-    kv_spec = _kv_spec(cfg, B, max_seq, rules, mesh)
+    rules, mesh = _serve_ctx()
+    inputs, batch_axes = _mesh_inputs(cfg, batch, rules, mesh)
+    B, S = batch["tokens"].shape
+    structs = cache_structs(cfg, B, max_seq)
+    if cfg.enc_dec:         # the cross K/V at the encoder's length
+        Se = batch["frames"].shape[1]
+        structs["cross"] = {n: ShapeDtypeStruct(
+            s.shape[:2] + (Se,) + s.shape[3:], s.dtype)
+            for n, s in structs["cross"].items()}
     w = MeshParams(params, mesh, None, grad=False)
-    logits, kv = meta_model(cfg).prefill_mesh(w, toks, batch_axes, max_seq,
-                                              kv_spec)
-    struct = cache_structs(cfg, B, max_seq)["layers"]["k"]
+    logits, cache = meta_model(cfg).prefill_mesh(
+        w, inputs, batch_axes, max_seq,
+        cache_specs(cfg, structs, rules, mesh))
     first = mesh.devices[sm.positions(mesh)[0]]
-    return logits, {
-        "index": torch.tensor(S, dtype=torch.int32, device=first),
-        "layers": {n: sm.ShardedArray(kv[n], kv_spec, mesh, struct.shape,
-                                      struct.dtype) for n in ("k", "v")}}
+    return logits, {"index": torch.tensor(S, dtype=torch.int32,
+                                          device=first), **cache}
+
+
+def _place_cache(cache, specs, mesh):
+    """Every leaf of ``cache`` but "index" placed by its spec."""
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            out[k] = _place_cache(v, specs[k], mesh)
+        else:
+            out[k] = v if k == "index" else sm.place(v, specs[k], mesh)
+    return out
 
 
 def _mesh_decode(cfg, params: dict, tokens, cache):
     """The decode over the shard context's mesh (``make_decode_step``)."""
-    rules, mesh = _serve_ctx(cfg)
+    rules, mesh = _serve_ctx()
     if torch.as_tensor(cache["index"]).ndim != 0 or "block_tbl" in cache:
         raise ValueError("a decode over a mesh takes one index for every "
                          "row and the ring cache (no block table)")
-    B = tokens.shape[0]
-    Smax = cache["layers"]["k"].shape[2]
-    toks, batch_axes = _mesh_tokens(tokens, rules, mesh)
-    kv_spec = _kv_spec(cfg, B, Smax, rules, mesh)
-    layers = {n: sm.place(leaf, kv_spec, mesh)
-              for n, leaf in cache["layers"].items()}
+    toks, batch_axes = _mesh_inputs(cfg, {"tokens": tokens}, rules, mesh)
+    specs = cache_specs(cfg, cache, rules, mesh)
     w = MeshParams(params, mesh, None, grad=False)
-    return meta_model(cfg).decode_mesh(w, toks, {**cache, "layers": layers},
-                                       batch_axes, kv_spec)
+    return meta_model(cfg).decode_mesh(w, toks["tokens"],
+                                       _place_cache(cache, specs, mesh),
+                                       batch_axes, specs)
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int):
@@ -604,10 +608,11 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int):
     ``params`` an ``LM``: its ``prefill``.  Laid-out weights ({name:
     ``ShardedArray``}, ``device_put`` by ``serve_shardings``) prefill over
     the shard context's mesh shard by shard, as the reference's partition
-    under ``serve_rules``: tokens split over the batch axes, the vocabulary,
-    heads, MLP columns and experts over "model", K4 on each rank's heads;
-    the logits come back whole, the cache as {"index", "layers": {"k",
-    "v"}} with ``ShardedArray`` leaves laid out by ``cache_axes``."""
+    under ``serve_rules``: tokens, patches and frames split over the batch
+    axes, the vocabulary, heads, MLP columns, experts and SSM channels or
+    heads over "model", K4 on each rank's heads, K7 on each rank's Mamba2
+    heads; the logits come back whole, the cache as the one-device tree
+    with ``ShardedArray`` leaves laid out by ``cache_axes``."""
     @torch.no_grad()
     def prefill_step(params, batch):
         if isinstance(params, LM):
@@ -619,9 +624,10 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int):
 def make_decode_step(cfg: ModelConfig):
     """``decode_step(params, tokens, cache) → (logits, cache)``.  ``params``
     an ``LM``: its ``decode``.  Laid-out weights decode over the shard
-    context's mesh (as ``make_prefill_step``'s): the cache's K/V leaves
-    (``ShardedArray``, or whole tensors, placed by ``cache_axes``) keep
-    their sequence split over "model" and the attention runs split-K."""
+    context's mesh (as ``make_prefill_step``'s): the cache's leaves
+    (``ShardedArray``, or whole tensors, placed by ``cache_axes``) are
+    written in place; the self-attention K/V keep their sequence split
+    over "model" and the attention runs split-K."""
     @torch.no_grad()
     def decode_step(params, tokens, cache):
         if isinstance(params, LM):

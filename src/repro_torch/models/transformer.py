@@ -29,7 +29,7 @@ Entry points:
                                            (every family), shard by shard
   model.logits_mesh(w, h)                  -> vocab-split logits
   model.prefill_mesh / decode_mesh         the serve steps over a mesh
-                                           (dense and MoE), shard by shard
+                                           (every family), shard by shard
   model.prefill(inputs, max_seq)           -> (last-position logits, cache)
   model.decode(tokens, cache)              -> (logits, cache)
   LM.cache_spec(cfg, batch, max_seq)       -> tree of (shape, dtype, axes)
@@ -136,6 +136,42 @@ class _HybridGroup(nn.Module):
         return h + self.down(self.shared(torch.cat([h, emb0], dim=-1),
                                          angles=angles, train=train),
                              train=train)
+
+
+def _layer_specs(specs: dict, depth: int) -> dict:
+    """{name: the spec of one layer's block}: each stacked leaf's spec less
+    its ``depth`` leading (unsplit) layer dims."""
+    return {n: sm.canonical(spec)[depth:] for n, spec in specs.items()}
+
+
+def _stack_blocks(layers: list[dict]) -> dict:
+    """[{name: {position: a layer's block}}] → {name: {position: the
+    blocks stacked on a new leading dim}}; blocks that positions share
+    stack once."""
+    out: dict = {}
+    for n in layers[0]:
+        memo: dict = {}
+        out[n] = {}
+        for p in layers[0][n]:
+            blocks = [layer[n][p] for layer in layers]
+            key = tuple(id(b) for b in blocks)
+            if key not in memo:
+                memo[key] = torch.stack(blocks)
+            out[n][p] = memo[key]
+    return out
+
+
+def _sharded(tree: dict, specs: dict, mesh) -> dict:
+    """{name: {position: block}} → {name: ``ShardedArray``} under
+    ``specs``, whole shapes from the blocks; one {position: block} alone
+    where ``specs`` is a spec."""
+    if not isinstance(specs, dict):
+        blk = next(iter(tree.values()))
+        shape = tuple(n * sm.axis_size(mesh, specs[d] if d < len(specs)
+                                       else None)
+                      for d, n in enumerate(blk.shape))
+        return sm.ShardedArray(tree, specs, mesh, shape, blk.dtype)
+    return {n: _sharded(tree[n], specs[n], mesh) for n in specs}
 
 
 def map_spec(fn, spec):
@@ -289,13 +325,7 @@ class LM(nn.Module):
         aux).  The SSM stack, the hybrid's groups, the VLM's patch prefix
         and the encoder-decoder follow ``forward``'s train route."""
         cfg = self.cfg
-        h = self._embed_mesh(w, inputs["tokens"])
-        patches = inputs.get("patches") if cfg.family == "vlm" else None
-        if patches is not None:
-            # each batch shard's patches replace its first P rows (_embed)
-            h = {p: torch.cat([patches[p].to(x.dtype),
-                               x[:, patches[p].shape[1]:]], dim=1)
-                 for p, x in h.items()}
+        h = self._prefix_mesh(self._embed_mesh(w, inputs["tokens"]), inputs)
         angles = self._angles_mesh(h)
         aux = zero_aux(h[sm.positions(w.mesh)[0]].device)
         if cfg.enc_dec:
@@ -341,44 +371,159 @@ class LM(nn.Module):
         return {p: memo[x.device] for p, x in xs.items()}
 
     # The serve steps over a mesh (``steps``' prefill and decode over
-    # laid-out weights; the dense and MoE families): the embedding and the
-    # readout split the vocabulary over "model", each layer's heads, MLP
-    # columns or experts split over it, and the logits come back whole (an
-    # all-gather over the vocabulary's axes, then over the batch's), as the
-    # reference's ``out_shardings`` replicate them.
+    # laid-out weights, every family): the embedding and the readout split
+    # the vocabulary over "model", each layer's heads, MLP columns, experts
+    # or SSM channels or heads split over it, and the logits come back
+    # whole (an all-gather over the vocabulary's axes, then over the
+    # batch's), as the reference's ``out_shardings`` replicate them.  The
+    # cache comes back as the one-device tree less "index", its leaves
+    # ``ShardedArray`` laid out by ``specs`` (``steps.cache_specs``).
 
-    def prefill_mesh(self, w, tokens, batch_axes, max_seq, kv_spec):
-        """{position: (B_loc, S) ids} split over ``batch_axes`` → (the
-        last position's logits (B, 1, V) float32, whole, on the first
-        position's device; {"k", "v"}: {position: the block of the (L, B,
-        Smax, KV, hd) cache under ``kv_spec``})."""
-        h = self._embed_mesh(w, tokens)
+    def prefill_mesh(self, w, inputs, batch_axes, max_seq, specs):
+        """``inputs`` {name: {position: its batch shard}}: "tokens" (B_loc,
+        S) and the family's "patches" or "frames", the batch split over
+        ``batch_axes``; ``specs`` the cache's tree of specs → (the last
+        position's logits (B, 1, V) float32, whole, on the first
+        position's device; the cache tree, "index" aside)."""
+        cfg = self.cfg
+        mesh = w.mesh
+        h = self._prefix_mesh(self._embed_mesh(w, inputs["tokens"]), inputs)
         angles = self._angles_mesh(h)
-        layer_spec = sm.canonical(kv_spec)[1:]
-        kvs = []
-        for i, blk in enumerate(self.blocks):
-            h, kv = blk.prefill_mesh(w.sub(f"blocks.{i}"), h, angles,
-                                     batch_axes, max_seq=max_seq,
-                                     kv_spec=layer_spec)
-            kvs.append(kv)
-        cache = {n: {p: torch.stack([kv[n][p] for kv in kvs])
-                     for p in h} for n in ("k", "v")}
+        if cfg.enc_dec:
+            h, cache = self._prefill_encdec_mesh(
+                w, h, inputs["frames"], angles, batch_axes, max_seq, specs)
+        elif cfg.hybrid is not None:
+            h, cache = self._prefill_hybrid_mesh(w, h, angles, batch_axes,
+                                                 max_seq, specs)
+        else:
+            layer = _layer_specs(specs["layers"], 1)
+            states = []
+            for i, blk in enumerate(self.blocks):
+                if cfg.ssm is not None:
+                    h, st = blk.prefill_mesh(w.sub(f"blocks.{i}"), h,
+                                             batch_axes, layer)
+                else:
+                    h, st = blk.prefill_mesh(w.sub(f"blocks.{i}"), h, angles,
+                                             batch_axes, max_seq=max_seq,
+                                             kv_spec=layer["k"])
+                states.append(st)
+            cache = {"layers": _sharded(_stack_blocks(states),
+                                        specs["layers"], mesh)}
         last = {p: x[:, -1:] for p, x in h.items()}
         return self._whole_logits(w, last, batch_axes), cache
 
-    def decode_mesh(self, w, tokens, cache, batch_axes, kv_spec):
+    def _prefix_mesh(self, h, inputs):
+        """A VLM's patches over the first rows of each batch shard
+        (``_embed``); ``h`` as it is otherwise."""
+        patches = inputs.get("patches") if self.cfg.family == "vlm" else None
+        if patches is None:
+            return h
+        return {p: torch.cat([patches[p].to(x.dtype),
+                              x[:, patches[p].shape[1]:]], dim=1)
+                for p, x in h.items()}
+
+    def _prefill_hybrid_mesh(self, w, h, angles, batch_axes, max_seq,
+                             specs):
+        """``_prefill_hybrid`` over a mesh: each group's Mamba2 layers
+        keep their state blocks, its shared block its ring blocks; the
+        group's ``down`` as ``_hybrid_mesh``."""
+        emb0 = h
+        n = len(self.shared)
+        m_spec = _layer_specs(specs["mamba"], 2)
+        a_spec = _layer_specs(specs["attn"], 1)["k"]
+        mamba, attn = [], []
+        for g, group, shared, _ in self._groups():
+            states = []
+            for i, blk in enumerate(group):
+                h, st = blk.prefill_mesh(w.sub(f"blocks.{g}.{i}"), h,
+                                         batch_axes, m_spec)
+                states.append(st)
+            mamba.append(_stack_blocks(states))
+            x2, kv = shared.prefill_mesh(
+                w.sub(f"shared.{g % n}"),
+                {p: torch.cat([x, emb0[p]], dim=-1) for p, x in h.items()},
+                angles, batch_axes, max_seq=max_seq, kv_spec=a_spec)
+            h = self._down_mesh(w, g, h, x2)
+            attn.append(kv)
+        return h, {"mamba": _sharded(_stack_blocks(mamba), specs["mamba"],
+                                     w.mesh),
+                   "attn": _sharded(_stack_blocks(attn), specs["attn"],
+                                    w.mesh)}
+
+    def _down_mesh(self, w, g, h, x2):
+        """h + the group's down projection of the shared block's output
+        (replicated over "model": every rank runs all of it)."""
+        down = w(f"down.{g}.w")
+        cd = self.cfg.cdtype
+        return {p: x + x2[p].to(cd) @ down[p].to(cd) for p, x in h.items()}
+
+    def _prefill_encdec_mesh(self, w, h, frames, angles, batch_axes,
+                             max_seq, specs):
+        """``_prefill_encdec`` over a mesh: the encoder over every frame
+        (``_encode_mesh``), then the decoder over the prompt, keeping each
+        layer's self ring and its cross K/V at the encoder's length;
+        cross_len = S_enc for every row."""
+        enc = self._encode_mesh(w, frames)
+        layer = {"self": _layer_specs(specs["self"], 1)["k"],
+                 "cross": _layer_specs(specs["cross"], 1)["k"]}
+        selfs, crosses = [], []
+        for i, blk in enumerate(self.dec_blocks):
+            h, kv = blk.prefill_mesh(w.sub(f"dec_blocks.{i}"), h, enc, angles,
+                                     batch_axes, max_seq=max_seq, specs=layer)
+            selfs.append(kv["self"])
+            crosses.append(kv["cross"])
+        cross_len = {p: torch.full((f.shape[0],), f.shape[1],
+                                   dtype=torch.int32, device=f.device)
+                     for p, f in frames.items()}
+        return h, {
+            "self": _sharded(_stack_blocks(selfs), specs["self"], w.mesh),
+            "cross": _sharded(_stack_blocks(crosses), specs["cross"],
+                              w.mesh),
+            "cross_len": _sharded(sm.relayout(cross_len, (batch_axes,),
+                                              specs["cross_len"], w.mesh),
+                                  specs["cross_len"], w.mesh)}
+
+    def decode_mesh(self, w, tokens, cache, batch_axes, specs):
         """{position: (B_loc, 1) ids} → (logits (B, 1, V) float32, whole,
-        on the first position's device; the cache, its K/V
-        ``ShardedArray`` leaves written in place, index + 1)."""
+        on the first position's device; the cache, its ``ShardedArray``
+        leaves laid out by ``specs`` and written in place, index + 1)."""
+        cfg = self.cfg
         index = cache["index"]
         h = self._embed_mesh(w, tokens)
         angles = self._angles_mesh(h, start=index)
-        layer_spec = sm.canonical(kv_spec)[1:]
-        layers = cache["layers"]
-        for i, blk in enumerate(self.blocks):
-            h = blk.decode_mesh(w.sub(f"blocks.{i}"), h, angles, batch_axes,
-                                {n: leaf[i] for n, leaf in layers.items()},
-                                index, layer_spec)
+        if cfg.enc_dec:
+            layer = {"self": _layer_specs(specs["self"], 1)["k"]}
+            for i, blk in enumerate(self.dec_blocks):
+                state = {n: {k: leaf[i] for k, leaf in cache[n].items()}
+                         for n in ("self", "cross")}
+                h = blk.decode_mesh(w.sub(f"dec_blocks.{i}"), h, angles,
+                                    state, index, layer, cache["cross_len"])
+        elif cfg.hybrid is not None:
+            emb0 = h
+            n = len(self.shared)
+            a_spec = _layer_specs(specs["attn"], 1)["k"]
+            mamba, attn = cache["mamba"], cache["attn"]
+            for g, group, shared, _ in self._groups():
+                for i, blk in enumerate(group):
+                    h = blk.decode_mesh(w.sub(f"blocks.{g}.{i}"), h, {
+                        k: leaf[g, i] for k, leaf in mamba.items()})
+                x2 = shared.decode_mesh(
+                    w.sub(f"shared.{g % n}"),
+                    {p: torch.cat([x, emb0[p]], dim=-1) for p, x in h.items()},
+                    angles, {k: leaf[g] for k, leaf in attn.items()}, index,
+                    a_spec)
+                h = self._down_mesh(w, g, h, x2)
+        else:
+            layer_spec = _layer_specs(specs["layers"], 1)["k"] \
+                if cfg.ssm is None else None
+            layers = cache["layers"]
+            for i, blk in enumerate(self.blocks):
+                state = {k: leaf[i] for k, leaf in layers.items()}
+                if cfg.ssm is not None:
+                    h = blk.decode_mesh(w.sub(f"blocks.{i}"), h, state)
+                else:
+                    h = blk.decode_mesh(w.sub(f"blocks.{i}"), h, angles,
+                                        batch_axes, state, index, layer_spec)
         return (self._whole_logits(w, h, batch_axes),
                 {**cache, "index": index + 1})
 

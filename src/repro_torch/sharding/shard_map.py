@@ -276,6 +276,38 @@ def place(x, spec, mesh) -> ShardedArray:
     return ShardedArray(split(x, spec, mesh), spec, mesh, x.shape, x.dtype)
 
 
+def tree_leaves(tree, prefix: str = "") -> dict:
+    """{"a/b": leaf} of a nested dict (a cache or parameter tree)."""
+    if isinstance(tree, dict):
+        return {k: v for n, t in tree.items()
+                for k, v in tree_leaves(t, f"{prefix}{n}/").items()}
+    return {prefix[:-1]: tree}
+
+
+def clone_tree(tree):
+    """``tree`` with each ``ShardedArray``'s blocks cloned, every other
+    leaf as it is."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if not isinstance(tree, ShardedArray):
+        return tree
+    return ShardedArray({p: b.clone() for p, b in tree.blocks.items()},
+                        tree.spec, tree.mesh, tree.shape, tree.dtype)
+
+
+def lone_tree(tree, lone, clone: bool = False):
+    """A lone position's view of ``tree``: each ``ShardedArray``'s block at
+    ``lone.position`` (cloned with ``clone``) over the ``LoneMesh``
+    ``lone``, every other leaf as it is."""
+    if isinstance(tree, dict):
+        return {k: lone_tree(v, lone, clone) for k, v in tree.items()}
+    if not isinstance(tree, ShardedArray):
+        return tree
+    blk = tree.blocks[lone.position]
+    return ShardedArray({lone.position: blk.clone() if clone else blk},
+                        tree.spec, lone, tree.shape, tree.dtype)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class NamedSharding:
     """``jax.sharding.NamedSharding``: a mesh and a spec."""

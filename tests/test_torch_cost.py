@@ -338,15 +338,7 @@ def test_dryrun_record_keys_and_launches(tmp_path):
 
 @pytest.mark.parametrize("argv,what", [
     (["--mesh", "card", "--shape", "train_4k"], "train_4k"),
-    (["--probe"], "--probe"),
-    (["--arch", "zamba2-2.7b", "--mesh", "multi", "--shape", "decode_32k"],
-     "zamba2 hybrid"),
-    (["--arch", "falcon-mamba-7b", "--mesh", "single", "--shape",
-      "prefill_32k"], "Mamba1 and Mamba2"),
-    (["--arch", "qwen2-vl-7b", "--mesh", "single", "--shape", "decode_32k"],
-     "VLM"),
-    (["--arch", "seamless-m4t-medium", "--mesh", "both", "--shape",
-      "prefill_32k"], "encoder-decoder")])
+    (["--probe"], "--probe")])
 def test_dryrun_cli_refuses_by_name(argv, what, capsys, tmp_path):
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", "qwen2.5-3b"] + argv + ["--out",

@@ -22,8 +22,8 @@ configs, against the reference.
   step; its matmul FLOPs and K4 regions equal a count from the config, the
   cell's shape and ``spec_for``'s layouts, to the FLOP.
 * The CLI: ``--mesh single --mesh-shape 2,4`` writes per-device records
-  with the reference's keys; ``--mesh card`` writes the one-card cells;
-  the families without a serve partition are refused by name.
+  with the reference's keys; ``--mesh card`` writes the one-card cells.
+  (The other families' serve partition: ``test_torch_serve_mesh_families``.)
 
 ``python tests/test_torch_mesh_dryrun.py`` prints the port's lone-position
 counts of the (2, 4) smoke cells beside the reference's XLA per-device
@@ -288,24 +288,6 @@ def test_remat_state_bitwise_on_a_mesh(arch):
     assert k1["reduce-scatter"] == k0["reduce-scatter"]
 
 
-# ------------------------------------------- the serve partition, refusals
-
-
-def test_partitioned_serve_refuses_the_other_families():
-    mesh = cpu_mesh((2, 4))
-    for arch, what in (("falcon-mamba-7b", "Mamba1"),
-                       ("zamba2-2.7b", "zamba2"), ("qwen2-vl-7b", "VLM"),
-                       ("seamless-m4t-medium", "encoder-decoder")):
-        cfg = get_smoke_config(arch)
-        rules = serve_rules(4)
-        params = device_put(LM(cfg, device="cpu", seed=0),
-                            steps.serve_shardings(cfg, mesh, rules))
-        with shard_ctx(rules, mesh), pytest.raises(NotImplementedError,
-                                                   match=what):
-            steps.make_prefill_step(cfg, 16)(
-                params, {"tokens": torch.zeros((4, 8), dtype=torch.int32)})
-
-
 # ---------------------------------------------------------- lone positions
 
 
@@ -477,17 +459,6 @@ def test_cli_card_cells_are_the_one_card_share(tmp_path):
             assert rec[key] == want[key], key
 
 
-def test_cli_refuses_serve_cells_of_the_other_families_under_all(
-        tmp_path, capsys, monkeypatch):
-    monkeypatch.setattr(dryrun, "ARCH_IDS", ["falcon-mamba-7b"])
-    assert dryrun.main(["--smoke", "--mesh", "multi", "--mesh-shape",
-                        "2,2,2", "--device", "cpu", "--shape",
-                        "decode_32k", "--out", str(tmp_path)]) == 0
-    out = capsys.readouterr().out
-    assert "refused: Mamba1 and Mamba2" in out
-    assert not list(tmp_path.glob("*.json"))
-
-
 # ------------------- the serve partition, the reference (last: its subprocess
 # works while the tests above run)
 
@@ -536,9 +507,10 @@ def test_partitioned_serve_matches_the_reference(reference_serve, arch,
                                    got["cache"]["layers"][n], rtol=0,
                                    atol=TOL)
     assert int(cache["index"]) == int(got["cache"]["index"])
-    kv_spec = steps._kv_spec(f32(arch), CELLS[arch][0],
-                             CELLS[arch][2], serve_rules(CELLS[arch][0]),
-                             cpu_mesh(*MESHES[tag]))
+    kv_spec = steps.cache_specs(
+        f32(arch), steps.cache_structs(f32(arch), CELLS[arch][0],
+                                       CELLS[arch][2]),
+        serve_rules(CELLS[arch][0]), cpu_mesh(*MESHES[tag]))["layers"]["k"]
     assert cache["layers"]["k"].spec == kv_spec
 
 

@@ -26,7 +26,7 @@ expert-parallel MoE, the axes helpers, ``collective_bytes``,
   axes under this JAX, where the reference's sharding constraints raise.
 * ``collective_bytes`` equal to the reference's ``hlo_cost`` formulas on
   HLO lines of the same kinds, shapes and group sizes.
-* ``make_production_mesh`` and ``dryrun --mesh multi``'s refusal.
+* ``make_production_mesh``.
 """
 import functools
 import math
@@ -53,7 +53,6 @@ from repro.sharding import TRAIN_RULES as REF_TRAIN_RULES
 from repro.sharding import shard_ctx as ref_shard_ctx
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.launch import dryrun
 from repro_torch.launch.cost import CostCounter, collective_bytes
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.models import LM, ModelConfig, MoECfg, SHAPES
@@ -692,15 +691,3 @@ def test_make_production_mesh(multi_pod):
     with pytest.raises(ValueError):
         make_production_mesh(multi_pod=multi_pod, devices=["cpu"] * 3)
 
-
-def test_dryrun_mesh_multi_refusal_names_the_partitioner(capsys, tmp_path):
-    """``--mesh multi`` counts a lone position of the (2, 16, 16) mesh; a
-    serve cell of a family with no serve partition over a mesh is refused
-    by name."""
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--mesh", "multi", "--arch", "falcon-mamba-7b",
-                     "--shape", "decode_32k", "--out", str(tmp_path)])
-    assert e.value.code != 0
-    err = capsys.readouterr().err
-    assert "no serve partition over a mesh" in err and "not split" in err
-    assert "not ported" not in err

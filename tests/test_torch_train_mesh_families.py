@@ -73,8 +73,8 @@ FAMILIES = {"ssm": "falcon-mamba-7b", "hybrid": "zamba2-2.7b",
 S = 8
 
 
-def port_batches(cfg, n=STEPS, batch=B):
-    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=S,
+def port_batches(cfg, n=STEPS, batch=B, seq=S):
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq,
                                     global_batch=batch, seed=3))
     return [{k: torch.from_numpy(v) for k, v in
              extra_inputs(cfg, data.batch(i)).items()} for i in range(n)]
@@ -298,14 +298,14 @@ def test_replicated_ssm_leaves_take_the_summed_gradient():
         assert float((got - want).abs().max()) <= TOL * top, k
 
 
-def _collectives(arch, remat):
+def _collectives(arch, remat, seq):
     cfg = dataclasses.replace(get_smoke_config(arch), remat=remat)
     step, (opt_init, _) = steps.make_train_step(cfg)
     mesh = cpu_mesh((2, 2))
     model = steps.init_train_state(0, cfg, opt_init, device="cpu").params
     state = mesh_state(cfg, mesh, model)
     with CostCounter() as c, shard_ctx(TRAIN_RULES, mesh):
-        step(state, port_batches(cfg, n=1, batch=2)[0])
+        step(state, port_batches(cfg, n=1, batch=2, seq=seq)[0])
     return cfg, c.collectives
 
 
@@ -325,19 +325,27 @@ def _plus(*counts):
     return dict(out)
 
 
+# a batch shard's rows (one row of ``seq`` tokens): under d_model (32)
+# the fused in_proj moves each rank's product, from d_model on the weight
+SEQS = (12, 48)
+
+
+@pytest.mark.parametrize("seq", SEQS)
 @pytest.mark.parametrize("remat", ["none", "full"])
-def test_collectives_of_one_falcon_step_follow_the_layout(remat):
+def test_collectives_of_one_falcon_step_follow_the_layout(remat, seq):
     """falcon-mamba-7b smoke (2 layers, d 32, d_inner 64, N 4, dt_rank 2)
-    on (2, 2), batch 2 x 16.  A layer: ``in_proj`` (data, model) gathered
-    whole, over "data" then "model", and ``out_proj`` (model, data) over
+    on (2, 2), batch 2 x ``seq``.  A layer: ``in_proj`` (data, model)
+    gathered over "data", then over "model" either whole or, with fewer
+    rows than d_model, as each rank's (1, seq, di) product (fewer bytes),
+    and ``out_proj`` (model, data) over
     "data": 3 all-gathers and 3 reduce-scatters; the ``x_proj`` psum over
-    "model" of the (1, 16, 10) partial products and the ``out_proj`` psum,
+    "model" of the (1, seq, 10) partial products and the ``out_proj`` psum,
     each with its backward psum; the gradient psums over "data" of the
     leaves split over "model" alone (conv w and b, x_proj, dt_proj w and
     b, A_log, D: 7) and over both axes of the replicated ``ln``.  With
     ``remat="full"`` each layer's recompute runs its 3 gathers and its 2
     forward psums again."""
-    cfg, recs = _collectives("falcon-mamba-7b", remat)
+    cfg, recs = _collectives("falcon-mamba-7b", remat, seq)
     L, d, di = cfg.n_layers, cfg.d_model, cfg.d_inner
     R, N = cfg.dt_rank, cfg.ssm.d_state
     again = remat != "none"
@@ -348,20 +356,26 @@ def test_collectives_of_one_falcon_step_follow_the_layout(remat):
     assert dict(collections.Counter((k, n) for k, _, n in recs)) == want
     got = collections.Counter(recs)
     f32 = 4
-    # in_proj whole over "model" (d, 2 di), and its reduce-scatter back to
-    # the (d, di) block the "data" gather made
-    assert got[("all-gather", d * 2 * di * f32, 2)] == L * (1 + again)
-    assert got[("reduce-scatter", d * di * f32, 2)] == L
-    # the x_proj psum, forward (and its recompute) and backward: (B_loc, S,
-    # R + 2N)
-    assert got[("all-reduce", S * (R + 2 * N) * f32, 2)] == (2 + again) * L
+    whole = seq >= d
+    # in_proj over "model": whole (d, 2 di), and its reduce-scatter back to
+    # the (d, di) block the "data" gather made; or the (1, seq, 2 di)
+    # product, and its reduce-scatter to (1, seq, di)
+    gathered, scattered = (d, seq)[::1 if whole else -1]
+    assert got[("all-gather", gathered * 2 * di * f32, 2)] == L * (1 + again)
+    assert got[("reduce-scatter", gathered * di * f32, 2)] == L
+    assert got[("all-gather", scattered * 2 * di * f32, 2)] == 0
+    # the x_proj psum, forward (and its recompute) and backward: (B_loc,
+    # seq, R + 2N)
+    assert got[("all-reduce", seq * (R + 2 * N) * f32, 2)] == (2 + again) * L
 
 
+@pytest.mark.parametrize("seq", SEQS)
 @pytest.mark.parametrize("remat", ["none", "full"])
-def test_collectives_of_one_zamba2_step_follow_the_layout(remat):
+def test_collectives_of_one_zamba2_step_follow_the_layout(remat, seq):
     """zamba2-2.7b smoke (4 Mamba2 layers in 2 groups, 2 shared blocks,
-    d 32, d_inner 64, 8 heads, N 8) on (2, 2), batch 2 x 16.  A Mamba2
-    layer: ``in_proj`` gathered whole (over "data", then "model"), the
+    d 32, d_inner 64, 8 heads, N 8) on (2, 2), batch 2 x ``seq``.  A
+    Mamba2 layer: ``in_proj`` gathered over "data", then over "model"
+    whole or, with fewer rows than d_model, as each rank's product, the
     conv's w and b whole (over "model"), ``out_proj`` over "data": 5
     all-gathers and 5 reduce-scatters; the gated norm's psum over "model"
     of each row's sum of squares and the ``out_proj`` psum, each with its
@@ -375,7 +389,7 @@ def test_collectives_of_one_zamba2_step_follow_the_layout(remat):
     ``remat="full"`` each group is one checkpoint: its recompute runs the
     group's gathers (its shared block's among them) and forward psums
     again."""
-    cfg, recs = _collectives("zamba2-2.7b", remat)
+    cfg, recs = _collectives("zamba2-2.7b", remat, seq)
     A, d, di = cfg.n_layers, cfg.d_model, cfg.d_inner
     G = A // cfg.hybrid.attn_every
     again = remat != "none"
@@ -391,11 +405,13 @@ def test_collectives_of_one_zamba2_step_follow_the_layout(remat):
     got = collections.Counter(recs)
     f32 = 4
     cols = 2 * di + 2 * cfg.ssm.d_state + cfg.ssm_heads
-    assert got[("all-gather", d * cols * f32, 2)] == A * (1 + again)
-    assert got[("reduce-scatter", d * cols // 2 * f32, 2)] == A
-    # the norm's psum of (B_loc, S, 1) and the CE's pmax and 4 psums of
-    # (B_loc, S): the same size
-    assert got[("all-reduce", S * f32, 2)] == (2 + again) * A + 5
+    gathered, scattered = (d, seq)[::1 if seq >= d else -1]
+    assert got[("all-gather", gathered * cols * f32, 2)] == A * (1 + again)
+    assert got[("reduce-scatter", gathered * cols // 2 * f32, 2)] == A
+    assert got[("all-gather", scattered * cols * f32, 2)] == 0
+    # the norm's psum of (B_loc, seq, 1) and the CE's pmax and 4 psums of
+    # (B_loc, seq): the same size
+    assert got[("all-reduce", seq * f32, 2)] == (2 + again) * A + 5
     # the replicated (H,) leaves' gradient psums over both axes
     assert got[("all-reduce", cfg.ssm_heads * f32, 4)] == 3 * A
 
