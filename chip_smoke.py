@@ -126,7 +126,7 @@ no result line.
               cross attention are timed as ranges of their own; falcon's
               scan loops also by the host clock in an unprofiled
               admission.
-6. loop     — ``run_closed_loop`` (``LoopConfig()``, 14 ticks, ``--seed``,
+6. loop     — ``run_closed_loop`` (``LoopConfig()``, 12 ticks, ``--seed``,
               autoscale, planner mode: router, collector, anomaly
               detector, eviction policy, predictive allocator with its DQN)
               over full-width qwen2.5-3b replicas sharing one EngineCore,
@@ -196,7 +196,7 @@ no result line.
               bytes and a measured host -> card copy rate, fed the hybrid
               run's latencies against the planner run's: the phases and
               ``elapsed_s`` equal the CPU choice's.
-8. fleet    — phase 6's dense loop (``LoopConfig()``, 14 ticks, ``--seed``,
+8. fleet    — phase 6's dense loop (``LoopConfig()``, 12 ticks, ``--seed``,
               planner mode, 1 → 3 → 4 → 1 replicas) over worker
               processes, each serving full-width qwen2.5-3b on the card
               through the kernels: at ``topology="proc"`` (each replica a
@@ -236,7 +236,7 @@ no result line.
               9's metrics and every leaf of step 9's checkpoint within 1e-6
               relative, printed whether bitwise.  (3) Full width: the
               launcher trains qwen2.5-3b (36 layers, 3.09 B float32 masters,
-              bf16 compute) 8 steps of 2 x 256 tokens, no checkpoint: every
+              bf16 compute) 4 steps of 2 x 256 tokens, no checkpoint: every
               logged metric finite, no kernel launched; printed: the peak
               device memory, the host clock per step after the first and
               training tokens per second.  It runs twice: at the launcher's default
@@ -303,45 +303,66 @@ no result line.
               every TickLog field but learn_loss and every stream equal
               phase 6's; launch counts of the bulk path.  (a) and (c)
               join the kernels line.
-12. axis    — the split-K body alone at qwen2.5-3b's decode shapes over a
-              4096-slot ring on 4 shards (float32 within 1e-4 of
-              ``sdpa_ref``, bf16 within 2e-2 of K1's write instance, the
-              written caches bitwise equal; not counted).  Then, counted:
-              (a) full-width qwen2.5-3b (36 layers, bf16 weights): 8
-              prompts of 200 tokens prefilled through K4 into a 4096-slot
-              ring, 16 greedy steps (K3 picks every token) without a shard
-              context (K1's write instance) and under ``shard_ctx(
-              SERVE_RULES, mesh)`` on a (1, 4) mesh on cuda:0 (split-K: no
-              decode kernel launches).  Step 1's written K/V rows are the
-              body's new rows bitwise in every layer, layer 0's equal the
-              unsharded write, no other slot changes, the cache comes back
-              split.  Fed the unsharded run's tokens, every row's logits
-              stay within AXIS_GAP of K1's at every step and the greedy
-              choices part only at near-ties (top two within 2 x
-              AXIS_GAP); free-running, the rows in step are held the same
-              way and the parted ones printed.  A float32 copy at 4
-              layers, TF32 off: logits within 1e-4 x max(1, max |logit|)
-              of the unsharded steps.  (b) One card's share of qwen2.5-3b
-              decode_32k (8 rows over a 32768-slot ring, index 32767) over
-              a (1, 16) mesh on cuda:0 beside the unsharded step: CUDA-
-              event times, peaks (split-K within 1 GiB of the unsharded
-              step's: the cache is never gathered), the collectives'
-              wire bytes a device exactly 36 x 1.875 x (512 + 512 +
-              65536) = 4,492,800, logits within AXIS_GAP.  (c) olmoe-1b-7b
-              at full width and depth (64 experts, top 8): prefill 8 x 64
-              tokens and 8 steps on a (1, 4) mesh at capacity factor 1.25,
-              every expert-parallel MoE call held against the global path
-              on the same input (drop_frac and expert_load equal, y within
-              2e-2); then a dropless copy on a (2, 2) mesh held to the
-              global run as (a)'s streams are.  Launch counts join the
-              kernels line.
+12. axis    — the model axis through the serve partition (an ``LM``
+              given to ``steps.make_decode_step`` under ``shard_ctx(...)``
+              is laid out once as views and runs it).  The split-K body
+              alone at qwen2.5-3b's decode shapes over a 4096-slot ring on
+              4 shards (``Attention._decode_splitk`` with the mesh given:
+              float32 within 1e-4 of ``sdpa_ref``, bf16 within 2e-2 of
+              K1's write instance, the written caches bitwise equal; not
+              counted).  Then, counted: (a) full-width qwen2.5-3b (36
+              layers, bf16 weights): 8 prompts of 200 tokens prefilled
+              through K4 into a 4096-slot ring, 8 greedy steps (K3 picks
+              every token) on one device (K1's write instance) and under
+              ``shard_ctx(SERVE_RULES, mesh)`` on a (1, 4) mesh on cuda:0
+              (the sequence over "model": the split-K body, counted, runs
+              in every layer; no decode kernel launches).  Step 1's
+              written K/V rows are the body's new rows bitwise in every
+              layer, layer 0's equal the one-device write, no other slot
+              changes, the cache comes back split.  Fed the one-device
+              run's tokens, every row's logits stay within AXIS_GAP of
+              K1's at every step and the greedy choices part only at
+              near-ties (top two within 2 x AXIS_GAP); free-running, the
+              rows in step are held the same way and the parted ones
+              printed.  A float32 copy at 4 layers, TF32 off: logits
+              within 1e-4 x max(1, max |logit|) of the one-device steps.
+              (b) One card's share of qwen2.5-3b decode_32k (8 rows over a
+              32768-slot ring, index 32767) over a (1, 16) mesh on cuda:0
+              beside the one-device step: CUDA-event times, peaks (the
+              mesh within 1 GiB of one device's: the cache is never
+              gathered), the collectives exactly the partition's
+              (``partition_decode_records``: the embedding's and each
+              layer's psums, wk/wv gathered whole, q over "model",
+              split-K's pmax and psums, the logits' gathers) and their
+              wire bytes, logits within AXIS_GAP.  (c) olmoe-1b-7b at full
+              width and depth (64 experts, top 8): prefill 8 x 64 tokens
+              and 4 steps on a (1, 4) mesh at capacity factor 1.25, every
+              expert-parallel MoE call of the partition held against the
+              global path on the same input (drop_frac and expert_load
+              equal, y within 2e-2); then a dropless copy on a (2, 2)
+              mesh held to the global run as (a)'s streams are.  (d)
+              Full-width qwen2.5-3b on a (2, 2) mesh on cuda:0 under
+              ``serve_rules(8)``, 8 rows at distinct positions (one
+              ring wrapped), LAYOUT_STEPS steps in each cache layout the
+              rules give: a 256-slot ring split over "model" (split-K with
+              each row's index), a 4095-slot ring that 2 does not divide
+              (the 2 KV heads split: K1's write instance on each rank's
+              head) and the paged pool (16-slot blocks, a shuffled table
+              with global ids: K5's write instance on each rank's head);
+              the logits and the written K/V rows against one device's on
+              the same weights, fed the same tokens, by FAMILY_BF16_NOTE's
+              rule (the gap to a float32 witness within WITNESS_RATIO x
+              one device's); K1's and K5's write-instance launches exactly
+              positions x layers x steps; host clock and CUDA-event time a
+              step beside one device's, wire bytes a device and their
+              largest sources.  Launch counts join the kernels line.
 13. mesh    — training over a ("data", "model") mesh under TRAIN_RULES,
               every position on cuda:0 (a collective is a copy within the
               card); the train route launches no kernel.  (a) qwen2.5-3b
               at full width and depth, float32 state, bf16 compute,
               through the launcher (``train(args, mesh_devices=...)``) on
               phase 9's batches (2 x 256 tokens, seed 0): 2 steps on one
-              device, 4 on (2, 2), step 1's loss, ce and grad_norm within
+              device, 2 on (2, 2), step 1's loss, ce and grad_norm within
               1e-2 relative; host clock a step and peak of each; one more
               mesh step under ``CostCounter``, its collectives (kind,
               group, count, result bytes; one data all-gather and one
@@ -389,7 +410,7 @@ no result line.
 15. mesh dry-run — (a) the serve steps over weights laid out on a (2, 2)
               mesh on cuda:0 under ``serve_rules`` (``steps.serve_shardings``):
               full-width qwen2.5-3b, bf16, a prefill of 2 x 512 tokens into
-              a 1024-slot ring and 4 decode steps of 8 rows fed the
+              a 1024-slot ring and 2 decode steps of 8 rows fed the
               one-device run's tokens, logits and K/V caches within
               AXIS_GAP of the one-device steps' (each rank's partial
               products round to bf16 before the psum); a float32 copy at 4
@@ -636,12 +657,14 @@ def ssd_inputs(torch, g, Bsz, L, H=80, hd=64, N=64):
 
 
 # the closed control loop, LoopConfig(): 4 slots, max_seq 48, a first
-# prefill chunk of 8 tokens (16-token prompts, 8 generated), 14 ticks of 10
-# router steps; its write-instance checks write key 0 and key 47 in each
+# prefill chunk of 8 tokens (16-token prompts, 8 generated), 12 ticks of 10
+# router steps (the run's time limit: the workload spreads over the ticks,
+# and at 12 the scaler still goes 1 -> 3 -> 4 -> 1, the last at tick 11;
+# at 11 or fewer it never scales down); its write-instance checks write key 0 and key 47 in each
 # regime; torch.profiler records the first router step of tick 5 (the
 # spike): its trace is parsed on the host in proportion to its events
 # (summing a whole tick of four replicas' took 47-57 s)
-LOOP_TICKS, LOOP_SLOTS, LOOP_MAX_SEQ, LOOP_CHUNK = 14, 4, 48, 8
+LOOP_TICKS, LOOP_SLOTS, LOOP_MAX_SEQ, LOOP_CHUNK = 12, 4, 48, 8
 LOOP_WRITE_INDICES = {"fresh": [0, 17, 47, 9],
                       "wrapped": [48, 95, 101, 68],
                       "mixed": [0, 53, 47, 143]}
@@ -1876,7 +1899,7 @@ def range_shares(prof, ranges, n, device_ms):
 # ticks torch.profiler records for a tick's device time (its trace is
 # parsed on the host in proportion to its events, inside the run's time
 # limit)
-PROFILED_TICKS = 3
+PROFILED_TICKS = 1
 
 
 def profile_ticks(torch, eng, label, n, n_prof, counted=None,
@@ -2038,7 +2061,7 @@ def profile_dense_tick(torch, core, label, requests=None, **kw):
     what = "weights and cross K/V" if cfg.enc_dec else "weights"
     print(f"  {label}: a tick reads at least {gb:.2f} GB of {what}, a byte "
           f"floor of {floor_ms:.3f} ms at 3.35 TB/s")
-    profile_ticks(torch, eng, label, n=20, n_prof=PROFILED_TICKS, **kw)
+    profile_ticks(torch, eng, label, n=5, n_prof=PROFILED_TICKS, **kw)
 
 
 def profile_phase(torch, core, prompts):
@@ -2057,7 +2080,7 @@ def profile_phase(torch, core, prompts):
     for _ in range(4):
         eng.step(now=0.0)
     with counted_steps(core) as calls:
-        profile_ticks(torch, eng, f"paged + spec_k={SPEC_K}", n=10,
+        profile_ticks(torch, eng, f"paged + spec_k={SPEC_K}", n=5,
                       n_prof=PROFILED_TICKS, counted=calls)
     del eng
     free(torch)
@@ -3510,7 +3533,7 @@ def fleet_run(torch, ops, cfg, lc, label, seed, spawned, phase6,
 
 
 def fleet_phase(torch, ops, seed, loop):
-    """Phase 8: phase 6's dense closed loop (planner mode, 14 ticks, 1 → 3
+    """Phase 8: phase 6's dense closed loop (planner mode, 12 ticks, 1 → 3
     → 4 → 1) over worker processes on the card, at ``topology="proc"``
     (each replica a ``python -m repro_torch.serving.worker <fd> --device
     cuda`` child) and at ``topology="tcp"`` over ``launch_fleet(4,
@@ -3619,12 +3642,15 @@ def fleet_phase(torch, ops, seed, loop):
 TINY_BASE = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
                  vocab=64, param_dtype="float32", dtype="float32")
 TRAIN_TOL = 1e-4
-# full width: qwen2.5-3b, 8 steps of 2 x 256 tokens, at the launcher's
+# full width: qwen2.5-3b, 4 steps of 2 x 256 tokens (the run's time limit),
+# at the launcher's
 # default lr (printed) and then at 3e-5 (held: the loss falls).  At 3e-4,
 # constant and without warmup, the 36-layer model overshoots: its loss
 # swings by nats from step to step, in bf16 and in float32 compute alike,
 # and need not end below its start (PERF.md §6)
-FULL_TRAIN = ["--arch", "qwen2.5-3b", "--steps", "8", "--batch", "2",
+FULL_TRAIN_STEPS = 4
+FULL_TRAIN = ["--arch", "qwen2.5-3b", "--steps", str(FULL_TRAIN_STEPS),
+              "--batch", "2",
               "--seq", "256", "--seed", "0", "--device", "cuda"]
 FULL_TRAIN_LRS = (3e-4, 3e-5)
 # the training peaks (GiB) phases 9 and 13 measure, under the configs'
@@ -3808,7 +3834,7 @@ def resume_phase(torch, out_dir: Path):
 
 
 def full_train_phase(torch, ops, out_dir: Path):
-    """Phase 9.3: qwen2.5-3b at full width through the launcher, 8 steps of
+    """Phase 9.3: qwen2.5-3b at full width through the launcher, 4 steps of
     2 x 256 tokens, no kernel launched, every metric finite: first at the
     launcher's default lr 3e-4, printed, then at 3e-5, whose loss must
     fall; the peak memory, the host clock per step and tokens per second
@@ -3843,7 +3869,7 @@ def full_train_phase(torch, ops, out_dir: Path):
               f"; host clock per step after the first {per_step * 1e3:.1f} "
               f"ms, {args.batch * args.seq / per_step:.0f} training tokens/s;"
               f" the launcher {wall:.1f} s with weight init ({gpu_line()})")
-        check(recs[0]["step"] == 1 and recs[-1]["step"] == 8,
+        check(recs[0]["step"] == 1 and recs[-1]["step"] == FULL_TRAIN_STEPS,
               f"records at steps {[r['step'] for r in recs]}")
         check(all(math.isfinite(v) for r in recs for v in r.values()),
               f"a metric is not finite: {recs}")
@@ -4617,7 +4643,7 @@ def fabric_phase(torch, ops, loop, seed, add):
 # the model axis: split-K decode over a sequence-split KV cache and
 # expert-parallel MoE, every mesh's shards on cuda:0
 AXIS_MESH = (1, 4)
-AXIS_B, AXIS_PROMPT, AXIS_RING, AXIS_STEPS = 8, 200, 4096, 16
+AXIS_B, AXIS_PROMPT, AXIS_RING, AXIS_STEPS = 8, 200, 4096, 8
 AXIS_F32_LAYERS, AXIS_F32_STEPS = 4, 4
 # float32 logits within this x max(1, max |logit|) of the unsharded steps:
 # the reference's own 1e-4, scaled to full-width logits
@@ -4633,11 +4659,16 @@ AXIS_F32_TOL = 1e-4
 # step.
 AXIS_GAP = 0.25
 SPLITK_SHARDS = 16
-# a decode_32k step over 16 shards: per layer the float32 pmax and psum of
-# (8, 2, 8) and the psum of (8, 2, 8, 128), all-reduce over n = 16 (ring:
-# 2 (n - 1) / n of the result a device)
-SPLITK_WIRE_BYTES = 36 * 1.875 * (512 + 512 + 65536)
-OLMOE_PROMPT, OLMOE_STEPS = 64, 8
+OLMOE_PROMPT, OLMOE_STEPS = 64, 4
+# (d): each layout's (ring slots, paged) on LAYOUT_MESH, 8 rows prefilled
+# with LAYOUT_PROMPT tokens then set to LAYOUT_INDICES (row 2's 256-slot
+# ring wrapped), LAYOUT_STEPS steps; paged: LAYOUT_BLOCK-slot blocks
+LAYOUT_MESH = (2, 2)
+LAYOUTS = {"split ring, per-row index": (256, False),
+           "ring of 4095 (KV heads split)": (4095, False),
+           "paged pool": (256, True)}
+LAYOUT_PROMPT, LAYOUT_STEPS, LAYOUT_BLOCK = 128, 2, 16
+LAYOUT_INDICES = (128, 100, 300, 64, 200, 17, 255, 90)
 
 
 def clone_tree(tree):
@@ -4788,9 +4819,9 @@ def splitk_alone(torch, ops, mesh, seed=31):
 
 def qwen_axis_runs(torch, ops, model, mesh, counts):
     """(a) full-width qwen2.5-3b: one prefill, then AXIS_STEPS greedy steps
-    unsharded (K1's write instance) and under the split-K context from a
-    copy of the same cache.  → the unsharded run's host seconds a step and
-    the split-K run's."""
+    on one device (K1's write instance) and through the partition under
+    ``shard_ctx(SERVE_RULES, mesh)`` from a copy of the same cache (the
+    ring's sequence over "model": the split-K body).  → the prompts."""
     import numpy as np
     from repro_torch.models.attention import Attention
     from repro_torch.models.steps import make_prefill_step
@@ -4805,11 +4836,12 @@ def qwen_axis_runs(torch, ops, model, mesh, counts):
     before = clone_tree(cache)
     ctx = lambda: shard_ctx(SERVE_RULES, mesh)
     seen = []
-    real = Attention.__dict__["_decode_splitk"]
+    real = Attention.__dict__["_splitk_body"]
 
-    def spy(q, k, v, c, index, *a):
-        seen.append((k[:, 0].clone(), v[:, 0].clone()))
-        return real.__func__(q, k, v, c, index, *a)
+    def spy(qs, ks, vs, *a):
+        first = next(iter(ks))
+        seen.append((ks[first].clone(), vs[first].clone()))
+        return real.__func__(qs, ks, vs, *a)
 
     un_counts, sk_counts = {}, {}
     torch.cuda.synchronize()
@@ -4821,14 +4853,14 @@ def qwen_axis_runs(torch, ops, model, mesh, counts):
     t1 = time.perf_counter()
     # step 1 alone first, to read the rows it wrote
     sk_cache = clone_tree(before)
-    Attention._decode_splitk = staticmethod(spy)
+    Attention._splitk_body = staticmethod(spy)
     try:
         with launches_into(ops, sk_counts):
             first = axis_run(torch, ops, model, logits, sk_cache, 1, ctx)
     finally:
-        Attention._decode_splitk = real
-    check(len(seen) == cfg.n_layers, f"split-K ran in {len(seen)} of "
-          f"{cfg.n_layers} layers")
+        Attention._splitk_body = real
+    check(len(seen) == cfg.n_layers, f"the split-K body ran in {len(seen)} "
+          f"of {cfg.n_layers} layers")
     split = first[2]["layers"]
     check(all(isinstance(split[n], ShardedArray) for n in ("k", "v")),
           "the split-K cache came back whole")
@@ -4870,9 +4902,10 @@ def qwen_axis_runs(torch, ops, model, mesh, counts):
     for c in (un_counts, sk_counts):
         for k, n in c.items():
             counts[k] = counts.get(k, 0) + n
-    print(f"  qwen2.5-3b, 36 layers bf16, {AXIS_B} x {AXIS_PROMPT}-token "
-          f"prompts in a {AXIS_RING}-slot ring, {AXIS_STEPS} greedy steps on "
-          f"a {AXIS_MESH} mesh: step 1's written K/V rows are the body's "
+    print(f"  (a) qwen2.5-3b, 36 layers bf16, {AXIS_B} x {AXIS_PROMPT}-token"
+          f" prompts in a {AXIS_RING}-slot ring, {AXIS_STEPS} greedy steps "
+          f"through the partition on a {AXIS_MESH} mesh (laid out "
+          f"{split['k'].spec}): step 1's written K/V rows are the body's "
           f"new rows bitwise in all {cfg.n_layers} layers (layer 0's equal "
           f"the unsharded write; {same} of {cfg.n_layers} layers' K rows "
           f"equal it), no other slot changed; fed K1's tokens, every row's "
@@ -4887,9 +4920,9 @@ def qwen_axis_runs(torch, ops, model, mesh, counts):
 
 
 def f32_axis_runs(torch, ops, prompts, mesh, counts):
-    """(a) in float32 at AXIS_F32_LAYERS layers, TF32 off: split-K's logits
-    within AXIS_F32_TOL x max(1, max |logit|) of the unsharded steps, both
-    fed the unsharded run's tokens."""
+    """(a) in float32 at AXIS_F32_LAYERS layers, TF32 off: the partition's
+    logits within AXIS_F32_TOL x max(1, max |logit|) of the one-device
+    steps, both fed the one-device run's tokens."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import LM
@@ -4915,20 +4948,47 @@ def f32_axis_runs(torch, ops, prompts, mesh, counts):
         check(err <= limit, f"float32 split-K step {t}: logits differ by "
               f"{err:.4g} (> {limit:.4g})")
         worst = max(worst, err / limit)
-    print(f"  qwen2.5-3b float32 at {AXIS_F32_LAYERS} layers, "
+    print(f"  (a) qwen2.5-3b float32 at {AXIS_F32_LAYERS} layers, "
           f"{AXIS_F32_STEPS} steps: split-K logits within {worst:.3g} of "
           f"the allowance {AXIS_F32_TOL} x max(1, max|logit|)", flush=True)
     del model, cache, before
     free(torch)
 
 
+def partition_decode_records(cfg, B, m):
+    """The collectives (kind, result bytes, group size) of one decode step
+    of a dense model like qwen2.5-3b (tied embeddings, QKV bias, bf16
+    weights, 2 KV heads, a vocabulary and q heads that "model" divides)
+    through the partition on a (1, m) mesh under SERVE_RULES, the ring's
+    sequence over "model": the embedding's psum over the vocabulary; a
+    layer: wk, wv and their biases gathered whole (their columns split
+    over "model", their KV heads do not), q gathered over "model",
+    split-K's pmax of m and psum of l (B, KV, G) and psum of o (B, KV, G,
+    hd) in float32, the psums of wo's and the MLP's rows; the float32
+    logits gathered over the vocabulary, then over "data" (of 1: no
+    bytes)."""
+    it, f = 2, 4
+    d, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    G = H // KV
+    kv_w = ([("all-gather", d * KV * hd * it, m)] * 2
+            + [("all-gather", KV * hd * it, m)] * 2 * cfg.qkv_bias)
+    layer = (kv_w + [("all-gather", B * H * hd * it, m)]
+             + [("all-reduce", B * KV * G * f, m)] * 2
+             + [("all-reduce", B * KV * G * hd * f, m)]
+             + [("all-reduce", B * d * it, m)] * 2)
+    return ([("all-reduce", B * d * it, m)] + layer * L
+            + [("all-gather", B * V * f, m), ("all-gather", B * V * f, 1)])
+
+
 def decode_32k_splitk(torch, ops, model, counts):
     """(b) one card's share of qwen2.5-3b decode_32k (8 rows over a
-    32768-slot ring, index 32767) over a (1, SPLITK_SHARDS) model group on
-    cuda:0, beside the unsharded step: CUDA-event times, peaks, the
-    collectives' wire bytes, the logits."""
+    32768-slot ring, index 32767) through the partition over a (1,
+    SPLITK_SHARDS) mesh on cuda:0, beside the one-device step: CUDA-event
+    times, peaks, the collectives and their wire bytes, the logits."""
+    from collections import Counter
     from repro_torch.launch.cost import CostCounter, collective_bytes
-    from repro_torch.launch.dryrun import _timed, build_cell
+    from repro_torch.launch.dryrun import _timed, build_cell, collective_sizes
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import SHAPES
     from repro_torch.sharding import SERVE_RULES, shard_ctx
@@ -4941,7 +5001,8 @@ def decode_32k_splitk(torch, ops, model, counts):
                      devices=["cuda:0"] * SPLITK_SHARDS)
     ctx = lambda: shard_ctx(SERVE_RULES, mesh)
     out = {}
-    for label, c in (("unsharded", contextlib.nullcontext), ("split-K", ctx)):
+    for label, c in (("one device", contextlib.nullcontext),
+                     ("partition", ctx)):
         with launches_into(ops, counts), c():
             step(*args)                                   # warm
             torch.cuda.synchronize()
@@ -4949,38 +5010,47 @@ def decode_32k_splitk(torch, ops, model, counts):
             logits = step(*args)[0][:, 0].float()
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated()
-            runs = _timed(step, args, dev, 3)
+            runs = _timed(step, args, dev, 2)
         out[label] = (logits, peak, statistics.median(runs), runs)
     with ctx(), CostCounter() as counter:
         step(*args)
     wire, detail = collective_bytes(counter)
-    check(wire == SPLITK_WIRE_BYTES, f"decode_32k split-K: {wire} wire bytes "
-          f"a device, expected {SPLITK_WIRE_BYTES:.0f} ({detail})")
+    want = partition_decode_records(model.cfg, args[1].shape[0],
+                                    SPLITK_SHARDS)
+    check(Counter(counter.collectives) == Counter(want),
+          f"decode_32k partition: collectives {Counter(counter.collectives)}"
+          f", expected {Counter(want)}")
+    want_wire = collective_bytes(want)[0]
+    check(wire == want_wire, f"decode_32k partition: {wire} wire bytes a "
+          f"device, expected {want_wire:.0f}")
     (l_un, p_un, s_un, r_un), (l_sk, p_sk, s_sk, r_sk) = \
-        out["unsharded"], out["split-K"]
-    check(p_sk <= p_un + 2**30, f"decode_32k split-K peak {p_sk / 2**30:.2f} "
-          f"GiB > unsharded {p_un / 2**30:.2f} + 1 GiB: the cache was "
-          f"gathered")
+        out["one device"], out["partition"]
+    check(p_sk <= p_un + 2**30, f"decode_32k partition peak "
+          f"{p_sk / 2**30:.2f} GiB > one device's {p_un / 2**30:.2f} + 1 "
+          f"GiB: the cache was gathered")
     gap = float((l_sk - l_un).abs().max())
-    check(gap <= AXIS_GAP, f"decode_32k split-K logits {gap:.4g} from the "
-          f"unsharded step's")
+    check(gap <= AXIS_GAP, f"decode_32k partition logits {gap:.4g} from the "
+          f"one-device step's")
     ms = lambda rs: ", ".join(f"{x * 1e3:.2f}" for x in rs)
-    print(f"  decode_32k (8 x ring 32768, index 32767) over "
-          f"{SPLITK_SHARDS} shards on one card: step_s {s_sk * 1e3:.2f} ms "
-          f"(runs {ms(r_sk)}), unsharded {s_un * 1e3:.2f} ms (runs "
-          f"{ms(r_un)}); peak {p_sk / 2**30:.2f} GiB vs {p_un / 2**30:.2f} "
-          f"GiB; collectives {detail['counts']}, {wire:.0f} wire bytes a "
-          f"device (= 36 x 1.875 x (512 + 512 + 65536)); logits within "
-          f"{gap:.4g}", flush=True)
+    top = "; ".join(f"{k} {b} B over {n} x {c}: {w:.0f}" for k, b, n, c, w
+                    in collective_sizes(counter)[:3])
+    print(f"  (b) decode_32k (8 x ring 32768, index 32767) through the "
+          f"partition over {SPLITK_SHARDS} positions on one card: step_s "
+          f"{s_sk * 1e3:.2f} ms (runs {ms(r_sk)}), one device "
+          f"{s_un * 1e3:.2f} ms (runs {ms(r_un)}); peak {p_sk / 2**30:.2f} "
+          f"GiB vs {p_un / 2**30:.2f} GiB; collectives {detail['counts']} "
+          f"as derived from the shapes, {wire:.0f} wire bytes a device "
+          f"(largest: {top}); logits within {gap:.4g}", flush=True)
     del args, out
     free(torch)
 
 
 def olmoe_axis_runs(torch, ops, counts):
-    """(c) olmoe-1b-7b at full width (64 experts, top 8): a (1, 4) mesh at
-    the config's capacity factor (every MoE call's EP result held against
-    the global path on the same input), then a dropless copy on (2, 2)
-    whose streams are held to the global path's."""
+    """(c) olmoe-1b-7b at full width (64 experts, top 8) through the
+    partition: a (1, 4) mesh at the config's capacity factor (every MoE
+    layer's expert-parallel result held against the global path on the
+    same tokens and weights), then a dropless copy on (2, 2) whose
+    streams are held to the one-device run's."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
@@ -4990,21 +5060,29 @@ def olmoe_axis_runs(torch, ops, counts):
     from repro_torch.models.moe import MoE
     from repro_torch.models.steps import make_prefill_step
     from repro_torch.sharding import SERVE_RULES, no_shard_ctx, shard_ctx
+    from repro_torch.sharding import shard_map as sm
     cfg = serve_config(get_config("olmoe-1b-7b"))
     model = LM(cfg, device="cuda", seed=0)
     moes = [m for m in model.modules() if isinstance(m, MoE)]
+    real = MoE.forward_mesh
     rng = np.random.default_rng(11)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab, (AXIS_B, OLMOE_PROMPT), dtype=np.int32)).cuda()
     seen = {"calls": 0, "y": 0.0, "dropped": 0.0}
 
-    def hold(mod, inputs, output):
-        x = inputs[0]
+    def hold(mod, w, xs, batch_axes):
+        out = real(mod, w, xs, batch_axes)
+        row = sm.canonical((batch_axes,))
+        x = sm.join(xs, row, w.mesh)
         if mod._ep_ctx(x.shape[0]) is None:
-            return
+            return out
+        first = sm.positions(w.mesh)[0]
         with no_shard_ctx():
-            y_g, aux_g = mod._apply_global(x)
-        y, aux = output
+            y_g, aux_g = mod._apply_global(
+                x, train=True, router_w=w("router.w", ())[first],
+                experts=tuple(w(n, ())[first].to(mod.dtype)
+                              for n in ("gate", "up", "down")))
+        y, aux = sm.join(out[0], row, w.mesh), out[1]
         for k in ("drop_frac", "expert_load"):
             check(torch.equal(aux[k], aux_g[k]), f"olmoe EP call "
                   f"{seen['calls']}: {k} differs from the global path's")
@@ -5012,30 +5090,34 @@ def olmoe_axis_runs(torch, ops, counts):
                                            "olmoe EP vs global y"))
         seen["dropped"] = max(seen["dropped"], float(aux["drop_frac"]))
         seen["calls"] += 1
+        return out
 
     def run(ctx, feed=None):
         with launches_into(ops, counts), ctx():
-            logits, cache = make_prefill_step(cfg, OLMOE_PROMPT + OLMOE_STEPS)(
+            logits, cache = make_prefill_step(
+                model.cfg, OLMOE_PROMPT + OLMOE_STEPS)(
                 model, {"tokens": prompts})
         with launches_into(ops, counts):
             return axis_run(torch, ops, model, logits, cache, OLMOE_STEPS,
                             ctx, feed=feed)[:2]
 
     glob = run(contextlib.nullcontext)
-    hooks = [m.register_forward_hook(hold) for m in moes]
+    MoE.forward_mesh = hold
     try:
         mesh = make_mesh(AXIS_MESH, ("data", "model"),
                          devices=["cuda:0"] * math.prod(AXIS_MESH))
         ep = run(lambda: shard_ctx(SERVE_RULES, mesh))
     finally:
-        for h in hooks:
-            h.remove()
+        MoE.forward_mesh = real
     check(seen["calls"] == len(moes) * (1 + OLMOE_STEPS),
           f"olmoe: {seen['calls']} EP calls held")
     same = sum(torch.equal(a, b) for a, b in zip(glob[0], ep[0]))
+    # the dropless copy: its config too, which the partition's modules are
+    # built from (``steps.meta_model``)
+    model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
     for m in moes:
-        m.mcfg = dataclasses.replace(m.mcfg, capacity_factor=(
-            m.mcfg.n_experts / m.mcfg.top_k))
+        m.mcfg = model.cfg.moe
     glob_free = run(contextlib.nullcontext)
     mesh22 = make_mesh((2, 2), ("data", "model"), devices=["cuda:0"] * 4)
     ep_free = run(lambda: shard_ctx(SERVE_RULES, mesh22))
@@ -5044,7 +5126,7 @@ def olmoe_axis_runs(torch, ops, counts):
     forced = run(lambda: shard_ctx(SERVE_RULES, mesh22), feed=glob_free[0])
     f_worst, flips = held_forced(torch, glob_free[1], forced[1],
                                  "olmoe dropless EP fed the global tokens")
-    print(f"  olmoe-1b-7b at {cfg.n_layers} layers, {AXIS_B} x "
+    print(f"  (c) olmoe-1b-7b at {cfg.n_layers} layers, {AXIS_B} x "
           f"{OLMOE_PROMPT}-token prompts, {OLMOE_STEPS} steps: on {AXIS_MESH} "
           f"at capacity factor {cfg.moe.capacity_factor} {seen['calls']} EP "
           f"calls held (drop_frac and expert_load equal the global path's, "
@@ -5059,15 +5141,178 @@ def olmoe_axis_runs(torch, ops, counts):
     free(torch)
 
 
+def to_layout(torch, cache, ring, paged, seed=13):
+    """A one-device prefill's cache in (d)'s layout: every row at its own
+    position (LAYOUT_INDICES); ``paged``: the K/V re-laid as a pool of B x
+    nk + 1 blocks of LAYOUT_BLOCK slots in a shuffled order, the (B, nk)
+    table naming them, every other row's ids offset by NB (global ids,
+    which ``rem(block_tbl, NB)`` folds)."""
+    import numpy as np
+    layers = cache["layers"]
+    L, B = layers["k"].shape[:2]
+    dev = layers["k"].device
+    out = {**cache, "index": torch.tensor(LAYOUT_INDICES[:B],
+                                          dtype=torch.int32, device=dev)}
+    if not paged:
+        return out
+    nk = ring // LAYOUT_BLOCK
+    NB = B * nk + 1
+    ids = torch.from_numpy(np.random.default_rng(seed).permutation(NB)[
+        :B * nk]).to(dev)
+    pool = {}
+    for n, leaf in layers.items():
+        p = torch.zeros((L, NB, LAYOUT_BLOCK) + leaf.shape[3:],
+                        dtype=leaf.dtype, device=dev)
+        p[:, ids] = leaf.reshape((L, B * nk, LAYOUT_BLOCK) + leaf.shape[3:])
+        pool[n] = p
+    tbl = ids.reshape(B, nk).to(torch.int32)
+    tbl[::2] += NB
+    return {**out, "layers": pool, "block_tbl": tbl}
+
+
+def written_rows(torch, cache, ring, paged, steps):
+    """{"k", "v"}: (L, B x steps, KV, hd) — the rows the decode steps wrote
+    (row b at index[b] + t for t < steps), read from a cache whole or laid
+    out."""
+    from repro_torch.sharding import shard_map as sm
+    layers = {n: (t.full() if isinstance(t, sm.ShardedArray) else t)
+              for n, t in cache["layers"].items()}
+    dev = layers["k"].device
+    idx = torch.tensor(LAYOUT_INDICES, dtype=torch.long, device=dev)
+    B = idx.shape[0]
+    pos = (idx[:, None] + torch.arange(steps, device=dev)).reshape(-1) % ring
+    rows = torch.arange(B, device=dev).repeat_interleave(steps)
+    if paged:
+        tbl = cache["block_tbl"].long() % layers["k"].shape[1]
+        blk = tbl[rows, pos // LAYOUT_BLOCK]
+        return {n: t[:, blk, pos % LAYOUT_BLOCK] for n, t in layers.items()}
+    return {n: t[:, rows, pos] for n, t in layers.items()}
+
+
+def cuda_ms(torch, fn):
+    """(fn's result, its host clock and its CUDA-event time in ms)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
+def layout_runs(torch, ops, model, counts):
+    """(d) full-width qwen2.5-3b on LAYOUT_MESH under ``serve_rules(8)``,
+    8 rows at their own positions, LAYOUT_STEPS steps in each of LAYOUTS
+    beside one device and a float32 witness of the same weights, fed one
+    device's tokens (``to_layout`` from each model's own prefill)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.launch.cost import CostCounter, collective_bytes
+    from repro_torch.launch.dryrun import collective_sizes
+    from repro_torch.models import LM
+    from repro_torch.models.steps import make_decode_step, make_prefill_step
+    from repro_torch.sharding import serve_rules, shard_ctx
+    from repro_torch.sharding import shard_map as sm
+    cfg = model.cfg
+    mesh = card_mesh(LAYOUT_MESH)
+    B = len(LAYOUT_INDICES)
+    rules = serve_rules(B)
+    positions = mesh.size
+    model32 = LM(dataclasses.replace(cfg, dtype="float32",
+                                     param_dtype="float32"), device="cuda",
+                 seed=0)
+    with torch.no_grad():
+        for p32, p in zip(model32.parameters(), model.parameters()):
+            p32.copy_(p.float())
+    model32.recast()
+    rng = np.random.default_rng(21)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, LAYOUT_PROMPT), dtype=np.int32)).cuda()}
+    dec = make_decode_step(cfg)
+    write = {False: "decode_attention_write",
+             True: "decode_attention_paged_write"}
+    for label, (ring, paged) in LAYOUTS.items():
+        pre = make_prefill_step(cfg, ring)
+        with launches_into(ops, counts):
+            l1, c1 = pre(model, batch)
+            _, c32 = pre(model32, batch)
+        c1, c32 = (to_layout(torch, c, ring, paged) for c in (c1, c32))
+        c2 = clone_tree(c1)
+        with launches_into(ops, counts):
+            tok = greedy(torch, ops, l1)
+        gaps = {"logits": (0.0, 0.0)}
+        one_ms, mesh_ms, one_ev, mesh_ev = [], [], [], []
+        mesh_counts: dict = {}
+        for _ in range(LAYOUT_STEPS):
+            with launches_into(ops, counts):
+                (d1, c1), h1, e1 = cuda_ms(torch, lambda: dec(model, tok, c1))
+            with shard_ctx(rules, mesh), launches_into(ops, mesh_counts):
+                (d2, c2), h2, e2 = cuda_ms(torch, lambda: dec(model, tok, c2))
+            with launches_into(ops, counts):
+                d32, c32 = dec(model32, tok, c32)
+            g = witness_gaps(d1[:, 0], d2[:, 0], d32[:, 0])["logits"]
+            gaps["logits"] = tuple(map(max, zip(g, gaps["logits"])))
+            one_ms.append(h1)
+            mesh_ms.append(h2)
+            one_ev.append(e1)
+            mesh_ev.append(e2)
+            with launches_into(ops, counts):
+                tok = greedy(torch, ops, d1)
+        for k, n in mesh_counts.items():
+            counts[k] = counts.get(k, 0) + n
+        split_k = not paged and ring % LAYOUT_MESH[1] == 0
+        want = {} if split_k else {
+            write[paged]: positions * cfg.n_layers * LAYOUT_STEPS}
+        check(mesh_counts == want, f"(d) {label}: the mesh's decode launched "
+              f"{mesh_counts}, expected {want} (a write instance a layer on "
+              f"each position, split-K none)")
+        rows = [written_rows(torch, c, ring, paged, LAYOUT_STEPS)
+                for c in (c1, c2, c32)]
+        for n in ("k", "v"):
+            gaps[f"written {n}"] = witness_gaps(
+                rows[0][n], rows[1][n], rows[2][n])["logits"]
+        check(witness_held(gaps), f"(d) {label}, one device / the mesh "
+              f"against the float32 witness: {witness_line(gaps)} (the mesh "
+              f"within {WITNESS_RATIO} x one device)")
+        check(torch.equal(c2["index"], c1["index"]) and (
+            not paged or torch.equal(c2["block_tbl"], c1["block_tbl"])),
+            f"(d) {label}: the index or the block table differs")
+        with shard_ctx(rules, mesh), CostCounter() as counter, \
+                launches_into(ops, counts):
+            dec(model, tok, sm.clone_tree(c2))
+        wire, detail = collective_bytes(counter)
+        top = "; ".join(f"{k} {b} B over {n} x {c}: {w:.0f}"
+                        for k, b, n, c, w in collective_sizes(counter)[:3])
+        spec = c2["layers"]["k"].spec
+        med = lambda xs: statistics.median(xs)
+        print(f"  (d) {label}: {B} rows at {LAYOUT_INDICES} over "
+              f"{LAYOUT_MESH} on cuda:0 (K/V laid out {spec}"
+              f"{', blocks of ' + str(LAYOUT_BLOCK) if paged else ''}), "
+              f"{LAYOUT_STEPS} steps fed one device's tokens: one device / "
+              f"the mesh against the float32 witness {witness_line(gaps)} "
+              f"(the mesh within {WITNESS_RATIO} x one device); mesh "
+              f"launches {mesh_counts or 'none (split-K)'}; a step: host "
+              f"clock {med(mesh_ms):.1f} ms, CUDA events {med(mesh_ev):.1f} "
+              f"ms (one device {med(one_ms):.1f}, {med(one_ev):.1f}); "
+              f"collectives {detail['counts']}, {wire:.0f} wire bytes a "
+              f"device (largest: {top})", flush=True)
+        del c1, c2, c32
+    del model32
+    free(torch)
+
+
 def model_axis_phase(torch, ops, add):
     """Phase 12: split-K alone, (a) qwen2.5-3b bf16 and float32, (b)
-    decode_32k over 16 shards, (c) olmoe-1b-7b EP."""
+    decode_32k over 16 positions, (c) olmoe-1b-7b EP, (d) every cache
+    layout of serve_rules, all through the serve partition."""
     from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import serve_config
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import LM
-    print(f"[12] the model axis: split-K decode and expert-parallel MoE on "
-          f"meshes laid on one card ({gpu_line()})")
+    print(f"[12] the model axis through the serve partition: split-K decode, "
+          f"expert-parallel MoE and every cache layout on meshes laid on "
+          f"one card ({gpu_line()})")
     t0 = time.perf_counter()
     mesh = make_mesh(AXIS_MESH, ("data", "model"),
                      devices=["cuda:0"] * math.prod(AXIS_MESH))
@@ -5075,20 +5320,35 @@ def model_axis_phase(torch, ops, add):
     counts = {}
     ops.reset_launch_counts()
     model = LM(serve_config(get_config("qwen2.5-3b")), device="cuda", seed=0)
+    clock = {}
+    t1 = time.perf_counter()
     prompts = qwen_axis_runs(torch, ops, model, mesh, counts)
     free(torch)
+    clock["a"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
     decode_32k_splitk(torch, ops, model, counts)
+    clock["b"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    layout_runs(torch, ops, model, counts)
+    clock["d"] = time.perf_counter() - t1
     del model
     free(torch)
+    t1 = time.perf_counter()
     f32_axis_runs(torch, ops, prompts, mesh, counts)
+    clock["a"] += time.perf_counter() - t1
+    t1 = time.perf_counter()
     olmoe_axis_runs(torch, ops, counts)
+    clock["c"] = time.perf_counter() - t1
     check(counts == {k: n for k, n in ops.launch_counts().items() if n},
           f"phase 12 launches {counts} != the counters' "
           f"{ops.launch_counts()}")
-    for name in ("flash_attention", "decode_attention_write", "fused_sample"):
+    for name in ("flash_attention", "decode_attention_write",
+                 "decode_attention_paged_write", "fused_sample"):
         check(counts.get(name, 0) > 0, f"phase 12 never launched {name}")
     add(counts)
-    print(f"  phase 12 launches {counts}; {time.perf_counter() - t0:.1f} s")
+    print(f"  phase 12 launches {counts}; "
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in sorted(clock.items()))
+          + f"; {time.perf_counter() - t0:.1f} s")
 
 
 # -------------------------------------------------------------------- phase 13
@@ -5100,7 +5360,7 @@ def model_axis_phase(torch, ops, add):
 # 4 layers, (2, 2) → checkpoint → (1, 4); (d) olmoe-1b-7b at DEPTH_CUT
 # layers on (2, 2), dropless and at cf 1.25
 MESH_TRAIN = (2, 2)
-MESH_TRAIN_STEPS = 4
+MESH_TRAIN_STEPS = 2
 MESH_TOL = 1e-2               # bf16 compute, the mesh's partial sums round
 MESH_F32_TOL = 1e-5           # float32 compute, leaves by their max (>= 1)
 LR, ADAM_B1 = 3e-4, 0.9       # the launcher's default lr, AdamW's b1
@@ -5205,7 +5465,7 @@ def tally(c):
 
 def mesh_dense_phase(torch, ops, out_dir: Path):
     """(a) qwen2.5-3b at full width and depth, float32 state, bf16 compute:
-    the launcher on one device (2 steps) and on (2, 2) (4 steps) over phase
+    the launcher on one device (2 steps) and on (2, 2) (2 steps) over phase
     9's batches, step 1's loss, ce and grad_norm within 1e-2; one more mesh
     step counted; then a float32 copy at 4 layers, one step on each, every
     metric and updated leaf within 1e-5 (leaves by max(1, max |leaf|))."""
@@ -5660,7 +5920,7 @@ def train_mesh_families_phase(torch, ops):
 # training peaks under remat
 SERVE_MESH = (2, 2)
 SERVE_PROMPT, SERVE_RING = 512, 1024         # (a): 2 prompts of 512 tokens
-SERVE_ROWS, SERVE_STEPS = 8, 4               # decode: 8 rows, 4 steps
+SERVE_ROWS, SERVE_STEPS = 8, 2               # decode: 8 rows, 2 steps
 # bf16: every rank's partial products of wo and the MLP's down projection
 # round to bf16 before the psum adds them, where one device's product
 # rounds once, so logits part by rounding (0.0906 at 2 x 512 on the

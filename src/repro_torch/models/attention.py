@@ -18,12 +18,12 @@ kernel launch a layer on the card, bitwise equal to the three, and the
 same three plain versions in turn on the CPU.  The kernel finds the written slot or block
 from the index and the table itself.
 
-Under a shard context whose rules split the cache's sequence over "model",
-a decode with one index for every row takes split-K (``_decode_splitk``,
-the reference's flash-decoding over the model axis, in plain PyTorch):
-each model rank writes its own slot of its own block and attends over its
-block, and the partials combine by ``pmax`` and ``psum``.  The cache stays
-split between steps (``sharding.ShardedArray``).
+Decode reads no shard context: over a mesh the serve steps run the
+partition (``decode_mesh`` below).  ``_decode_splitk`` is the reference's
+flash-decoding over the model axis with the mesh passed explicitly (each
+model rank writes its own slot of its own block and attends over its
+block; the partials combine by ``pmax`` and ``psum``), and the partition
+runs its body.
 
 Training over a mesh (``forward_mesh``, the train route shard by shard):
 each "model" rank projects its own q heads and the K/V heads they read,
@@ -36,10 +36,13 @@ padding exists only in the computation.
 
 Serving over a mesh (``prefill_mesh``, ``decode_mesh``) takes the same
 rank's weights: prefill runs K4 on the rank's heads and hands its K/V to
-the cache's layout; decode gathers q over "model" and runs the split-K
-body (``_splitk_body``) over each position's sequence block.  Cross
-attention (``prefill_cross_mesh``, ``decode_cross_mesh``) is head-parallel
-over the encoder output's K/V, plain.
+the cache's layout; decode takes every layout ``serve_rules`` gives — the
+sequence over "model" (the split-K body, ``_splitk_body``, over each
+position's sequence block), the KV heads over "model" (K1's or, through a
+block table, K5's write instance on the rank's heads), or neither (every
+head on each rank's whole copy) — with one index for every row or one a
+row.  Cross attention (``prefill_cross_mesh``, ``decode_cross_mesh``) is
+head-parallel over the encoder output's K/V, plain.
 """
 from __future__ import annotations
 
@@ -213,11 +216,8 @@ class Attention(nn.Module):
         """x: (B, 1, d_in); cache: {"k", "v"}: (B, Smax, KV, hd) rings, or
         (NB, bk, KV, hd) block pools when ``block_tbl`` (B, nk) is given;
         updated in place.  index: the absolute position being written — an
-        int or a (B,) tensor (every row at its own position).  An int
-        broadcasts to every row and takes the same kernels, unless split-K
-        applies (a shard context, no block table; ``_splitk_ctx``): then the
-        cache comes back as ``ShardedArray`` leaves, split once if it came
-        whole (views of it on its own device).  ``cross_kv``
+        int or a (B,) tensor (every row at its own position); an int
+        broadcasts to every row and takes the same kernels.  ``cross_kv``
         (k, v) (B, S_enc, KV, hd) attends over them instead and leaves the
         cache untouched; keys at positions >= ``cross_len`` (an int or a
         (B,) tensor) are masked, so a max_seq-long cross pool holds each
@@ -225,19 +225,14 @@ class Attention(nn.Module):
         B = x.shape[0]
         if cross_kv is not None:
             return self._decode_cross(x, cross_kv, cross_len, angles), cache
+        if isinstance(cache["k"], sm.ShardedArray):
+            raise TypeError("a split cache decodes through the serve steps "
+                            "over the mesh it is laid out on")
         q, k, v = self.qkv(x, x)
         if angles is not None:
             q = apply_rope(q, angles)
             k = apply_rope(k, angles)
         index = torch.as_tensor(index, dtype=torch.int32, device=x.device)
-        sk = (self._splitk_ctx(cache["k"].shape[1])
-              if block_tbl is None and index.ndim == 0 else None)
-        if sk is not None:
-            out, cache = self._decode_splitk(q, k, v, cache, index, *sk)
-            return self.wo(out.reshape(B, 1, -1)), cache
-        if isinstance(cache["k"], sm.ShardedArray):
-            raise TypeError("a split cache decodes under the shard context "
-                            "that split it, with one index for every row")
         index = index.reshape(-1).expand(B)
         if block_tbl is not None:
             out = self._decode_paged(q, k, v, cache, index, block_tbl)
@@ -297,8 +292,10 @@ class Attention(nn.Module):
 
     @staticmethod
     def _splitk_ctx(Smax: int):
-        """→ (mesh, batch_axes, m) when the split-K path applies, else
-        None (the reference's test, ``attention.py:418-431``)."""
+        """→ (mesh, batch_axes, m) when the reference's split-K path applies
+        under the current shard context, else None (its test,
+        ``attention.py:418-431``; ``spec_for`` splits a ring's sequence over
+        "model" exactly then)."""
         ctx = current_ctx()
         if ctx is None:
             return None
@@ -323,9 +320,10 @@ class Attention(nn.Module):
 
     @staticmethod
     def _decode_splitk(q, k_new, v_new, cache, index, mesh, batch_axes, m):
-        """The reference's ``_decode_splitk`` body, shard by shard: q/k_new/
-        v_new (B, 1, ·, hd) whole, cache leaves whole or split, index 0-d →
-        (out (B, 1, H, hd) whole, {"k", "v"} as ``ShardedArray``)."""
+        """The reference's ``_decode_splitk`` body over an explicit mesh,
+        shard by shard: q/k_new/v_new (B, 1, ·, hd) whole, cache leaves
+        whole or split, index 0-d → (out (B, 1, H, hd) whole, {"k", "v"} as
+        ``ShardedArray``)."""
         kv_spec = Attention.splitk_spec(q.shape[0], mesh, batch_axes)
         row_spec = kv_spec[:1]
         kc = sm.place(cache["k"], kv_spec, mesh)
@@ -342,36 +340,40 @@ class Attention(nn.Module):
         """Split-K over per-position values: qs {position: (B_loc, H, hd)},
         ks/vs {position: (B_loc, KV, hd)} the new rows, kc/vc the cache
         (``ShardedArray`` (B, Smax, KV, hd), its sequence split over
-        ``seq_axes``), idx {position: the 0-d index} → {position: (B_loc,
-        1, H, hd)}.  Each position writes the new row where its block holds
-        slot index % Smax and attends over its block; the partials combine
-        by ``pmax`` and ``psum`` over ``seq_axes``."""
+        ``seq_axes``), idx {position: the 0-d index, or the (B_loc,)
+        indices of its rows} → {position: (B_loc, 1, H, hd)}.  Each
+        position writes row b's new K/V where its block holds slot
+        index[b] % Smax and attends over its block under row b's horizon
+        (slots <= index[b]: every slot once row b's ring has wrapped); the
+        partials combine by ``pmax`` and ``psum`` over ``seq_axes``."""
         Smax, KV = kc.shape[1], kc.shape[2]
         m = sm.axis_size(mesh, seq_axes)
         S_loc = Smax // m
         scores, m_loc = {}, {}
         with no_shard_ctx():
             for pos in sm.positions(mesh):
-                k_blk, v_blk, i = kc.blocks[pos], vc.blocks[pos], idx[pos]
+                k_blk, v_blk = kc.blocks[pos], vc.blocks[pos]
                 qb = qs[pos]
-                H, hd = qb.shape[1:]
+                B, H, hd = qb.shape
                 G = H // KV
                 rank = sm.axis_index(mesh, pos, seq_axes)
+                i = idx[pos].reshape(-1, 1)             # (1 or B, 1)
                 ls = torch.remainder(i, Smax) - rank * S_loc
                 in_rng = (ls >= 0) & (ls < S_loc)
-                lsc = ls.clamp(0, S_loc - 1).reshape(1).long()
-                # the owner writes the new row; the others rewrite the row
-                # that is there (a (B, 1, KV, hd) temp, not a block copy)
+                lsc = ls.clamp(0, S_loc - 1).reshape(-1).expand(B).long()
+                rows = torch.arange(B, device=lsc.device)
+                # the owner writes row b's new row; the others rewrite the
+                # row that is there (a (B, KV, hd) temp, not a block copy)
                 for blk, new in ((k_blk, ks[pos]), (v_blk, vs[pos])):
-                    old = blk.index_select(1, lsc)
-                    blk.index_copy_(1, lsc, torch.where(
-                        in_rng, new[:, None].to(blk.dtype), old))
-                qg = qb.reshape(qb.shape[0], KV, G, hd)
+                    old = blk[rows, lsc]
+                    blk[rows, lsc] = torch.where(in_rng[:, :, None],
+                                                 new.to(blk.dtype), old)
+                qg = qb.reshape(B, KV, G, hd)
                 s = torch.einsum("bkgh,btkh->bkgt", qg.float(),
                                  k_blk.to(qb.dtype).float()) * (hd ** -0.5)
                 kpos = rank * S_loc + torch.arange(S_loc, dtype=torch.int32,
                                                    device=s.device)
-                s = s + torch.where(kpos <= i, 0.0, NEG_INF)
+                s = s + torch.where(kpos <= i, 0.0, NEG_INF)[:, None, None]
                 scores[pos] = s
                 m_loc[pos] = s.amax(dim=-1)                   # (B, KV, G)
             m_glob = sm.pmax(m_loc, seq_axes, mesh) if m > 1 else m_loc
@@ -517,13 +519,13 @@ class Attention(nn.Module):
 
     # ---------------- serving over a mesh ----------------------------------
     #
-    # The partition ``SERVE_RULES`` lays out (``steps``' serve steps over
-    # laid-out weights): each "model" rank projects its q heads (padded
-    # where they do not divide) and its KV heads (every KV head where they
-    # do not), multiplies by its rows of ``wo``, and a psum over "model"
-    # sums the ranks.  Prefill attends through K4 on the rank's heads and
-    # hands its K/V to the cache's layout; decode gathers q over "model"
-    # and runs split-K over the cache's sequence blocks.
+    # The partition ``SERVE_RULES`` lays out (``steps``' serve steps): each
+    # "model" rank projects its q heads (padded where they do not divide)
+    # and its KV heads (every KV head where they do not), multiplies by its
+    # rows of ``wo``, and a psum over "model" sums the ranks.  Prefill
+    # attends through K4 on the rank's heads and hands its K/V to the
+    # cache's layout; decode attends as the cache is laid out
+    # (``decode_mesh``).
 
     def prefill_mesh(self, w, xs, angles, *, window, max_seq, kv_spec,
                      batch_axes):
@@ -566,27 +568,55 @@ class Attention(nn.Module):
               for name, vals in ring.items()}
         return (sm.psum(part, "model", mesh) if m > 1 else part), kv
 
-    def decode_mesh(self, w, xs, angles, cache, index, kv_spec):
+    def decode_mesh(self, w, xs, angles, cache, index, kv_spec, batch_axes,
+                    block_tbl=None):
         """One token over this layer's cache, shard by shard: ``xs``
-        {position: (B_loc, 1, d)}; ``cache`` {"k", "v"}: ``ShardedArray``
-        (B, Smax, KV, hd) under ``kv_spec``, its sequence split over
-        "model" (the split-K layout; a model axis of 1 holds it whole),
-        written in place → {position: (B_loc, 1, d)} after a psum over
-        "model".  Each rank projects its q heads and KV heads; q (and K/V
-        where they split) are all-gathered over "model"; the split-K body
-        attends over each position's sequence block; each rank multiplies
-        its heads' rows of ``wo``."""
+        {position: (B_loc, 1, d)} split over ``batch_axes``; ``cache`` {"k",
+        "v"}: ``ShardedArray`` under ``kv_spec``, the ring (B, Smax, KV,
+        hd), or with ``block_tbl`` (B, nk) the block pool (NB, bk, KV, hd);
+        ``index`` the 0-d index or the (B,) indices, each row's own
+        (``index`` and ``block_tbl`` whole, on any device) → {position:
+        (B_loc, 1, d)} after a psum over "model"; the cache written in place.
+        Each rank projects its q heads and KV heads, then attends as the
+        cache is laid out:
+
+        * the sequence over "model" (the split-K layout): q (and K/V where
+          the heads split) all-gathered over "model", the split-K body over
+          each position's sequence block;
+        * the KV heads over "model": each rank's own heads through K1's write
+          instance (K5's through the block table) on its block;
+        * neither: the cache is replicated over "model", so each rank writes
+          all of it: q is all-gathered and each rank runs every head through
+          K1's (K5's) write instance on its whole copy.
+
+        Each rank multiplies its heads' rows of ``wo``.  A block pool lies
+        whole at each position (its blocks map to no mesh axis), while the
+        rows split over ``batch_axes``: each position writes the other
+        batch shards' new rows too (all-gathered, a plain write), so that
+        every copy stays whole, as the reference's replicated pool does; the
+        table's ids are folded by ``rem(block_tbl, NB)``, as the reference
+        folds them."""
         cfg = self.cfg
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         mesh = w.mesh
         m, pad, n, _, kv_keep, weights = self._mesh_weights(w)
         spec = sm.canonical(kv_spec)
-        seq = sm.axes_of(spec[1] if len(spec) > 1 else None)
-        if len(spec) > 2 or (m > 1 and seq != ("model",)):
-            raise NotImplementedError(
-                f"a decode over a mesh takes the split-K cache layout "
-                f"(the sequence over \"model\", nothing else split but the "
-                f"batch), not {spec}")
+        at = lambda d: sm.axes_of(spec[d] if len(spec) > d else None)
+        paged = block_tbl is not None
+        seq, heads = (() if paged else at(1)), at(2)
+        if (at(0) != (() if paged else sm.axes_of(batch_axes))
+                or len(spec) > 4 or (paged and at(1))
+                or {a for d in (1, 2) for a in at(d)} - {"model"}):
+            raise ValueError(f"{'a pool' if paged else 'a ring'} under "
+                             f"{spec} is no layout serve_rules gives "
+                             f"(batch over {batch_axes})")
+        split_k = m > 1 and seq == ("model",)
+        own = m > 1 and heads == ("model",)
+        row_spec = sm.canonical((batch_axes,))
+        idx = torch.as_tensor(index, dtype=torch.int32)
+        if paged:                   # every row's, to write every row
+            idx = idx.reshape(-1).expand(block_tbl.shape[0])
+        rows_idx = sm.split(idx, row_spec if idx.ndim else (), mesh)
         qs, ks, vs, wos = {}, {}, {}, {}
         with no_shard_ctx():
             for pos, x in xs.items():
@@ -599,32 +629,83 @@ class Attention(nn.Module):
                     q = apply_rope(q, angles[pos])
                     k = apply_rope(k, angles[pos])
                 qs[pos], ks[pos], vs[pos], wos[pos] = q, k, v, wo_r
-        if m > 1:
+        if m > 1 and not own:       # every head at every rank
             qs = sm.all_gather(qs, "model", mesh, dim=2)
             if kv_keep:
                 ks = sm.all_gather(ks, "model", mesh, dim=2)
                 vs = sm.all_gather(vs, "model", mesh, dim=2)
-        if pad is not None:                 # drop the pad heads
-            G, Gp = pad[1:]
-            qs = {p: q.reshape(q.shape[0], 1, KV, Gp, hd)[:, :, :, :G]
-                  .reshape(q.shape[0], 1, H, hd) for p, q in qs.items()}
-        idx = sm.split(torch.as_tensor(index, dtype=torch.int32), (), mesh)
-        out = self._splitk_body(
-            {p: q[:, 0] for p, q in qs.items()},
-            {p: k[:, 0] for p, k in ks.items()},
-            {p: v[:, 0] for p, v in vs.items()},
-            cache["k"], cache["v"], idx, mesh, seq)
+            if pad is not None:             # drop the pad heads
+                G, Gp = pad[1:]
+                qs = {p: q.reshape(q.shape[0], 1, KV, Gp, hd)[:, :, :, :G]
+                      .reshape(q.shape[0], 1, H, hd) for p, q in qs.items()}
+        if paged:
+            tbl = sm.split(torch.remainder(block_tbl.to(torch.int32),
+                                           cache["k"].shape[0]), row_spec,
+                           mesh)
+            if sm.axis_size(mesh, batch_axes) > 1:
+                self._write_other_rows(cache, ks, vs, idx, block_tbl,
+                                       batch_axes, mesh)
+        if split_k:
+            out = self._splitk_body(
+                {p: q[:, 0] for p, q in qs.items()},
+                {p: k[:, 0] for p, k in ks.items()},
+                {p: v[:, 0] for p, v in vs.items()},
+                cache["k"], cache["v"], rows_idx, mesh, seq)
+        else:
+            out = {}
+            with no_shard_ctx():
+                for pos, q in qs.items():
+                    kc, vc = cache["k"].blocks[pos], cache["v"].blocks[pos]
+                    k, v = ks[pos][:, 0], vs[pos][:, 0]
+                    i = rows_idx[pos].reshape(-1).expand(q.shape[0])
+                    out[pos] = (kops.decode_attention_paged_write(
+                        q, k, v, kc, vc, tbl[pos], i) if paged
+                        else kops.decode_attention_write(q, k, v, kc, vc, i))
         part = {}
         with no_shard_ctx():
             for pos, o in out.items():
                 B = o.shape[0]
-                r = sm.axis_index(mesh, pos, "model") if m > 1 else 0
-                if pad is not None:         # re-pad, as the q heads were
-                    o = F.pad(o.reshape(B, 1, KV, pad[1], hd),
-                              (0, 0, 0, pad[2] - pad[1]))
-                o = o.reshape(B, 1, -1, hd)[:, :, r * n:(r + 1) * n]
+                if m > 1 and not own:       # the rank's heads of every head
+                    r = sm.axis_index(mesh, pos, "model")
+                    if pad is not None:     # re-pad, as the q heads were
+                        o = F.pad(o.reshape(B, 1, KV, pad[1], hd),
+                                  (0, 0, 0, pad[2] - pad[1]))
+                    o = o.reshape(B, 1, -1, hd)[:, :, r * n:(r + 1) * n]
                 part[pos] = o.reshape(B, 1, n * hd) @ wos[pos].to(cfg.cdtype)
         return sm.psum(part, "model", mesh) if m > 1 else part
+
+    @staticmethod
+    def _write_other_rows(cache, ks, vs, index, block_tbl, batch_axes, mesh):
+        """A pool at each position, its rows split over ``batch_axes``: each
+        position writes the new K/V rows of the other batch shards
+        (all-gathered over them) into its copy, at row b's target
+        ``pool[tbl[b, rpos // bk], rpos % bk]``, rpos = index[b] % (nk·bk)
+        (its own rows its write instance writes)."""
+        NB, bk = cache["k"].shape[:2]
+        nk = block_tbl.shape[1]
+        every = {n: sm.all_gather({p: t[:, 0] for p, t in vals.items()},
+                                  batch_axes, mesh, dim=0)
+                 for n, vals in (("k", ks), ("v", vs))}
+        memo: dict = {}
+        with no_shard_ctx():
+            for pos in every["k"]:
+                k_all, v_all = every["k"][pos], every["v"][pos]
+                dev = k_all.device
+                if dev not in memo:
+                    i = index.to(dev).long()
+                    t = torch.remainder(block_tbl.to(dev).long(), NB)
+                    rpos = torch.remainder(i, nk * bk)
+                    blk = t[torch.arange(t.shape[0], device=dev), rpos // bk]
+                    memo[dev] = blk, rpos % bk
+                blk, off = memo[dev]
+                B_loc = ks[pos].shape[0]
+                r = sm.axis_index(mesh, pos, batch_axes)
+                keep = torch.ones(k_all.shape[0], dtype=torch.bool,
+                                  device=dev)
+                keep[r * B_loc:(r + 1) * B_loc] = False
+                for name, new in (("k", k_all), ("v", v_all)):
+                    pool = cache[name].blocks[pos]
+                    pool[blk[keep], off[keep]] = new[keep].to(pool.dtype)
 
     # Cross attention over a mesh (the encoder-decoder): each rank projects
     # its q heads and attends over its KV heads of the encoder output (every

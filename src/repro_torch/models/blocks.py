@@ -114,13 +114,14 @@ class DecoderBlock(nn.Module):
         xs = {p: x + h[p] for p, x in xs.items()}
         return self._ffn_mesh(w, xs, batch_axes), kv
 
-    def decode_mesh(self, w, xs, angles, batch_axes, cache, index, kv_spec):
+    def decode_mesh(self, w, xs, angles, batch_axes, cache, index, kv_spec,
+                    block_tbl=None):
         """One token over a mesh: {position: (B_loc, 1, d)} → the same;
-        ``cache`` this layer's {"k", "v"} ``ShardedArray``, written in
-        place."""
+        ``cache`` this layer's {"k", "v"} ``ShardedArray`` (a ring, or the
+        pool ``block_tbl`` pages), written in place."""
         h = self.attn.decode_mesh(
             w.sub("attn"), norm_mesh(self.ln1, w.sub("ln1"), xs), angles,
-            cache, index, kv_spec)
+            cache, index, kv_spec, batch_axes, block_tbl)
         xs = {p: x + h[p] for p, x in xs.items()}
         return self._ffn_mesh(w, xs, batch_axes)
 
@@ -238,11 +239,13 @@ class SharedAttnBlock(nn.Module):
             batch_axes=batch_axes)
         return self._mlp_mesh(w, xs, h), kv
 
-    def decode_mesh(self, w, xs, angles, cache, index, kv_spec):
-        """One token over a mesh (split-K over ``cache``, written in
-        place) → {position: (B_loc, 1, 2d)}."""
+    def decode_mesh(self, w, xs, angles, cache, index, kv_spec, batch_axes,
+                    block_tbl=None):
+        """One token over a mesh (``Attention.decode_mesh`` over ``cache``,
+        written in place) → {position: (B_loc, 1, 2d)}."""
         h = self.attn.decode_mesh(w.sub("attn"), norm_mesh(
-            self.ln1, w.sub("ln1"), xs), angles, cache, index, kv_spec)
+            self.ln1, w.sub("ln1"), xs), angles, cache, index, kv_spec,
+            batch_axes, block_tbl)
         return self._mlp_mesh(w, xs, h)
 
 
@@ -361,14 +364,15 @@ class CrossDecoderBlock(nn.Module):
         xs = self._cross_mlp_mesh(w, xs, h, cross)
         return xs, {"self": kv, "cross": got["kv"]}
 
-    def decode_mesh(self, w, xs, angles, state, index, specs, cross_len):
+    def decode_mesh(self, w, xs, angles, state, index, specs, cross_len,
+                    batch_axes, block_tbl=None):
         """One token over a mesh: ``state`` {"self", "cross"}: this
-        layer's ``ShardedArray`` K/V (the self ring written in place,
-        split-K; the cross K/V read, head-parallel, masked past
-        ``cross_len``'s rows)."""
+        layer's ``ShardedArray`` K/V (the self ring, or the pool
+        ``block_tbl`` pages, written in place; the cross K/V read,
+        head-parallel, masked past ``cross_len``'s rows)."""
         h = self.self_attn.decode_mesh(
             w.sub("self_attn"), norm_mesh(self.ln1, w.sub("ln1"), xs), angles,
-            state["self"], index, specs["self"])
+            state["self"], index, specs["self"], batch_axes, block_tbl)
         return self._cross_mlp_mesh(w, xs, h, lambda x: (
             self.cross_attn.decode_cross_mesh(w.sub("cross_attn"), x,
                                               state["cross"], cross_len)))

@@ -29,17 +29,23 @@ Under ``cfg.remat`` ("full", the default) each layer, or hybrid group,
 of the train route is one checkpoint (``transformer.remat``): it keeps its
 input alone and runs again, collectives included, in the backward.
 
-The serve steps take laid-out weights too ({name: ``ShardedArray``},
-``device_put`` by ``serve_shardings``): under ``shard_ctx(serve_rules(B),
-mesh)`` the prefill and decode of every family run the partition the
-rules lay out, shard by shard — tokens, patches and frames split over the
-batch axes, the vocabulary-parallel embedding and readout, each "model"
-rank's heads (K4 on them at prefill), MLP columns and rows, experts, Mamba1
-channels or Mamba2 heads (K7 on them at prefill), a psum over "model"
-after each; decode over the cache's sequence blocks (split-K), cross
-attention over the rank's KV heads of the encoder output — and the logits
-come back whole, every cache leaf laid out by ``cache_axes``
-(``cache_specs``).
+The serve steps have one route over a mesh.  Under
+``shard_ctx(serve_rules(B), mesh)`` the prefill and decode of every family
+run the partition the rules lay out, shard by shard, over weights laid
+out by ``serve_shardings`` ({name: ``ShardedArray``}; an ``LM`` given
+under the context is laid out so once, as views, and the layout kept for
+later steps): tokens, patches and frames split over the batch axes, the
+vocabulary-parallel embedding and readout, each "model" rank's heads (K4
+on them at prefill), MLP columns and rows, experts, Mamba1 channels or
+Mamba2 heads (K7 on them at prefill), a psum over "model" after each;
+decode over every cache layout the rules give — the sequence over
+"model" (split-K), the KV heads over "model" or neither (K1's write
+instance on the rank's heads), the paged pool (K5's), one index for every
+row or one a row — and cross attention over the rank's KV heads of the
+encoder output; the logits come back whole, every cache leaf laid out by
+``cache_axes`` (``cache_specs``), the index and block table whole.  The
+fused-decode, verify and chunked-prefill steps run on one device: under a
+shard context they raise.
 The axes helpers (``input_sharding_axes``, ``params_axes_and_structs``,
 ``train_state_axes``, ``cache_axes``) give the reference's trees of logical
 axes, and the struct helpers (``cache_structs``, ``input_structs``) its
@@ -50,6 +56,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -541,10 +548,19 @@ def _serve_ctx():
 def cache_specs(cfg: ModelConfig, shapes, rules, mesh):
     """The cache's tree of specs: ``cache_axes`` through ``spec_for`` at
     each leaf's shape (``shapes``: a tree like the cache's whose leaves
-    have a ``shape``, as ``cache_structs`` or a cache itself)."""
+    have a ``shape``, as ``cache_structs`` or a cache itself).  Where
+    ``shapes`` has a "block_tbl", the self-attention K/V are block pools,
+    ("layers", "cache_blocks", None, "kv_heads", None) as
+    ``serving.slots.paged_cache_spec`` lays them out; the index and the
+    table take no spec (they stay whole)."""
     axes = cache_axes(cfg, 1, 1)
-    return tree_specs({k: v for k, v in axes.items() if k in shapes}, rules,
-                      mesh, shapes_tree=shapes)
+    if "block_tbl" in shapes:
+        axes = map_spec(lambda ax: ax if "cache_seq" not in ax else (
+            ax[:ax.index("batch")] + ("cache_blocks", None)
+            + ax[ax.index("cache_seq") + 1:]), axes)
+    return tree_specs({k: v for k, v in axes.items()
+                       if k in shapes and k != "index"}, rules, mesh,
+                      shapes_tree=shapes)
 
 
 def _mesh_inputs(cfg, batch, rules, mesh):
@@ -579,22 +595,21 @@ def _mesh_prefill(cfg, params: dict, batch, max_seq: int):
 
 
 def _place_cache(cache, specs, mesh):
-    """Every leaf of ``cache`` but "index" placed by its spec."""
+    """Every leaf of ``cache`` but the index and the block table placed by
+    its spec."""
     out = {}
     for k, v in cache.items():
         if isinstance(v, dict):
             out[k] = _place_cache(v, specs[k], mesh)
         else:
-            out[k] = v if k == "index" else sm.place(v, specs[k], mesh)
+            out[k] = (v if k in ("index", "block_tbl")
+                      else sm.place(v, specs[k], mesh))
     return out
 
 
 def _mesh_decode(cfg, params: dict, tokens, cache):
     """The decode over the shard context's mesh (``make_decode_step``)."""
     rules, mesh = _serve_ctx()
-    if torch.as_tensor(cache["index"]).ndim != 0 or "block_tbl" in cache:
-        raise ValueError("a decode over a mesh takes one index for every "
-                         "row and the ring cache (no block table)")
     toks, batch_axes = _mesh_inputs(cfg, {"tokens": tokens}, rules, mesh)
     specs = cache_specs(cfg, cache, rules, mesh)
     w = MeshParams(params, mesh, None, grad=False)
@@ -603,36 +618,62 @@ def _mesh_decode(cfg, params: dict, tokens, cache):
                                        batch_axes, specs)
 
 
+# an LM's layout under the (mesh, rules) it last stepped under: views of
+# its parameters, kept while the model lives
+_LAYOUTS: "weakref.WeakKeyDictionary[LM, tuple]" = weakref.WeakKeyDictionary()
+
+
+def _laid_out(cfg, params):
+    """``params`` as the partition takes them under the current shard
+    context: an ``LM`` laid out by ``serve_shardings`` (views of its
+    parameters, no copy where the mesh's devices are its own), once for a
+    mesh and rules a decode loop keeps; laid-out weights as they are."""
+    if not isinstance(params, LM):
+        return params
+    rules, mesh = _serve_ctx()
+    held = _LAYOUTS.get(params)
+    if (held is None or not sm.same_mesh(held[0], mesh)
+            or held[1].rules != rules.rules):
+        held = (mesh, rules, sm.device_put(params, serve_shardings(
+            cfg, mesh, rules)))
+        _LAYOUTS[params] = held
+    return held[2]
+
+
 def make_prefill_step(cfg: ModelConfig, max_seq: int):
     """``prefill_step(params, batch) → (last-position logits, cache)``.
-    ``params`` an ``LM``: its ``prefill``.  Laid-out weights ({name:
-    ``ShardedArray``}, ``device_put`` by ``serve_shardings``) prefill over
-    the shard context's mesh shard by shard, as the reference's partition
-    under ``serve_rules``: tokens, patches and frames split over the batch
-    axes, the vocabulary, heads, MLP columns, experts and SSM channels or
-    heads over "model", K4 on each rank's heads, K7 on each rank's Mamba2
-    heads; the logits come back whole, the cache as the one-device tree
-    with ``ShardedArray`` leaves laid out by ``cache_axes``."""
+    ``params`` an ``LM``: its ``prefill`` on one device.  Under a shard
+    context (``shard_ctx(serve_rules(B), mesh)``) the weights — laid out
+    by ``serve_shardings`` ({name: ``ShardedArray``}), or an ``LM`` laid
+    out so once (``_laid_out``) — prefill over the mesh shard by shard, as
+    the reference's partition under ``serve_rules``: tokens, patches and
+    frames split over the batch axes, the vocabulary, heads, MLP columns,
+    experts and SSM channels or heads over "model", K4 on each rank's
+    heads, K7 on each rank's Mamba2 heads; the logits come back whole, the
+    cache as the one-device tree with ``ShardedArray`` leaves laid out by
+    ``cache_axes``."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        if isinstance(params, LM):
+        if current_ctx() is None and isinstance(params, LM):
             return params.prefill(batch, max_seq)
-        return _mesh_prefill(cfg, params, batch, max_seq)
+        return _mesh_prefill(cfg, _laid_out(cfg, params), batch, max_seq)
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig):
     """``decode_step(params, tokens, cache) → (logits, cache)``.  ``params``
-    an ``LM``: its ``decode``.  Laid-out weights decode over the shard
-    context's mesh (as ``make_prefill_step``'s): the cache's leaves
-    (``ShardedArray``, or whole tensors, placed by ``cache_axes``) are
-    written in place; the self-attention K/V keep their sequence split
-    over "model" and the attention runs split-K."""
+    an ``LM``: its ``decode`` on one device.  Under a shard context the
+    weights (an ``LM`` laid out once, as ``make_prefill_step``'s) decode
+    over the mesh: the cache's leaves (``ShardedArray``, or whole tensors,
+    placed by ``cache_specs``) are written in place, whatever the layout
+    the rules give them — the ring's sequence over "model" (split-K), its
+    KV heads over "model" or neither, the paged pool of a "block_tbl" —
+    with a 0-d index or a (B,) one."""
     @torch.no_grad()
     def decode_step(params, tokens, cache):
-        if isinstance(params, LM):
+        if current_ctx() is None and isinstance(params, LM):
             return params.decode(tokens, cache)
-        return _mesh_decode(cfg, params, tokens, cache)
+        return _mesh_decode(cfg, _laid_out(cfg, params), tokens, cache)
     return decode_step
 
 
@@ -643,7 +684,8 @@ def make_verify_step(cfg: ModelConfig):
     logits at lane j equal the plain path's given the same fed prefix.
     Returns the per-lane greedy tokens (B, W) int32, the logits (B, W, V)
     and the cache, advanced W positions for every row; the engine rewinds
-    each row to its true position afterwards (``pool.set_index``)."""
+    each row to its true position afterwards (``pool.set_index``).  One
+    device: under a shard context ``LM.decode`` raises."""
     @torch.no_grad()
     def verify_step(params: LM, tokens, cache):
         lanes = []
@@ -664,7 +706,7 @@ def make_fused_decode_step(cfg: ModelConfig):
     seed/rid/pos are (B,) int32 stateless RNG counters; temperature is (B,)
     float32, 0 → greedy argmax (first index of the float32 maximum).  The
     sampler is the fused-sample kernel on the card and its plain version on
-    the CPU."""
+    the CPU.  One device: under a shard context ``LM.decode`` raises."""
     @torch.no_grad()
     def fused_decode_step(params: LM, tokens, cache, seed, rid, pos,
                           temperature):
@@ -683,7 +725,8 @@ def make_chunked_prefill_step(cfg: ModelConfig, max_seq: int, chunk: int):
 
     An encoder-decoder prefills in one shot (the encoder needs every
     frame); a VLM needs ``chunk > n_vision_patches``, so that the patch
-    prefix lands in the one-shot part."""
+    prefix lands in the one-shot part.  One device: under a shard context
+    ``LM.prefill`` raises."""
     if cfg.family == "vlm" and chunk <= cfg.n_vision_patches:
         raise ValueError(
             f"vlm chunked prefill needs chunk > n_vision_patches "

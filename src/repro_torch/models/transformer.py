@@ -29,9 +29,13 @@ Entry points:
                                            (every family), shard by shard
   model.logits_mesh(w, h)                  -> vocab-split logits
   model.prefill_mesh / decode_mesh         the serve steps over a mesh
-                                           (every family), shard by shard
+                                           (every family, every cache
+                                           layout), shard by shard
   model.prefill(inputs, max_seq)           -> (last-position logits, cache)
-  model.decode(tokens, cache)              -> (logits, cache)
+  model.decode(tokens, cache)              -> (logits, cache); both on one
+                                           device: under a shard context
+                                           they raise (the serve steps run
+                                           the partition)
   LM.cache_spec(cfg, batch, max_seq)       -> tree of (shape, dtype, axes)
 
 On the train route each layer (a hybrid's each group, an encoder-decoder's
@@ -361,14 +365,19 @@ class LM(nn.Module):
 
     def _angles_mesh(self, xs, start=0):
         """{position: RoPE angles for its (B_loc, S, ·) shard from position
-        ``start``}, made once a device (None where the family has no
-        RoPE)."""
+        ``start``: an int, or {position: its 0-d start or its rows'
+        (B_loc,) starts}}, made once a device and start (None where the
+        family has no RoPE)."""
         memo: dict = {}
-        for x in xs.values():
-            if x.device not in memo:
-                memo[x.device] = _angles(self.cfg, x.shape[0], x.shape[1],
-                                         start=start, device=x.device)
-        return {p: memo[x.device] for p, x in xs.items()}
+        out = {}
+        for p, x in xs.items():
+            s = start[p] if isinstance(start, dict) else start
+            key = (x.device, id(s))
+            if key not in memo:
+                memo[key] = _angles(self.cfg, x.shape[0], x.shape[1],
+                                    start=s, device=x.device)
+            out[p] = memo[key]
+        return out
 
     # The serve steps over a mesh (``steps``' prefill and decode over
     # laid-out weights, every family): the embedding and the readout split
@@ -486,18 +495,25 @@ class LM(nn.Module):
     def decode_mesh(self, w, tokens, cache, batch_axes, specs):
         """{position: (B_loc, 1) ids} → (logits (B, 1, V) float32, whole,
         on the first position's device; the cache, its ``ShardedArray``
-        leaves laid out by ``specs`` and written in place, index + 1)."""
+        leaves laid out by ``specs`` and written in place, index + 1).
+        ``cache["index"]`` is the 0-d index or the (B,) indices (each row
+        at its own position: its RoPE angles and its horizon); a
+        "block_tbl" (B, nk) pages the self-attention K/V (an
+        encoder-decoder's cross K/V stay dense).  Both stay whole."""
         cfg = self.cfg
-        index = cache["index"]
+        index, tbl = cache["index"], cache.get("block_tbl")
         h = self._embed_mesh(w, tokens)
-        angles = self._angles_mesh(h, start=index)
+        index_t = torch.as_tensor(index, dtype=torch.int32)
+        angles = self._angles_mesh(h, start=sm.split(
+            index_t, (batch_axes,) if index_t.ndim else (), w.mesh))
         if cfg.enc_dec:
             layer = {"self": _layer_specs(specs["self"], 1)["k"]}
             for i, blk in enumerate(self.dec_blocks):
                 state = {n: {k: leaf[i] for k, leaf in cache[n].items()}
                          for n in ("self", "cross")}
                 h = blk.decode_mesh(w.sub(f"dec_blocks.{i}"), h, angles,
-                                    state, index, layer, cache["cross_len"])
+                                    state, index, layer, cache["cross_len"],
+                                    batch_axes, tbl)
         elif cfg.hybrid is not None:
             emb0 = h
             n = len(self.shared)
@@ -511,7 +527,7 @@ class LM(nn.Module):
                     w.sub(f"shared.{g % n}"),
                     {p: torch.cat([x, emb0[p]], dim=-1) for p, x in h.items()},
                     angles, {k: leaf[g] for k, leaf in attn.items()}, index,
-                    a_spec)
+                    a_spec, batch_axes, tbl)
                 h = self._down_mesh(w, g, h, x2)
         else:
             layer_spec = _layer_specs(specs["layers"], 1)["k"] \
@@ -523,7 +539,8 @@ class LM(nn.Module):
                     h = blk.decode_mesh(w.sub(f"blocks.{i}"), h, state)
                 else:
                     h = blk.decode_mesh(w.sub(f"blocks.{i}"), h, angles,
-                                        batch_axes, state, index, layer_spec)
+                                        batch_axes, state, index, layer_spec,
+                                        tbl)
         return (self._whole_logits(w, h, batch_axes),
                 {**cache, "index": index + 1})
 
@@ -660,7 +677,9 @@ class LM(nn.Module):
 
     def prefill(self, inputs, max_seq: int):
         """Forward over the prompt, building the decode cache.  Returns
-        (last-position logits (B, 1, V), cache)."""
+        (last-position logits (B, 1, V), cache).  One device: under a shard
+        context it raises (``_one_device``)."""
+        self._one_device("prefill")
         cfg = self.cfg
         tokens = inputs["tokens"]
         B, S = tokens.shape
@@ -744,14 +763,12 @@ class LM(nn.Module):
         are only read, masked past each row's "cross_len").  The K/V and
         SSM state leaves are written in place; the
         returned cache shares them and every other entry, and carries
-        index + 1.  Under a split-K shard context with a scalar index and
-        no block table, the self-attention K/V leaves come back as
-        ``ShardedArray`` (``_split_kv``) and stay so between steps."""
+        index + 1.  One device: under a shard context it raises
+        (``_one_device``)."""
+        self._one_device("decode")
         index = cache["index"]
         tbl = cache.get("block_tbl")
         B = tokens.shape[0]
-        if tbl is None and torch.as_tensor(index).ndim == 0:
-            cache = self._split_kv(cache, B)
         h = self._embed(tokens)
         angles = _angles(self.cfg, B, 1, start=index, device=h.device)
         if self.cfg.enc_dec:
@@ -776,23 +793,17 @@ class LM(nn.Module):
         logits = self._logits(self.ln_f(h))
         return logits, {**cache, "index": index + 1}
 
-    def _split_kv(self, cache, B):
-        """Under split-K, the self-attention K/V leaves placed as
-        ``ShardedArray`` once (views of a whole leaf on its own device), so
-        that every layer's ``Attention.decode`` gets its blocks and the
-        returned cache keeps them split; else ``cache`` as it is."""
-        name = ("self" if self.cfg.enc_dec else "attn"
-                if self.cfg.hybrid is not None else "layers")
-        kv = cache.get(name)
-        if kv is None or "k" not in kv:
-            return cache
-        sk = Attention._splitk_ctx(kv["k"].shape[2])
-        if sk is None:
-            return cache
-        mesh, batch_axes, _ = sk
-        spec = (None,) + Attention.splitk_spec(B, mesh, batch_axes)
-        return {**cache, name: {n: sm.place(leaf, spec, mesh)
-                                for n, leaf in kv.items()}}
+    @staticmethod
+    def _one_device(what: str):
+        """Raise under a shard context: the one-device serve route would
+        run whole at every position there, so a model under one prefills
+        and decodes through ``steps.make_prefill_step``/
+        ``make_decode_step``, which lay it out and run the partition."""
+        if current_ctx() is not None:
+            raise ValueError(
+                f"LM.{what} runs on one device; under a shard context "
+                f"prefill and decode through steps.make_prefill_step and "
+                f"steps.make_decode_step, which run the partition")
 
     def _decode_hybrid(self, h, cache, index, angles, tbl):
         emb0 = h

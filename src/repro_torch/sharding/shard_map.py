@@ -255,14 +255,20 @@ class ShardedArray:
                 f" spec={self.spec}, mesh={axes})")
 
 
-def same_layout(a: ShardedArray, spec, mesh) -> bool:
-    return (a.spec == canonical(spec) and is_lone(a.mesh) == is_lone(mesh)
-            and getattr(a.mesh, "position", None) == getattr(
-                mesh, "position", None)
-            and a.mesh.axis_names == mesh.axis_names
-            and a.mesh.devices.shape == mesh.devices.shape
+def same_mesh(m1, m2) -> bool:
+    """Two meshes (or lone positions) of the same axes, devices and
+    position."""
+    return (is_lone(m1) == is_lone(m2)
+            and getattr(m1, "position", None) == getattr(m2, "position",
+                                                         None)
+            and m1.axis_names == m2.axis_names
+            and m1.devices.shape == m2.devices.shape
             and all(_device_key(d1) == _device_key(d2) for d1, d2 in zip(
-                a.mesh.devices.flat, mesh.devices.flat)))
+                m1.devices.flat, m2.devices.flat)))
+
+
+def same_layout(a: ShardedArray, spec, mesh) -> bool:
+    return a.spec == canonical(spec) and same_mesh(a.mesh, mesh)
 
 
 def place(x, spec, mesh) -> ShardedArray:

@@ -9,19 +9,26 @@ expert-parallel MoE, the axes helpers, ``collective_bytes``,
   gradients flow through ``psum``.
 * The axes helpers equal the reference's leaf for leaf on every smoke
   config (structs by shape and dtype).
-* Split-K decode (``Attention._decode_splitk``) taken exactly where the
-  reference's ``_splitk_ctx`` takes it, and within 1e-4 of the reference's
-  unsharded ``LM.decode`` (logits and caches, two steps) on (2, 4), (1, 2)
-  and (1, 4) meshes of CPU shards: the reference's own split-K test config,
-  the sliding-window smoke config (its ring wraps) and zamba2's.  A vector
-  index, ``Smax % m != 0`` and a paged cache leave the path as it was.
+* Split-K decode taken exactly where the reference's ``_splitk_ctx``
+  takes it, and the serve partition (``steps.make_decode_step`` given an
+  ``LM`` under ``shard_ctx(SERVE_RULES, mesh)``) within 1e-4 of the
+  reference's unsharded ``LM.decode`` (logits and caches, two steps) on
+  (2, 4), (1, 2) and (1, 4) meshes of CPU shards: the reference's own
+  split-K test config, the sliding-window smoke config (its ring wraps)
+  and zamba2's.  A vector index, ``Smax % m != 0`` and a paged cache run
+  no split-K body and hold to the reference's jitted step on the same
+  mesh; the partition's collectives are derived from the shapes.  An
+  ``LM`` and its laid-out weights give the same logits, caches and
+  collectives; the one-device serve methods and the fused-decode, verify
+  and chunked-prefill steps refuse a shard context.
 * Expert-parallel MoE (``MoE._apply_ep``) within 1e-4 of the reference's
   global path on a dropless config (``z_loss`` within 1e-3, ``drop_frac``
   0), and the port's train-route gradients through it finite and within
   1e-4 of its global path's.
 * One subprocess with 8 host devices holds the port against the
-  reference's own sharded bodies (``_decode_splitk``; ``_apply_ep`` with
-  drops at capacity factor 1.0 and data = 2) on a mesh built with
+  reference's own sharded bodies (``_decode_splitk``; its jitted decode
+  on the layouts split-K does not take; ``_apply_ep`` with drops at
+  capacity factor 1.0 and data = 2) on meshes built with
   ``jax.sharding.Mesh`` (Auto axes): ``jax.make_mesh`` builds Explicit
   axes under this JAX, where the reference's sharding constraints raise.
 * ``collective_bytes`` equal to the reference's ``hlo_cost`` formulas on
@@ -61,7 +68,8 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.bridge import from_reference
 from repro_torch.models.moe import MoE
 from repro_torch.sharding import (
-    SERVE_RULES, TRAIN_RULES, ShardedArray, shard_ctx,
+    SERVE_RULES, TRAIN_RULES, ShardedArray, device_put, serve_rules,
+    shard_ctx,
 )
 from repro_torch.sharding import shard_map as sm
 
@@ -358,9 +366,10 @@ def splitk_against_reference(key, max_seq, shape):
     model = port_model(key, params)
     cache = _torch_tree(run[0])
     mesh = cpu_mesh(shape)
-    with torch.no_grad(), shard_ctx(SERVE_RULES, mesh):
+    step = steps.make_decode_step(model.cfg)
+    with shard_ctx(SERVE_RULES, mesh):
         for tok, want_logits, want_cache in run[1:]:
-            logits, cache = model.decode(torch.tensor(tok), cache)
+            logits, cache = step(model, torch.tensor(tok), cache)
             np.testing.assert_allclose(logits.numpy(), want_logits,
                                        rtol=TOL, atol=TOL)
             _close_trees(cache, want_cache)
@@ -386,63 +395,119 @@ def test_splitk_sliding_window_wrapped_ring_matches_reference(shape):
 def test_splitk_zamba2_shared_attention_matches_reference(shape):
     cache = splitk_against_reference("zamba2-2.7b", 24, shape)
     assert isinstance(cache["attn"]["k"], ShardedArray)
-    assert not isinstance(cache["mamba"]["h"], ShardedArray)
-
-
-def _decode_twice(model, cache, tok, ctx):
-    with torch.no_grad(), ctx:
-        return model.decode(tok, cache)
-
-
-@pytest.mark.parametrize("case", ["vector index", "Smax % m", "paged"])
-def test_splitk_fallbacks_leave_the_path(case):
-    params, run = reference_run("dense", 32)
-    model = port_model("dense", params)
-    tok = torch.tensor(run[1][0])
-    mesh = cpu_mesh((1, 4))
-    base = _torch_tree(run[0])
-    if case == "vector index":
-        base["index"] = torch.full((8,), int(base["index"]),
-                                   dtype=torch.int32)
-    elif case == "Smax % m":
-        mesh = cpu_mesh((1, 3))                       # 32 % 3 != 0
-    else:
-        bk = 8
-        L, B, Smax = base["layers"]["k"].shape[:3]
-        base["layers"] = {n: v.reshape(L, B * Smax // bk, bk,
-                                       *v.shape[3:]).clone()
-                          for n, v in base["layers"].items()}
-        base["block_tbl"] = torch.arange(B * Smax // bk, dtype=torch.int32
-                                         ).reshape(B, Smax // bk)
-    want_cache = {k: ({n: t.clone() for n, t in v.items()}
-                      if isinstance(v, dict) else v)
-                  for k, v in base.items()}
-    want, want_cache = _decode_twice(model, want_cache, tok,
-                                     torch.no_grad())
-    got, got_cache = _decode_twice(model, base, tok,
-                                   shard_ctx(SERVE_RULES, mesh))
-    assert torch.equal(got, want)
-    for n in ("k", "v"):
-        assert not isinstance(got_cache["layers"][n], ShardedArray)
-        assert torch.equal(got_cache["layers"][n], want_cache["layers"][n])
+    assert cache["attn"]["k"].spec[2] == "model"
+    # the Mamba states are laid out by their cache axes too
+    cfg = get_smoke_config("zamba2-2.7b")
+    assert cache["mamba"]["h"].spec == steps.cache_specs(
+        cfg, cache, SERVE_RULES, cpu_mesh(shape))["mamba"]["h"]
 
 
 def test_splitk_collectives_record_and_bytes():
     params, run = reference_run("dense", 32)
     model = port_model("dense", params)
     mesh = cpu_mesh((2, 4))
-    with torch.no_grad(), shard_ctx(SERVE_RULES, mesh), CostCounter() as c:
-        model.decode(torch.tensor(run[1][0]), _torch_tree(run[0]))
-    # a layer: pmax of m and psum of l, (B/data, KV, G) f32, psum of o,
-    # (B/data, KV, G, hd) f32, all-reduce over the 4 model ranks
-    B, KV, G, hd = 4, 2, 4, 4
-    want = [("all-reduce", B * KV * G * 4, 4)] * 2 + [
-        ("all-reduce", B * KV * G * hd * 4, 4)]
-    assert c.collectives == want * 2
+    with shard_ctx(SERVE_RULES, mesh), CostCounter() as c:
+        steps.make_decode_step(model.cfg)(model, torch.tensor(run[1][0]),
+                                          _torch_tree(run[0]))
+    # the partition on (2, 4), 8 rows (4 a data shard), float32: the
+    # embedding's psum over the vocabulary; a layer: wk and wv gathered
+    # whole (2 KV heads do not split over 4 ranks, their columns do), q
+    # gathered over "model", split-K's pmax of m, psum of l (B/data, KV,
+    # G) and psum of o (B/data, KV, G, hd), the psums of wo's and the
+    # MLP's rows; the logits gathered over the vocabulary, then the batch
+    cfg = model.cfg
+    B, d, V, f, m = 4, cfg.d_model, cfg.vocab, 4, 4
+    KV, H, hd = cfg.n_kv_heads, cfg.n_heads, cfg.hd
+    G = H // KV
+    layer = ([("all-gather", d * KV * hd * f, m)] * 2
+             + [("all-gather", B * H * hd * f, m)]
+             + [("all-reduce", B * KV * G * f, m)] * 2
+             + [("all-reduce", B * KV * G * hd * f, m)]
+             + [("all-reduce", B * d * f, m)] * 2)
+    want = ([("all-reduce", B * d * f, m)] + layer * cfg.n_layers
+            + [("all-gather", B * V * f, m), ("all-gather", 2 * B * V * f, 2)])
+    assert c.collectives == want
     total, detail = collective_bytes(c)
-    assert total == 2 * 1.5 * (2 * 128 + 512)
-    assert detail["counts"] == {"all-reduce": 6}
+    ar = sum(b for k, b, _ in want if k == "all-reduce")
+    ag4 = sum(b for k, b, n in want if k == "all-gather" and n == 4)
+    assert total == 1.5 * ar + 0.75 * ag4 + 0.5 * 2 * B * V * f
+    assert detail["counts"] == {"all-reduce": 1 + 5 * cfg.n_layers,
+                                "all-gather": 3 * cfg.n_layers + 2}
     assert detail["tpu_corrected_total"] == total
+
+
+def test_lm_and_laid_out_weights_run_one_program():
+    """An ``LM`` under a shard context is laid out once (views of its
+    parameters) and runs the partition: the same logits, caches and
+    collectives as ``device_put(LM, serve_shardings(...))``, prefill and
+    decode, with every layout of the cache the rules give."""
+    cfg = get_smoke_config("qwen2.5-3b")
+    model = LM(cfg, device="cpu", seed=0)
+    mesh = cpu_mesh((2, 2))
+    rules = serve_rules(4)
+    laid = device_put(model, steps.serve_shardings(cfg, mesh, rules))
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (4, 16), dtype=np.int32))}
+    tok = batch["tokens"][:, :1]
+    runs = {}
+    for name, params in (("lm", model), ("laid", laid)):
+        with shard_ctx(rules, mesh), CostCounter() as c:
+            logits, cache = steps.make_prefill_step(cfg, 24)(params, batch)
+            out = [logits]
+            cache["index"] = torch.tensor([16, 3, 23, 9], dtype=torch.int32)
+            for _ in range(2):
+                logits, cache = steps.make_decode_step(cfg)(params, tok,
+                                                            cache)
+                out.append(logits)
+        runs[name] = (out, cache, c.collectives)
+    (o1, c1, r1), (o2, c2, r2) = runs["lm"], runs["laid"]
+    assert r1 == r2 and len(r1) > 0
+    for a, b in zip(o1, o2):
+        assert torch.equal(a, b)
+    l1, l2 = sm.tree_leaves(c1), sm.tree_leaves(c2)
+    assert l1.keys() == l2.keys()
+    for k in l1:
+        assert torch.equal(_full(l1[k]), _full(l2[k])), k
+    # laid out once for the mesh and rules: the same views at every step
+    with shard_ctx(rules, mesh):
+        first = steps._laid_out(cfg, model)
+        assert steps._laid_out(cfg, model) is first
+        blk = first["embed.table"].blocks[0, 0]
+        assert blk.untyped_storage().data_ptr() == \
+            model.embed.table.untyped_storage().data_ptr()
+
+
+def _one_device_cases(cfg, model, cache, tok):
+    z = torch.zeros(tok.shape[0], dtype=torch.int32)
+    return {
+        "LM.prefill": lambda: model.prefill({"tokens": tok}, 8),
+        "LM.decode": lambda: model.decode(tok, cache),
+        "fused decode step": lambda: steps.make_fused_decode_step(cfg)(
+            model, tok, cache, z, z, z, z.float()),
+        "verify step": lambda: steps.make_verify_step(cfg)(
+            model, tok.repeat(1, 2), cache),
+        "chunked prefill step": lambda: steps.make_chunked_prefill_step(
+            cfg, 8, 2)(model, {"tokens": tok.repeat(1, 4)}),
+    }
+
+
+@pytest.mark.parametrize("case", ["LM.prefill", "LM.decode",
+                                  "fused decode step", "verify step",
+                                  "chunked prefill step"])
+def test_one_device_serve_refuses_a_shard_context(case):
+    """Under a shard context the one-device serve route would run whole at
+    every position: it raises and names the steps that run the
+    partition; outside one it runs."""
+    cfg = get_smoke_config("qwen2.5-3b")
+    model = LM(cfg, device="cpu", seed=0)
+    tok = torch.ones((2, 1), dtype=torch.int32)
+    cache = LM.init_cache(cfg, 2, 8, device="cpu")
+    fn = _one_device_cases(cfg, model, cache, tok)[case]
+    with shard_ctx(SERVE_RULES, cpu_mesh((1, 2))):
+        with pytest.raises(ValueError, match="make_decode_step"):
+            fn()
+    with torch.no_grad():
+        fn()
 
 
 # ------------------------------------------------------------ EP MoE
@@ -547,12 +612,36 @@ t = jnp.argmax(lp[:, 0], -1).astype(jnp.int32)[:, None]
 dec = compiled(dec, params, t, cache)
 put("dense/params", params)
 put("dense/cache0", cache)
+cache0, tok1 = cache, t
 for step in (1, 2):
     out["dense/tok%d" % step] = np.asarray(t)
     ld, cache = dec(params, t, cache)
     out["dense/logits%d" % step] = np.asarray(ld)
     put("dense/cache%d" % step, cache)
     t = jnp.argmax(ld[:, 0], -1).astype(jnp.int32)[:, None]
+# the layouts the split-K body does not take, through the jitted decode
+def dec_on(shape):
+    m_ = Mesh(np.array(jax.devices()[:int(np.prod(shape))]).reshape(shape),
+              ("data", "model"))
+    def f(p, t, c):
+        with shard_ctx(SERVE_RULES, m_):
+            return LM.decode(p, t, cfg, c)
+    return f
+L, B, Smax = cache0["layers"]["k"].shape[:3]
+bk = 8
+fallbacks = {
+    "vector index": ((1, 4), dict(cache0, index=jnp.full(
+        (B,), cache0["index"], jnp.int32))),
+    "Smax % m": ((1, 3), cache0),
+    "paged": ((1, 4), dict(cache0, layers={
+        n: v.reshape(L, B * Smax // bk, bk, *v.shape[3:])
+        for n, v in cache0["layers"].items()}, block_tbl=jnp.arange(
+            B * Smax // bk, dtype=jnp.int32).reshape(B, Smax // bk))),
+}
+for case, (shape, c) in fallbacks.items():
+    ld, cn = compiled(dec_on(shape), params, tok1, c)(params, tok1, c)
+    out["fallback/%s/logits" % case] = np.asarray(ld)
+    put("fallback/%s/cache" % case, cn)
 mcfg = MoECfg(**MOE_CFG)
 k1 = jax.random.PRNGKey(1)
 mp = compiled(lambda k: MoE.init(k, 32, mcfg)[0], k1)(k1)
@@ -611,13 +700,61 @@ def test_port_matches_the_reference_splitk_body(reference_bodies):
     d = reference_bodies()["dense"]
     model = from_reference(d["params"], ModelConfig(**DENSE), device="cpu")
     cache = _torch_tree(d["cache0"])
-    with torch.no_grad(), shard_ctx(SERVE_RULES, cpu_mesh((2, 4))):
+    step_fn = steps.make_decode_step(model.cfg)
+    with shard_ctx(SERVE_RULES, cpu_mesh((2, 4))):
         for step in (1, 2):
-            logits, cache = model.decode(
-                torch.from_numpy(d[f"tok{step}"]), cache)
+            logits, cache = step_fn(model, torch.from_numpy(d[f"tok{step}"]),
+                                    cache)
             np.testing.assert_allclose(logits.numpy(), d[f"logits{step}"],
                                        rtol=TOL, atol=TOL)
             _close_trees(cache, d[f"cache{step}"])
+
+
+@pytest.mark.parametrize("case", ["vector index", "Smax % m", "paged"])
+def test_splitk_fallbacks_leave_the_path(reference_bodies, monkeypatch,
+                                         case):
+    """The layouts the reference's split-K path does not take hold to its
+    jitted decode under ``shard_ctx(SERVE_RULES, mesh)`` on the same mesh
+    (its per-row and paged paths, partitioned by XLA): a ring that "model"
+    does not divide (nor its 2 KV heads: every head on each rank's whole
+    copy) and a paged pool run no split-K body; a vector index over a
+    ring split over "model" runs the split-K body with each row's own
+    index (the reference's per-row path over the split cache)."""
+    d = reference_bodies()["dense"]
+    model = from_reference(d["params"], ModelConfig(**DENSE), device="cpu")
+    base = _torch_tree(d["cache0"])
+    mesh = cpu_mesh((1, 4))
+    if case == "vector index":
+        base["index"] = torch.full((8,), int(base["index"]),
+                                   dtype=torch.int32)
+    elif case == "Smax % m":
+        mesh = cpu_mesh((1, 3))                       # 32 % 3 != 0
+    else:
+        bk = 8
+        L, B, Smax = base["layers"]["k"].shape[:3]
+        base["layers"] = {n: v.reshape(L, B * Smax // bk, bk,
+                                       *v.shape[3:]).clone()
+                          for n, v in base["layers"].items()}
+        base["block_tbl"] = torch.arange(B * Smax // bk, dtype=torch.int32
+                                         ).reshape(B, Smax // bk)
+    calls = []
+    body = Attention.__dict__["_splitk_body"].__func__
+    monkeypatch.setattr(Attention, "_splitk_body", staticmethod(
+        lambda *a: calls.append(1) or body(*a)))
+    with shard_ctx(SERVE_RULES, mesh):
+        got, cache = steps.make_decode_step(model.cfg)(
+            model, torch.from_numpy(d["tok1"]), base)
+    want = reference_bodies()["fallback"][case]
+    np.testing.assert_allclose(got.numpy(), want["logits"], rtol=TOL,
+                               atol=TOL)
+    _close_trees(cache, want["cache"])
+    split = case == "vector index"
+    assert len(calls) == (model.cfg.n_layers if split else 0)
+    for n in ("k", "v"):                # the sequence (or the blocks) whole
+        assert (cache["layers"][n].spec[2:3] == ("model",)) == split
+    for k in ("index", "block_tbl"):
+        if k in base:
+            assert np.array_equal(_full(cache[k]).numpy(), want["cache"][k])
 
 
 def test_port_matches_the_reference_ep_body_with_drops(reference_bodies):

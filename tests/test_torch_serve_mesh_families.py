@@ -26,9 +26,23 @@ on the CPU, at smoke configs in float32, against the reference.
   rank's product, a long prompt the weight.
 * The CLI: ``--smoke --mesh single --mesh-shape 2,4`` writes every serve
   record of the four families, and ``--mesh both`` refuses none.
+* Every cache layout ``SERVE_RULES`` gives a decode, on (2, 4): a ring
+  split over "model" with each row at its own position (a (B,) index,
+  one row's ring wrapped), a 30-slot ring that 4 does not divide (the KV
+  heads split over "model" where 4 divides them, else nothing does) and
+  the paged pool (a block table, half its ids global ones that
+  ``rem(block_tbl, NB)`` folds).  The same subprocess runs the
+  reference's jitted ``make_decode_step`` under ``shard_ctx(SERVE_RULES,
+  mesh)`` on qwen2.5-3b's and seamless-m4t-medium's smoke configs from its
+  one-device prefill; the port's step, given the ``LM`` under the same
+  context, holds every logit and cache leaf to 1e-4 and the index, the
+  table and ``cross_len`` exactly.  zamba2-2.7b (its shared attention),
+  qwen2-vl-7b (M-RoPE at each row's position) and olmoe-1b-7b take the
+  three layouts beside the port's one-device decode.
 """
 import dataclasses
 import functools
+import inspect
 import json
 import math
 import os
@@ -47,7 +61,9 @@ from repro_torch.launch.cost import CostCounter
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import LM, steps
 from repro_torch.models.bridge import from_reference
-from repro_torch.sharding import device_put, serve_rules, shard_ctx, spec_for
+from repro_torch.sharding import (
+    SERVE_RULES, device_put, serve_rules, shard_ctx, spec_for,
+)
 from repro_torch.sharding import shard_map as sm
 
 REPO = Path(__file__).resolve().parents[1]
@@ -72,6 +88,42 @@ MESHES = {"single": ((2, 4), ("data", "model")),
           "multi": ((2, 2, 2), ("pod", "data", "model"))}
 FAMILIES = ("falcon-mamba-7b", "zamba2-2.7b", "qwen2-vl-7b",
             "seamless-m4t-medium")
+# the decode layouts: (ring length, paged); each row at its own position,
+# row 2's ring wrapped
+LAYOUTS = {"vector": (24, False), "odd": (30, False), "paged": (24, True)}
+INDICES = (16, 23, 30, 9)
+BLOCK = 8
+LAYOUT_ARCHS = ("qwen2.5-3b", "seamless-m4t-medium")
+
+
+def to_layout(cache, layout, seed=11):
+    """A one-device prefill's cache (numpy leaves) in ``layout``: the
+    (B,) index INDICES; paged, the self-attention K/V re-laid as a pool of
+    B x nk + 1 blocks of BLOCK slots in a shuffled order, the (B, nk)
+    table naming them, every other row's ids offset by NB (global ids,
+    folded by ``rem``)."""
+    import numpy as np
+    out = dict(cache)
+    name = ("self" if "self" in cache else "attn" if "attn" in cache
+            else "layers")
+    L, B, S = np.asarray(cache[name]["k"]).shape[:3]
+    out["index"] = np.asarray(INDICES[:B], np.int32)
+    if not LAYOUTS[layout][1]:
+        return out
+    nk = S // BLOCK
+    NB = B * nk + 1
+    ids = np.random.default_rng(seed).permutation(NB)[:B * nk]
+    pool = {}
+    for n, leaf in cache[name].items():
+        leaf = np.asarray(leaf)
+        p = np.zeros((L, NB, BLOCK) + leaf.shape[3:], leaf.dtype)
+        p[:, ids] = leaf.reshape((L, B * nk, BLOCK) + leaf.shape[3:])
+        pool[n] = p
+    tbl = ids.reshape(B, nk).astype(np.int32)
+    tbl[::2] += NB
+    out[name] = pool
+    out["block_tbl"] = tbl
+    return out
 
 
 def config(name):
@@ -107,7 +159,8 @@ from repro.models import LM
 from repro.models.steps import (cache_axes, input_sharding_axes,
                                 make_decode_step, make_prefill_step,
                                 params_axes_and_structs)
-from repro.sharding import serve_rules, shard_ctx, spec_for, tree_shardings
+from repro.sharding import (SERVE_RULES, serve_rules, shard_ctx, spec_for,
+                            tree_shardings)
 out = {}
 def put(prefix, tree):
     if isinstance(tree, dict):
@@ -177,6 +230,61 @@ for name, (arch, kw, B, tags) in CASES.items():
                                 jnp.asarray(feed[i]), cache)
             out[pre + "/decode%d" % i] = np.asarray(logits)
         put(pre + "/cache", cache)
+# every decode layout of SERVE_RULES on (2, 4), from a one-device prefill
+mesh = Mesh(np.array(jax.devices()[:8]).reshape(MESHES["single"][0]),
+            MESHES["single"][1])
+repl = NamedSharding(mesh, P())
+for arch in LAYOUT_ARCHS:
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    key = jax.random.PRNGKey(0)
+    params = jax.jit(lambda k: LM.init(k, cfg)[0]).lower(key).compile(
+        compiler_options=opts)(key)
+    pre = "layouts/" + arch
+    put(pre + "/params", params)
+    rng = np.random.default_rng(9)
+    B = CASES_ROWS
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, PROMPT),
+                                    dtype=np.int32)}
+    if cfg.enc_dec:
+        batch["frames"] = rng.standard_normal(
+            (B, FRAMES, cfg.d_model)).astype(np.float32)
+    feed = rng.integers(0, cfg.vocab, (DECODE_STEPS, B, 1), dtype=np.int32)
+    out[pre + "/feed"] = feed
+    batch = {k: jnp.asarray(v) for k, v in batch.items()}
+    axes, _ = params_axes_and_structs(cfg)
+    p_sh = tree_shardings(axes, SERVE_RULES, mesh, shapes_tree=params)
+    t_sh = NamedSharding(mesh, spec_for(("batch", "seq"), SERVE_RULES, mesh,
+                                        (B, 1)))
+    dstep = make_decode_step(cfg)
+    def decode(p, t, c):
+        with shard_ctx(SERVE_RULES, mesh):
+            return dstep(p, t, c)
+    prefilled = {}
+    for layout, (max_seq, paged) in LAYOUTS.items():
+        if max_seq not in prefilled:
+            pstep = make_prefill_step(cfg, max_seq=max_seq)
+            prefilled[max_seq] = jax.jit(pstep).lower(params, batch).compile(
+                compiler_options=opts)(params, batch)[1]
+        cache = to_layout(jax.tree.map(np.asarray, prefilled[max_seq]),
+                          layout)
+        put(pre + "/" + layout + "/cache0", cache)
+        ax = dict(cache_axes(cfg, B, max_seq), index=("batch",))
+        if paged:
+            name = "self" if cfg.enc_dec else "layers"
+            ax[name] = {n: ("layers", "cache_blocks", None, "kv_heads", None)
+                        for n in ax[name]}
+            ax["block_tbl"] = ("batch", None)
+        c_sh = tree_shardings(ax, SERVE_RULES, mesh, shapes_tree=cache)
+        cache = jax.device_put(cache, c_sh)
+        dfn = jax.jit(decode, in_shardings=(p_sh, t_sh, c_sh),
+                      out_shardings=(repl, c_sh)).lower(
+            params, jnp.asarray(feed[0]), cache).compile(
+            compiler_options=opts)
+        for i in range(DECODE_STEPS):
+            logits, cache = dfn(jax.device_put(params, p_sh),
+                                jnp.asarray(feed[i]), cache)
+            out[pre + "/" + layout + "/decode%d" % i] = np.asarray(logits)
+        put(pre + "/" + layout + "/cache", cache)
 np.savez(sys.argv[1], **out)
 """
 
@@ -204,7 +312,10 @@ def reference_serve():
     env.pop("XLA_FLAGS", None)
     code = (f"CASES = {CASES!r}\nMESHES = {MESHES!r}\n"
             f"PROMPT, MAX_SEQ, FRAMES = {PROMPT}, {MAX_SEQ}, {FRAMES}\n"
-            f"DECODE_STEPS = {DECODE_STEPS}\n" + SUB)
+            f"DECODE_STEPS = {DECODE_STEPS}\nLAYOUTS = {LAYOUTS!r}\n"
+            f"INDICES, BLOCK = {INDICES!r}, {BLOCK}\n"
+            f"LAYOUT_ARCHS, CASES_ROWS = {LAYOUT_ARCHS!r}, {ROWS}\n"
+            + inspect.getsource(to_layout) + SUB)
     proc = subprocess.Popen([sys.executable, "-c", code, path], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
@@ -433,3 +544,77 @@ def test_partitioned_serve_matches_the_reference(reference_serve, name, tag):
         if k != "index":
             assert leaf.spec == spec_for(axes[k], serve_rules(rows), mesh,
                                          tuple(leaf.shape)), k
+
+
+# ------------- every decode layout of SERVE_RULES (the reference's, then the
+# port's one device)
+
+
+def _torch(tree):
+    if isinstance(tree, dict):
+        return {k: _torch(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return tree.numpy()
+
+
+def _held(got, want, mesh, cfg, exact=("index", "block_tbl", "cross_len")):
+    """Every leaf of cache ``got`` within TOL of ``want``'s (integer
+    state equal), each K/V and state leaf laid out by ``cache_specs``."""
+    g, w = sm.tree_leaves(got), sm.tree_leaves(want)
+    assert g.keys() == w.keys()
+    specs = sm.tree_leaves(steps.cache_specs(cfg, got, SERVE_RULES, mesh))
+    for k, leaf in g.items():
+        if k.split("/")[0] in exact:
+            assert np.array_equal(whole(leaf), np.asarray(w[k])), k
+            continue
+        np.testing.assert_allclose(whole(leaf), np.asarray(w[k]), rtol=0,
+                                   atol=TOL, err_msg=k)
+        assert leaf.spec == specs[k], k
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("arch", LAYOUT_ARCHS)
+def test_every_decode_layout_matches_the_reference(reference_serve, arch,
+                                                   layout):
+    ref = reference_serve()["layouts"][arch]
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = from_reference(ref["params"], cfg, device="cpu")
+    mesh = cpu_mesh("single")
+    cache = _torch(ref[layout]["cache0"])
+    step = steps.make_decode_step(cfg)
+    with shard_ctx(SERVE_RULES, mesh):
+        for i, t in enumerate(ref["feed"]):
+            logits, cache = step(model, torch.from_numpy(t), cache)
+            np.testing.assert_allclose(logits.numpy(),
+                                       ref[layout][f"decode{i}"], rtol=0,
+                                       atol=TOL, err_msg=f"decode {i}")
+    _held(cache, ref[layout]["cache"], mesh, cfg)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "qwen2-vl-7b",
+                                  "olmoe-1b-7b"])
+def test_every_decode_layout_matches_one_device(arch, layout):
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = LM(cfg, device="cpu", seed=0)
+    batch = inputs(cfg, ROWS, seed=3)
+    _, cache = steps.make_prefill_step(cfg, LAYOUTS[layout][0])(model, batch)
+    cache = to_layout(_numpy(cache), layout)
+    one, mesh_cache = _torch(cache), _torch(cache)
+    mesh = cpu_mesh("single")
+    step = steps.make_decode_step(cfg)
+    feed = np.random.default_rng(4).integers(0, cfg.vocab, (DECODE_STEPS,
+                                                            ROWS, 1))
+    for t in feed:
+        t = torch.from_numpy(t.astype(np.int32))
+        want, one = step(model, t, one)
+        with shard_ctx(SERVE_RULES, mesh):
+            got, mesh_cache = step(model, t, mesh_cache)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=TOL)
+    _held(mesh_cache, one, mesh, cfg)
