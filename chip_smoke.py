@@ -20,9 +20,11 @@ with padded heads and the elastic re-mesh restore, phase 14 training
 the SSM, hybrid, VLM and encoder-decoder families over such a mesh, and
 phase 15 the dry-run on the production mesh: the serve steps partitioned
 under ``serve_rules``, lone positions of the (16, 16) and (2, 16, 16)
-meshes, and the training peaks under remat, and phase 16 the same serve
+meshes, and the training peaks under remat, phase 16 the same serve
 partition and lone cells for the SSM, hybrid, VLM and encoder-decoder
-families.
+families, and phase 17 serves the configs no earlier phase serves whole:
+h2o-danube-1.8b with its window wrapping, qwen2.5-14b at full depth, and
+qwen2-72b and phi3.5-moe-42b-a6.6b at a depth cut.
 Each phase's wall time is printed.  Any failure exits non-zero and prints
 no result line.
 
@@ -115,17 +117,15 @@ no result line.
               CPU, same weights), on the dense and the paged engine.
 5. profile  — host time of a full-width decode tick (and of a qwen verify
               tick) beside the byte floor of the weights it reads, and the
-              device time per kernel over steady-state ticks
+              host time of an admission per model (200 tokens; 1224 for
+              qwen2-vl; seamless's with its encoder frames); falcon's scan
+              loops by the host clock in that admission.  For
+              PROFILED_MODELS (qwen2.5-3b) also the device time per kernel
+              over steady-state ticks and in one profiled admission
               (torch.profiler; device busy is the sum over the device's
               own events, printed beside the sum over host ops and kernels
-              alike, which counts a kernel launched by an aten op twice);
-              then one profiled admission per model (200 tokens; 1224 for
-              qwen2-vl; seamless's with its encoder frames), the named
-              kernels' shares (K4, K7) beside the rest.  olmoe's MoE
-              layers, falcon's selective scans and seamless's encoder and
-              cross attention are timed as ranges of their own; falcon's
-              scan loops also by the host clock in an unprofiled
-              admission.
+              alike, which counts a kernel launched by an aten op twice),
+              K4's share beside the rest.
 6. loop     — ``run_closed_loop`` (``LoopConfig()``, 12 ticks, ``--seed``,
               autoscale, planner mode: router, collector, anomaly
               detector, eviction policy, predictive allocator with its DQN)
@@ -386,8 +386,8 @@ no result line.
 14. families — phase 13's (2, 2) mesh for the families phase 13 leaves
               out, each at full width, float32 state, bf16 compute:
               falcon-mamba-7b at 2 of 64 layers (Mamba1, channel-parallel)
-              and zamba2-2.7b at 12 of 54 Mamba2 layers with both shared
-              blocks (two hybrid groups; Mamba2 head-parallel);
+              and zamba2-2.7b at 4 of 54 Mamba2 layers with both shared
+              blocks (two hybrid groups of 2; Mamba2 head-parallel);
               qwen2-vl-7b at 4 of 28 layers, 2 x 1280 tokens of
               which 1024 are patch rows; seamless-m4t-medium at full
               depth, 2 x 256 tokens and frames (``FAMILY_CUTS``; the SSM
@@ -453,6 +453,29 @@ no result line.
               bytes (``collective_sizes``) and exact launches; falcon's
               and seamless's ``prefill_32k`` named as left out
               (LONE_LEFT_OUT).
+17. configs — every config of ``src/repro/configs/`` not served whole
+              above, at full width with float32 parameters (the configs'
+              ``param_dtype``), each freed before the next and its peak
+              printed: (a) h2o-danube-1.8b at its 24 layers, (i) the
+              dense pool at max_seq 8192, so the ring is the window's
+              4096: 16 prompts of 4090 tokens from ``tiered_requests``
+              (batch_frac 0.5) over 8 slots, 16 tokens each, every row's
+              ring wrapping during decode and K4 windowed at prefill; no
+              batch-tier request admitted while an interactive one waits;
+              (ii) max_seq 1024: the paged pool with spec_k=3 on 4
+              prompts of ``shared_prefix_requests`` (a 136-token prefix,
+              the dense run's 16 tokens tiled twice after it) and 4 of
+              ``repetitive_requests`` (period 8) in one run, prefix
+              hits and accepted drafts held above 0, the paged streams
+              equal to the dense pool's; (b) qwen2.5-14b at all 48 layers: the CLI (dense),
+              the paged + speculative run and its streams against the
+              dense ones; (c) qwen2-72b and phi3.5-moe-42b-a6.6b at 8
+              layers (``DEPTH_CUT``) the same, phi3.5's streams held on a
+              dropless copy (capacity_factor = E/K) and its drop
+              fractions at the published capacity factor printed.  Each
+              model's launches are held exactly, and its host clock a
+              tick and an admission's are printed from a dense run of
+              8 x 200 tokens.
 
 Before the last line it prints one JSON object of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -502,15 +525,14 @@ ZSERVE = ["--arch", "zamba2-2.7b", "--device", "cuda", "--requests", "8",
           "--slots", "8", "--max-seq", "1024", "--prompt-len", "200",
           "--gen-len", "16", "--seed", "0"]
 Z_MAMBA, Z_ATTN = 54, 9
-# the kernels of a zamba2 prefill, by a pattern of their CUDA names
-ZAMBA2_KERNELS = (("K7", "ssd|ssm"), ("K4", "flash"))
 # olmoe-1b-7b at full width: 16 layers of attention (16 heads, 16 KV heads,
 # hd 128) and a 64-expert top-8 MoE; falcon-mamba-7b: 64 Mamba1 layers, no
 # attention.  The CLI serves both as it serves qwen2.5-3b.
 OSERVE = ["--arch", "olmoe-1b-7b"] + SERVE[2:]
 # phases 3-5 run these two at a quarter of their depth (full width) to pay
 # for phase 10; their full-depth numbers stand in PERF.md as history
-DEPTH_CUT = {"olmoe-1b-7b": 4, "falcon-mamba-7b": 16}
+DEPTH_CUT = {"olmoe-1b-7b": 4, "falcon-mamba-7b": 16, "qwen2-72b": 8,
+             "phi3.5-moe-42b-a6.6b": 8}
 FSERVE = ["--arch", "falcon-mamba-7b"] + SERVE[2:]
 # qwen2-vl-7b at full width: 28 layers of 28 heads over 4 KV heads (G 7),
 # hd 128, vocab 152064.  Every prompt opens with the 1024 patch positions
@@ -1406,11 +1428,12 @@ def check_launches(counts, want, what):
     check(counts == want, f"{what}: launch counts {counts}, expected {want}")
 
 
-def serve_phase(torch, ops, serve, base_argv, expected):
-    """The serve CLI at full width, unchunked and chunked by 64; launch
-    counts must equal ``expected(ticks, admissions)``."""
+def serve_phase(torch, ops, serve, base_argv, expected, chunks=(None, 64)):
+    """The serve CLI at full width, unchunked and chunked by 64 (or by
+    ``chunks``); launch counts must equal ``expected(ticks,
+    admissions)``."""
     launches = {name: 0 for name in ops.KERNELS}
-    for chunk in (None, 64):
+    for chunk in chunks:
         argv = base_argv + ([] if chunk is None else
                             ["--prefill-chunk", str(chunk)])
         torch.cuda.reset_peak_memory_stats()
@@ -1470,7 +1493,6 @@ def shared_prompts(core):
     VLM's prompts open with the same patch positions (token ids drawn from
     a seed of their own; the patches replace their embeddings)."""
     import numpy as np
-    from repro_torch.serving import Request, ServingEngine
     rng = np.random.default_rng(1)
     vocab = core.cfg.vocab
     prefix = rng.integers(3, vocab, PREFIX_LEN)
@@ -1478,6 +1500,14 @@ def shared_prompts(core):
         3, vocab, core.cfg.n_vision_patches), prefix])
     bases = [np.concatenate([prefix, rng.integers(3, vocab, TAIL_LEN)])
              .astype(np.int32) for _ in range(SLOTS)]
+    return echo_prompts(core, bases)
+
+
+def echo_prompts(core, bases):
+    """Each prompt of ``bases`` followed by Y_i twice, Y_i the GEN_LEN
+    tokens a plain greedy run generates after it."""
+    import numpy as np
+    from repro_torch.serving import Request, ServingEngine
     eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=core.max_seq,
                         core=core)
     reqs = [Request(rid=i, prompt=b, gen_len=GEN_LEN)
@@ -1804,38 +1834,15 @@ def streams_phase(torch, ops, arch):
 
 
 @contextlib.contextmanager
-def annotated(torch, label, objs, method="forward"):
-    """Each call of ``method`` on these objects inside a
-    ``record_function(label)`` range, by a wrapper set on each instance:
-    the model's code is unchanged, and the class's method shows again once
-    the block ends."""
-    def ranged(fn):
-        def call(*args, **kw):
-            with torch.profiler.record_function(label):
-                return fn(*args, **kw)
-        return call
-
-    for o in objs:
-        setattr(o, method, ranged(getattr(o, method)))
-    try:
-        yield
-    finally:
-        for o in objs:
-            delattr(o, method)
-
-
-@contextlib.contextmanager
-def timed_scan(torch, stats):
-    """Mamba1's ``selective_scan`` inside a ``record_function`` range, its
-    host time (the Python loop's launches, no synchronize) and calls added
-    to ``stats``."""
+def timed_scan(stats):
+    """Mamba1's ``selective_scan`` timed: its host time (the Python loop's
+    launches, no synchronize) and calls added to ``stats``."""
     from repro_torch.models import mamba
     scan = mamba.selective_scan
 
     def wrapped(*args):
         t0 = time.perf_counter()
-        with torch.profiler.record_function("selective_scan"):
-            out = scan(*args)
+        out = scan(*args)
         stats["host_s"] += time.perf_counter() - t0
         stats["calls"] += 1
         return out
@@ -1845,16 +1852,6 @@ def timed_scan(torch, stats):
         yield stats
     finally:
         mamba.selective_scan = scan
-
-
-def range_ms(prof, label, n) -> float:
-    """Device ms per step of the kernels launched inside ``label``'s
-    ranges (the host-side range events, whose device time sums the
-    kernels of every op they enclose)."""
-    from torch.autograd import DeviceType
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.key == label and e.device_type == DeviceType.CPU
-               ) / 1e3 / n
 
 
 def tick_floor(torch, eng):
@@ -1890,23 +1887,21 @@ def tick_floor(torch, eng):
     return nbytes / 1e9, nbytes / PEAK_BYTES_S * 1e3
 
 
-def range_shares(prof, ranges, n, device_ms):
-    return "".join(f"; {label} {range_ms(prof, label, n):.3f} ms of device "
-                   f"time ({range_ms(prof, label, n) / device_ms:.1%})"
-                   for label in ranges)
-
-
 # ticks torch.profiler records for a tick's device time (its trace is
 # parsed on the host in proportion to its events, inside the run's time
 # limit)
 PROFILED_TICKS = 1
+# the models whose phase 5 runs torch.profiler over a tick and an
+# admission; the others print their host clocks alone (a cut paying for
+# phase 17; their device breakdowns stand in PERF.md from earlier runs)
+PROFILED_MODELS = ("qwen2.5-3b",)
 
 
 def profile_ticks(torch, eng, label, n, n_prof, counted=None,
-                  annotate=contextlib.nullcontext, ranges=()):
+                  profiled=True):
     """Host time per tick over ``n`` unprofiled ticks, then device time per
-    kernel from torch.profiler over ``n_prof`` more, inside ``annotate()``
-    with the device time of each of its ``ranges``."""
+    kernel from torch.profiler over ``n_prof`` more (not with ``profiled``
+    False: the host clock alone)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1914,9 +1909,13 @@ def profile_ticks(torch, eng, label, n, n_prof, counted=None,
         eng.step(now=0.0)
     torch.cuda.synchronize()
     tick_ms = (time.perf_counter() - t0) / n * 1e3
+    if not profiled:
+        print(f"  {label} tick: {tick_ms:.2f} ms host clock ({n} ticks, "
+              f"unprofiled; not profiled: PROFILED_MODELS)")
+        return
     before = dict(counted or {})
-    with annotate(), profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_prof):
             eng.step(now=0.0)
@@ -1931,8 +1930,7 @@ def profile_ticks(torch, eng, label, n, n_prof, counted=None,
     print(f"  {label} tick: {tick_ms:.2f} ms host clock ({n} ticks, "
           f"unprofiled); profiled {prof_ms:.2f} ms, device busy "
           f"{device_ms:.2f} ms ({device_ms / prof_ms:.0%} of the profiled "
-          f"tick; {summed_ms:.2f} ms summed over ops and kernels){mix}"
-          f"{range_shares(prof, ranges, n_prof, device_ms)}")
+          f"tick; {summed_ms:.2f} ms summed over ops and kernels){mix}")
     print_profile(prof, n_prof)
 
 
@@ -1950,8 +1948,7 @@ def _by_kernel(prof, n, device_only=False):
     first; ``device_only``: the device's own events (kernels, copies,
     sets), not the host ops that launched them.  A ``record_function``
     range's device-side event spans the device timeline from its first
-    kernel to its last, idle time included: it is no work, and left out
-    (``range_ms`` reads a range's kernels)."""
+    kernel to its last, idle time included: it is no work, and left out."""
     from torch.autograd import DeviceType
     return sorted(((e.key, e.self_device_time_total / 1e3 / n)
                    for e in prof.key_averages()
@@ -1987,16 +1984,13 @@ def random_prompts(cfg, n, prompt_len=200, seed=3):
 
 
 def profile_admission(torch, core, label="qwen2.5-3b",
-                      kernels=(("K4", "flash"),),
-                      annotate=contextlib.nullcontext, ranges=(),
-                      requests=None):
+                      annotate=contextlib.nullcontext, requests=None):
     """One admission: the unchunked prefill of a prompt (200 random tokens,
     or each of three ``requests``' prompt and frames) into a free slot
     (``ServingEngine.admit``), after one warm-up admission; its host time
-    unprofiled, then another's profiled: device time per kernel, each named
-    kernel's share (by a pattern of its CUDA names) and each range's beside
-    the rest.  Both run inside an ``annotate()`` of their own.  Returns the
-    unprofiled host ms."""
+    unprofiled, inside ``annotate()``, then (for PROFILED_MODELS)
+    another's profiled: device time per kernel and K4's share.  Returns
+    the unprofiled host ms."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import ServingEngine
     eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=core.max_seq,
@@ -2011,27 +2005,28 @@ def profile_admission(torch, core, label="qwen2.5-3b",
         admit(2, reqs[2])
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-    with annotate(), profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
+    if label not in PROFILED_MODELS:
+        print(f"  {label} admission ({len(reqs[2].prompt)}-token prefill): "
+              f"{plain_ms:.2f} ms host clock (not profiled: "
+              f"PROFILED_MODELS)")
+        del eng
+        free(torch)
+        return plain_ms
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         admit(1, reqs[1])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device_ms, summed_ms = report_profile(summed_once(prof), 1)
-    shares = []
-    for name, pattern in kernels:
-        k_ms = sum(t for key, t in _by_kernel(prof, 1, device_only=True)
-                   if re.search(pattern, key))
-        shares.append(f"{name} {k_ms:.3f} ms ({k_ms / device_ms:.1%} of the "
-                      f"device time)")
-    enc = ("" if reqs[1].frames is None else
-           f", {len(reqs[1].frames)} encoder frames")
-    print(f"  {label} admission ({len(reqs[1].prompt)}-token prefill{enc}): "
+    k4_ms = sum(t for key, t in _by_kernel(prof, 1, device_only=True)
+                if re.search("flash", key))
+    print(f"  {label} admission ({len(reqs[1].prompt)}-token prefill): "
           f"{plain_ms:.2f} ms host "
           f"clock unprofiled, {wall_ms:.2f} ms profiled, device busy "
           f"{device_ms:.2f} ms ({summed_ms:.2f} ms summed over ops and "
-          f"kernels)" + "".join("; " + x for x in shares)
-          + range_shares(prof, ranges, 1, device_ms))
+          f"kernels); K4 {k4_ms:.3f} ms ({k4_ms / device_ms:.1%} of the "
+          f"device time)")
     print_profile(prof, 1)
     del eng
     free(torch)
@@ -2161,16 +2156,12 @@ def olmoe_phases(torch, ops, serve, EngineCore, cfg, add):
     print("[4] greedy streams on the card: olmoe-1b-7b (dropless copy)")
     full_width_streams_phase(torch, core, prompts, streams)
     streams_phase(torch, ops, "olmoe-1b-7b")
-    print("[5] where a full-width olmoe-1b-7b tick's and admission's time "
-          "goes (dropless copy)")
-    moe = [blk.moe for blk in core.params.blocks]
-    annotate = lambda: annotated(torch, "moe", moe)
-    profile_dense_tick(torch, core, "olmoe dense decode", annotate=annotate,
-                       ranges=("moe",))
-    profile_admission(torch, core, "olmoe-1b-7b", annotate=annotate,
-                      ranges=("moe",))
+    print("[5] a full-width olmoe-1b-7b tick's and admission's host clock "
+          "(dropless copy)")
+    profile_dense_tick(torch, core, "olmoe dense decode", profiled=False)
+    profile_admission(torch, core, "olmoe-1b-7b")
     print(f"  peak device memory {peak_gib(torch):.2f} GiB")
-    del core, moe, annotate
+    del core
     free(torch)
     print(f"[3] olmoe-1b-7b at capacity factor {cfg.moe.capacity_factor}: "
           f"the paged + speculative run and the dense plain streams")
@@ -2207,18 +2198,17 @@ def falcon_phases(torch, ops, serve, EngineCore, cfg, add):
     print("[4] greedy streams on the card: falcon-mamba-7b")
     recurrent_streams_phase(core, "falcon-mamba-7b", streams)
     streams_phase(torch, ops, "falcon-mamba-7b")
-    print("[5] where a full-width falcon-mamba-7b tick's and admission's "
-          "time goes")
-    profile_dense_tick(torch, core, "falcon dense decode")
+    print("[5] a full-width falcon-mamba-7b tick's and admission's host "
+          "clock")
+    profile_dense_tick(torch, core, "falcon dense decode", profiled=False)
     scans = []                  # per admission: the scans' host time
 
     def annotate():
         scans.append({"host_s": 0.0, "calls": 0})
-        return timed_scan(torch, scans[-1])
+        return timed_scan(scans[-1])
 
-    plain_ms = profile_admission(torch, core, "falcon-mamba-7b", kernels=(),
-                                 annotate=annotate,
-                                 ranges=("selective_scan",))
+    plain_ms = profile_admission(torch, core, "falcon-mamba-7b",
+                                 annotate=annotate)
     scan_ms = scans[0]["host_s"] * 1e3
     print(f"  the unprofiled admission's {scans[0]['calls']} selective "
           f"scans: {scan_ms:.2f} ms host clock ({scan_ms / plain_ms:.0%}; "
@@ -2251,9 +2241,8 @@ def vlm_phases(torch, ops, serve, EngineCore, cfg, add):
     print("[4] greedy streams on the card: qwen2-vl-7b")
     full_width_streams_phase(torch, core, prompts, streams)
     streams_phase(torch, ops, "qwen2-vl-7b")
-    print("[5] where a full-width qwen2-vl-7b tick's and admission's time "
-          "goes")
-    profile_dense_tick(torch, core, "qwen2-vl dense decode",
+    print("[5] a full-width qwen2-vl-7b tick's and admission's host clock")
+    profile_dense_tick(torch, core, "qwen2-vl dense decode", profiled=False,
                        requests=random_prompts(cfg, SLOTS, VL_PROMPT, 0))
     profile_admission(torch, core, "qwen2-vl-7b",
                       requests=random_prompts(cfg, 3, VL_PROMPT))
@@ -2339,8 +2328,7 @@ def encdec_serve_phase(torch, ops, core):
 def encdec_phases(torch, ops, EngineCore, cfg, add):
     """seamless-m4t-medium at full width through ServingEngine (the CLI
     makes no frames, as in the reference), its paged streams against the
-    dense ones, and phase 5 with the encoder's and the cross attention's
-    device time as ranges."""
+    dense ones, and phase 5's host clocks."""
     print("[3] serve seamless-m4t-medium at full width (ServingEngine, "
           "frames of encoder lengths 128..1024)")
     t0 = time.perf_counter()
@@ -2357,27 +2345,14 @@ def encdec_phases(torch, ops, EngineCore, cfg, add):
           f"64 {'equal' if chunked == dense else 'not equal'} (not held: "
           f"the one-shot part runs at other shapes)")
     streams_phase(torch, ops, "seamless-m4t-medium")
-    print("[5] where a full-width seamless-m4t-medium tick's and admission's "
-          "time goes")
-    model = core.params
-    cross = [blk.cross_attn for blk in model.dec_blocks]
-
-    def annotate():
-        stack = contextlib.ExitStack()
-        stack.enter_context(annotated(torch, "encoder", [model], "_encode"))
-        stack.enter_context(annotated(torch, "cross_attn", cross))
-        stack.enter_context(annotated(torch, "cross_attn", cross,
-                                      "_decode_cross"))
-        return stack
-
-    profile_dense_tick(torch, core, "seamless dense decode",
-                       requests=encdec_requests(cfg), annotate=annotate,
-                       ranges=("cross_attn",))
-    profile_admission(torch, core, "seamless-m4t-medium", annotate=annotate,
-                      ranges=("encoder", "cross_attn"),
+    print("[5] a full-width seamless-m4t-medium tick's and admission's "
+          "host clock")
+    profile_dense_tick(torch, core, "seamless dense decode", profiled=False,
+                       requests=encdec_requests(cfg))
+    profile_admission(torch, core, "seamless-m4t-medium",
                       requests=encdec_requests(cfg)[:3])
     print(f"  peak device memory {peak_gib(torch):.2f} GiB")
-    del core, model, cross, annotate
+    del core
     free(torch)
     print(f"  seamless-m4t-medium: {time.perf_counter() - t0:.1f} s")
 
@@ -5746,10 +5721,14 @@ def train_mesh_phase(torch, ops):
 # copy fit beside each other, and the SSM families' tokens cut so that the
 # phase stays short (their train scans are per-token loops, run once a
 # position: a zamba2 mesh step at 12 layers took 27.7 s at 2 x 256
-# tokens on an H100, 5.4 s at 2 x 64): (layers, tokens a row; 2 rows)
-FAMILY_CUTS = {"falcon-mamba-7b": (2, 64), "zamba2-2.7b": (12, 64),
+# tokens on an H100, 5.4 s at 2 x 64): (layers, tokens a row; 2 rows).  A
+# cut hybrid runs in FAMILY_HYBRID_GROUPS groups, so both shared blocks
+# train (zamba2 took 41.4 s of the phase at 12 layers in 2 groups of 6,
+# 22.6 s at 6 in 2 of 3)
+FAMILY_CUTS = {"falcon-mamba-7b": (2, 64), "zamba2-2.7b": (4, 64),
                "qwen2-vl-7b": (4, 1280), "seamless-m4t-medium": (None, 256)}
 FAMILY_STEPS = 2
+FAMILY_HYBRID_GROUPS = 2
 FAMILY_F32 = ("falcon-mamba-7b", "zamba2-2.7b")
 # zamba2's bf16 gradient is rounding-dominated at these weights: two valid
 # roundings of the one-device step (an H100's and a CPU's) part by
@@ -5806,6 +5785,9 @@ def family_run(torch, arch):
     full = cfg.n_layers + (cfg.n_enc_layers if cfg.enc_dec else 0)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
+        if cfg.hybrid is not None:
+            cfg = dataclasses.replace(cfg, hybrid=dataclasses.replace(
+                cfg.hybrid, attn_every=layers // FAMILY_HYBRID_GROUPS))
     batches = train_batches(torch, cfg, FAMILY_STEPS + 1, seq=seq,
                             device="cuda")
     f32 = arch in FAMILY_F32
@@ -5821,6 +5803,8 @@ def family_run(torch, arch):
                          f"{arch} (2, 2) vs one device")
     depth = (f"{cfg.n_enc_layers} + {cfg.n_layers} layers" if cfg.enc_dec
              else f"{cfg.n_layers} of {full} layers")
+    if cfg.hybrid is not None and layers is not None:
+        depth += f" in {FAMILY_HYBRID_GROUPS} hybrid groups"
     extra = (f", {cfg.n_vision_patches} of them patch rows"
              if cfg.family == "vlm" else ", frames of as many rows"
              if cfg.enc_dec else "")
@@ -6558,6 +6542,239 @@ def family_serve_phase(torch, ops, add):
     print(f"  phase 16 kernels {counts}: {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------------ phase 17
+
+# h2o-danube-1.8b's window binds at max_seq 8192 (the dense ring is the
+# window's 4096 slots): 16 prompts of 4090 tokens over 8 slots, 16 tokens
+# each, so every row's ring wraps during decode
+DANUBE_PROMPT, DANUBE_MAX_SEQ, DANUBE_REQUESTS = 4090, 8192, 16
+ECHO_PERIOD = 8
+C14SERVE = ["--arch", "qwen2.5-14b"] + SERVE[2:]
+Q72SERVE = ["--arch", "qwen2-72b"] + SERVE[2:]
+PHISERVE = ["--arch", "phi3.5-moe-42b-a6.6b"] + SERVE[2:]
+
+
+def model_start(torch, label):
+    """Free the last model and start counting this one's peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[17] {label}", flush=True)
+
+
+def clocked_dense(torch, ops, core, requests, label):
+    """The dense plain engine over ``requests``, all submitted at once,
+    each step timed on the host clock (synchronized): launches held to
+    one K4 a layer an admission, one K1 write instance a layer and one K3
+    a fused tick.  Prints the median host ms of a step that admitted
+    nothing and the host ms an admission (the admitting steps less a
+    median step, per admission); returns the launch counts."""
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(core.cfg, slots=SLOTS, max_seq=core.max_seq,
+                        core=core)
+    for r in requests:
+        eng.submit(r, now=0.0)
+    done, ticks, admits, step = [], [], [], 0
+    with counted_steps(core) as calls:
+        ops.reset_launch_counts()
+        while len(done) < len(requests):
+            step += 1
+            check(step < 5000, f"{label}: the dense run did not finish")
+            n0 = eng.stats.total_admitted
+            t0 = time.perf_counter()
+            done.extend(eng.step(now=float(step)))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            n = eng.stats.total_admitted - n0
+            (admits.append((ms, n)) if n else ticks.append(ms))
+        counts = ops.launch_counts()
+    tick = statistics.median(ticks)
+    admit = sum(ms - tick for ms, _ in admits) / sum(n for _, n in admits)
+    check(eng.logits_pulls == 0,
+          f"{label}: greedy serving pulled logits {eng.logits_pulls} times")
+    check(all(len(r.tokens_out) == r.gen_len for r in done),
+          f"{label}: a request stopped short")
+    check_launches(counts, decoder_launches(core.cfg.n_layers)(
+        calls["fused"], eng.stats.total_admitted), f"{label} dense")
+    print(f"  {label} dense, {len(requests)} x {len(requests[0].prompt)} "
+          f"tokens: host clock {tick:.2f} ms a tick ({len(ticks)} ticks), "
+          f"{admit:.2f} ms an admission ({eng.stats.total_admitted}), "
+          f"{calls['fused']} fused ticks")
+    return counts
+
+
+def lanes_logged(eng):
+    """Wrap ``eng.scheduler.pop``: each admission's (tier, interactive
+    requests still waiting in their lane when it was popped)."""
+    log, pop = [], eng.scheduler.pop
+
+    def logged():
+        waiting = len(eng.scheduler._lanes["interactive"])
+        r = pop()
+        log.append((r.tier, waiting - (r.tier == "interactive")))
+        return r
+    eng.scheduler.pop = logged
+    return log
+
+
+def danube_phase(torch, ops, EngineCore, add):
+    """(a) h2o-danube-1.8b at full width and depth: (i) its window bound
+    and wrapping on the dense pool, tiered admissions; (ii) the paged
+    pool with speculation on the shared-prefix and prompt-echo
+    workloads, max_seq 1024."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import Attention
+    from repro_torch.serving import (
+        ServingEngine, shared_prefix_requests, tiered_requests,
+    )
+    from repro_torch.serving.workload import repetitive_requests
+    from repro_torch.sim.serving import WorkloadSpec
+    cfg = get_config("h2o-danube-1.8b")
+    model_start(torch, f"h2o-danube-1.8b at full width, {cfg.n_layers} "
+                       f"layers, window {cfg.sliding_window}")
+    ring = Attention.cache_len(cfg, DANUBE_MAX_SEQ)
+    check(ring == cfg.sliding_window < DANUBE_PROMPT + GEN_LEN,
+          f"danube's ring {ring} must be its window and wrap")
+    core = EngineCore(cfg, DANUBE_MAX_SEQ, seed=0, device="cuda")
+    reqs = tiered_requests(WorkloadSpec(prompt_len=DANUBE_PROMPT,
+                                        gen_len=GEN_LEN), DANUBE_REQUESTS,
+                           cfg.vocab, batch_frac=0.5,
+                           rng=np.random.default_rng(5))
+    tiers = [r.tier for r in reqs]
+    check(0 < tiers.count("batch") < DANUBE_REQUESTS,
+          f"tiered_requests drew one tier only: {tiers}")
+    eng = ServingEngine(cfg, slots=SLOTS, max_seq=DANUBE_MAX_SEQ, core=core)
+    lanes = lanes_logged(eng)
+    with counted_steps(core) as calls:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        streams = run_all(eng, reqs)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        wall = time.perf_counter() - t0
+    admitted = eng.stats.total_admitted
+    print(f"  (i) dense pool, max_seq {DANUBE_MAX_SEQ} (ring {ring}): "
+          f"{DANUBE_REQUESTS} x {DANUBE_PROMPT} tokens over {SLOTS} slots "
+          f"in {wall:.2f} s, {calls['fused']} fused ticks; admissions in "
+          f"order {[t for t, _ in lanes]}")
+    check(admitted == DANUBE_REQUESTS and len(streams) == DANUBE_REQUESTS,
+          f"{len(streams)}/{DANUBE_REQUESTS} requests finished")
+    check(all(len(t) == GEN_LEN for t in streams.values()),
+          "a danube request stopped short")
+    check(all(w == 0 for t, w in lanes if t == "batch"),
+          f"a batch request was admitted while an interactive one waited: "
+          f"{lanes}")
+    check([t for t, _ in lanes] == sorted(tiers, key=("interactive",
+                                                      "batch").index),
+          f"admissions out of lane order: {lanes}")
+    check(eng.logits_pulls == 0,
+          f"greedy serving pulled logits {eng.logits_pulls} times")
+    check_launches(counts, decoder_launches(cfg.n_layers)(
+        calls["fused"], admitted), "danube windowed dense")
+    add(counts)
+    print(f"  e.g. rid 0 ({reqs[0].tier}): {streams[0]}")
+    core = EngineCore(cfg, MAX_SEQ, params=core.params, device="cuda")
+    del eng
+    free(torch)
+    print(f"  (ii) max_seq {MAX_SEQ}: the window does not bind (ring "
+          f"{Attention.cache_len(cfg, MAX_SEQ)})")
+    # one paged run over both workloads: request 0 (shared prefix) streams
+    # past the prefix alone, then the other three shared-prefix prompts
+    # and the four prompt-echo ones
+    half = SLOTS // 2
+    spec = WorkloadSpec(prompt_len=PREFIX_LEN + TAIL_LEN, gen_len=GEN_LEN)
+    shared = echo_prompts(core, [r.prompt for r in shared_prefix_requests(
+        spec, half, cfg.vocab, prefix_len=PREFIX_LEN,
+        rng=np.random.default_rng(6))])
+    echo = [r.prompt for r in repetitive_requests(
+        dataclasses.replace(spec, prompt_len=200), half, cfg.vocab,
+        period=ECHO_PERIOD, rng=np.random.default_rng(7))]
+    print(f"  {half} shared-prefix prompts ({PREFIX_LEN}-token prefix) and "
+          f"{half} prompt-echo prompts (period {ECHO_PERIOD}):")
+    prompts = shared + echo
+    launches, paged = paged_serve_phase(torch, ops, core, prompts)
+    add(launches)
+    full_width_streams_phase(torch, core, prompts, paged)
+    add(clocked_dense(torch, ops, core, random_requests(cfg.vocab),
+                      "h2o-danube-1.8b"))
+    print(f"  h2o-danube-1.8b peak device memory {peak_gib(torch):.2f} GiB")
+    del core
+    free(torch)
+
+
+def served_whole_phase(torch, ops, serve, EngineCore, cfg, argv, add):
+    """A dense decoder at full width (``cfg``: full depth or cut): the CLI
+    unchunked, the paged + speculative run on the shared-prefix prompts,
+    its streams against the dense plain ones, and a clocked dense run."""
+    label = cfg.name
+    model_start(torch, f"{label} at full width, {cfg.n_layers} layers, "
+                       f"float32 parameters")
+    with serving_config(serve, cfg):
+        add(serve_phase(torch, ops, serve, argv,
+                        decoder_launches(cfg.n_layers), chunks=(None,)))
+    core = EngineCore(cfg, MAX_SEQ, seed=0, device="cuda")
+    prompts = shared_prompts(core)
+    launches, streams = paged_serve_phase(torch, ops, core, prompts)
+    add(launches)
+    full_width_streams_phase(torch, core, prompts, streams)
+    add(clocked_dense(torch, ops, core, random_requests(cfg.vocab), label))
+    print(f"  {label} peak device memory {peak_gib(torch):.2f} GiB")
+    del core
+    free(torch)
+
+
+def phi35_phase(torch, ops, serve, EngineCore, cfg, add):
+    """phi3.5-moe-42b-a6.6b at full width and DEPTH_CUT layers: the CLI
+    and the drop fractions at the published capacity factor, then the
+    paged + speculative run, its streams against the dense plain ones and
+    a clocked dense run on a dropless copy (capacity_factor = E/K), as
+    ``olmoe_phases`` holds olmoe's."""
+    import dataclasses
+    label = "phi3.5-moe-42b-a6.6b"
+    model_start(torch, f"{label} at full width, {cfg.n_layers} layers, "
+                       f"float32 parameters (capacity factor "
+                       f"{cfg.moe.capacity_factor})")
+    with serving_config(serve, cfg):
+        add(serve_phase(torch, ops, serve, PHISERVE,
+                        decoder_launches(cfg.n_layers), chunks=(None,)))
+    core = EngineCore(cfg, MAX_SEQ, seed=0, device="cuda")
+    prompts = shared_prompts(core)
+    drops = drop_fracs(torch, core, prompts)
+    print(f"  capacity factor {cfg.moe.capacity_factor}: one-shot forward "
+          f"over each {len(prompts[0])}-token prompt, drop_frac per layer "
+          f"{min(drops):.4f} to {max(drops):.4f}")
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=E / K))
+    del core
+    free(torch)
+    core = EngineCore(dropless, MAX_SEQ, seed=0, device="cuda")
+    print(f"  dropless copy, capacity_factor = E/K = {E / K:g}")
+    check(max(drop_fracs(torch, core, prompts)) == 0.0,
+          "the dropless copy dropped tokens")
+    launches, streams = paged_serve_phase(torch, ops, core, prompts)
+    add(launches)
+    full_width_streams_phase(torch, core, prompts, streams)
+    add(clocked_dense(torch, ops, core, random_requests(cfg.vocab), label))
+    print(f"  {label} peak device memory {peak_gib(torch):.2f} GiB")
+    del core
+    free(torch)
+
+
+def configs_phase(torch, ops, serve, EngineCore, add):
+    """Phase 17: every config not served whole by phases 3-5."""
+    from repro_torch.configs import get_config
+    danube_phase(torch, ops, EngineCore, add)
+    served_whole_phase(torch, ops, serve, EngineCore,
+                       get_config("qwen2.5-14b"), C14SERVE, add)
+    served_whole_phase(torch, ops, serve, EngineCore, depth_cut("qwen2-72b"),
+                       Q72SERVE, add)
+    phi35_phase(torch, ops, serve, EngineCore,
+                depth_cut("phi3.5-moe-42b-a6.6b"), add)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -6650,10 +6867,11 @@ def main(argv=None) -> int:
             print("[4] greedy streams on the card: zamba2-2.7b")
             recurrent_streams_phase(zcore, "zamba2-2.7b", z_streams)
             streams_phase(torch, ops, "zamba2-2.7b")
-            print("[5] where a full-width zamba2-2.7b tick's and admission's "
-                  "time goes")
-            profile_dense_tick(torch, zcore, "zamba2 dense decode")
-            profile_admission(torch, zcore, "zamba2-2.7b", ZAMBA2_KERNELS)
+            print("[5] a full-width zamba2-2.7b tick's and admission's host "
+                  "clock")
+            profile_dense_tick(torch, zcore, "zamba2 dense decode",
+                               profiled=False)
+            profile_admission(torch, zcore, "zamba2-2.7b")
             del zcore
             free(torch)
         with phase_clock(times, "3-5 olmoe-1b-7b"):
@@ -6697,6 +6915,8 @@ def main(argv=None) -> int:
             mesh_dryrun_phase(torch, ops, add)
         with phase_clock(times, "16 family serve mesh"):
             family_serve_phase(torch, ops, add)
+        with phase_clock(times, "17 configs"):
+            configs_phase(torch, ops, serve, EngineCore, add)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -45,10 +45,10 @@ weight would cost d_model x its width every token.  Mamba1's states split
 replicated over "model" and ``conv`` splits its ``di + 2·G·N`` channels in
 blocks that cross the heads' and the x|B|C boundaries.  Its prefill runs
 K7 on the rank's heads and all-gathers their final states; its decode
-convolves the rank's block of the conv channels, all-gathers the outputs
-and updates every head on every rank (the states stay replicated, and no
-rank's heads are gathered), each rank multiplying its rows of
-``out_proj``.
+convolves the rank's block of the conv channels, all-gathers the outputs,
+updates the rank's heads and all-gathers the new heads into the
+replicated ``h`` (the reference's per-device program does the same), each
+rank multiplying its rows of ``out_proj``.
 """
 from __future__ import annotations
 
@@ -550,14 +550,18 @@ class Mamba2(nn.Module):
         by ``cache_axes`` (``h`` split over the batch alone, ``conv`` its
         channels over "d_inner"'s axes too), written in place → {position:
         (B_loc, 1, d)}.  Each rank holds the whole ``in_proj`` product
-        (``project_columns``), convolves its block of the conv channels,
-        all-gathers the outputs, updates every head from them, runs the
-        gated norm over all of ``d_inner`` and multiplies its rows of
-        ``out_proj``."""
+        (``project_columns``), convolves its block of the conv channels and
+        all-gathers the outputs.  Head-parallel (``_layout``), each rank
+        updates its own heads of ``h``, runs the gated norm over all of
+        ``d_inner`` (its sum of squares psummed over "model") and
+        multiplies its rows of ``out_proj``; the new heads are all-gathered
+        over "model" into the replicated ``h``, as the reference's
+        per-device program gathers them.  Otherwise every position updates
+        every head."""
         cfg = self.cfg
         cd, di = cfg.cdtype, cfg.d_inner
         GN = cfg.ssm.n_groups * cfg.ssm.d_state
-        H, hd = cfg.ssm_heads, cfg.ssm.headdim
+        hd = cfg.ssm.headdim
         mesh = w.mesh
         split, rank, n = self._layout(w)
         c = n * hd
@@ -574,9 +578,8 @@ class Mamba2(nn.Module):
                         (sm.axis_index(mesh, pos, ch_axes) + 1) * cb)
             conv_in = torch.cat([xs_, Bc, Cc], dim=-1)[..., blk]
             window = torch.cat([state["conv"].blocks[pos], conv_in], dim=1)
-            cw = conv_w[pos][..., blk].to(cd)                # (k, 1, cb)
-            co = (window * cw.transpose(0, 1)).sum(dim=1, keepdim=True)
-            outs[pos] = F.silu(co + conv_b[pos][blk].to(co.dtype))
+            outs[pos] = self._conv_step(window, conv_w[pos][..., blk].to(cd),
+                                        conv_b[pos][blk])
             kept[pos] = (z, dt)
             new[pos] = {"conv": window[:, 1:]}
         if sm.axis_size(mesh, ch_axes) > 1:
@@ -584,30 +587,66 @@ class Mamba2(nn.Module):
         A_log, dt_bias, D = w("A_log"), w("dt_bias"), w("D")
         keep = ("model",) if split else ()
         scale, out_w = w("norm.scale", keep), w("out_proj.w", keep)
-        part = {}
+        hs, kept_u, ss = {}, {}, {}
         for pos, (z, dt) in kept.items():
             Bsz = z.shape[0]
+            h0 = rank[pos] * n
+            heads = slice(h0, h0 + n)
             xs_, Bc, Cc = torch.split(outs[pos], [di, GN, GN], dim=-1)
-            dt = softplus(dt.float() + dt_bias[pos].float())[:, 0]
-            a = torch.exp(dt * -torch.exp(A_log[pos].float())[None])
-            x_t = xs_[:, 0].reshape(Bsz, H, hd).float()
-            B_t, C_t = self._heads(Bc[:, 0], 1), self._heads(Cc[:, 0], 1)
-            h = (a[..., None, None] * state["h"].blocks[pos]
-                 + (dt[..., None] * x_t)[..., None] * B_t[:, :, None, :])
-            y = torch.einsum("bhdn,bhn->bhd", h, C_t)
-            y = y + x_t * D[pos].float()[None, :, None]
-            # the gated norm over all of d_inner (RMSNorm's arithmetic),
-            # then the rank's rows
-            uf = (y.reshape(Bsz, 1, di).to(cd) * F.silu(z)).float()
-            uf = uf * torch.rsqrt(uf.square().mean(dim=-1, keepdim=True)
-                                  + self.norm.eps)
-            r = rank[pos]
-            rows = uf[..., r * c:(r + 1) * c] if split else uf
-            part[pos] = ((rows * scale[pos].float()).to(cd)
-                         @ out_w[pos].to(cd))
-            new[pos]["h"] = h
+            x_t = xs_[:, 0, h0 * hd:h0 * hd + c].reshape(Bsz, n, hd).float()
+            B_t, C_t = (self._rank_heads(t[:, 0], h0, n, 0)
+                        for t in (Bc, Cc))
+            h, y = self._ssd_step(
+                state["h"].blocks[pos][:, heads], dt[:, 0, heads],
+                dt_bias[pos][heads], A_log[pos][heads], D[pos][heads],
+                x_t, B_t, C_t)
+            kept_u[pos], ss[pos] = self._gate(
+                y.reshape(Bsz, 1, c), z[..., h0 * hd:h0 * hd + c])
+            hs[pos] = h
+        if split:
+            ss = sm.psum(ss, "model", mesh)
+            hs = sm.all_gather(hs, "model", mesh, dim=1)
+        part = {}
+        for pos, uf in kept_u.items():
+            part[pos] = self._norm_out(uf, ss[pos], scale[pos], out_w[pos])
+            new[pos]["h"] = hs[pos]
         _write_states(state, new)
         return sm.psum(part, "model", mesh) if split else part
+
+    @staticmethod
+    def _conv_step(window, cw, cb):
+        """The causal conv of one token: ``window`` (B, k, ch) the last k
+        conv inputs, ``cw`` (k, 1, ch), ``cb`` (ch,) → silu (B, 1, ch)."""
+        co = (window * cw.transpose(0, 1)).sum(dim=1, keepdim=True)
+        return F.silu(co + cb.to(co.dtype))
+
+    @staticmethod
+    def _ssd_step(h, dt, dt_bias, A_log, D, x_t, B_t, C_t):
+        """One token's state update of n heads: ``h`` (B, n, hd, N) float32,
+        ``dt`` (B, n) before its bias and softplus, ``x_t`` (B, n, hd),
+        ``B_t``/``C_t`` (B, n, N) float32 → (the new ``h``, y (B, n, hd)
+        with the D skip)."""
+        dt = softplus(dt.float() + dt_bias.float())
+        a = torch.exp(dt * -torch.exp(A_log.float())[None])
+        h = (a[..., None, None] * h
+             + (dt[..., None] * x_t)[..., None] * B_t[:, :, None, :])
+        y = torch.einsum("bhdn,bhn->bhd", h, C_t)
+        return h, y + x_t * D.float()[None, :, None]
+
+    def _gate(self, y, z):
+        """The gated norm's first half, in RMSNorm's dtype order: y (B, 1,
+        c) float32 gated by silu(z) → (the gated rows in float32, their sum
+        of squares (B, 1, 1))."""
+        uf = (y.to(self.cfg.cdtype) * F.silu(z)).float()
+        return uf, uf.square().sum(dim=-1, keepdim=True)
+
+    def _norm_out(self, uf, ss, scale, out_w):
+        """The gated norm's scaling of ``uf`` (B, 1, c) by the sum of
+        squares over all of d_inner ``ss`` (B, 1, 1), then the rows
+        ``out_w`` (c, d) of ``out_proj``."""
+        uf = uf * torch.rsqrt(ss / self.cfg.d_inner + self.norm.eps)
+        cd = self.cfg.cdtype
+        return (uf * scale.float()).to(cd) @ out_w.to(cd)
 
     def _rank_heads(self, t, h0: int, n: int, g0: int):
         """(..., g·N) of the B/C groups g0 .. g0+g-1 → (..., n, N) float32
@@ -633,20 +672,13 @@ class Mamba2(nn.Module):
         z, xs, Bc, Cc, dt = self._split(self.in_proj(x))
         conv_in = torch.cat([xs, Bc, Cc], dim=-1)                # (B, 1, ch)
         window = torch.cat([state["conv"], conv_in], dim=1)      # (B, k, ch)
-        w = self.conv.w.to(conv_in.dtype)                        # (k, 1, ch)
-        co = (window * w.transpose(0, 1)).sum(dim=1, keepdim=True)
-        if self.conv.b is not None:
-            co = co + self.conv.b.to(co.dtype)
-        xs, Bc, Cc = torch.split(F.silu(co), [di, GN, GN], dim=-1)
-        dt = softplus(dt.float() + self.dt_bias.float())[:, 0]   # (B, H)
-        A = -torch.exp(self.A_log.float())
+        co = self._conv_step(window, self.conv.w.to(conv_in.dtype),
+                             self.conv.b)
+        xs, Bc, Cc = torch.split(co, [di, GN, GN], dim=-1)
         x_t = xs[:, 0].reshape(Bsz, H, hd).float()
         B_t, C_t = self._heads(Bc[:, 0], 1), self._heads(Cc[:, 0], 1)
-        a = torch.exp(dt * A[None])
-        h = (a[..., None, None] * state["h"]
-             + (dt[..., None] * x_t)[..., None] * B_t[:, :, None, :])
-        y = torch.einsum("bhdn,bhn->bhd", h, C_t)
-        y = y + x_t * self.D.float()[None, :, None]
+        h, y = self._ssd_step(state["h"], dt[:, 0], self.dt_bias, self.A_log,
+                              self.D, x_t, B_t, C_t)
         out = self._gate_out(y.reshape(Bsz, 1, di), z)
         # the new state is complete before the old one is overwritten
         state["h"].copy_(h)

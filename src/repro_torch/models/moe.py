@@ -19,8 +19,10 @@ Two departures:
   every add.
 - The expert stacks are float32 parameters; their compute-dtype copies are
   kept (``recast``), as ``Linear`` keeps ``w_c``, so a tick does not re-read
-  and re-cast every expert's weights.  The train route (``train=True``)
-  casts the stacks on the call instead, inside the autograd graph.
+  and re-cast every expert's weights (built under
+  ``nn.layers.cast_on_call``, none is kept and each call casts).  The train
+  route (``train=True``) casts the stacks on the call instead, inside the
+  autograd graph.
 
 Under a shard context whose mesh has a "model" axis that the experts divide
 (and whose batch axes divide the batch), ``forward`` takes the reference's
@@ -44,7 +46,7 @@ from torch import nn
 from repro_torch.models.config import MoECfg
 from repro_torch.nn import Linear
 from repro_torch.nn.init import _truncated_standard
-from repro_torch.nn.layers import _param
+from repro_torch.nn.layers import _param, keeps_copy
 from repro_torch.sharding import current_ctx, no_shard_ctx
 from repro_torch.sharding import shard_map as sm
 
@@ -94,13 +96,16 @@ class MoE(nn.Module):
         self.down = w((E, dff, d_model), std * (dff / d_model) ** -0.5)
         for name in ("gate_c", "up_c", "down_c"):
             self.register_buffer(name, None, persistent=False)
+        self.keep_copy = keeps_copy(self.gate, self.dtype)
         self.recast()
 
     def recast(self):
-        """Refresh the compute-dtype copies of the expert stacks."""
-        self.gate_c = self.gate.detach().to(self.dtype)
-        self.up_c = self.up.detach().to(self.dtype)
-        self.down_c = self.down.detach().to(self.dtype)
+        """Refresh the compute-dtype copies of the expert stacks (none under
+        ``nn.layers.cast_on_call``)."""
+        if self.keep_copy:
+            self.gate_c = self.gate.detach().to(self.dtype)
+            self.up_c = self.up.detach().to(self.dtype)
+            self.down_c = self.down.detach().to(self.dtype)
 
     def route(self, xf: torch.Tensor, *, train: bool = False,
               router_w=None):
@@ -124,7 +129,7 @@ class MoE(nn.Module):
     def experts(self, train: bool = False):
         """The (gate, up, down) stacks in the compute dtype: the kept copies
         to serve, cast on the call (inside the graph) to train."""
-        if train:
+        if train or self.gate_c is None:
             return tuple(w.to(self.dtype) for w in
                          (self.gate, self.up, self.down))
         return self.gate_c, self.up_c, self.down_c

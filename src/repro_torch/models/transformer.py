@@ -65,6 +65,7 @@ from repro_torch.models.rotary import (
     mrope_positions, rope_angles, text_positions,
 )
 from repro_torch.nn import Embedding, LayerNorm, Linear
+from repro_torch.nn.layers import cast_on_call
 from repro_torch.sharding import current_ctx, no_shard_ctx, shard_ctx
 from repro_torch.sharding import shard_map as sm
 
@@ -199,8 +200,28 @@ def add_aux(total: dict, aux) -> dict:
             for k, v in total.items()}
 
 
+# what a card keeps free beside a model's weights and their copies
+COPY_RESERVE_BYTES = 4 << 30
+
+
+def cast_copies_fit(cfg: ModelConfig, device: torch.device) -> bool:
+    """Whether the compute-dtype copies of ``cfg``'s weights fit on
+    ``device`` beside the weights, COPY_RESERVE_BYTES to spare: always off
+    a card; on one, by its free memory now.  qwen2.5-14b's float32 weights
+    (55 GiB) and their bf16 copies (27.5) do not fit an 80 GB card."""
+    if device.type != "cuda" or cfg.pdtype == cfg.cdtype:
+        return True
+    free, _ = torch.cuda.mem_get_info(device)
+    need = cfg.n_params() * (cfg.pdtype.itemsize + cfg.cdtype.itemsize)
+    return need <= free - COPY_RESERVE_BYTES
+
+
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0):
+        """A seeded model on ``device``.  Its Linears and expert stacks keep
+        compute-dtype copies of the weights where they fit
+        (``cast_copies_fit``), else cast on every call (the same
+        numbers)."""
         super().__init__()
         # "meta" builds the shapes and dtypes alone (``steps``' axes helpers)
         device = (torch.device(device) if torch.device(device).type == "meta"
@@ -208,7 +229,11 @@ class LM(nn.Module):
         self.cfg = cfg
         gen = (None if device.type == "meta" else
                torch.Generator(device=device).manual_seed(seed))
-        kw = dict(generator=gen, device=device)
+        with cast_on_call(not cast_copies_fit(cfg, device)):
+            self._build(cfg, dict(generator=gen, device=device))
+
+    def _build(self, cfg: ModelConfig, kw: dict):
+        device = kw["device"]
         self.embed = Embedding(cfg.vocab, cfg.d_model, param_dtype=cfg.pdtype,
                                **kw)
         if cfg.enc_dec:

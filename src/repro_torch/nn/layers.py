@@ -9,6 +9,8 @@ turns them on for its own training step; the language model's train step
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -20,6 +22,30 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+_CAST_ON_CALL = [False]
+
+
+@contextlib.contextmanager
+def cast_on_call(on: bool = True):
+    """Within it (``on``), the ``Linear``s and MoE expert stacks built keep
+    no compute-dtype copy of a weight whose dtype differs: they cast it on
+    every call, as the reference does.  The same numbers; for a model whose
+    copies would not fit on its device beside the weights.  ``on`` False
+    leaves the mode as it is."""
+    old = _CAST_ON_CALL[0]
+    _CAST_ON_CALL[0] = old or on
+    try:
+        yield
+    finally:
+        _CAST_ON_CALL[0] = old
+
+
+def keeps_copy(w: torch.Tensor, dtype) -> bool:
+    """Whether a module built now keeps ``w``'s copy in ``dtype`` (a copy
+    in ``w``'s own dtype is ``w`` itself and costs nothing)."""
+    return dtype is not None and (not _CAST_ON_CALL[0] or w.dtype == dtype)
+
+
 class Linear(nn.Module):
     """``y = x @ w + b`` in the compute dtype.
 
@@ -28,6 +54,8 @@ class Linear(nn.Module):
     tick.  The cast is done once (``recast``, run at construction and after
     the weights are loaded) and the compute-dtype copy ``w_c`` is kept — the
     same arithmetic.  When the two dtypes agree, ``w_c`` is ``w`` itself.
+    Built under ``cast_on_call``, it keeps no copy (``w_c`` None) and casts
+    on every call, as the reference does.
     ``dtype=None`` casts nothing and reads ``w`` on every call, as the
     reference's ``Linear.apply`` without a dtype does; the control plane's
     DNN trains through it.
@@ -48,17 +76,19 @@ class Linear(nn.Module):
         self.b = (_param(torch.zeros(out_dim, device=device, dtype=param_dtype))
                   if use_bias else None)
         self.register_buffer("w_c", None, persistent=False)
+        self.keep_copy = keeps_copy(self.w, dtype)
         self.recast()
 
     def recast(self):
-        if self.dtype is not None:
+        if self.keep_copy:
             self.w_c = self.w.detach().to(self.dtype)
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         if self.dtype is None:
             y = x @ self.w
         else:
-            w = self.w.to(self.dtype) if train else self.w_c
+            w = (self.w.to(self.dtype) if train or self.w_c is None
+                 else self.w_c)
             y = x.to(self.dtype) @ w
         if self.b is not None:
             y = y + self.b.to(y.dtype)

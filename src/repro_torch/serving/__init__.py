@@ -58,7 +58,8 @@ from repro_torch.serving.transport import (
     Connection, Listener, TransportError, WorkerBusyError, dial, parse_addr,
 )
 from repro_torch.serving.workload import (
-    poisson_arrival_times, synthetic_requests,
+    poisson_arrival_times, shared_prefix_requests, synthetic_requests,
+    tiered_requests,
 )
 
 __all__ = [
@@ -75,4 +76,5 @@ __all__ = [
     "PagedSlotPool", "SlotPool", "ShardedCache", "ShardedSlotPool",
     "ShardedPagedSlotPool", "make_pool", "paged_cache_spec",
     "write_slot", "poisson_arrival_times", "synthetic_requests",
+    "shared_prefix_requests", "tiered_requests",
 ]

@@ -17,7 +17,11 @@ axis or a tuple of axes (row-major in the order given).  ``split`` cuts a
 tensor into one block per position; positions that hold the same block on
 the same device share one tensor, and a block on the tensor's own device
 is a view of it — nothing is copied on a one-card mesh, and an in-place
-write to such a block reaches the tensor.  ``join`` puts blocks back
+write to such a block reaches the tensor.  Under ``distinct_blocks()`` (a
+mode for tests) every position's block is a tensor of its own, as on a
+mesh of distinct devices: ``split`` copies, and each member of a
+collective gets its own copy of the result, so a position that misses a
+write to its copy of a replicated leaf shows.  ``join`` puts blocks back
 together (the first position holding each block gives it).
 ``ShardedArray`` keeps a tensor's blocks between calls: the port's
 stand-in for a jax Array under a ``NamedSharding``, as ``ShardedCache``
@@ -144,6 +148,23 @@ def per_shard(mesh, fn) -> dict:
     return {pos: fn(pos) for pos in positions(mesh)}
 
 
+_DISTINCT = [False]
+
+
+@contextlib.contextmanager
+def distinct_blocks():
+    """Within it, no two positions share a tensor: ``split`` (and so
+    ``place``) copies each position's block, views on the source's device
+    included, and a collective hands each member its own copy of the
+    result.  One card's positions then behave as distinct devices' do; a
+    test mode, for it copies every replicated leaf once a position."""
+    old, _DISTINCT[0] = _DISTINCT[0], True
+    try:
+        yield
+    finally:
+        _DISTINCT[0] = old
+
+
 def _device_key(dev: torch.device):
     dev = torch.device(dev)
     if dev.type == "cuda" and dev.index is None:
@@ -171,17 +192,21 @@ def _block_key(spec, mesh, pos) -> tuple:
 def split(x: torch.Tensor, spec, mesh) -> dict:
     """``x`` as one block per position under ``spec``: a view where the
     position's device is ``x``'s, a copy elsewhere; positions holding the
-    same block on one device share it."""
+    same block on one device share it (under ``distinct_blocks`` each
+    position gets a copy of its own)."""
     spec = canonical(spec)
     memo: dict = {}
     here = _device_key(x.device)
+    distinct = _DISTINCT[0]
 
     def one(pos):
         dev = mesh.devices[pos]
-        key = (_block_key(spec, mesh, pos), _device_key(dev))
+        key = (_block_key(spec, mesh, pos), _device_key(dev),
+               pos if distinct else None)
         if key not in memo:
             blk = x[_block_slices(x.shape, spec, mesh, pos)]
-            memo[key] = blk if key[1] == here else blk.to(dev)
+            memo[key] = (blk.to(dev) if key[1] != here
+                         else blk.clone() if distinct else blk)
         return memo[key]
     return per_shard(mesh, one)
 
@@ -411,10 +436,13 @@ def _collective(kind, vals, axes, mesh, combine, *, scatter=None,
             for r, p in enumerate(group):
                 piece = res if scatter is None else res.narrow(
                     scatter[0], r * scatter[1], scatter[1])
-                key = (r if scatter else None, _device_key(vals[p].device))
+                key = (r if scatter else None, _device_key(vals[p].device),
+                       p if _DISTINCT[0] else None)
                 if key not in memo:
-                    memo[key] = (piece if _device_key(dev) == key[1]
-                                 else piece.to(vals[p].device))
+                    memo[key] = (piece.to(vals[p].device)
+                                 if _device_key(dev) != key[1]
+                                 else piece.clone() if _DISTINCT[0]
+                                 else piece)
                 out[p] = memo[key]
             rec["bytes"] = piece.numel() * piece.element_size()
     return out
